@@ -1,0 +1,515 @@
+#!/usr/bin/env python3
+"""Drive the PyTorch/CUDA port (`src/repro_torch`) end to end on one NVIDIA GPU.
+
+    python3 chip_smoke.py                  # every phase, one card
+    python3 chip_smoke.py --phases env,kernels
+    python3 chip_smoke.py --profile --out DIR    # and a device-time table in DIR
+
+Phases, each printing one JSON line with its seconds:
+
+1. ``env``     the card (nvidia-smi name and power limit) and the build of
+               every CUDA kernel of the serving path from ``csrc/``.
+2. ``kernels`` each hand-written kernel against its plain PyTorch version on
+               the card (TF32 off), with CUDA-event times beside the bound,
+               the plain version and one library call of the same function.
+3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
+               the card against the port on the CPU, same seeded weights, a
+               trace that chunks its prompts and preempts.  Greedy tokens
+               must be identical.
+4. ``serve``   gpt2-1.5b, 48 layers, bf16, 2 stage workers: 16 requests
+               through fused continuous batching.  The kernels' launch
+               counts must match the passes the engine ran.
+
+Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
+{...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
+without the repository's ``src/repro_torch`` beside this file, the script
+exits non-zero and prints no result.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import statistics
+import subprocess
+import sys
+import time
+from pathlib import Path
+
+ROOT = Path(__file__).resolve().parent
+SRC = ROOT / "src"
+HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
+PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
+PHASES = ("env", "kernels", "parity", "serve")
+PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
+
+
+class SmokeFailure(RuntimeError):
+    pass
+
+
+def check(cond: bool, what: str) -> None:
+    if not cond:
+        raise SmokeFailure(what)
+
+
+def emit(obj: dict) -> None:
+    print(json.dumps(obj), flush=True)
+
+
+def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of one call, from CUDA events around `iters` calls."""
+    import torch
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    a, b = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    a.record()
+    for _ in range(iters):
+        fn()
+    b.record()
+    b.synchronize()
+    return a.elapsed_time(b) / iters
+
+
+def bound_ms(nbytes: float, flops: float, dtype: str):
+    """Least time for the work on an H100 SXM: the larger of bytes over the
+    memory rate and operations over the peak rate of the inputs' type."""
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    t_ops = flops / PEAK_FLOPS[dtype] * 1e3
+    return (t_bytes, "bytes") if t_bytes >= t_ops else (t_ops, "operations")
+
+
+# ---------------------------------------------------------------------------
+# phase 1: environment and build
+# ---------------------------------------------------------------------------
+
+def phase_env(state: dict) -> dict:
+    import torch
+
+    from repro_torch.kernels import _build
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                          "--format=csv,noheader"], capture_output=True, text=True,
+                         timeout=60)
+    check(smi.returncode == 0, f"nvidia-smi failed: {smi.stderr.strip()}")
+    card = smi.stdout.strip().splitlines()[0]
+    print(card, flush=True)
+    state["card"] = card
+    t = time.perf_counter()
+    logs = _build.build_all()
+    build_s = time.perf_counter() - t
+    state["out"].mkdir(parents=True, exist_ok=True)
+    (state["out"] / "ptxas.txt").write_text(
+        "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    return {"card": card, "device": torch.cuda.get_device_name(0),
+            "torch": torch.__version__, "cuda": torch.version.cuda,
+            "build_s": build_s, "built": sorted(logs)}
+
+
+# ---------------------------------------------------------------------------
+# phase 2: kernels against their plain versions
+# ---------------------------------------------------------------------------
+
+TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bands (tests/test_kernels.py)
+
+
+def phase_kernels(state: dict) -> dict:
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import batched_decode_attention
+    from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    dev = torch.device("cuda")
+    g = torch.Generator(device=dev).manual_seed(0)
+    rows, checks = {}, []
+
+    def attn_case(name, b, hq, hkv, d, s, lengths, dtype, win=None, meta=0,
+                  slopes=None, time_it=False):
+        q = torch.randn(b, hq, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        ws = None if win is None else (lens - win).clamp(min=0)
+        sl = None if slopes is None else torch.tensor(slopes, dtype=torch.float32,
+                                                      device=dev)
+        out = batched_decode_attention(q, k, v, lens, ws, sl, num_meta=meta)
+        exp = ref.batched_decode_attention_ref(q, k, v, lens, ws, sl, num_meta=meta)
+        torch.cuda.synchronize()
+        err = (out.float() - exp.float()).abs().max().item()
+        tname = str(dtype).replace("torch.", "")
+        checks.append({"case": name, "dtype": tname, "max_abs_err": err,
+                       "tol": TOL[tname]})
+        check(err <= TOL[tname], f"batched_decode_attention {name} {tname}: "
+              f"max |err| {err} > {TOL[tname]}")
+        if not time_it:
+            return err
+        ms = cuda_ms(lambda: batched_decode_attention(q, k, v, lens, ws, sl,
+                                                      num_meta=meta))
+        plain = cuda_ms(lambda: ref.batched_decode_attention_ref(q, k, v, lens, ws, sl,
+                                                                 num_meta=meta))
+        # yardstick: SDPA over the same K/V with a boolean length mask
+        mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
+        es = q.element_size()
+        live = int(sum(lengths))
+        nbytes = 2 * q.numel() * es + 2 * live * hkv * d * es + 4 * b
+        bms, by = bound_ms(nbytes, 4.0 * live * hq * d, tname)
+        rows["batched_decode_attention"] = {
+            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
+            "bound_by": by, "max_abs_err": err,
+            "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} "
+                     f"lengths {list(lengths)}"}
+        return err
+
+    # gpt2-1.5b decode shapes: B 8, Hq = Hkv = 25, D 64, S 1024, ragged
+    lengths = [1024, 977, 613, 512, 301, 129, 64, 1]
+    attn_case("gpt2", 8, 25, 25, 64, 1024, lengths, torch.float32)
+    attn_case("gpt2", 8, 25, 25, 64, 1024, lengths, torch.bfloat16, time_it=True)
+    # GQA with sliding-window starts, meta sinks and ALiBi slopes
+    slopes = [2.0 ** -(i + 1) / 4 for i in range(16)]
+    for dt in (torch.float32, torch.bfloat16):
+        attn_case("gqa_window_meta_alibi", 4, 16, 4, 64, 300, [300, 257, 64, 9], dt,
+                  win=96, meta=4, slopes=slopes)
+
+    # the buffered copies at [L 24, B 8, S 1024, H 25, D 64] bf16: bit-exact
+    L, B, S, H, D = 24, 8, 1024, 25, 64
+    cache = torch.randn(L, B, S, H, D, generator=g, device=dev).to(torch.bfloat16)
+    es = cache.element_size()
+    t0, w_chunk = 448, 64
+    out = kv_pack(cache, t0, width=w_chunk)
+    exp = ref.kv_pack_ref(cache, t0, w_chunk)
+    check(torch.equal(out, exp), "kv_pack differs from its plain version")
+    pack_err = (out.float() - exp.float()).abs().max().item()
+    # a one-row view of the batch, as the chunk write-back passes it
+    one = kv_pack(cache[:, 3:4], 64, width=w_chunk)
+    check(torch.equal(one, ref.kv_pack_ref(cache[:, 3:4], 64, w_chunk)),
+          "kv_pack of a strided row view differs")
+    nb = 2 * L * B * w_chunk * H * D * es
+    bms, by = bound_ms(nb, 0.0, "bfloat16")
+    rows["kv_pack"] = {
+        "ms": cuda_ms(lambda: kv_pack(cache, t0, width=w_chunk)),
+        "plain_ms": cuda_ms(lambda: ref.kv_pack_ref(cache, t0, w_chunk)),
+        "library_ms": cuda_ms(lambda: cache[:, :, t0:t0 + w_chunk].contiguous()),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": pack_err,
+        "shape": f"cache[{L},{B},{S},{H},{D}] bf16 t0 {t0} width {w_chunk}"}
+    starts = [1016, 8, 504, 0, 256, 1000, 64, 128]
+    wd = 8
+    out = kv_pack_ragged(cache, starts, width=wd)
+    exp = ref.kv_pack_ragged_ref(cache, starts, wd)
+    check(torch.equal(out, exp), "kv_pack_ragged differs from its plain version")
+    ragged_err = (out.float() - exp.float()).abs().max().item()
+    st = torch.tensor(starts, device=dev)
+    idx = st[:, None] + torch.arange(wd, device=dev)[None, :]
+    bidx = torch.arange(B, device=dev)[:, None]
+    nb = 2 * L * B * wd * H * D * es
+    bms, by = bound_ms(nb, 0.0, "bfloat16")
+    rows["kv_pack_ragged"] = {
+        "ms": cuda_ms(lambda: kv_pack_ragged(cache, starts, width=wd)),
+        "plain_ms": cuda_ms(lambda: ref.kv_pack_ragged_ref(cache, starts, wd)),
+        "library_ms": cuda_ms(lambda: cache[:, bidx, idx]),
+        "bound_ms": bms, "bound_by": by, "max_abs_err": ragged_err,
+        "shape": f"cache[{L},{B},{S},{H},{D}] bf16 starts {starts} width {wd}"}
+    state["kernel_rows"] = rows
+    return {"checks": checks, "timed": rows}
+
+
+# ---------------------------------------------------------------------------
+# phase 3: engine on the card against the port on the CPU
+# ---------------------------------------------------------------------------
+
+class RecordingSampler:
+    """Greedy sampling that keeps every logits row it saw (on the CPU) or
+    only whether all were finite."""
+
+    def __init__(self, keep: bool):
+        self.keep = keep
+        self.rows = []
+        self.finite = True
+
+    def __call__(self, logits, step):
+        import torch
+
+        from repro_torch.serving.sampling import greedy
+        if self.keep:
+            self.rows.append(logits.float().cpu())
+        else:
+            self.finite &= bool(torch.isfinite(logits).all())
+        return greedy(logits, step)
+
+
+def _requests(lens, max_new, vocab, seed):
+    import numpy as np
+
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    return [Request(rid=i, prompt=rng.integers(0, vocab, (n,)).astype(np.int32),
+                    max_new=max_new) for i, n in enumerate(lens)]
+
+
+def run_parity(cfg, trace, pool_blocks: int, max_active: int, card: str) -> dict:
+    """The same trace and weights through the engine on `card` and on the
+    CPU; tokens, batch shape and preemptions must agree."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving import ServingEngine
+
+    params = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    runs = {}
+    for dev in ("cpu", card):
+        sampler = RecordingSampler(keep=True)
+        eng = ServingEngine(cfg, DecoderLM(cfg, device=dev), params, 2, paged=True,
+                            kv_pool_blocks=pool_blocks, sampler=sampler, device=dev)
+        reset_launches()
+        t = time.perf_counter()
+        rep = eng.run_continuous(trace(), max_active=max_active)
+        runs[dev] = {"report": rep, "seconds": time.perf_counter() - t,
+                     "launches": dict(LAUNCHES), "logits": sampler.rows}
+    diffs = [(a - b).abs().max().item()
+             for a, b in zip(runs["cpu"]["logits"], runs[card]["logits"])]
+    return {"cpu": runs["cpu"], "card": runs[card],
+            "max_logit_diff": max(diffs) if diffs else None, "n_logit_rows": len(diffs)}
+
+
+def phase_parity(state: dict) -> dict:
+    import torch
+
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), num_layers=2, dtype="float32")
+    lens = [40, 41, 42, 150, 60, 70]
+    res = run_parity(cfg, lambda: _requests(lens, 8, cfg.vocab_size, seed=1),
+                     pool_blocks=PARITY_POOL_BLOCKS, max_active=4, card="cuda")
+    cpu, card = res["cpu"]["report"], res["card"]["report"]
+    check(card.tokens == cpu.tokens, f"card tokens differ from CPU tokens: "
+          f"{card.tokens} vs {cpu.tokens}")
+    check(card.batch_trace == cpu.batch_trace and card.pass_trace == cpu.pass_trace,
+          "card and CPU ran different schedules")
+    check(card.preemptions >= 1, f"the trace did not preempt ({card.preemptions})")
+    check(all(len(t) == 8 for t in card.tokens.values()), "a request fell short")
+    for name, n in res["card"]["launches"].items():
+        check(n > 0, f"{name} was not launched on the card run")
+    check(not any(res["cpu"]["launches"].values()), "a kernel launched on the CPU run")
+    return {"config": "gpt2-1.5b full width, 2 layers, fp32, 2 workers",
+            "prompt_lens": lens, "max_new": 8, "kv_pool_blocks": PARITY_POOL_BLOCKS,
+            "tokens_identical": True, "preemptions": card.preemptions,
+            "max_abs_logit_diff": res["max_logit_diff"],
+            "logit_rows": res["n_logit_rows"], "card_launches": res["card"]["launches"],
+            "cpu_s": res["cpu"]["seconds"], "card_s": res["card"]["seconds"]}
+
+
+# ---------------------------------------------------------------------------
+# phase 4: the full model on the card
+# ---------------------------------------------------------------------------
+
+def _timed(fn, bucket, sync):
+    def wrapper(*a, **kw):
+        sync()
+        t = time.perf_counter()
+        out = fn(*a, **kw)
+        sync()
+        bucket.append((time.perf_counter() - t) * 1e3)
+        return out
+    return wrapper
+
+
+def run_serve(cfg, dev: str, lens, max_new: int, max_active: int, pool_blocks: int,
+              generator, sync):
+    """Serve `lens`-long prompts through fused continuous batching on `dev`
+    and check tokens, logits and the kernels' launch counts against the
+    passes the engine ran.  Returns (results, the engine)."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving import ServingEngine
+
+    t = time.perf_counter()
+    model = DecoderLM(cfg, device=dev)
+    params = model.init(generator)
+    sync()
+    init_s = time.perf_counter() - t
+    sampler = RecordingSampler(keep=False)
+    eng = ServingEngine(cfg, model, params, 2, paged=True, kv_pool_blocks=pool_blocks,
+                        sampler=sampler, device=dev)
+    # warm-up: library handles and the first launch of every path
+    eng.run_continuous(_requests([70, 9], 3, cfg.vocab_size, seed=7), max_active=2)
+    dec_ms, chunk_ms = [], []
+    cl = eng.cluster
+    cl.decode_batch = _timed(cl.decode_batch, dec_ms, sync)
+    cl.prefill_chunkset_pass = _timed(cl.prefill_chunkset_pass, chunk_ms, sync)
+    reqs = _requests(lens, max_new, cfg.vocab_size, seed=3)
+    sampler.finite = True
+    reset_launches()
+    sync()
+    t = time.perf_counter()
+    rep = eng.run_continuous(reqs, max_active=max_active)
+    sync()
+    wall = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    pc = rep.pass_counts
+    check(all(len(r.tokens) == max_new for r in reqs),
+          "a request did not emit max_new tokens")
+    check(sampler.finite, "non-finite logits")
+    if dev != "cpu":
+        want = {"batched_decode_attention": cfg.num_layers * pc.get("one_token", 0),
+                "kv_pack_ragged": 2 * len(cl.token_group) * pc.get("fused_decode", 0)}
+        for name, n in want.items():
+            check(launches[name] == n,
+                  f"{name}: {launches[name]} launches, the passes say {n}")
+        check(all(n > 0 for n in launches.values()),
+              f"a kernel of the path never launched: {launches}")
+    gen = sum(len(r.tokens) for r in reqs)
+    return {"requests": len(reqs), "prompt_lens": list(lens), "max_new": max_new,
+            "max_active": max_active, "kv_pool_blocks": pool_blocks, "init_s": init_s,
+            "wall_s": wall, "tokens_generated": gen, "tokens_per_s": gen / wall,
+            "prompt_tokens": int(sum(lens)),
+            "median_decode_pass_ms": statistics.median(dec_ms),
+            "median_chunk_pass_ms": statistics.median(chunk_ms),
+            "decode_passes": len(dec_ms), "chunk_passes": len(chunk_ms),
+            "pass_counts": pc, "launches": launches}, eng
+
+
+def phase_serve(state: dict) -> dict:
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), dtype="bfloat16")
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]
+    torch.cuda.reset_peak_memory_stats()
+    res, eng = run_serve(cfg, "cuda", lens, max_new=32, max_active=8, pool_blocks=1024,
+                         generator=torch.Generator(device="cuda").manual_seed(0),
+                         sync=torch.cuda.synchronize)
+    state["launches"] = res["launches"]
+    out = {"config": "gpt2-1.5b, 48 layers, bf16, 2 workers", **res,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    if state.get("profile"):
+        out["profile"] = profile_serve(eng, cfg, state["out"])
+    return out
+
+
+def profile_serve(eng, cfg, out_dir: Path) -> dict:
+    """Device time by kernel over a short serve window (8 requests of 128
+    prompt tokens, 8 new tokens each): run once plainly for its wall time,
+    then again under torch.profiler for the kernels' device time.  The busy
+    share divides the second by the first (the profiler's own host cost
+    would inflate a profiled wall time).  The full table goes to
+    `out_dir`/serve_profile.txt."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    def window():
+        rep = eng.run_continuous(_requests([128] * 8, 8, cfg.vocab_size, seed=11),
+                                 max_active=8)
+        torch.cuda.synchronize()
+        return rep
+
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    rep = window()
+    wall_us = (time.perf_counter() - t) * 1e6
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        window()
+    avgs = prof.key_averages()
+    out_dir.mkdir(parents=True, exist_ok=True)
+    (out_dir / "serve_profile.txt").write_text(
+        avgs.table(sort_by="self_cuda_time_total", row_limit=40))
+    # device-side events only (kernels, copies): a CPU op's device time
+    # repeats the time of the kernels it launched
+    kernels = sorted(((e.key, e.self_device_time_total, e.count) for e in avgs
+                      if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
+                     key=lambda r: -r[1])
+    dev_us = sum(us for _, us, _ in kernels)
+    groups = {"batched_decode_attention": ("batched_decode",), "kv_pack": ("kv_pack",),
+              "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
+              "gather_scatter": ("index", "gather", "scatter")}
+    by_group = {g: sum(us for k, us, _ in kernels if any(m in k.lower() for m in ms))
+                for g, ms in groups.items()}
+    by_group["other"] = dev_us - sum(by_group.values())
+    return {"window_wall_ms": wall_us / 1e3, "window_passes": sum(rep.pass_trace),
+            "device_ms": dev_us / 1e3, "device_busy_share": dev_us / wall_us,
+            "device_launches": sum(n for _, _, n in kernels),
+            "device_ms_by_group": {g: us / 1e3 for g, us in by_group.items()},
+            "top_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": n}
+                            for k, us, n in kernels[:8]]}
+
+
+KERNEL_META = {
+    "batched_decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                                 "src/repro/kernels/decode_attention.py:179"),
+    "kv_pack_ragged": ("src/repro_torch/kernels/csrc/kv_pack.cu",
+                       "src/repro/kernels/kv_pack.py:56"),
+    "kv_pack": ("src/repro_torch/kernels/csrc/kv_pack.cu",
+                "src/repro/kernels/kv_pack.py:33"),
+}
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--phases", default=",".join(PHASES),
+                    help="comma list of phases to run (default: all)")
+    ap.add_argument("--profile", action="store_true",
+                    help="after the serve phase, profile a short window of it")
+    ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
+                    help="directory for the build log and the profile table")
+    args = ap.parse_args()
+    phases = [p for p in args.phases.split(",") if p]
+    bad = [p for p in phases if p not in PHASES]
+    if bad:
+        ap.error(f"unknown phases {bad}; choose from {PHASES}")
+    if not (SRC / "repro_torch" / "kernels" / "csrc").is_dir():
+        print(f"chip_smoke: no src/repro_torch beside {__file__}; run it from a "
+              "checkout of the repository", file=sys.stderr)
+        return 2
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device is available", file=sys.stderr)
+        return 2
+    sys.path.insert(0, str(SRC))
+    fns = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
+           "serve": phase_serve}
+    state: dict = {"profile": args.profile, "out": Path(args.out)}
+    if "env" not in phases:
+        phases.insert(0, "env")
+    for p in phases:
+        t = time.perf_counter()
+        try:
+            res = fns[p](state)
+        except Exception as e:        # noqa: BLE001 -- reported, then the script fails
+            emit({"phase": p, "ok": False, "error": f"{type(e).__name__}: {e}",
+                  "seconds": time.perf_counter() - t})
+            raise
+        emit({"phase": p, "ok": True, "seconds": time.perf_counter() - t, **res})
+    rows = state.get("kernel_rows", {})
+    launches = state.get("launches", {})
+    kernels = []
+    for name, (source, replaces) in KERNEL_META.items():
+        r = rows.get(name, {})
+        kernels.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces, "launches": launches.get(name),
+                        "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+                        "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
+                        "bound_by": r.get("bound_by"),
+                        "library_ms": r.get("library_ms")})
+    print(state["card"], flush=True)
+    emit({"kernels": kernels})
+    emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                 "count": torch.cuda.device_count()}})
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

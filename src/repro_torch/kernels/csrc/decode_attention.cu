@@ -1,0 +1,231 @@
+// batched_decode_attention — the fused-round decode attention on Hopper.
+//
+// Replaces the TPU kernel `batched_decode_attention` of
+// src/repro/kernels/decode_attention.py: one new query per sequence for B
+// sequences over dense per-sequence K/V [B, S, Hkv, D], each sequence masked
+// to its own live length lengths[b] (the new token included), with an
+// optional per-sequence sliding-window start win_starts[b], `num_meta`
+// always-visible sink slots, and optional ALiBi slopes [Hq] (bias
+// -slope * max(len-1-j, 0)).  Online softmax with f32 m / l / acc, scale
+// D^-0.5, and the finite NEG_INF = -0.7 * FLT_MAX of the reference.  Query
+// head h*G+g reads KV head h.  Probabilities stay in f32 for P·V, as in the
+// Pallas kernel.
+//
+// What bounds it on the H100: bytes.  Each K/V element is read once and used
+// for 2*G flops (G = Hq/Hkv query heads of its group), far below the 295
+// flop/byte at which bf16 compute becomes the limit; the least time is the
+// visible K/V bytes over 3.35 TB/s.  The design follows from that:
+//   * one block per (KV head, sequence) keeps the G query rows in shared
+//     memory and streams that head's K/V exactly once, in tiles of 64 keys,
+//     with 16-byte loads of contiguous D-element rows;
+//   * the key loop stops at lengths[b] and skips tiles that lie wholly
+//     outside the window (before the start and past the meta sinks), so the
+//     bytes read track each sequence's visible keys, not the padded S;
+//   * nothing is assumed about powers of two (G = 1 at gpt2 width, Hq = 25):
+//     threads stride over (row, key) and (row, dim) pairs.
+// A later PR adds wgmma for P·V and split-K when B*Hkv blocks underfill the
+// 132 SMs.
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+
+#include <cfloat>
+#include <cstdint>
+
+namespace {
+
+constexpr float kNegInf = -0.7f * FLT_MAX;
+constexpr int kThreads = 128;
+constexpr int kTileK = 64;
+
+__device__ __forceinline__ float to_float(float x) { return x; }
+__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
+
+template <typename T>
+__device__ __forceinline__ T from_float(float x);
+template <>
+__device__ __forceinline__ float from_float<float>(float x) { return x; }
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
+  return __float2bfloat16(x);
+}
+
+__device__ __forceinline__ float warp_max(float x) {
+  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
+  return x;
+}
+__device__ __forceinline__ float warp_sum(float x) {
+  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
+  return x;
+}
+
+// Copies n rows of D elements (row stride `row` elements) into f32 shared
+// memory rows of stride ldk, 16 bytes per thread per step.
+template <typename T>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src, long long row, int n,
+                                           int D, float* dst, int ldk) {
+  constexpr int kVec = 16 / sizeof(T);
+  const int per_row = D / kVec;
+  for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
+    const int j = i / per_row, c = i - j * per_row;
+    const uint4 u = *reinterpret_cast<const uint4*>(src + (long long)j * row + c * kVec);
+    const T* e = reinterpret_cast<const T*>(&u);
+    float* d = dst + j * ldk + c * kVec;
+#pragma unroll
+    for (int x = 0; x < kVec; ++x) d[x] = to_float(e[x]);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
+                      const T* __restrict__ v, const int* __restrict__ lengths,
+                      const int* __restrict__ win_starts, const float* __restrict__ slopes,
+                      T* __restrict__ out, int S, int Hq, int Hkv, int D, int num_meta,
+                      float scale) {
+  const int h = blockIdx.x;  // KV head
+  const int b = blockIdx.y;  // sequence
+  const int G = Hq / Hkv;
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  constexpr int kWarps = kThreads / 32;
+  const int ldk = D + 1;  // padded rows: column reads hit distinct banks
+
+  extern __shared__ float smem[];
+  float* k_s = smem;                    // [kTileK][D+1]
+  float* v_s = k_s + kTileK * ldk;      // [kTileK][D+1]
+  float* q_s = v_s + kTileK * ldk;      // [G][D]
+  float* acc_s = q_s + G * D;           // [G][D]
+  float* p_s = acc_s + G * D;           // [G][kTileK]
+  float* m_s = p_s + G * kTileK;        // [G]
+  float* l_s = m_s + G;                 // [G]
+  float* alpha_s = l_s + G;             // [G]
+
+  const int len = min(lengths[b], S);
+  const int ws = win_starts ? max(win_starts[b], 0) : 0;
+
+  const T* qb = q + ((long long)b * Hq + (long long)h * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) {
+    q_s[i] = to_float(qb[i]);
+    acc_s[i] = 0.f;
+  }
+  for (int g = tid; g < G; g += kThreads) {
+    m_s[g] = kNegInf;
+    l_s[g] = 0.f;
+  }
+  __syncthreads();
+
+  const long long row = (long long)Hkv * D;  // elements between consecutive keys
+  const T* kb = k + (long long)b * S * row + (long long)h * D;
+  const T* vb = v + (long long)b * S * row + (long long)h * D;
+
+  for (int t0 = 0; t0 < len; t0 += kTileK) {
+    const int t1 = min(t0 + kTileK, len);
+    // every key of this tile is past the meta sinks and before the window
+    // start: all masked, so it adds exactly nothing once a visible key exists
+    if (t0 >= num_meta && t1 <= ws) continue;
+    const int n = t1 - t0;
+    stage_tile(kb + (long long)t0 * row, row, n, D, k_s, ldk);
+    stage_tile(vb + (long long)t0 * row, row, n, D, v_s, ldk);
+    __syncthreads();
+
+    for (int i = tid; i < G * kTileK; i += kThreads) {
+      const int g = i / kTileK, j = i - g * kTileK;
+      float s = kNegInf;
+      if (j < n) {
+        const int pos = t0 + j;
+        const float* kr = k_s + j * ldk;
+        const float* qr = q_s + g * D;
+        float dot = 0.f;
+        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
+        s = dot * scale;
+        if (slopes != nullptr) s -= slopes[h * G + g] * (float)max(len - 1 - pos, 0);
+        if (!(pos >= ws || pos < num_meta)) s = kNegInf;
+      }
+      p_s[i] = s;
+    }
+    __syncthreads();
+
+    for (int g = warp; g < G; g += kWarps) {
+      float* pr = p_s + g * kTileK;
+      float mx = kNegInf;
+      for (int j = lane; j < kTileK; j += 32) mx = fmaxf(mx, pr[j]);
+      mx = warp_max(mx);
+      const float m_old = m_s[g];
+      const float m_new = fmaxf(m_old, mx);
+      float sum = 0.f;
+      for (int j = lane; j < kTileK; j += 32) {
+        const float p = j < n ? expf(pr[j] - m_new) : 0.f;
+        pr[j] = p;
+        sum += p;
+      }
+      sum = warp_sum(sum);
+      if (lane == 0) {
+        const float alpha = expf(m_old - m_new);
+        alpha_s[g] = alpha;
+        l_s[g] = l_s[g] * alpha + sum;
+        m_s[g] = m_new;
+      }
+    }
+    __syncthreads();
+
+    for (int i = tid; i < G * D; i += kThreads) {
+      const int g = i / D, d = i - g * D;
+      const float* pr = p_s + g * kTileK;
+      float a = 0.f;
+      for (int j = 0; j < n; ++j) a = fmaf(pr[j], v_s[j * ldk + d], a);
+      acc_s[i] = acc_s[i] * alpha_s[g] + a;
+    }
+    __syncthreads();
+  }
+
+  T* ob = out + ((long long)b * Hq + (long long)h * G) * D;
+  for (int i = tid; i < G * D; i += kThreads) ob[i] = from_float<T>(acc_s[i] / l_s[i / D]);
+}
+
+template <typename T>
+cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
+                   const int* win_starts, const float* slopes, void* out, int B, int S,
+                   int Hq, int Hkv, int D, int num_meta, float scale, cudaStream_t stream) {
+  const int G = Hq / Hkv;
+  const size_t smem = sizeof(float) * ((size_t)2 * kTileK * (D + 1) + (size_t)2 * G * D +
+                                       (size_t)G * kTileK + (size_t)3 * G);
+  if (smem > 48 * 1024) {
+    cudaError_t e = cudaFuncSetAttribute(batched_decode_kernel<T>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                         (int)smem);
+    if (e != cudaSuccess) return e;
+  }
+  dim3 grid((unsigned)Hkv, (unsigned)B);
+  batched_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
+      win_starts, slopes, static_cast<T*>(out), S, Hq, Hkv, D, num_meta, scale);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+// Shared memory (bytes) one block needs; the wrapper refuses shapes above the
+// 227 KB a block may use.
+extern "C" long long repro_batched_decode_smem(int Hq, int Hkv, int D) {
+  const long long G = Hq / Hkv;
+  return (long long)sizeof(float) * (2LL * kTileK * (D + 1) + 2 * G * D + G * kTileK + 3 * G);
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  q [B,Hq,D], k/v [B,S,Hkv,D], out [B,Hq,D]
+// contiguous; lengths (and win_starts when non-null) device int32 [B]; slopes
+// device float32 [Hq] or null.  Returns cudaGetLastError() after the launch.
+extern "C" int repro_batched_decode_attention(int dtype, const void* q, const void* k,
+                                              const void* v, const int* lengths,
+                                              const int* win_starts, const float* slopes,
+                                              void* out, int B, int S, int Hq, int Hkv,
+                                              int D, int num_meta, float scale,
+                                              void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float>(q, k, v, lengths, win_starts, slopes, out, B, S, Hq, Hkv, D, num_meta,
+                         scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16>(q, k, v, lengths, win_starts, slopes, out, B, S, Hq, Hkv, D,
+                                 num_meta, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}

@@ -1,0 +1,74 @@
+"""batched_decode_attention as hand-written CUDA (``csrc/decode_attention.cu``),
+replacing the TPU kernel of `repro.kernels.decode_attention`.
+
+One query per sequence for B sequences over dense per-sequence K/V, each
+masked to its own live length, with optional window starts, meta sinks and
+ALiBi slopes.  The wrapper takes CUDA tensors only (the CPU goes to the plain
+version through `repro_torch.kernels.ops`), checks what the kernel needs,
+allocates the output and counts its launches.
+"""
+from __future__ import annotations
+
+import ctypes
+from typing import Optional
+
+import torch
+
+from repro_torch.kernels import LAUNCHES, _build
+
+_DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
+MAX_SMEM = 232448          # bytes of shared memory one block may use (H100)
+
+
+def _int_vec(t: torch.Tensor, b: int, what: str, dev) -> None:
+    if t.device != dev or t.dtype != torch.int32 or t.shape != (b,) or not t.is_contiguous():
+        raise ValueError(f"{what} must be a contiguous int32 [{b}] on {dev}")
+
+
+def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             lengths: torch.Tensor,
+                             win_starts: Optional[torch.Tensor] = None,
+                             slopes: Optional[torch.Tensor] = None, *,
+                             num_meta: int = 0) -> torch.Tensor:
+    """q [B,Hq,D]; k/v [B,S,Hkv,D]; lengths [B] int32 (>= 1, the new token
+    included); win_starts [B] int32 or None; slopes [Hq] float32 or None
+    -> [B,Hq,D] in q.dtype."""
+    dev = q.device
+    if not q.is_cuda:
+        raise ValueError("batched_decode_attention takes CUDA tensors; use "
+                         "repro_torch.kernels.ops for the CPU")
+    if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+    if q.dim() != 3 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError(f"want q [B,Hq,D], k/v [B,S,Hkv,D]; got {tuple(q.shape)}, "
+                         f"{tuple(k.shape)}, {tuple(v.shape)}")
+    b, hq, d = q.shape
+    _, s, hkv, dk = k.shape
+    if k.shape[0] != b or dk != d or hkv == 0 or hq % hkv or s == 0 or b == 0:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, k {tuple(k.shape)}")
+    if d > 256 or d % 8:
+        raise ValueError(f"head dim {d} unsupported (needs D <= 256 and D % 8 == 0)")
+    for t, name in ((q, "q"), (k, "k"), (v, "v")):
+        if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {dev}")
+    _int_vec(lengths, b, "lengths", dev)
+    if win_starts is not None:
+        _int_vec(win_starts, b, "win_starts", dev)
+    if slopes is not None and (slopes.device != dev or slopes.dtype != torch.float32
+                               or slopes.shape != (hq,) or not slopes.is_contiguous()):
+        raise ValueError(f"slopes must be a contiguous float32 [{hq}] on {dev}")
+    lib = _build.lib("decode_attention")
+    smem = lib.repro_batched_decode_smem(hq, hkv, d)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{smem} bytes of shared memory per block exceed {MAX_SMEM}")
+    out = torch.empty_like(q)
+    err = lib.repro_batched_decode_attention(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        lengths.data_ptr(), None if win_starts is None else win_starts.data_ptr(),
+        None if slopes is None else slopes.data_ptr(), out.data_ptr(),
+        b, s, hq, hkv, d, int(num_meta), float(d) ** -0.5,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, "batched_decode_attention")
+    LAUNCHES["batched_decode_attention"] += 1
+    return out

@@ -1,0 +1,211 @@
+"""Decoder-only transformer LM, dense family (counterpart of
+`repro.models.transformer.DecoderLM`).
+
+Parameters are a nested dict of tensors with the layers stacked ``[L, ...]``,
+the layout of the reference's params pytree, so `repro_torch.bridge` can hand
+the reference's weights over unchanged.  The stage functions run one
+pipeline stage's layer slice; their caches ``[Lstage,B,S,H,D]`` are updated
+in place and also returned, mirroring the reference's signatures.
+"""
+from __future__ import annotations
+
+from typing import Dict, List
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch import not_ported, resolve_device
+from repro_torch.configs.base import ArchConfig
+from repro_torch.models import attention as attn
+from repro_torch.models.common import alibi_slopes, embed_init, norm_apply, norm_init
+from repro_torch.models.mlp import mlp_apply, mlp_init
+
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r} not served (float32 or bfloat16)")
+    return _DTYPES[name]
+
+
+def _layer_params(layers: Dict, i: int) -> Dict:
+    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+class DecoderLM:
+    """Dense decoder (the families moe / vlm are later slices)."""
+
+    def __init__(self, cfg: ArchConfig, device="cuda"):
+        not_ported(**{f"family={cfg.family}": cfg.family != "dense",
+                      "num_patches": cfg.num_patches})
+        self.cfg = cfg
+        self.device = resolve_device(device)
+        self._alibi = (torch.as_tensor(alibi_slopes(cfg.num_heads), device=self.device)
+                       if cfg.pos_emb == "alibi" else None)
+        # per-layer sliding window (0 = full attention)
+        self._layer_window: List[int] = [
+            0 if i in cfg.full_attn_layers else cfg.sliding_window
+            for i in range(cfg.num_layers)]
+
+    # ------------------------------------------------------------------
+    def init(self, generator: torch.Generator) -> Dict:
+        """Random weights drawn from `generator` (on its own device), in the
+        reference's layout, placed on this model's device."""
+        cfg, dev = self.cfg, self.device
+        dtype = torch_dtype(cfg.dtype)
+        g = generator
+        p: Dict = {"embed": embed_init(g, (cfg.vocab_size, cfg.d_model), dtype, dev)}
+        if cfg.pos_emb == "learned":
+            p["pos_table"] = embed_init(g, (cfg.max_seq_len, cfg.d_model), dtype, dev)
+
+        def one_layer():
+            return {"ln1": norm_init(cfg.norm, cfg.d_model, dtype, dev),
+                    "attn": attn.attn_init(g, cfg, dtype, dev),
+                    "ln2": norm_init(cfg.norm, cfg.d_model, dtype, dev),
+                    "mlp": mlp_init(g, cfg, dtype, dev)}
+
+        layers = [one_layer() for _ in range(cfg.num_layers)]
+
+        def stack(items):
+            if isinstance(items[0], dict):
+                return {k: stack([it[k] for it in items]) for k in items[0]}
+            return torch.stack(items)
+
+        p["layers"] = stack(layers)
+        p["final_norm"] = norm_init(cfg.norm, cfg.d_model, dtype, dev)
+        if not cfg.tie_embeddings:
+            p["lm_head"] = embed_init(g, (cfg.d_model, cfg.vocab_size), dtype, dev)
+        return p
+
+    # ------------------------------------------------------------------
+    def _unembed(self, sp, x):
+        head = sp["embed"].t() if self.cfg.tie_embeddings else sp["lm_head"]
+        return x @ head
+
+    def _final(self, sp, x):
+        return self._unembed(sp, norm_apply(self.cfg.norm, x, sp["final_norm"]))
+
+    def _layer(self, x, lp, *, mode, kc, vc, kv_positions, pos, q_lens=None,
+               window=0):
+        cfg = self.cfg
+        h = norm_apply(cfg.norm, x, lp["ln1"])
+        kw = dict(window=window, num_meta=cfg.num_meta_tokens,
+                  rope=cfg.pos_emb == "rope", alibi=self._alibi)
+        if mode == "decode_batch":
+            a, kc, vc = attn.attention_decode_batch(h, lp["attn"], cfg, kc, vc,
+                                                    kv_positions, pos,
+                                                    q_lens=q_lens, **kw)
+        else:
+            a, kc, vc = attn.attention_decode(h, lp["attn"], cfg, kc, vc,
+                                              kv_positions, pos, **kw)
+        x = x + a
+        h = norm_apply(cfg.norm, x, lp["ln2"])
+        return x + mlp_apply(h, lp["mlp"], cfg)
+
+    def _layers(self, sp, x, kc, vc, **kw):
+        for i, w in enumerate(sp["layer_window"]):
+            x = self._layer(x, _layer_params(sp["layers"], i), kc=kc[i], vc=vc[i],
+                            window=w, **kw)
+        return x
+
+    # ------------------------------------------------------------------
+    # Stage-wise API for the pipeline workers: a stage owns a contiguous
+    # layer slice; stage 0 also embeds, the last stage also applies the final
+    # norm and the LM head.
+    # ------------------------------------------------------------------
+    def slice_params(self, params, lo: int, hi: int, *, first: bool, last: bool):
+        def cut(t):
+            return {k: cut(v) for k, v in t.items()} if isinstance(t, dict) else t[lo:hi]
+        sp = {"layers": cut(params["layers"]),
+              "layer_window": self._layer_window[lo:hi]}
+        if first:
+            for k in ("embed", "pos_table"):
+                if k in params:
+                    sp[k] = params[k]
+        if last:
+            sp["final_norm"] = params["final_norm"]
+            if self.cfg.tie_embeddings:
+                sp["embed"] = params["embed"]
+            elif "lm_head" in params:
+                sp["lm_head"] = params["lm_head"]
+        return sp
+
+    def stage_prefill_chunk(self, sp, x, kc, vc, pos: int, *, first: bool,
+                            last: bool, tokens=None):
+        """A chunk of C prompt tokens at positions pos..pos+C-1 attends
+        causally over the cache prefix [0, pos) plus itself, writing its K/V
+        into the cache at `pos`.  Stage 0 takes `tokens` [B,C]; the last
+        stage returns the chunk's final-token logits.  kc/vc [Lstage,B,S,H,D]."""
+        if first:
+            x = F.embedding(tokens, sp["embed"])
+            if self.cfg.pos_emb == "learned":
+                c, table = tokens.shape[1], sp["pos_table"]
+                p0 = min(max(pos, 0), table.shape[0] - c)
+                x = x + table[p0:p0 + c][None]
+        c = x.shape[1]
+        slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)
+        kv_positions = torch.where(slots < pos + c, slots, -1)
+        x = self._layers(sp, x, kc, vc, mode="decode", kv_positions=kv_positions,
+                         pos=pos)
+        if last:
+            x = self._final(sp, x[:, -1:, :])[:, 0]
+        return x, kc, vc
+
+    def stage_decode(self, sp, x, kc, vc, pos: int, *, first: bool, last: bool,
+                     token=None):
+        """One decode step of one sequence at position `pos` (the
+        per-sequence path).  kc/vc [Lstage,B,S,H,D]."""
+        if first:
+            x = F.embedding(token[:, None], sp["embed"])
+            if self.cfg.pos_emb == "learned":
+                x = x + sp["pos_table"][pos:pos + 1][None]
+        slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)
+        kv_positions = torch.where(slots <= pos, slots, -1)
+        x = self._layers(sp, x, kc, vc, mode="decode", kv_positions=kv_positions,
+                         pos=pos)
+        if last:
+            x = self._final(sp, x)[:, 0]
+        return x, kc, vc
+
+    def stage_decode_batch(self, sp, x, kc, vc, pos, *, first: bool, last: bool,
+                           token=None):
+        """Fused-round decode: B sequences each advance one step, sequence
+        b's new token at its own position pos[b] (int32 [B])."""
+        if first:
+            x = F.embedding(token[:, None], sp["embed"])
+            if self.cfg.pos_emb == "learned":
+                x = x + sp["pos_table"][pos.long()][:, None]
+        slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)[None, :]
+        kv_positions = torch.where(slots <= pos[:, None], slots, -1)
+        x = self._layers(sp, x, kc, vc, mode="decode_batch",
+                         kv_positions=kv_positions, pos=pos)
+        if last:
+            x = self._final(sp, x)[:, 0]
+        return x, kc, vc
+
+    def stage_prefill_chunk_batch(self, sp, x, kc, vc, pos, q_lens, *,
+                                  first: bool, last: bool, tokens=None):
+        """Fused chunk-set pass: one prefill chunk of each of B sequences.
+        Sequence b's chunk holds q_lens[b] valid tokens at positions
+        pos[b].. (rows past q_lens[b] are padding) and attends causally over
+        its own cache prefix plus itself.  The last stage returns each
+        chunk's final-valid-token logits [B,V]."""
+        if first:
+            x = F.embedding(tokens, sp["embed"])
+            if self.cfg.pos_emb == "learned":
+                c, table = tokens.shape[1], sp["pos_table"]
+                posm = pos[:, None].long() + torch.arange(c, device=x.device)[None, :]
+                x = x + table[posm.clamp(0, table.shape[0] - 1)]
+        c = x.shape[1]
+        slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)[None, :]
+        kv_positions = torch.where(slots < (pos + q_lens)[:, None], slots, -1)
+        x = self._layers(sp, x, kc, vc, mode="decode_batch",
+                         kv_positions=kv_positions, pos=pos, q_lens=q_lens)
+        if last:
+            # each sequence's final valid row (ragged chunks): row q_lens[b]-1
+            rows = (q_lens.long() - 1).clamp(0, c - 1)
+            x = x[torch.arange(x.shape[0], device=x.device), rows]
+            x = self._final(sp, x[:, None])[:, 0]
+        return x, kc, vc
