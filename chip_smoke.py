@@ -19,6 +19,14 @@ Phases, each printing one JSON line with its seconds:
 4. ``serve``   gpt2-1.5b, 48 layers, bf16, 2 stage workers: 16 requests
                through fused continuous batching.  The kernels' launch
                counts must match the passes the engine ran.
+5. ``mb_parity`` the microbatch round-robin path (`ServingEngine.run`) at
+               the parity phase's size: colocated, with swapping and
+               disaggregated, each on the card against the port on the CPU,
+               and against `run_continuous` on the card.
+6. ``mb_serve`` gpt2-1.5b, 48 layers, bf16, 2 stage workers: 512-token
+               prompts in microbatches of 4 through `run()`, colocated, then
+               with swapping and disaggregated.  Launch counts must match
+               the passes, as in ``serve``.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
@@ -40,8 +48,10 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
-PHASES = ("env", "kernels", "parity", "serve")
+PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
+# the kernels of the continuous-batching path (phases parity and serve)
+CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
 
 
 class SmokeFailure(RuntimeError):
@@ -118,14 +128,24 @@ def phase_kernels(state: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import batched_decode_attention
-    from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged
+    from repro_torch.kernels.decode_attention import batched_decode_attention, decode_attention
+    from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged, kv_unpack
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows, checks = {}, []
+
+    def held(kernel, name, out, exp, tname):
+        """Max |err| of a kernel's output against its plain version, checked
+        against the dtype's band."""
+        err = (out.float() - exp.float()).abs().max().item()
+        checks.append({"case": f"{kernel} {name}", "dtype": tname, "max_abs_err": err,
+                       "tol": TOL[tname]})
+        check(err <= TOL[tname], f"{kernel} {name} {tname}: max |err| {err} > {TOL[tname]}")
+        return err
 
     def attn_case(name, b, hq, hkv, d, s, lengths, dtype, win=None, meta=0,
                   slopes=None, time_it=False):
@@ -138,13 +158,8 @@ def phase_kernels(state: dict) -> dict:
                                                       device=dev)
         out = batched_decode_attention(q, k, v, lens, ws, sl, num_meta=meta)
         exp = ref.batched_decode_attention_ref(q, k, v, lens, ws, sl, num_meta=meta)
-        torch.cuda.synchronize()
-        err = (out.float() - exp.float()).abs().max().item()
         tname = str(dtype).replace("torch.", "")
-        checks.append({"case": name, "dtype": tname, "max_abs_err": err,
-                       "tol": TOL[tname]})
-        check(err <= TOL[tname], f"batched_decode_attention {name} {tname}: "
-              f"max |err| {err} > {TOL[tname]}")
+        err = held("batched_decode_attention", name, out, exp, tname)
         if not time_it:
             return err
         ms = cuda_ms(lambda: batched_decode_attention(q, k, v, lens, ws, sl,
@@ -214,6 +229,88 @@ def phase_kernels(state: dict) -> dict:
         "library_ms": cuda_ms(lambda: cache[:, bidx, idx]),
         "bound_ms": bms, "bound_by": by, "max_abs_err": ragged_err,
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 starts {starts} width {wd}"}
+    del cache
+
+    def flash_case(name, b, sq, skv, hq, hkv, d, dtype, causal=True, time_it=False):
+        q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(dtype)
+        tname = str(dtype).replace("torch.", "")
+        err = held("flash_attention", name, flash_attention(q, k, v, causal=causal),
+                   ref.flash_attention_ref(q, k, v, causal=causal), tname)
+        if not time_it:
+            return
+        # visible (query, key) pairs: what this causal call has to compute
+        pairs = (sum(min(skv, i + skv - sq + 1) for i in range(sq)) if causal
+                 else sq * skv)
+        es = q.element_size()
+        bms, by = bound_ms(es * (2 * q.numel() + 2 * k.numel()), 4.0 * b * hq * d * pairs,
+                           tname)
+        qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+        rows["flash_attention"] = {
+            "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
+            "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qt, kt, vt, is_causal=causal)),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "shape": f"q[{b},{sq},{hq},{d}] kv[{b},{skv},{hkv},{d}] {tname} causal"}
+
+    # the mb_serve prefill: microbatch 4 of 512-token prompts, gpt2 heads
+    flash_case("gpt2_prefill", 4, 512, 512, 25, 25, 64, torch.float32)
+    flash_case("gpt2_prefill", 4, 512, 512, 25, 25, 64, torch.bfloat16, time_it=True)
+    for dt in (torch.float32, torch.bfloat16):      # a query block at the end of the keys
+        flash_case("sq_lt_skv", 2, 100, 512, 25, 25, 64, dt)
+        flash_case("gqa_head16_full", 2, 70, 70, 4, 2, 16, dt, causal=False)
+
+    def decode_case(name, b, s, hq, hkv, d, valid, dtype, time_it=False):
+        q = torch.randn(b, hq, d, generator=g, device=dev).to(dtype)
+        k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
+        v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
+        tname = str(dtype).replace("torch.", "")
+        err = held("decode_attention", name, decode_attention(q, k, v, valid),
+                   ref.decode_attention_ref(q, k, v, valid), tname)
+        if not time_it:
+            return
+        n_valid = int(valid.sum())
+        es = q.element_size()
+        bms, by = bound_ms(es * (2 * q.numel() + 2 * b * n_valid * hkv * d) + s,
+                           4.0 * b * hq * d * n_valid, tname)
+        qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
+        mask = valid[None, None, None, :]
+        rows["decode_attention"] = {
+            "ms": cuda_ms(lambda: decode_attention(q, k, v, valid)),
+            "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, valid)),
+            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
+                qs, ks, vs, attn_mask=mask)),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} valid {n_valid}/{s}"}
+
+    # the mb_serve decode: microbatch 4, cache of 544 slots, query at 527
+    slots = torch.arange(544, device=dev)
+    decode_case("gpt2_mb_decode", 4, 544, 25, 25, 64, slots <= 527, torch.float32)
+    decode_case("gpt2_mb_decode", 4, 544, 25, 25, 64, slots <= 527, torch.bfloat16,
+                time_it=True)
+    window_meta = (slots <= 300) & ((slots > 300 - 96) | (slots < 4))
+    for dt in (torch.float32, torch.bfloat16):      # not a prefix: window + sinks
+        decode_case("gqa_window_meta", 3, 544, 16, 4, 64, window_meta, dt)
+
+    # the disaggregated landing: one stage's 24 layers of a microbatch of 4,
+    # 512 prompt tokens into a 544-slot cache, bf16: bit-exact
+    L, B, S, W = 24, 4, 544, 512
+    buf = torch.randn(L, B, W, H, D, generator=g, device=dev).to(torch.bfloat16)
+    mine = torch.zeros(L, B, S, H, D, dtype=torch.bfloat16, device=dev)
+    plain = mine.clone()
+    kv_unpack(mine, buf, 0)
+    ref.kv_unpack_ref(plain, buf, 0)
+    check(torch.equal(mine, plain), "kv_unpack differs from its plain version")
+    bms, by = bound_ms(2 * buf.numel() * buf.element_size(), 0.0, "bfloat16")
+    rows["kv_unpack"] = {
+        "ms": cuda_ms(lambda: kv_unpack(mine, buf, 0)),
+        "plain_ms": cuda_ms(lambda: ref.kv_unpack_ref(plain, buf, 0)),
+        "library_ms": cuda_ms(lambda: plain[:, :, 0:W].copy_(buf)),
+        "bound_ms": bms, "bound_by": by,
+        "max_abs_err": (mine.float() - plain.float()).abs().max().item(),
+        "shape": f"cache[{L},{B},{S},{H},{D}] bf16 t0 0 width {W}"}
     state["kernel_rows"] = rows
     return {"checks": checks, "timed": rows}
 
@@ -294,8 +391,8 @@ def phase_parity(state: dict) -> dict:
           "card and CPU ran different schedules")
     check(card.preemptions >= 1, f"the trace did not preempt ({card.preemptions})")
     check(all(len(t) == 8 for t in card.tokens.values()), "a request fell short")
-    for name, n in res["card"]["launches"].items():
-        check(n > 0, f"{name} was not launched on the card run")
+    for name in CONTINUOUS_KERNELS:
+        check(res["card"]["launches"][name] > 0, f"{name} was not launched on the card run")
     check(not any(res["cpu"]["launches"].values()), "a kernel launched on the CPU run")
     return {"config": "gpt2-1.5b full width, 2 layers, fp32, 2 workers",
             "prompt_lens": lens, "max_new": 8, "kv_pool_blocks": PARITY_POOL_BLOCKS,
@@ -364,7 +461,7 @@ def run_serve(cfg, dev: str, lens, max_new: int, max_active: int, pool_blocks: i
         for name, n in want.items():
             check(launches[name] == n,
                   f"{name}: {launches[name]} launches, the passes say {n}")
-        check(all(n > 0 for n in launches.values()),
+        check(all(launches[k] > 0 for k in CONTINUOUS_KERNELS),
               f"a kernel of the path never launched: {launches}")
     gen = sum(len(r.tokens) for r in reqs)
     return {"requests": len(reqs), "prompt_lens": list(lens), "max_new": max_new,
@@ -388,7 +485,7 @@ def phase_serve(state: dict) -> dict:
     res, eng = run_serve(cfg, "cuda", lens, max_new=32, max_active=8, pool_blocks=1024,
                          generator=torch.Generator(device="cuda").manual_seed(0),
                          sync=torch.cuda.synchronize)
-    state["launches"] = res["launches"]
+    state["launches"].update({k: res["launches"][k] for k in CONTINUOUS_KERNELS})
     out = {"config": "gpt2-1.5b, 48 layers, bf16, 2 workers", **res,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     if state.get("profile"):
@@ -398,18 +495,28 @@ def phase_serve(state: dict) -> dict:
 
 def profile_serve(eng, cfg, out_dir: Path) -> dict:
     """Device time by kernel over a short serve window (8 requests of 128
-    prompt tokens, 8 new tokens each): run once plainly for its wall time,
-    then again under torch.profiler for the kernels' device time.  The busy
-    share divides the second by the first (the profiler's own host cost
-    would inflate a profiled wall time).  The full table goes to
+    prompt tokens, 8 new tokens each).  The table goes to
     `out_dir`/serve_profile.txt."""
+    return _profile(lambda: eng.run_continuous(_requests([128] * 8, 8, cfg.vocab_size,
+                                                         seed=11), max_active=8),
+                    out_dir / "serve_profile.txt",
+                    {"batched_decode_attention": ("batched_decode",),
+                     "kv_pack": ("kv_pack", "window_copy"),
+                     "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
+                     "gather_scatter": ("index", "gather", "scatter")})
+
+
+def _profile(window_fn, table: Path, groups: dict) -> dict:
+    """Run `window_fn` once plainly for its wall time, then again under
+    torch.profiler for the kernels' device time.  The busy share divides the
+    second by the first (the profiler's own host cost would inflate a
+    profiled wall time).  Device time is summed by name `groups`."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     def window():
-        rep = eng.run_continuous(_requests([128] * 8, 8, cfg.vocab_size, seed=11),
-                                 max_active=8)
+        rep = window_fn()
         torch.cuda.synchronize()
         return rep
 
@@ -420,27 +527,208 @@ def profile_serve(eng, cfg, out_dir: Path) -> dict:
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         window()
     avgs = prof.key_averages()
-    out_dir.mkdir(parents=True, exist_ok=True)
-    (out_dir / "serve_profile.txt").write_text(
-        avgs.table(sort_by="self_cuda_time_total", row_limit=40))
+    table.parent.mkdir(parents=True, exist_ok=True)
+    table.write_text(avgs.table(sort_by="self_cuda_time_total", row_limit=40))
     # device-side events only (kernels, copies): a CPU op's device time
     # repeats the time of the kernels it launched
     kernels = sorted(((e.key, e.self_device_time_total, e.count) for e in avgs
                       if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0),
                      key=lambda r: -r[1])
     dev_us = sum(us for _, us, _ in kernels)
-    groups = {"batched_decode_attention": ("batched_decode",), "kv_pack": ("kv_pack",),
-              "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
-              "gather_scatter": ("index", "gather", "scatter")}
     by_group = {g: sum(us for k, us, _ in kernels if any(m in k.lower() for m in ms))
                 for g, ms in groups.items()}
     by_group["other"] = dev_us - sum(by_group.values())
-    return {"window_wall_ms": wall_us / 1e3, "window_passes": sum(rep.pass_trace),
+    passes = sum(n for k, n in rep.pass_counts.items() if k != "one_token")
+    return {"window_wall_ms": wall_us / 1e3, "window_passes": passes,
             "device_ms": dev_us / 1e3, "device_busy_share": dev_us / wall_us,
             "device_launches": sum(n for _, _, n in kernels),
             "device_ms_by_group": {g: us / 1e3 for g, us in by_group.items()},
             "top_kernels": [{"name": k[:80], "ms": us / 1e3, "calls": n}
                             for k, us, n in kernels[:8]]}
+
+
+# ---------------------------------------------------------------------------
+# phases 5 and 6: the microbatch round-robin path (ServingEngine.run)
+# ---------------------------------------------------------------------------
+
+MB_MODES = {                     # mode -> (stage workers, engine kwargs)
+    "colocated": (2, {}),
+    "swapping": (2, {"swapping": True}),
+    "disaggregated": (2, {"mode": "disaggregated", "dp_split": (1, 1)}),
+}
+
+
+def run_mb_parity(cfg, trace, card: str) -> dict:
+    """The same trace and weights through run() on `card` and on the CPU in
+    every mode, and through run_continuous on `card`; tokens must agree."""
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving import ServingEngine
+
+    params = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    out = {}
+    for mode, (n, kw) in MB_MODES.items():
+        runs = {}
+        for dev in ("cpu", card):
+            sampler = RecordingSampler(keep=True)
+            eng = ServingEngine(cfg, DecoderLM(cfg, device=dev), params, n, microbatch=2,
+                                sampler=sampler, device=dev, **kw)
+            reset_launches()
+            rep = eng.run(trace())
+            runs[dev] = {"tokens": rep.tokens, "launches": dict(LAUNCHES),
+                         "logits": sampler.rows, "xfer": eng.transfer_summary(),
+                         "peak_kv_bytes": rep.peak_kv_bytes}
+        check(runs[card]["tokens"] == runs["cpu"]["tokens"],
+              f"run() {mode}: card tokens differ from CPU tokens")
+        check(runs[card]["xfer"] == runs["cpu"]["xfer"]
+              and runs[card]["peak_kv_bytes"] == runs["cpu"]["peak_kv_bytes"],
+              f"run() {mode}: card and CPU moved or kept different bytes")
+        check(not any(runs["cpu"]["launches"].values()), "a kernel launched on the CPU run")
+        diffs = [(a - b).abs().max().item()
+                 for a, b in zip(runs["cpu"]["logits"], runs[card]["logits"])]
+        out[mode] = {"tokens": runs[card]["tokens"], "launches": runs[card]["launches"],
+                     "transfer_bytes": runs[card]["xfer"],
+                     "max_abs_logit_diff": max(diffs), "logit_rows": len(diffs)}
+    eng = ServingEngine(cfg, DecoderLM(cfg, device=card), params, 2, paged=True,
+                        device=card)
+    out["run_continuous_tokens"] = eng.run_continuous(trace(), max_active=4).tokens
+    return out
+
+
+def phase_mb_parity(state: dict) -> dict:
+    import torch
+
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), num_layers=2, dtype="float32")
+    lens, max_new = [40] * 4, 8
+    res = run_mb_parity(cfg, lambda: _requests(lens, max_new, cfg.vocab_size, seed=4),
+                        card="cuda")
+    toks = res["colocated"]["tokens"]
+    for mode in MB_MODES:
+        check(res[mode]["tokens"] == toks, f"run() {mode} gave other tokens than colocated")
+    check(res["run_continuous_tokens"] == toks, "run() and run_continuous differ")
+    check(all(len(t) == max_new for t in toks.values()), "a request fell short")
+    for mode, name in (("colocated", "flash_attention"), ("colocated", "decode_attention"),
+                       ("swapping", "kv_pack"), ("disaggregated", "kv_unpack")):
+        check(res[mode]["launches"][name] > 0, f"{name} was not launched in run() {mode}")
+    check(res["swapping"]["transfer_bytes"]["hostlink"] > 0, "swapping moved no bytes")
+    check(res["disaggregated"]["transfer_bytes"]["net"] > 0, "no prompt KV was streamed")
+    return {"config": "gpt2-1.5b full width, 2 layers, fp32, 2 workers, microbatch 2",
+            "prompt_lens": lens, "max_new": max_new, "tokens_identical": True,
+            **{m: {k: v for k, v in res[m].items() if k != "tokens"} for m in MB_MODES}}
+
+
+def mb_expected_launches(eng, pc: dict) -> dict:
+    """The launches a run() implies: one attention kernel per layer per
+    pass, one kv_pack per leaf per token stage per swapped decode step, and
+    one kv_pack and kv_unpack per leaf per streamed chunk."""
+    from repro_torch.core.dejavulib import PipelineTopo, plan_repartition
+    from repro_torch.kernels import KERNELS
+    cl = eng.cluster
+    layers = cl.cfg.num_layers
+    want = dict.fromkeys(KERNELS, 0)
+    want["flash_attention"] = layers * pc.get("mb_prefill", 0)
+    want["decode_attention"] = layers * pc.get("mb_decode", 0)
+    if cl.swapping:
+        want["kv_pack"] = 2 * len(cl.token_group) * pc.get("mb_decode", 0)
+    if cl.mode == "disaggregated":
+        chunks = len(plan_repartition(PipelineTopo(len(cl.prompt_group), layers, 1),
+                                      PipelineTopo(len(cl.token_group), layers, 1)))
+        want["kv_pack"] = want["kv_unpack"] = 2 * chunks * pc.get("mb_prefill", 0)
+    return want
+
+
+def run_mb_serve(cfg, dev: str, model, params, n_requests: int, plen: int, max_new: int,
+                 microbatch: int, mode: tuple, sync) -> dict:
+    """Serve `n_requests` prompts of `plen` tokens through run() on `dev`
+    with `mode` = (stage workers, engine kwargs) and check tokens, logits
+    and the kernels' launch counts against the passes.  Returns (results,
+    the engine)."""
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingEngine
+
+    n, kw = mode
+    sampler = RecordingSampler(keep=False)
+    eng = ServingEngine(cfg, model, params, n, microbatch=microbatch, sampler=sampler,
+                        device=dev, **kw)
+    # warm-up: library handles and the first launch of every path
+    eng.run(_requests([16] * microbatch, 3, cfg.vocab_size, seed=7))
+    pre_ms, dec_ms = [], []
+    cl = eng.cluster
+    cl.prefill_mb = _timed(cl.prefill_mb, pre_ms, sync)
+    cl.decode_mb = _timed(cl.decode_mb, dec_ms, sync)
+    xfer0 = eng.transfer_summary()
+    reqs = _requests([plen] * n_requests, max_new, cfg.vocab_size, seed=5)
+    sampler.finite = True
+    reset_launches()
+    sync()
+    t = time.perf_counter()
+    rep = eng.run(reqs)
+    sync()
+    wall = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    pc = rep.pass_counts
+    check(all(len(r.tokens) == max_new for r in reqs), "a request did not emit max_new tokens")
+    check(sampler.finite, "non-finite logits")
+    if dev != "cpu":
+        want = mb_expected_launches(eng, pc)
+        check(launches == want, f"launches {launches}, the passes say {want}")
+    gen = sum(len(r.tokens) for r in reqs)
+    xfer = {k: v - xfer0.get(k, 0) for k, v in eng.transfer_summary().items()}
+    return {"requests": n_requests, "prompt_len": plen, "max_new": max_new,
+            "microbatch": microbatch, "workers": n, "engine": kw, "wall_s": wall,
+            "tokens_generated": gen, "tokens_per_s": gen / wall,
+            "median_prefill_pass_ms": statistics.median(pre_ms),
+            "median_decode_pass_ms": statistics.median(dec_ms),
+            "prefill_passes": len(pre_ms), "decode_passes": len(dec_ms),
+            "peak_kv_bytes": rep.peak_kv_bytes, "transfer_bytes": xfer,
+            "pass_counts": pc, "launches": launches}, eng
+
+
+def phase_mb_serve(state: dict) -> dict:
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import DecoderLM
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), dtype="bfloat16")
+    t = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"config": "gpt2-1.5b, 48 layers, bf16, microbatch 4, 512-token prompts",
+           "init_s": time.perf_counter() - t}
+    for mode, n_requests in (("colocated", 16), ("swapping", 16), ("disaggregated", 8)):
+        torch.cuda.reset_peak_memory_stats()
+        res, _ = run_mb_serve(cfg, "cuda", model, params, n_requests, 512, 32, 4,
+                              MB_MODES[mode], torch.cuda.synchronize)
+        out[mode] = {**res, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    state["launches"].update(
+        flash_attention=out["colocated"]["launches"]["flash_attention"],
+        decode_attention=out["colocated"]["launches"]["decode_attention"],
+        kv_unpack=out["disaggregated"]["launches"]["kv_unpack"])
+    if state.get("profile"):
+        out["profile"] = profile_mb(model, params, cfg, state["out"])
+    return out
+
+
+def profile_mb(model, params, cfg, out_dir: Path) -> dict:
+    """Device time by kernel over one microbatch of run() (4 prompts of 512
+    tokens, 8 new tokens: one prefill pass and seven decode passes), as
+    `profile_serve` does for the paged path.  The table goes to
+    `out_dir`/mb_profile.txt."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(cfg, model, params, 2, microbatch=4, device="cuda")
+    eng.run(_requests([16] * 4, 3, cfg.vocab_size, seed=7))          # warm-up
+    return _profile(lambda: eng.run(_requests([512] * 4, 8, cfg.vocab_size, seed=11)),
+                    out_dir / "mb_profile.txt",
+                    {"flash_attention": ("flash_kernel",),
+                     "decode_attention": ("batched_decode",), "kv_pack": ("kv_pack", "window_copy"),
+                     "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
+                     "gather_scatter": ("index", "gather", "scatter")})
 
 
 KERNEL_META = {
@@ -450,6 +738,12 @@ KERNEL_META = {
                        "src/repro/kernels/kv_pack.py:56"),
     "kv_pack": ("src/repro_torch/kernels/csrc/kv_pack.cu",
                 "src/repro/kernels/kv_pack.py:33"),
+    "decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                         "src/repro/kernels/decode_attention.py:243"),
+    "flash_attention": ("src/repro_torch/kernels/csrc/flash_attention.cu",
+                        "src/repro/kernels/flash_attention.py:60"),
+    "kv_unpack": ("src/repro_torch/kernels/csrc/kv_pack.cu",
+                  "src/repro/kernels/kv_pack.py:92"),
 }
 
 
@@ -458,7 +752,8 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve phase, profile a short window of it")
+                    help="after the serve and mb_serve phases, profile a short window "
+                         "of each")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for the build log and the profile table")
     args = ap.parse_args()
@@ -480,8 +775,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     fns = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
-           "serve": phase_serve}
-    state: dict = {"profile": args.profile, "out": Path(args.out)}
+           "serve": phase_serve, "mb_parity": phase_mb_parity, "mb_serve": phase_mb_serve}
+    state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     if "env" not in phases:
         phases.insert(0, "env")
     for p in phases:

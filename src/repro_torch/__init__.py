@@ -24,6 +24,16 @@ def resolve_device(device) -> torch.device:
     return dev
 
 
+_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def torch_dtype(name: str) -> torch.dtype:
+    """The torch dtype of a config's dtype name."""
+    if name not in _DTYPES:
+        raise ValueError(f"dtype {name!r} not served (float32 or bfloat16)")
+    return _DTYPES[name]
+
+
 def not_ported(**knobs) -> None:
     """Raise NotImplementedError naming every knob set to a value this
     slice of the port does not serve (left for a later slice)."""

@@ -49,8 +49,9 @@ class ArchConfig:
     # --- paged KV cache (serving) ---
     kv_block_size: int = 8                   # tokens per KV block
     kv_pool_blocks: int = 0                  # pool size per stage; 0 = auto
-    # Q tokens per chunked-prefill pipeline pass.  The port always prefills
-    # in chunks; 0 (the reference's whole-prompt "batch" mode) is not ported.
+    # Q tokens per chunked-prefill pipeline pass on the paged path; 0 runs
+    # every prompt whole in one pass ("batch" mode, through flash_attention),
+    # as do prompts no longer than a chunk when fused rounds are off.
     prefill_chunk_tokens: int = 64
     # Fused batched rounds: one pipeline pass decodes every live sequence
     # and one pass packs every in-flight prefill chunk.  False runs the

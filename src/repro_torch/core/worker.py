@@ -1,34 +1,68 @@
-"""Pipeline-stage workers of the port, paged path (counterpart of
-`repro.core.worker`).
+"""Pipeline-stage workers of the port (counterpart of `repro.core.worker`).
 
-A `StageWorker` owns a contiguous layer slice of the model, its block pool
-and device pages, and a host store that preempted sequences swap into.
-Replication, the dense microbatch slots and the KV tiers of the reference
-are later slices.
+A `StageWorker` owns a contiguous layer slice of the model, its dense
+microbatch KV slots (the run() path), its block pool and device pages (the
+paged path), and a host store: the swap target and the landing zone of the
+prompt KV streamed from the prompt pipeline.  Every byte between the device
+and the host moves through the `CacheManager`'s transports.  Replication
+and the KV tiers of the reference are later slices.
 """
 from __future__ import annotations
 
 import math
-from typing import Dict, List, Sequence, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
-from repro_torch import resolve_device
-from repro_torch.core.dejavulib import HostMemoryStore
+from repro_torch import resolve_device, torch_dtype
+from repro_torch.core.dejavulib import (HostLinkTransport, HostMemoryStore, LocalTransport,
+                                        NetworkTransport)
 from repro_torch.kernels import ops as kops
+from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.kvcache.paged import BlockPool, PagedKVCache, PoolExhausted, blocks_for
-from repro_torch.models.transformer import torch_dtype
 
 
 class CacheManager:
-    """Per-worker KV movement between the device pages and host memory
-    (block-granular swap; the reference's transports and their cost model
-    are not ported)."""
+    """Per-worker KV movement between the device and host memory: microbatch
+    swapping (paper §4.2.2) over the host link, and the paged path's
+    block-granular swap.  The transports count their bytes; the reference's
+    modeled transfer time is not ported."""
 
     def __init__(self, wid: int, token_block: int = 8):
         self.wid = wid
         self.host = HostMemoryStore(f"w{wid}-host")
+        self.hostlink = HostLinkTransport()
+        self.net = NetworkTransport()
+        self.local = LocalTransport()
         self.token_block = token_block
+
+    # --- swapping (microbatch granularity) -----------------------------
+    def swap_out(self, mb: int, kv: Dict[str, torch.Tensor],
+                 token_range: Optional[Tuple[int, int]] = None) -> None:
+        """Offload a microbatch's stage KV to pinned host memory.  With
+        `token_range`, only the newly written window moves: packed on the
+        device by kv_pack, copied, and written into the host copy in place."""
+        for leaf, arr in kv.items():
+            key = f"swap/mb{mb}/{leaf}"
+            if token_range is None:
+                self.host.put(key, self.hostlink.transfer(arr))
+                continue
+            t0, t1 = token_range
+            tb = self.token_block
+            t0a = (t0 // tb) * tb
+            w = min(-(-(t1 - t0a) // tb) * tb, arr.shape[2] - t0a)
+            packed = self.hostlink.transfer(kops.kv_pack_auto(arr, t0a, w, token_block=tb))
+            self.host.get(key)[:, :, t0a:t0a + w] = packed
+
+    def swap_in(self, mb: int, device) -> Dict[str, torch.Tensor]:
+        out = {}
+        for leaf in ("k", "v"):
+            key = f"swap/mb{mb}/{leaf}"
+            out[leaf] = self.hostlink.transfer(self.host.get(key), device=device)
+        return out
+
+    def host_has(self, mb: int) -> bool:
+        return f"swap/mb{mb}/k" in self.host
 
     def swap_out_blocks(self, seq: int,
                         blocks: Dict[int, Dict[str, torch.Tensor]]) -> int:
@@ -36,17 +70,19 @@ class CacheManager:
         nbytes = 0
         for j, arrays in blocks.items():
             for leaf, arr in arrays.items():
-                self.host.put(f"pagedswap/seq{seq}/blk{j}/{leaf}", arr)
+                key = f"pagedswap/seq{seq}/blk{j}/{leaf}"
+                self.host.put(key, self.hostlink.transfer(arr))
                 nbytes += arr.numel() * arr.element_size()
         return nbytes
 
-    def swap_in_blocks(self, seq: int) -> Dict[int, Dict[str, torch.Tensor]]:
+    def swap_in_blocks(self, seq: int, device) -> Dict[int, Dict[str, torch.Tensor]]:
         prefix = f"pagedswap/seq{seq}/blk"
         out: Dict[int, Dict[str, torch.Tensor]] = {}
         for key in self.host.keys():
             if key.startswith(prefix):
                 j, leaf = key[len(prefix):].split("/")
-                out.setdefault(int(j), {})[leaf] = self.host.get(key)
+                out.setdefault(int(j), {})[leaf] = self.hostlink.transfer(
+                    self.host.get(key), device=device)
         return out
 
     def drop_seq_swap(self, seq: int) -> None:
@@ -74,6 +110,7 @@ class StageWorker:
         self.sp = _to_device(model.slice_params(full_params, lo, hi, first=first,
                                                 last=last), self.device)
         self.cache = CacheManager(wid)
+        self.kv: Dict[int, Dict[str, torch.Tensor]] = {}   # microbatch -> stage KV
         self.pool: BlockPool = None
         self.pages: PagedKVCache = None
         self.paged_dirty: Dict[int, set] = {}       # seq -> dirty logical blocks
@@ -86,6 +123,43 @@ class StageWorker:
         return fn(self.sp, x_or_tokens, *args, first=False, last=self.last)
 
     # ------------------------------------------------------------------
+    # dense microbatch slots (the run() path)
+    # ------------------------------------------------------------------
+    def prefill(self, mb: int, x_or_tokens, max_len: int):
+        """Whole-prompt prefill of a microbatch; its K/V lands at the head of
+        a zero cache of `max_len` slots, [Lstage,B,max_len,H,D]."""
+        x, ks, vs = self._stage(self.model.stage_prefill, x_or_tokens, tok_kw="tokens")
+        slot = init_decode_state(self.model.cfg, ks.shape[1], max_len, device=self.device,
+                                 layers=self.hi - self.lo)["kv"]
+        slot["k"][:, :, :ks.shape[2]] = ks
+        slot["v"][:, :, :vs.shape[2]] = vs
+        self.kv[mb] = slot
+        return x
+
+    def decode(self, mb: int, x_or_token, pos: int):
+        """One decode step of a microbatch at the shared position `pos`."""
+        slot = self.kv[mb]
+        x, _, _ = self._stage(self.model.stage_decode, x_or_token, slot["k"], slot["v"],
+                              pos, tok_kw="token")
+        return x
+
+    def offload(self, mb: int, token_range=None) -> None:
+        if mb in self.kv:
+            self.cache.swap_out(mb, self.kv.pop(mb), token_range)
+
+    def restore(self, mb: int) -> None:
+        if mb not in self.kv and self.cache.host_has(mb):
+            self.kv[mb] = self.cache.swap_in(mb, self.device)
+
+    def resident(self) -> int:
+        return len(self.kv)
+
+    def install_kv(self, mb: int, arrays: Dict[str, torch.Tensor]) -> None:
+        self.kv[mb] = {k: v.to(self.device) for k, v in arrays.items()}
+
+    # ------------------------------------------------------------------
+    # paged mode: per-sequence KV in ref-counted blocks
+    # ------------------------------------------------------------------
     def enable_paging(self, num_blocks: int, block_size: int) -> None:
         cfg = self.model.cfg
         self.pool = BlockPool(num_blocks, block_size)
@@ -93,6 +167,18 @@ class StageWorker:
                                   num_kv_heads=cfg.num_kv_heads,
                                   head_dim=cfg.resolved_head_dim,
                                   dtype=torch_dtype(cfg.dtype), device=self.device)
+
+    def prefill_paged(self, seq: int, x_or_tokens, token_ids=None):
+        """Whole-prompt prefill of one request (batch 1) into pool blocks;
+        with `token_ids`, full prompt blocks whose prefix is live are
+        shared.  Returns (x, fresh blocks)."""
+        x, ks, vs = self._stage(self.model.stage_prefill, x_or_tokens, tok_kw="tokens")
+        _, fresh = self.pool.allocate(seq, ks.shape[2], token_ids=token_ids)
+        # shared blocks already hold these values (same prefix, same
+        # weights): one window write covers every block
+        self.pages.write_window(seq, {"k": ks[:, 0], "v": vs[:, 0]}, 0)
+        self.paged_dirty[seq] = {j for j, _, _, _ in self.pool.block_span(seq)}
+        return x, len(fresh)
 
     def ensure_prefill_table(self, seq: int, plen: int, token_ids=None) -> None:
         """Size `seq`'s block table for the whole prompt before chunked
@@ -258,7 +344,7 @@ class StageWorker:
             raise PoolExhausted(f"worker {self.wid}: cannot restore seq {seq} "
                                 f"({need} blocks needed, {self.pool.num_free()} free)")
         del self.paged_swapped[seq]
-        blocks = self.cache.swap_in_blocks(seq)
+        blocks = self.cache.swap_in_blocks(seq, self.device)
         self.install_blocks(seq, length, {j: a for j, a in blocks.items() if j < need})
         self.paged_dirty[seq] = set()
 

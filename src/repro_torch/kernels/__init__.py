@@ -9,7 +9,8 @@ from __future__ import annotations
 
 from typing import Dict
 
-KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
+KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack", "decode_attention",
+           "flash_attention", "kv_unpack")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

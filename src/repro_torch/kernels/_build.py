@@ -20,7 +20,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kv_pack", "decode_attention")
+SOURCES = ("kv_pack", "decode_attention", "flash_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -33,11 +33,19 @@ _SIGNATURES = {
     "kv_pack": {
         "repro_kv_pack": (_i, [_vp, _vp, _vp, _i, _i, _i, _ll, _ll, _ll, _i, _i, _vp]),
         "repro_kv_pack_max_rows": (_i, []),
+        "repro_kv_unpack": (_i, [_vp, _vp, _i, _i, _i, _ll, _ll, _ll, _i, _i, _vp]),
     },
     "decode_attention": {
         "repro_batched_decode_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp]),
         "repro_batched_decode_smem": (_ll, [_i, _i, _i]),
+        "repro_decode_attention": (
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _vp]),
+    },
+    "flash_attention": {
+        "repro_flash_attention": (
+            _i, [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _vp]),
+        "repro_flash_attention_smem": (_ll, [_i]),
     },
 }
 

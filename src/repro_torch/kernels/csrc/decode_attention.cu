@@ -1,6 +1,7 @@
-// batched_decode_attention — the fused-round decode attention on Hopper.
+// batched_decode_attention and decode_attention — one-query decode attention
+// on Hopper, two entry points over one kernel template.
 //
-// Replaces the TPU kernel `batched_decode_attention` of
+// batched_decode_attention replaces the TPU kernel of that name in
 // src/repro/kernels/decode_attention.py: one new query per sequence for B
 // sequences over dense per-sequence K/V [B, S, Hkv, D], each sequence masked
 // to its own live length lengths[b] (the new token included), with an
@@ -23,6 +24,19 @@
 //     bytes read track each sequence's visible keys, not the padded S;
 //   * nothing is assumed about powers of two (G = 1 at gpt2 width, Hq = 25):
 //     threads stride over (row, key) and (row, dim) pairs.
+//
+// decode_attention replaces the TPU kernel `decode_attention` of the same
+// file: q [B, Hq, D] over k/v [B, S, Hkv, D] with ONE validity vector [S]
+// shared by every sequence (the microbatch decode of the run() path, and a
+// sliding window with meta sinks is not a prefix of it).  It is the same
+// kernel with kValidVec = true: validity comes from the device vector, no
+// length, window or ALiBi term.  The key loop runs to S; a tile whose 64
+// validity flags are all zero is skipped (one __syncthreads_or), which adds
+// exactly what the TPU kernel adds for it once a valid key exists: nothing.
+// A row with no valid key at all, which the run() path never produces, comes
+// out as zeros here (the TPU kernel returns an average over its zero-padded
+// keys there).  Bound by bytes like the batched entry: the visible K/V bytes.
+//
 // A later PR adds wgmma for P·V and split-K when B*Hkv blocks underfill the
 // 132 SMs.
 
@@ -76,13 +90,13 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src, long long 
   }
 }
 
-template <typename T>
+template <typename T, bool kValidVec>
 __global__ void __launch_bounds__(kThreads)
 batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
                       const T* __restrict__ v, const int* __restrict__ lengths,
                       const int* __restrict__ win_starts, const float* __restrict__ slopes,
-                      T* __restrict__ out, int S, int Hq, int Hkv, int D, int num_meta,
-                      float scale) {
+                      const bool* __restrict__ valid, T* __restrict__ out, int S, int Hq,
+                      int Hkv, int D, int num_meta, float scale) {
   const int h = blockIdx.x;  // KV head
   const int b = blockIdx.y;  // sequence
   const int G = Hq / Hkv;
@@ -100,8 +114,8 @@ batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   float* l_s = m_s + G;                 // [G]
   float* alpha_s = l_s + G;             // [G]
 
-  const int len = min(lengths[b], S);
-  const int ws = win_starts ? max(win_starts[b], 0) : 0;
+  const int len = kValidVec ? S : min(lengths[b], S);
+  const int ws = (!kValidVec && win_starts) ? max(win_starts[b], 0) : 0;
 
   const T* qb = q + ((long long)b * Hq + (long long)h * G) * D;
   for (int i = tid; i < G * D; i += kThreads) {
@@ -120,9 +134,14 @@ batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
 
   for (int t0 = 0; t0 < len; t0 += kTileK) {
     const int t1 = min(t0 + kTileK, len);
-    // every key of this tile is past the meta sinks and before the window
-    // start: all masked, so it adds exactly nothing once a visible key exists
-    if (t0 >= num_meta && t1 <= ws) continue;
+    if (kValidVec) {
+      // no valid key in this tile: it adds exactly nothing once one exists
+      if (!__syncthreads_or(tid < t1 - t0 && valid[t0 + tid])) continue;
+    } else if (t0 >= num_meta && t1 <= ws) {
+      // every key of this tile is past the meta sinks and before the window
+      // start: all masked, so it adds exactly nothing once a visible key exists
+      continue;
+    }
     const int n = t1 - t0;
     stage_tile(kb + (long long)t0 * row, row, n, D, k_s, ldk);
     stage_tile(vb + (long long)t0 * row, row, n, D, v_s, ldk);
@@ -138,8 +157,12 @@ batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
         float dot = 0.f;
         for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
         s = dot * scale;
-        if (slopes != nullptr) s -= slopes[h * G + g] * (float)max(len - 1 - pos, 0);
-        if (!(pos >= ws || pos < num_meta)) s = kNegInf;
+        if (kValidVec) {
+          if (!valid[pos]) s = kNegInf;
+        } else {
+          if (slopes != nullptr) s -= slopes[h * G + g] * (float)max(len - 1 - pos, 0);
+          if (!(pos >= ws || pos < num_meta)) s = kNegInf;
+        }
       }
       p_s[i] = s;
     }
@@ -179,26 +202,31 @@ batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 
   T* ob = out + ((long long)b * Hq + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) ob[i] = from_float<T>(acc_s[i] / l_s[i / D]);
+  for (int i = tid; i < G * D; i += kThreads) {
+    const float l = l_s[i / D];
+    // l == 0 only when every tile was skipped: a row with no valid key
+    ob[i] = from_float<T>(kValidVec && l == 0.f ? 0.f : acc_s[i] / l);
+  }
 }
 
-template <typename T>
+template <typename T, bool kValidVec>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
-                   const int* win_starts, const float* slopes, void* out, int B, int S,
-                   int Hq, int Hkv, int D, int num_meta, float scale, cudaStream_t stream) {
+                   const int* win_starts, const float* slopes, const bool* valid, void* out,
+                   int B, int S, int Hq, int Hkv, int D, int num_meta, float scale,
+                   cudaStream_t stream) {
   const int G = Hq / Hkv;
   const size_t smem = sizeof(float) * ((size_t)2 * kTileK * (D + 1) + (size_t)2 * G * D +
                                        (size_t)G * kTileK + (size_t)3 * G);
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(batched_decode_kernel<T>,
+    cudaError_t e = cudaFuncSetAttribute(batched_decode_kernel<T, kValidVec>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((unsigned)Hkv, (unsigned)B);
-  batched_decode_kernel<T><<<grid, kThreads, smem, stream>>>(
+  batched_decode_kernel<T, kValidVec><<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      win_starts, slopes, static_cast<T*>(out), S, Hq, Hkv, D, num_meta, scale);
+      win_starts, slopes, valid, static_cast<T*>(out), S, Hq, Hkv, D, num_meta, scale);
   return cudaGetLastError();
 }
 
@@ -222,10 +250,26 @@ extern "C" int repro_batched_decode_attention(int dtype, const void* q, const vo
                                               void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (dtype == 0)
-    return launch<float>(q, k, v, lengths, win_starts, slopes, out, B, S, Hq, Hkv, D, num_meta,
-                         scale, s);
+    return launch<float, false>(q, k, v, lengths, win_starts, slopes, nullptr, out, B, S, Hq,
+                                Hkv, D, num_meta, scale, s);
   if (dtype == 1)
-    return launch<__nv_bfloat16>(q, k, v, lengths, win_starts, slopes, out, B, S, Hq, Hkv, D,
-                                 num_meta, scale, s);
+    return launch<__nv_bfloat16, false>(q, k, v, lengths, win_starts, slopes, nullptr, out, B,
+                                        S, Hq, Hkv, D, num_meta, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// decode_attention: dtype as above; q/out [B,Hq,D], k/v [B,S,Hkv,D]
+// contiguous; valid a device bool [S] shared by every sequence.  Shared
+// memory as repro_batched_decode_smem.  Returns cudaGetLastError().
+extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, const void* v,
+                                      const bool* valid, void* out, int B, int S, int Hq,
+                                      int Hkv, int D, float scale, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0)
+    return launch<float, true>(q, k, v, nullptr, nullptr, nullptr, valid, out, B, S, Hq, Hkv,
+                               D, 0, scale, s);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, true>(q, k, v, nullptr, nullptr, nullptr, valid, out, B, S,
+                                       Hq, Hkv, D, 0, scale, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

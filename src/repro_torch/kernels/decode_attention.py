@@ -1,11 +1,14 @@
-"""batched_decode_attention as hand-written CUDA (``csrc/decode_attention.cu``),
-replacing the TPU kernel of `repro.kernels.decode_attention`.
+"""batched_decode_attention and decode_attention as hand-written CUDA
+(``csrc/decode_attention.cu``), replacing the TPU kernels of those names in
+`repro.kernels.decode_attention`.
 
-One query per sequence for B sequences over dense per-sequence K/V, each
-masked to its own live length, with optional window starts, meta sinks and
-ALiBi slopes.  The wrapper takes CUDA tensors only (the CPU goes to the plain
-version through `repro_torch.kernels.ops`), checks what the kernel needs,
-allocates the output and counts its launches.
+One query per sequence for B sequences over dense per-sequence K/V:
+`batched_decode_attention` masks each sequence to its own live length, with
+optional window starts, meta sinks and ALiBi slopes; `decode_attention`
+masks every sequence with one shared validity vector.  The wrappers take
+CUDA tensors only (the CPU goes to the plain versions through
+`repro_torch.kernels.ops`), check what the kernel needs, allocate the output
+and count their launches.
 """
 from __future__ import annotations
 
@@ -25,18 +28,11 @@ def _int_vec(t: torch.Tensor, b: int, what: str, dev) -> None:
         raise ValueError(f"{what} must be a contiguous int32 [{b}] on {dev}")
 
 
-def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                             lengths: torch.Tensor,
-                             win_starts: Optional[torch.Tensor] = None,
-                             slopes: Optional[torch.Tensor] = None, *,
-                             num_meta: int = 0) -> torch.Tensor:
-    """q [B,Hq,D]; k/v [B,S,Hkv,D]; lengths [B] int32 (>= 1, the new token
-    included); win_starts [B] int32 or None; slopes [Hq] float32 or None
-    -> [B,Hq,D] in q.dtype."""
+def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> None:
     dev = q.device
     if not q.is_cuda:
-        raise ValueError("batched_decode_attention takes CUDA tensors; use "
-                         "repro_torch.kernels.ops for the CPU")
+        raise ValueError(f"{what} takes CUDA tensors; use repro_torch.kernels.ops "
+                         "for the CPU")
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -52,16 +48,35 @@ def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.device != dev or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {dev}")
+
+
+def _lib_for(hq: int, hkv: int, d: int):
+    lib = _build.lib("decode_attention")
+    smem = lib.repro_batched_decode_smem(hq, hkv, d)
+    if smem > MAX_SMEM:
+        raise ValueError(f"{smem} bytes of shared memory per block exceed {MAX_SMEM}")
+    return lib
+
+
+def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                             lengths: torch.Tensor,
+                             win_starts: Optional[torch.Tensor] = None,
+                             slopes: Optional[torch.Tensor] = None, *,
+                             num_meta: int = 0) -> torch.Tensor:
+    """q [B,Hq,D]; k/v [B,S,Hkv,D]; lengths [B] int32 (>= 1, the new token
+    included); win_starts [B] int32 or None; slopes [Hq] float32 or None
+    -> [B,Hq,D] in q.dtype."""
+    _check_qkv(q, k, v, "batched_decode_attention")
+    dev = q.device
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
     _int_vec(lengths, b, "lengths", dev)
     if win_starts is not None:
         _int_vec(win_starts, b, "win_starts", dev)
     if slopes is not None and (slopes.device != dev or slopes.dtype != torch.float32
                                or slopes.shape != (hq,) or not slopes.is_contiguous()):
         raise ValueError(f"slopes must be a contiguous float32 [{hq}] on {dev}")
-    lib = _build.lib("decode_attention")
-    smem = lib.repro_batched_decode_smem(hq, hkv, d)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{smem} bytes of shared memory per block exceed {MAX_SMEM}")
+    lib = _lib_for(hq, hkv, d)
     out = torch.empty_like(q)
     err = lib.repro_batched_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
@@ -71,4 +86,26 @@ def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "batched_decode_attention")
     LAUNCHES["batched_decode_attention"] += 1
+    return out
+
+
+def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     kv_valid: torch.Tensor) -> torch.Tensor:
+    """q [B,Hq,D]; k/v [B,S,Hkv,D]; kv_valid bool [S], one validity row
+    shared by every sequence -> [B,Hq,D] in q.dtype.  A row with no valid
+    key comes out as zeros."""
+    _check_qkv(q, k, v, "decode_attention")
+    b, hq, d = q.shape
+    _, s, hkv, _ = k.shape
+    if (kv_valid.device != q.device or kv_valid.dtype != torch.bool
+            or kv_valid.shape != (s,) or not kv_valid.is_contiguous()):
+        raise ValueError(f"kv_valid must be a contiguous bool [{s}] on {q.device}")
+    lib = _lib_for(hq, hkv, d)
+    out = torch.empty_like(q)
+    err = lib.repro_decode_attention(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
+        out.data_ptr(), b, s, hq, hkv, d, float(d) ** -0.5,
+        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+    _build.check(err, "decode_attention")
+    LAUNCHES["decode_attention"] += 1
     return out

@@ -1,12 +1,13 @@
-"""kv_pack / kv_pack_ragged: the DéjàVuLib buffered copies (paper §4.1) as
-hand-written CUDA (``csrc/kv_pack.cu``), replacing the TPU kernels of
-`repro.kernels.kv_pack`.
+"""kv_pack / kv_pack_ragged / kv_unpack: the DéjàVuLib buffered copies
+(paper §4.1) as hand-written CUDA (``csrc/kv_pack.cu``), replacing the TPU
+kernels of `repro.kernels.kv_pack`.
 
-Both gather token windows of a stacked cache [L,B,S,H,D] into one dense
+The packs gather token windows of a stacked cache [L,B,S,H,D] into one dense
 buffer [L,B,W,H,D]: `kv_pack` at one start t0 for every row, `kv_pack_ragged`
-at a start per batch row.  The wrappers take CUDA tensors only (the CPU goes
-to the plain versions through `repro_torch.kernels.ops`), check what the
-kernel needs, allocate the output and count their launches.
+at a start per batch row.  `kv_unpack` writes such a buffer back into the
+cache window at t0, in place.  The wrappers take CUDA tensors only (the CPU
+goes to the plain versions through `repro_torch.kernels.ops`), check what
+the kernel needs, allocate any output and count their launches.
 """
 from __future__ import annotations
 
@@ -54,14 +55,15 @@ def _vec_bytes(*vals: int) -> int:
     raise ValueError("cache rows are not 2-byte aligned")
 
 
-def _launch(cache: torch.Tensor, starts: Optional[Sequence[int]], t0: int,
-            width: int) -> torch.Tensor:
+def _cache_layout(cache: torch.Tensor):
+    """Checks shared by the three copies; returns (lib, row bytes, layer
+    and batch strides in bytes)."""
     if not cache.is_cuda:
         raise ValueError("the kv_pack kernels take CUDA tensors; use "
                          "repro_torch.kernels.ops for the CPU")
     if cache.dtype not in _DTYPES:
         raise TypeError(f"kv_pack takes float32 or bfloat16, not {cache.dtype}")
-    l, b, _, h, d = cache.shape
+    _, b, _, h, d = cache.shape
     if cache.stride(4) != 1 or cache.stride(3) != d or cache.stride(2) != h * d:
         raise ValueError("the [S,H,D] dims of the cache must be contiguous")
     lib = _build.lib("kv_pack")
@@ -69,8 +71,17 @@ def _launch(cache: torch.Tensor, starts: Optional[Sequence[int]], t0: int,
         raise ValueError(f"{b} batch rows exceed the kernel's "
                          f"{lib.repro_kv_pack_max_rows()}")
     es = cache.element_size()
-    row_bytes = h * d * es
-    sl, sb = cache.stride(0) * es, cache.stride(1) * es
+    return lib, h * d * es, cache.stride(0) * es, cache.stride(1) * es
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def _launch(cache: torch.Tensor, starts: Optional[Sequence[int]], t0: int,
+            width: int) -> torch.Tensor:
+    lib, row_bytes, sl, sb = _cache_layout(cache)
+    l, b, _, h, d = cache.shape
     out = torch.empty((l, b, width, h, d), dtype=cache.dtype, device=cache.device)
     vec = _vec_bytes(cache.data_ptr(), out.data_ptr(), row_bytes, sl, sb)
     # host starts: the C side copies them into the launch's parameters
@@ -78,8 +89,7 @@ def _launch(cache: torch.Tensor, starts: Optional[Sequence[int]], t0: int,
     err = lib.repro_kv_pack(
         cache.data_ptr(), out.data_ptr(),
         None if host is None else ctypes.cast(host, ctypes.c_void_p), t0, l, b, sl, sb,
-        row_bytes, width, vec,
-        ctypes.c_void_p(torch.cuda.current_stream(cache.device).cuda_stream))
+        row_bytes, width, vec, _stream(cache))
     _build.check(err, "kv_pack")
     return out
 
@@ -105,3 +115,32 @@ def kv_pack_ragged(cache: torch.Tensor, starts: Sequence[int], *, width: int,
     out = _launch(cache, starts, 0, width)
     LAUNCHES["kv_pack_ragged"] += 1
     return out
+
+
+def check_unpack_args(cache: torch.Tensor, buf: torch.Tensor, t0: int,
+                      token_block: int) -> None:
+    """`check_pack_args` for the inverse copy, plus the buffer's shape."""
+    if buf.dim() != 5 or cache.dim() != 5 or buf.shape[:2] != cache.shape[:2] \
+            or buf.shape[3:] != cache.shape[3:]:
+        raise ValueError(f"buffer {tuple(buf.shape)} does not fit the cache "
+                         f"{tuple(cache.shape)}")
+    check_pack_args(cache, [t0], buf.shape[2], token_block)
+
+
+def kv_unpack(cache: torch.Tensor, buf: torch.Tensor, t0: int, *,
+              token_block: int = 8) -> torch.Tensor:
+    """Write buf [L,B,W,H,D] into cache[:, :, t0:t0+W] in place (CUDA) and
+    return the cache.  t0 and W are multiples of min(token_block, W); the
+    cache may be a view whose [S,H,D] dims are contiguous."""
+    t0 = int(t0)
+    check_unpack_args(cache, buf, t0, token_block)
+    lib, row_bytes, sl, sb = _cache_layout(cache)
+    if buf.device != cache.device or buf.dtype != cache.dtype or not buf.is_contiguous():
+        raise ValueError(f"buf must be a contiguous {cache.dtype} tensor on {cache.device}")
+    l, b, width = buf.shape[:3]
+    vec = _vec_bytes(cache.data_ptr(), buf.data_ptr(), row_bytes, sl, sb)
+    err = lib.repro_kv_unpack(cache.data_ptr(), buf.data_ptr(), t0, l, b, sl, sb, row_bytes,
+                              width, vec, _stream(cache))
+    _build.check(err, "kv_unpack")
+    LAUNCHES["kv_unpack"] += 1
+    return cache

@@ -11,14 +11,55 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import batched_decode_attention
-from repro_torch.kernels.kv_pack import check_pack_args, check_ragged_args, kv_pack, kv_pack_ragged
+from repro_torch.kernels.decode_attention import batched_decode_attention, decode_attention
+from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.kv_pack import (check_pack_args, check_ragged_args,
+                                         check_unpack_args, kv_pack, kv_pack_ragged,
+                                         kv_unpack)
 
 
 def _route(t: torch.Tensor) -> str:
     if t.device.type not in ("cpu", "cuda"):
         raise ValueError(f"repro_torch kernels run on cpu or cuda, not {t.device}")
     return t.device.type
+
+
+def attention_auto(q, k, v, mask=None, bias=None, *, window: int = 0,
+                   num_meta: int = 0):
+    """Whole-prompt attention.  q [B,Sq,Hq,D]; k/v [B,Skv,Hkv,D]; mask
+    [..,Sq,Skv] bool or None; bias as `models.attention.attend` takes it.
+
+    `flash_attention` runs where the layer is plain causal, decided from the
+    layer's configuration (window 0, no meta tokens, no ALiBi bias, Sq ==
+    Skv), never from the mask's shape: a windowed layer builds a mask of the
+    same shape and must not lose its window.  The mask of a plain causal
+    layer is then the causal mask, which the kernel applies itself.  With
+    neither mask nor bias it runs full (non-causal) attention.  Everything
+    else goes to the plain `attend`."""
+    if bias is None and window == 0 and num_meta == 0:
+        if mask is None:
+            return _flash(q, k, v, causal=False)
+        if q.shape[1] == k.shape[1]:
+            return _flash(q, k, v, causal=True)
+    from repro_torch.models.attention import attend
+    return attend(q, k, v, mask=mask, bias=bias)
+
+
+def _flash(q, k, v, *, causal: bool):
+    if _route(q) == "cpu":
+        return ref.flash_attention_ref(q, k, v, causal=causal)
+    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+
+
+def decode_attention_auto(q, k_cache, v_cache, mask):
+    """One-query decode over a dense cache with one validity row shared by
+    the batch.  q [B,1,Hq,D]; k/v [B,S,Hkv,D]; mask [1,S] or [S] bool ->
+    [B,1,Hq,D]."""
+    valid = mask[0] if mask.dim() == 2 else mask
+    if _route(q) == "cpu":
+        return ref.decode_attention_ref(q[:, 0], k_cache, v_cache, valid)[:, None]
+    return decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
+                            valid.contiguous())[:, None]
 
 
 def batched_decode_attention_auto(q, k_cache, v_cache, lengths, *,
@@ -51,3 +92,12 @@ def kv_pack_ragged_auto(cache, starts, width: int, token_block: int = 8):
         check_ragged_args(cache, starts, width, token_block)
         return ref.kv_pack_ragged_ref(cache, starts, width)
     return kv_pack_ragged(cache, starts, width=width, token_block=token_block)
+
+
+def kv_unpack_auto(cache, buf, t0: int, token_block: int = 8):
+    """Write buf [L,B,W,H,D] into the cache window at t0, in place; returns
+    the cache.  t0 and W are multiples of the token block."""
+    if _route(cache) == "cpu":
+        check_unpack_args(cache, buf, int(t0), token_block)
+        return ref.kv_unpack_ref(cache, buf, int(t0))
+    return kv_unpack(cache, buf, t0, token_block=token_block)

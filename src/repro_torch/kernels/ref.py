@@ -27,6 +27,46 @@ def kv_pack_ragged_ref(cache: torch.Tensor, starts: Sequence[int],
     return torch.stack(rows, dim=1)
 
 
+def kv_unpack_ref(cache: torch.Tensor, buf: torch.Tensor, t0: int) -> torch.Tensor:
+    """Write buf [L,B,W,H,D] into cache [L,B,S,H,D] at token t0, in place
+    (the cache may be a view of a larger one).  Returns the cache."""
+    cache[:, :, t0:t0 + buf.shape[2]] = buf.to(cache.dtype)
+    return cache
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                        causal: bool = True) -> torch.Tensor:
+    """q [B,Sq,Hq,D]; k/v [B,Skv,Hkv,D] -> [B,Sq,Hq,D], f32 softmax.  Causal
+    with the offset of a query block at the end of the keys: query i sees
+    keys j <= i + (Skv - Sq)."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, d)
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", qg, k).float() * (d ** -0.5)
+    if causal:
+        mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(skv - sq)
+        scores = torch.where(mask, scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
+    return out.reshape(b, sq, hq, d)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         kv_valid: torch.Tensor) -> torch.Tensor:
+    """q [B,Hq,D]; k/v [B,S,Hkv,D]; kv_valid [S] bool, one validity row
+    shared by every sequence (any pattern, not only a prefix) -> [B,Hq,D]."""
+    b, hq, d = q.shape
+    hkv = k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, hkv, g, d)
+    scores = torch.einsum("bhgd,bkhd->bhgk", qg, k).float() * (d ** -0.5)
+    scores = torch.where(kv_valid.bool(), scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
+    return out.reshape(b, hq, d)
+
+
 def batched_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
                                  v: torch.Tensor, lengths: torch.Tensor,
                                  win_starts: Optional[torch.Tensor] = None,

@@ -1,11 +1,15 @@
 """GQA attention: projections, position-based masks, plain attention and the
 decode paths (counterparts of `repro.models.attention`).
 
-One-query attention (C = 1) goes through the `batched_decode_attention`
-kernel entry point on every path; multi-token chunks use the plain `attend`,
-which the reference also leaves to the compiler.  Masked scores take the
-finite NEG_INF of the reference: a padded query row masked everywhere then
-gives a finite uniform average instead of NaN.
+Kernel routing, as the reference's ``backend="pallas"`` routes it: a whole
+prompt goes through `ops.attention_auto` (the `flash_attention` kernel where
+the layer is plain causal); a one-query step over a cache with one shared
+position row goes through `decode_attention`, with ALiBi through
+`batched_decode_attention`, as does every fused-round step; multi-token
+chunks use the plain `attend`, which the reference also leaves to the
+compiler.  Masked scores take the finite NEG_INF of the reference: a padded
+query row masked everywhere then gives a finite uniform average instead of
+NaN.
 """
 from __future__ import annotations
 
@@ -86,11 +90,27 @@ def alibi_bias(slopes, q_pos, kv_pos):
     return -slopes[None, :, None, None] * dist[:, None]
 
 
+def attention_prefill(x, p, cfg, positions, *, window: int = 0, num_meta: int = 0,
+                      rope: bool = True, alibi: Optional[torch.Tensor] = None):
+    """Causal self-attention over a whole prompt at `positions` [S].
+    Returns (out, k, v), k/v [B,S,Hkv,Dh] for the caller's cache."""
+    q, k, v = qkv_proj(x, p, cfg)
+    if rope:
+        q = apply_rope(q, positions, cfg.rope_theta)
+        k = apply_rope(k, positions, cfg.rope_theta)
+    mask = build_mask(positions, positions, causal=True, window=window, num_meta=num_meta)
+    bias = alibi_bias(alibi, positions, positions) if alibi is not None else None
+    o = kops.attention_auto(q, k, v, mask=mask, bias=bias, window=window,
+                            num_meta=num_meta)
+    return out_proj(o, p), k, v
+
+
 def attention_decode(x, p, cfg, k_cache, v_cache, kv_positions, pos: int, *,
                      window: int = 0, num_meta: int = 0, rope: bool = True,
                      alibi: Optional[torch.Tensor] = None):
-    """One sequence's decode step (C = 1) or prefill chunk (C > 1) at
-    absolute positions pos..pos+C-1 over a cache [B,S,Hkv,Dh].  The chunk's
+    """A decode step (C = 1) or prefill chunk (C > 1) of B sequences that
+    share the positions pos..pos+C-1, over a cache [B,S,Hkv,Dh] whose slot
+    positions are kv_positions [S] (-1 = empty).  The chunk's
     K/V is written into the cache in place at `pos` (clamped to the cache
     end like the reference's dynamic update).  Returns (out, k, v)."""
     b, c, _ = x.shape
@@ -102,9 +122,12 @@ def attention_decode(x, p, cfg, k_cache, v_cache, kv_positions, pos: int, *,
     wi = min(max(pos, 0), k_cache.shape[1] - c)
     k_cache[:, wi:wi + c] = k_new.to(k_cache.dtype)
     v_cache[:, wi:wi + c] = v_new.to(v_cache.dtype)
-    if c == 1:
-        # the single-token case is batched_decode_attention with every
-        # sequence at length pos+1 (no ring buffers on the paged path)
+    if c == 1 and alibi is None:
+        mask = build_mask(posv, kv_positions, causal=True, window=window,
+                          num_meta=num_meta)                         # [1,S]
+        o = kops.decode_attention_auto(q, k_cache, v_cache, mask)
+    elif c == 1:
+        # ALiBi: batched_decode_attention with every sequence at length pos+1
         lengths = torch.full((b,), pos + 1, dtype=torch.int32, device=x.device)
         o = kops.batched_decode_attention_auto(q[:, 0].contiguous(), k_cache, v_cache,
                                                lengths, window=window,

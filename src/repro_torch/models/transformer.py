@@ -5,7 +5,9 @@ Parameters are a nested dict of tensors with the layers stacked ``[L, ...]``,
 the layout of the reference's params pytree, so `repro_torch.bridge` can hand
 the reference's weights over unchanged.  The stage functions run one
 pipeline stage's layer slice; their caches ``[Lstage,B,S,H,D]`` are updated
-in place and also returned, mirroring the reference's signatures.
+in place and also returned, mirroring the reference's signatures.  The
+whole-model `prefill` and `decode_step` are the one-stage case, the oracle
+the serving tests hold the pipeline against.
 """
 from __future__ import annotations
 
@@ -14,20 +16,12 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import not_ported, resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
+from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.models import attention as attn
 from repro_torch.models.common import alibi_slopes, embed_init, norm_apply, norm_init
 from repro_torch.models.mlp import mlp_apply, mlp_init
-
-_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
-
-
-def torch_dtype(name: str) -> torch.dtype:
-    if name not in _DTYPES:
-        raise ValueError(f"dtype {name!r} not served (float32 or bfloat16)")
-    return _DTYPES[name]
-
 
 def _layer_params(layers: Dict, i: int) -> Dict:
     return {k: _layer_params(v, i) if isinstance(v, dict) else v[i]
@@ -87,13 +81,17 @@ class DecoderLM:
     def _final(self, sp, x):
         return self._unembed(sp, norm_apply(self.cfg.norm, x, sp["final_norm"]))
 
-    def _layer(self, x, lp, *, mode, kc, vc, kv_positions, pos, q_lens=None,
-               window=0):
+    def _layer(self, x, lp, *, mode, kc=None, vc=None, kv_positions=None, pos=None,
+               q_lens=None, positions=None, window=0):
+        """One layer.  Returns (x, kc, vc): the caches updated in place, or
+        in "prefill" mode the prompt's own K/V [B,S,H,D]."""
         cfg = self.cfg
         h = norm_apply(cfg.norm, x, lp["ln1"])
         kw = dict(window=window, num_meta=cfg.num_meta_tokens,
                   rope=cfg.pos_emb == "rope", alibi=self._alibi)
-        if mode == "decode_batch":
+        if mode == "prefill":
+            a, kc, vc = attn.attention_prefill(h, lp["attn"], cfg, positions, **kw)
+        elif mode == "decode_batch":
             a, kc, vc = attn.attention_decode_batch(h, lp["attn"], cfg, kc, vc,
                                                     kv_positions, pos,
                                                     q_lens=q_lens, **kw)
@@ -102,12 +100,18 @@ class DecoderLM:
                                               kv_positions, pos, **kw)
         x = x + a
         h = norm_apply(cfg.norm, x, lp["ln2"])
-        return x + mlp_apply(h, lp["mlp"], cfg)
+        return x + mlp_apply(h, lp["mlp"], cfg), kc, vc
 
     def _layers(self, sp, x, kc, vc, **kw):
         for i, w in enumerate(sp["layer_window"]):
-            x = self._layer(x, _layer_params(sp["layers"], i), kc=kc[i], vc=vc[i],
-                            window=w, **kw)
+            x, _, _ = self._layer(x, _layer_params(sp["layers"], i), kc=kc[i], vc=vc[i],
+                                  window=w, **kw)
+        return x
+
+    def _embed(self, sp, tokens):
+        x = F.embedding(tokens, sp["embed"])
+        if self.cfg.pos_emb == "learned":
+            x = x + sp["pos_table"][:tokens.shape[1]][None]
         return x
 
     # ------------------------------------------------------------------
@@ -131,6 +135,23 @@ class DecoderLM:
             elif "lm_head" in params:
                 sp["lm_head"] = params["lm_head"]
         return sp
+
+    def stage_prefill(self, sp, x, *, first: bool, last: bool, tokens=None):
+        """Run one stage over whole prompts at positions 0..S-1 (stage 0
+        takes `tokens` [B,S]).  Returns (x or, on the last stage, the final
+        token's logits [B,V], ks, vs) with ks/vs [Lstage,B,S,H,D]."""
+        if first:
+            x = self._embed(sp, tokens)
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        ks, vs = [], []
+        for i, w in enumerate(sp["layer_window"]):
+            x, k, v = self._layer(x, _layer_params(sp["layers"], i), mode="prefill",
+                                  positions=positions, window=w)
+            ks.append(k)
+            vs.append(v)
+        if last:
+            x = self._final(sp, x[:, -1:, :])[:, 0]
+        return x, torch.stack(ks), torch.stack(vs)
 
     def stage_prefill_chunk(self, sp, x, kc, vc, pos: int, *, first: bool,
                             last: bool, tokens=None):
@@ -209,3 +230,27 @@ class DecoderLM:
             x = x[torch.arange(x.shape[0], device=x.device), rows]
             x = self._final(sp, x[:, None])[:, 0]
         return x, kc, vc
+
+    # ------------------------------------------------------------------
+    # whole-model generation: the one-stage case of the stage API
+    # ------------------------------------------------------------------
+    def prefill(self, params, batch, max_len=None):
+        """batch {"tokens": [B,S]} -> (last-token logits [B,V], decode state
+        {"kv": {"k", "v": [L,B,max_len,H,D]}} holding the prompt's K/V, the
+        next position S)."""
+        tokens = batch["tokens"]
+        b, s = tokens.shape
+        sp = self.slice_params(params, 0, self.cfg.num_layers, first=True, last=True)
+        logits, ks, vs = self.stage_prefill(sp, None, first=True, last=True, tokens=tokens)
+        state = init_decode_state(self.cfg, b, max(max_len or s, s), device=ks.device)
+        state["kv"]["k"][:, :, :s] = ks
+        state["kv"]["v"][:, :, :s] = vs
+        return logits, state, s
+
+    def decode_step(self, params, state, token, pos: int):
+        """token [B] at position `pos` -> (logits [B,V], the state, its cache
+        updated in place)."""
+        sp = self.slice_params(params, 0, self.cfg.num_layers, first=True, last=True)
+        logits, _, _ = self.stage_decode(sp, None, state["kv"]["k"], state["kv"]["v"],
+                                         int(pos), first=True, last=True, token=token)
+        return logits, state

@@ -77,6 +77,81 @@ def test_kv_pack_kernels_match_plain_bit_for_bit(cuda, dtype):
     assert LAUNCHES["kv_pack_ragged"] == n0["kv_pack_ragged"] + 1
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
+    (2, 64, 64, 4, 2, 16, True),                 # GQA, one tile
+    (1, 100, 100, 6, 2, 32, True),               # ragged tails
+    (2, 24, 96, 4, 4, 16, True),                 # a query block at the end of the keys
+    (1, 70, 50, 2, 1, 64, False),                # full attention, Sq > Skv
+    (2, 130, 130, 25, 25, 64, True),             # gpt2 heads
+    (1, 65, 65, 8, 2, 128, True),                # head dim 128: dynamic shared memory
+])
+def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(1)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    n0 = LAUNCHES["flash_attention"]
+    mask = None
+    if causal:
+        mask = torch.ones(sq, skv, dtype=torch.bool, device=cuda).tril(skv - sq)
+    if sq == skv or not causal:
+        out = ops.attention_auto(q, k, v, mask=mask)
+    else:
+        from repro_torch.kernels.flash_attention import flash_attention
+        out = flash_attention(q, k, v, causal=True)
+    assert LAUNCHES["flash_attention"] == n0 + 1
+    exp = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["prefix", "window_meta", "scattered", "one_slot"])
+@pytest.mark.parametrize("b,s,hq,hkv,d", [(2, 96, 4, 2, 16), (3, 200, 25, 25, 64),
+                                          (1, 130, 32, 1, 128)])
+def test_decode_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, kind, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, 1, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    pos = torch.arange(s, device=cuda)
+    valid = {"prefix": pos < s - 7,
+             "window_meta": (pos <= s - 20) & ((pos > s - 60) | (pos < 4)),
+             "scattered": torch.rand(s, generator=g, device=cuda) < 0.3,
+             "one_slot": pos == s // 2}[kind]
+    valid[s // 2] = True
+    n0 = LAUNCHES["decode_attention"]
+    out = ops.decode_attention_auto(q, k, v, valid[None])
+    assert LAUNCHES["decode_attention"] == n0 + 1
+    exp = ref.decode_attention_ref(q[:, 0], k, v, valid)[:, None]
+    torch.cuda.synchronize()
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+def test_decode_attention_row_without_a_valid_key_is_zero(cuda):
+    q, k = torch.randn(2, 4, 16, device=cuda), torch.randn(2, 70, 2, 16, device=cuda)
+    from repro_torch.kernels.decode_attention import decode_attention
+    out = decode_attention(q, k, k, torch.zeros(70, dtype=torch.bool, device=cuda))
+    torch.cuda.synchronize()
+    assert not out.any()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_kv_unpack_kernel_matches_plain_bit_for_bit(cuda, dtype):
+    cache = torch.randn(3, 4, 64, 5, 16, device=cuda).to(dtype)
+    buf = torch.randn(3, 4, 24, 5, 16, device=cuda).to(dtype)
+    mine, plain = cache.clone(), cache.clone()
+    n0 = LAUNCHES["kv_unpack"]
+    assert ops.kv_unpack_auto(mine, buf, 16) is mine
+    assert torch.equal(mine, ref.kv_unpack_ref(plain, buf, 16))
+    # a layer-and-row view of the cache, as the disaggregated landing writes
+    part = torch.randn(2, 1, 8, 5, 16, device=cuda).to(dtype)
+    ops.kv_unpack_auto(mine[1:3, 2:3], part, 56)
+    ref.kv_unpack_ref(plain[1:3, 2:3], part, 56)
+    assert torch.equal(mine, plain)
+    assert LAUNCHES["kv_unpack"] == n0 + 2
+
+
 def test_kernels_refuse_what_they_do_not_take(cuda):
     q = torch.zeros(1, 4, 12, device=cuda)                     # D % 8 != 0
     k = torch.zeros(1, 8, 2, 12, device=cuda)
@@ -93,7 +168,7 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
 def test_engine_on_the_card_gives_the_cpu_tokens(cuda):
     """Reduced gpt2-1.5b, fp32, 2 stage workers: the same weights and trace
     through the engine on the card and on the CPU give the same tokens, and
-    the card's run went through every kernel."""
+    the card's run went through every kernel of that path."""
     cfg = dataclasses.replace(get_arch("gpt2-1.5b").reduced(), dtype="float32")
     params = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
@@ -108,5 +183,29 @@ def test_engine_on_the_card_gives_the_cpu_tokens(cuda):
         launched[dev] = {k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
     assert reps["cuda"].tokens == reps["cpu"].tokens
     assert reps["cuda"].pass_trace == reps["cpu"].pass_trace
-    assert all(n > 0 for n in launched["cuda"].values()), launched["cuda"]
+    # the kernels of the continuous-batching path (run() has its own test)
+    assert all(launched["cuda"][k] > 0 for k in
+               ("batched_decode_attention", "kv_pack_ragged", "kv_pack")), launched["cuda"]
     assert not any(launched["cpu"].values())
+
+
+def test_run_on_the_card_gives_the_cpu_tokens(cuda):
+    """run() in each mode on the card and on the CPU, same weights and
+    trace: the same tokens and bytes moved, through the run() kernels."""
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b").reduced(), dtype="float32",
+                              num_layers=4)
+    params = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (4, 12)).astype(np.int32)
+    for n, kw, kernel in ((2, {}, "flash_attention"), (2, {"swapping": True}, "kv_pack"),
+                          (4, {"mode": "disaggregated", "dp_split": (1, 3)}, "kv_unpack")):
+        reps, launched = {}, {}
+        for dev in ("cpu", "cuda"):
+            reqs = [Request(rid=i, prompt=p.copy(), max_new=6) for i, p in enumerate(prompts)]
+            eng = ServingEngine(cfg, DecoderLM(cfg, device=dev), params, n, microbatch=2,
+                                device=dev, **kw)
+            n0 = dict(LAUNCHES)
+            reps[dev] = (eng.run(reqs).tokens, eng.transfer_summary())
+            launched[dev] = {k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
+        assert reps["cuda"] == reps["cpu"], kw
+        assert launched["cuda"][kernel] > 0 and launched["cuda"]["decode_attention"] > 0
+        assert not any(launched["cpu"].values())

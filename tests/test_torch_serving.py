@@ -226,13 +226,17 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(name, models, monkeyp
         ENTRY_POINTS[name](tm, tp)
 
 
+# the test's base is paged=True: swapping and disaggregation are served on
+# the microbatch run() path (tests/test_torch_microbatch.py) but not yet on
+# the paged path; that path and whole-prompt prefill are left without
+# replication and tiers
 LEFT_OUT = {
     "replication": dict(replication=True),
     "swapping": dict(swapping=True),
     "tiered": dict(tiered=True),
     "disaggregated": dict(mode="disaggregated", dp_split=(1, 1)),
-    "microbatch_run_path": dict(paged=False),
-    "whole_prompt_prefill": dict(prefill_chunk_tokens=0),
+    "microbatch_run_path": dict(paged=False, replication=True),
+    "whole_prompt_prefill": dict(prefill_chunk_tokens=0, tiered=True),
 }
 
 
@@ -246,11 +250,13 @@ def test_knobs_left_out_of_this_slice_raise(knob, models):
 
 
 def test_run_and_fault_injection_raise(models):
+    """run() serves, but not its fault injection, migration or repartition."""
     _, _, tm, tp = models
     eng = ServingEngine(TCFG, tm, tp, 2, paged=True, device="cpu")
     reqs = [Request(rid=0, prompt=np.arange(5, dtype=np.int32), max_new=2)]
-    with pytest.raises(NotImplementedError):
-        eng.run(reqs)
+    for kw in (dict(fail_at={1: 0}), dict(migrate_at={2: 1}), dict(repartition_at={2: 1})):
+        with pytest.raises(NotImplementedError, match=next(iter(kw))):
+            eng.run(reqs, **kw)
     with pytest.raises(NotImplementedError, match="fail_at"):
         eng.run_continuous(reqs, fail_at={1: 0})
     with pytest.raises(NotImplementedError, match="family"):

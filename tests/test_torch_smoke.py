@@ -17,6 +17,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_arch  # noqa: E402
+from repro_torch.models.transformer import DecoderLM  # noqa: E402
 
 ROOT = Path(__file__).resolve().parents[1]
 
@@ -59,6 +60,41 @@ def test_serve_phase_counts_passes(smoke):
     # pass of its own: one more pass through the one-token attention kernel
     assert pc["one_token"] == pc["fused_decode"] + 1
     assert res["median_decode_pass_ms"] > 0 and eng.cluster.fused_ok
+
+
+def test_mb_parity_phase_modes_agree(smoke):
+    """The microbatch parity phase at a tiny width: every run() mode and
+    run_continuous give one set of tokens, and swapping and disaggregation
+    really moved bytes."""
+    cfg = _cfg(num_layers=2, dtype="float32")
+    res = smoke.run_mb_parity(cfg, lambda: smoke._requests([8] * 4, 4, cfg.vocab_size,
+                                                           seed=4), card="cpu")
+    toks = res["colocated"]["tokens"]
+    assert all(res[m]["tokens"] == toks for m in smoke.MB_MODES)
+    assert res["run_continuous_tokens"] == toks
+    assert res["swapping"]["transfer_bytes"]["hostlink"] > 0
+    assert res["disaggregated"]["transfer_bytes"]["net"] > 0
+    assert res["colocated"]["max_abs_logit_diff"] == 0.0
+
+
+@pytest.mark.parametrize("mode", ["colocated", "swapping", "disaggregated"])
+def test_mb_serve_phase_counts_passes(smoke, mode):
+    cfg = _cfg(num_layers=4, dtype="bfloat16")
+    model = DecoderLM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    res, eng = smoke.run_mb_serve(cfg, "cpu", model, params, 4, 24, 5, 2,
+                                  smoke.MB_MODES[mode], sync=lambda: None)
+    pc = res["pass_counts"]
+    assert res["tokens_generated"] == 4 * 5
+    assert pc["mb_prefill"] == res["prefill_passes"] == 2
+    assert pc["mb_decode"] == res["decode_passes"] == 2 * 4
+    want = smoke.mb_expected_launches(eng, pc)
+    assert want["flash_attention"] == 4 * 2 and want["decode_attention"] == 4 * 8
+    assert want["kv_pack"] == {"colocated": 0, "swapping": 2 * 2 * 8,
+                               "disaggregated": 2 * 2}[mode]
+    assert want["kv_unpack"] == (2 * 2 if mode == "disaggregated" else 0)
+    assert (res["transfer_bytes"]["hostlink"] > 0) == (mode == "swapping")
+    assert (res["transfer_bytes"]["net"] > 0) == (mode == "disaggregated")
 
 
 def test_without_a_card_the_script_prints_no_result(smoke, monkeypatch, capsys):
