@@ -27,6 +27,14 @@ Phases, each printing one JSON line with its seconds:
                prompts in microbatches of 4 through `run()`, colocated, then
                with swapping and disaggregated.  Launch counts must match
                the passes, as in ``serve``.
+7. ``ssm_parity`` the Model API (`prefill`, then `decode_step`) of
+               mamba2-780m (2 layers) and hymba-1.5b (3 layers, one global)
+               at full width, fp32: the card against the port on the CPU,
+               same seeded weights.  Greedy tokens must be identical.
+8. ``ssm_serve`` mamba2-780m (48 layers) and hymba-1.5b (32 layers) in
+               bf16 through prefill and the decode_step loop.  The launches
+               of ``ssd_scan`` (and Hymba's ``decode_attention``) must match
+               the prefill calls and decode steps.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
@@ -48,7 +56,8 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
-PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve")
+PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
+          "ssm_serve")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -131,6 +140,7 @@ def phase_kernels(state: dict) -> dict:
     from repro_torch.kernels.decode_attention import batched_decode_attention, decode_attention
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged, kv_unpack
+    from repro_torch.kernels.ssd_scan import ssd_scan
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -138,13 +148,13 @@ def phase_kernels(state: dict) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     rows, checks = {}, []
 
-    def held(kernel, name, out, exp, tname):
+    def held(kernel, name, out, exp, tname, tol=TOL):
         """Max |err| of a kernel's output against its plain version, checked
         against the dtype's band."""
         err = (out.float() - exp.float()).abs().max().item()
         checks.append({"case": f"{kernel} {name}", "dtype": tname, "max_abs_err": err,
-                       "tol": TOL[tname]})
-        check(err <= TOL[tname], f"{kernel} {name} {tname}: max |err| {err} > {TOL[tname]}")
+                       "tol": tol[tname]})
+        check(err <= tol[tname], f"{kernel} {name} {tname}: max |err| {err} > {tol[tname]}")
         return err
 
     def attn_case(name, b, hq, hkv, d, s, lengths, dtype, win=None, meta=0,
@@ -261,6 +271,10 @@ def phase_kernels(state: dict) -> dict:
     for dt in (torch.float32, torch.bfloat16):      # a query block at the end of the keys
         flash_case("sq_lt_skv", 2, 100, 512, 25, 25, 64, dt)
         flash_case("gqa_head16_full", 2, 70, 70, 4, 2, 16, dt, causal=False)
+    # Hymba's full-attention layers, 25:5 GQA over 128 meta + prompt tokens:
+    # the ssm_serve prefill (bf16) and the ssm_parity one (fp32)
+    flash_case("hymba_full_layer", 4, 1664, 1664, 25, 5, 64, torch.bfloat16)
+    flash_case("hymba_full_layer", 2, 1228, 1228, 25, 5, 64, torch.float32)
 
     def decode_case(name, b, s, hq, hkv, d, valid, dtype, time_it=False):
         q = torch.randn(b, hq, d, generator=g, device=dev).to(dtype)
@@ -311,8 +325,70 @@ def phase_kernels(state: dict) -> dict:
         "bound_ms": bms, "bound_by": by,
         "max_abs_err": (mine.float() - plain.float()).abs().max().item(),
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 t0 0 width {W}"}
+
+    def ssd_case(name, b, s, nh, hd, ng, n, dtype, with_h0=False, time_it=False):
+        # scaled so that |y| stays below 4, where one bf16 step (1/64) is
+        # inside the 2e-2 band: kernel and plain version round their f32
+        # results to bf16 on their own, and may land one step apart
+        x = (0.5 * torch.randn(b, s, nh, hd, generator=g, device=dev)).to(dtype)
+        dt = F.softplus(torch.randn(b, s, nh, generator=g, device=dev))
+        a_neg = -torch.exp(0.3 * torch.randn(nh, generator=g, device=dev))
+        bm = (0.25 * torch.randn(b, s, ng, n, generator=g, device=dev)).to(dtype)
+        cm = (0.25 * torch.randn(b, s, ng, n, generator=g, device=dev)).to(dtype)
+        h0 = (0.1 * torch.randn(b, nh, hd, n, generator=g, device=dev)) if with_h0 else None
+        q = min(128, s)
+        tname = str(dtype).replace("torch.", "")
+        y, hf = ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q)
+        ye, he = ref.ssd_scan_ref(x, dt, a_neg, bm, cm, h0=h0, chunk=q)
+        tag = f"{name}{' h0' if with_h0 else ''}"
+        # h_final is f32 on both sides whatever x's dtype: the f32 band
+        err = max(held("ssd_scan", f"{tag} y", y, ye, tname, SSD_TOL),
+                  held("ssd_scan", f"{tag} h_final", hf, he, "float32", SSD_TOL))
+        if not time_it:
+            return
+        fl = ssd_flops(b, s, nh, hd, ng, n, q)
+        es = x.element_size()
+        nbytes = (2 * x.numel() * es + (bm.numel() + cm.numel()) * es + 4 * dt.numel()
+                  + 4 * nh + 4 * hf.numel() * (2 if with_h0 else 1))
+        bms, by = bound_ms(nbytes, fl, tname)
+        rows["ssd_scan"] = {
+            "ms": cuda_ms(lambda: ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q)),
+            "plain_ms": cuda_ms(lambda: ref.ssd_scan_ref(x, dt, a_neg, bm, cm, h0=h0,
+                                                         chunk=q), iters=10),
+            "library_ms": None,       # no one PyTorch call computes the SSD scan
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err, "flops": fl,
+            "bytes": nbytes,
+            "shape": f"x[{b},{s},{nh},{hd}] B/C[{b},{s},{ng},{n}] {tname} chunk {q}"
+                     f"{' h0' if with_h0 else ''}"}
+
+    # the mamba2-780m ssm_serve prefill: 8 prompts of 512 tokens, 48 heads of
+    # 64, one group of state 128; with and without an initial state
+    for dt_ in (torch.float32, torch.bfloat16):
+        for h0_ in (False, True):
+            ssd_case("mamba2_prefill", 8, 512, 48, 64, 1, 128, dt_, with_h0=h0_,
+                     time_it=dt_ == torch.bfloat16 and not h0_)
+        ssd_case("ragged_s200", 4, 200, 48, 64, 1, 128, dt_, with_h0=True)
+        ssd_case("groups2_s50", 2, 50, 4, 16, 2, 8, dt_)
+    # the hymba-1.5b ssm_serve prefill: 4 x (128 meta + 1536) tokens, 50 heads, N 16
+    ssd_case("hymba_prefill", 4, 1664, 50, 64, 1, 16, torch.bfloat16)
     state["kernel_rows"] = rows
     return {"checks": checks, "timed": rows}
+
+
+SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py SSD band
+
+
+def ssd_flops(b: int, s: int, nh: int, hd: int, ng: int, n: int, q: int) -> float:
+    """Operations the chunked SSD needs for these shapes: per chunk of m
+    rows, C.B^T over the m(m+1)/2 causal pairs once per group, and per head
+    the intra-chunk product over those pairs, the read-out of the incoming
+    state and the state update (two flops per multiply-add)."""
+    total = 0.0
+    for t0 in range(0, s, q):
+        m = min(q, s - t0)
+        pairs = m * (m + 1) / 2
+        total += b * (ng * 2 * pairs * n + nh * (2 * pairs * hd + 4 * m * hd * n))
+    return total
 
 
 # ---------------------------------------------------------------------------
@@ -497,8 +573,8 @@ def profile_serve(eng, cfg, out_dir: Path) -> dict:
     """Device time by kernel over a short serve window (8 requests of 128
     prompt tokens, 8 new tokens each).  The table goes to
     `out_dir`/serve_profile.txt."""
-    return _profile(lambda: eng.run_continuous(_requests([128] * 8, 8, cfg.vocab_size,
-                                                         seed=11), max_active=8),
+    return _profile(lambda: _passes(eng.run_continuous(
+                        _requests([128] * 8, 8, cfg.vocab_size, seed=11), max_active=8)),
                     out_dir / "serve_profile.txt",
                     {"batched_decode_attention": ("batched_decode",),
                      "kv_pack": ("kv_pack", "window_copy"),
@@ -506,8 +582,14 @@ def profile_serve(eng, cfg, out_dir: Path) -> dict:
                      "gather_scatter": ("index", "gather", "scatter")})
 
 
+def _passes(rep) -> int:
+    """Pipeline passes of an engine report."""
+    return sum(n for k, n in rep.pass_counts.items() if k != "one_token")
+
+
 def _profile(window_fn, table: Path, groups: dict) -> dict:
-    """Run `window_fn` once plainly for its wall time, then again under
+    """Run `window_fn` (which returns the pipeline passes or model calls it
+    ran) once plainly for its wall time, then again under
     torch.profiler for the kernels' device time.  The busy share divides the
     second by the first (the profiler's own host cost would inflate a
     profiled wall time).  Device time is summed by name `groups`."""
@@ -538,8 +620,7 @@ def _profile(window_fn, table: Path, groups: dict) -> dict:
     by_group = {g: sum(us for k, us, _ in kernels if any(m in k.lower() for m in ms))
                 for g, ms in groups.items()}
     by_group["other"] = dev_us - sum(by_group.values())
-    passes = sum(n for k, n in rep.pass_counts.items() if k != "one_token")
-    return {"window_wall_ms": wall_us / 1e3, "window_passes": passes,
+    return {"window_wall_ms": wall_us / 1e3, "window_calls": rep,
             "device_ms": dev_us / 1e3, "device_busy_share": dev_us / wall_us,
             "device_launches": sum(n for _, _, n in kernels),
             "device_ms_by_group": {g: us / 1e3 for g, us in by_group.items()},
@@ -723,12 +804,231 @@ def profile_mb(model, params, cfg, out_dir: Path) -> dict:
     from repro_torch.serving import ServingEngine
     eng = ServingEngine(cfg, model, params, 2, microbatch=4, device="cuda")
     eng.run(_requests([16] * 4, 3, cfg.vocab_size, seed=7))          # warm-up
-    return _profile(lambda: eng.run(_requests([512] * 4, 8, cfg.vocab_size, seed=11)),
+    return _profile(lambda: _passes(eng.run(_requests([512] * 4, 8, cfg.vocab_size,
+                                                      seed=11))),
                     out_dir / "mb_profile.txt",
                     {"flash_attention": ("flash_kernel",),
                      "decode_attention": ("batched_decode",), "kv_pack": ("kv_pack", "window_copy"),
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
                      "gather_scatter": ("index", "gather", "scatter")})
+
+
+# ---------------------------------------------------------------------------
+# phases 7 and 8: the Mamba-2 and Hymba families through prefill / decode_step
+# ---------------------------------------------------------------------------
+
+def _to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)
+
+
+def generate(model, params, prompts, max_new: int, sync, pre_ms=None, dec_ms=None):
+    """Greedy generation through the Model API: one `prefill` of the prompts
+    [B,S] and `max_new - 1` decode steps.  Returns (tokens [B,max_new], the
+    logits rows on the CPU, the final decode state), the host times of each
+    call appended to `pre_ms` / `dec_ms`."""
+    import torch
+    pre_ms = [] if pre_ms is None else pre_ms
+    dec_ms = [] if dec_ms is None else dec_ms
+    tokens = torch.as_tensor(prompts, device=model.device)
+    max_len = model.cfg.context_overhead + tokens.shape[1] + max_new
+    sync()
+    t = time.perf_counter()
+    logits, state, pos = model.prefill(params, {"tokens": tokens}, max_len=max_len)
+    sync()
+    pre_ms.append((time.perf_counter() - t) * 1e3)
+    out, rows = [], []
+    for i in range(max_new):
+        rows.append(logits.float().cpu())
+        tok = logits.argmax(-1).to(torch.int32)
+        out.append(tok)
+        if i == max_new - 1:
+            break
+        t = time.perf_counter()
+        logits, state = model.decode_step(params, state, tok, pos)
+        sync()
+        dec_ms.append((time.perf_counter() - t) * 1e3)
+        pos += 1
+    return torch.stack(out, dim=1).cpu(), rows, state
+
+
+def _shapes(state):
+    if isinstance(state, dict):
+        return {k: _shapes(v) for k, v in state.items()}
+    return [list(state.shape), str(state.dtype)]
+
+
+def run_ssm_parity(cfg, n_prompts: int, plen: int, max_new: int, card: str) -> dict:
+    """One model and seeded weights through prefill and greedy decode on the
+    CPU and on `card`; tokens, state shapes and launches are compared."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kvcache.cache import state_bytes
+    from repro_torch.models import build_model
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(6).integers(0, cfg.vocab_size, (n_prompts, plen))
+    runs = {}
+    for dev in ("cpu", card):
+        sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+        reset_launches()
+        t = time.perf_counter()
+        toks, rows, st = generate(build_model(cfg, device=dev), _to(params, dev), prompts,
+                                  max_new, sync)
+        runs[dev] = {"tokens": toks, "rows": rows, "shapes": _shapes(st),
+                     "state_bytes": state_bytes(st), "launches": dict(LAUNCHES),
+                     "seconds": time.perf_counter() - t}
+    cpu, other = runs["cpu"], runs[card]
+    check(torch.equal(cpu["tokens"], other["tokens"]),
+          f"{cfg.name}: card tokens {other['tokens'].tolist()} differ from CPU tokens "
+          f"{cpu['tokens'].tolist()}")
+    check(cpu["shapes"] == other["shapes"], f"{cfg.name}: card and CPU states differ in shape")
+    check(not any(cpu["launches"].values()), "a kernel launched on the CPU run")
+    diff = max((a - b).abs().max().item() for a, b in zip(cpu["rows"], other["rows"]))
+    return {"tokens": other["tokens"].tolist(), "max_abs_logit_diff": diff,
+            "state_bytes": {"cpu": cpu["state_bytes"], "card": other["state_bytes"]},
+            "state_shapes": other["shapes"], "launches": other["launches"],
+            "cpu_s": cpu["seconds"], "card_s": other["seconds"]}
+
+
+SSM_PARITY = {              # name -> (config changes, prompts, prompt tokens)
+    "mamba2-780m": ({"num_layers": 2}, 4, 200),
+    # 128 meta + 1100 prompt tokens wrap the 1152-slot ring during prefill
+    "hymba-1.5b": ({"num_layers": 3, "full_attn_layers": (0,)}, 2, 1100),
+}
+
+
+def phase_ssm_parity(state: dict) -> dict:
+    import torch
+
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {}
+    for name, (kw, n, plen) in SSM_PARITY.items():
+        cfg = dataclasses.replace(get_arch(name), dtype="float32", **kw)
+        res = run_ssm_parity(cfg, n, plen, 8, "cuda")
+        check(res["launches"]["ssd_scan"] == cfg.num_layers,
+              f"{name}: {res['launches']['ssd_scan']} ssd_scan launches for "
+              f"{cfg.num_layers} layers and one prefill")
+        if cfg.family == "hybrid":
+            check(res["launches"]["decode_attention"] == cfg.num_layers * 7,
+                  f"{name}: decode_attention launched {res['launches']['decode_attention']} "
+                  "times for 7 decode steps")
+            check(res["launches"]["flash_attention"] == len(cfg.full_attn_layers),
+                  f"{name}: flash_attention launched {res['launches']['flash_attention']} "
+                  f"times for {len(cfg.full_attn_layers)} full-attention layers")
+        out[name] = {"config": f"{name} full width, {cfg.num_layers} layers, fp32",
+                     "prompts": n, "prompt_len": plen, "max_new": 8,
+                     "tokens_identical": True, **res}
+    return out
+
+
+def ssm_expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """One ssd_scan per layer per prefill; Hymba also runs one
+    flash_attention per full-attention layer per prefill and one
+    decode_attention per layer per decode step."""
+    from repro_torch.kernels import KERNELS
+    want = dict.fromkeys(KERNELS, 0)
+    want["ssd_scan"] = cfg.num_layers * prefills
+    if cfg.family == "hybrid":
+        want["flash_attention"] = len(cfg.full_attn_layers) * prefills
+        want["decode_attention"] = cfg.num_layers * decode_steps
+    return want
+
+
+def run_ssm_serve(cfg, dev: str, model, params, n_requests: int, plen: int, max_new: int,
+                  repeats: int, sync) -> dict:
+    """`repeats` generations of `n_requests` prompts of `plen` tokens after a
+    warm-up; tokens/s, median call times, state bytes and launch counts."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kvcache.cache import state_bytes
+    rng = np.random.default_rng(8)
+    # warm-up: library handles and the first launch of every path
+    generate(model, params, rng.integers(0, cfg.vocab_size, (n_requests, 16)), 3, sync)
+    pre_ms, dec_ms = [], []
+    prompts = rng.integers(0, cfg.vocab_size, (n_requests, plen))
+    reset_launches()
+    sync()
+    t = time.perf_counter()
+    for _ in range(repeats):
+        toks, _, st = generate(model, params, prompts, max_new, sync, pre_ms, dec_ms)
+    wall = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    check(toks.shape == (n_requests, max_new), f"tokens of shape {tuple(toks.shape)}")
+    finite = all(bool(torch.isfinite(v).all()) for v in (st["ssd"], st["conv"]))
+    check(finite, "non-finite decode state")
+    if dev != "cpu":
+        want = ssm_expected_launches(cfg, len(pre_ms), len(dec_ms))
+        check(launches == want, f"launches {launches}, the calls say {want}")
+    gen = repeats * n_requests * max_new
+    return {"requests": n_requests, "prompt_len": plen, "max_new": max_new,
+            "repeats": repeats, "wall_s": wall, "tokens_generated": gen,
+            "tokens_per_s": gen / wall, "prefill_ms": pre_ms,
+            "median_prefill_ms": statistics.median(pre_ms),
+            "median_decode_step_ms": statistics.median(dec_ms),
+            "prefill_calls": len(pre_ms), "decode_steps": len(dec_ms),
+            "state_bytes": state_bytes(st),
+            "state_bytes_per_sequence": state_bytes(st) / n_requests, "launches": launches}
+
+
+SSM_SERVE = {               # name -> (requests, prompt tokens)
+    "mamba2-780m": (8, 512),
+    "hymba-1.5b": (4, 1536),
+}
+
+
+def phase_ssm_serve(state: dict) -> dict:
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    out = {}
+    ssd_launches = 0
+    for name, (n, plen) in SSM_SERVE.items():
+        cfg = dataclasses.replace(get_arch(name), dtype="bfloat16")
+        t = time.perf_counter()
+        model = build_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        torch.cuda.reset_peak_memory_stats()
+        res = run_ssm_serve(cfg, "cuda", model, params, n, plen, 32, 3, torch.cuda.synchronize)
+        out[name] = {"config": f"{name}, {cfg.num_layers} layers, bf16", "init_s": init_s,
+                     **res, "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        ssd_launches += res["launches"]["ssd_scan"]
+        if cfg.family == "hybrid":     # where mb_serve did not run, these are the path's
+            for k in ("flash_attention", "decode_attention"):
+                state["launches"].setdefault(k, res["launches"][k])
+        if state.get("profile"):
+            out[name]["profile"] = profile_ssm(model, params, n, plen, state["out"])
+        del model, params
+    state["launches"]["ssd_scan"] = ssd_launches
+    return out
+
+
+def profile_ssm(model, params, n: int, plen: int, out_dir: Path) -> dict:
+    """Device time by kernel over one generation (n prompts of plen tokens,
+    8 new tokens: one prefill and seven decode steps), as `profile_serve`
+    does for the paged path.  The table goes to
+    `out_dir`/<model>_profile.txt."""
+    import numpy as np
+    import torch
+    prompts = np.random.default_rng(11).integers(0, model.cfg.vocab_size, (n, plen))
+
+    def window():
+        generate(model, params, prompts, 8, torch.cuda.synchronize)
+        return 8
+    return _profile(window, out_dir / f"{model.cfg.name}_profile.txt",
+                    {"ssd_scan": ("ssd_kernel",), "flash_attention": ("flash_kernel",),
+                     "decode_attention": ("batched_decode",),
+                     "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
+                     "softmax": ("softmax",)})
 
 
 KERNEL_META = {
@@ -744,6 +1044,8 @@ KERNEL_META = {
                         "src/repro/kernels/flash_attention.py:60"),
     "kv_unpack": ("src/repro_torch/kernels/csrc/kv_pack.cu",
                   "src/repro/kernels/kv_pack.py:92"),
+    "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
+                 "src/repro/kernels/ssd_scan.py:65"),
 }
 
 
@@ -752,8 +1054,8 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve and mb_serve phases, profile a short window "
-                         "of each")
+                    help="after the serve, mb_serve and ssm_serve phases, profile a "
+                         "short window of each")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for the build log and the profile table")
     args = ap.parse_args()
@@ -775,7 +1077,8 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(SRC))
     fns = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
-           "serve": phase_serve, "mb_parity": phase_mb_parity, "mb_serve": phase_mb_serve}
+           "serve": phase_serve, "mb_parity": phase_mb_parity, "mb_serve": phase_mb_serve,
+           "ssm_parity": phase_ssm_parity, "ssm_serve": phase_ssm_serve}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     if "env" not in phases:
         phases.insert(0, "env")

@@ -78,6 +78,24 @@ class ArchConfig:
     def is_moe(self) -> bool:
         return self.num_experts > 0
 
+    @property
+    def context_overhead(self) -> int:
+        """Non-text context slots prepended to the prompt (patches/meta)."""
+        return self.num_patches + self.num_meta_tokens
+
+    @property
+    def is_attention_free(self) -> bool:
+        return self.family == "ssm"
+
+    @property
+    def d_inner(self) -> int:
+        """Mamba inner width."""
+        return self.ssm_expand * self.d_model
+
+    @property
+    def ssm_nheads(self) -> int:
+        return self.d_inner // self.ssm_head_dim
+
     def reduced(self) -> "ArchConfig":
         """Smoke-test scale config of the same family (CPU-runnable)."""
         kw = dict(

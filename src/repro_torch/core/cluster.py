@@ -60,7 +60,10 @@ class DejaVuCluster:
         if mode == "disaggregated" and (dp_split is None or sum(dp_split) != n_workers):
             raise ValueError(f"disaggregated mode needs dp_split summing to {n_workers}, "
                              f"got {dp_split}")
-        not_ported(**{"replication": replication, "compress_replicas": compress_replicas,
+        # the stage API (slice_params, stage_prefill, ...) exists for the dense
+        # family only; MambaLM and HybridLM serve through prefill/decode_step
+        not_ported(**{f"family={cfg.family} in the cluster": cfg.family != "dense",
+                      "replication": replication, "compress_replicas": compress_replicas,
                       "tiered": tiered, "host_cache_blocks": host_cache_blocks,
                       "ssd_cache_blocks": ssd_cache_blocks,
                       "swapping with paged=True": swapping and paged,

@@ -10,7 +10,7 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack", "decode_attention",
-           "flash_attention", "kv_unpack")
+           "flash_attention", "kv_unpack", "ssd_scan")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

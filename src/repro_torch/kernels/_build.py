@@ -20,7 +20,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kv_pack", "decode_attention", "flash_attention")
+SOURCES = ("kv_pack", "decode_attention", "flash_attention", "ssd_scan")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -46,6 +46,11 @@ _SIGNATURES = {
         "repro_flash_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _vp]),
         "repro_flash_attention_smem": (_ll, [_i]),
+    },
+    "ssd_scan": {
+        "repro_ssd_scan": (
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp]),
+        "repro_ssd_scan_smem": (_ll, [_i, _i, _i]),
     },
 }
 

@@ -16,6 +16,7 @@ from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.kv_pack import (check_pack_args, check_ragged_args,
                                          check_unpack_args, kv_pack, kv_pack_ragged,
                                          kv_unpack)
+from repro_torch.kernels.ssd_scan import ssd_scan
 
 
 def _route(t: torch.Tensor) -> str:
@@ -24,19 +25,20 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def attention_auto(q, k, v, mask=None, bias=None, *, window: int = 0,
-                   num_meta: int = 0):
+def attention_auto(q, k, v, mask=None, bias=None, *, window: int = 0):
     """Whole-prompt attention.  q [B,Sq,Hq,D]; k/v [B,Skv,Hkv,D]; mask
     [..,Sq,Skv] bool or None; bias as `models.attention.attend` takes it.
 
     `flash_attention` runs where the layer is plain causal, decided from the
-    layer's configuration (window 0, no meta tokens, no ALiBi bias, Sq ==
-    Skv), never from the mask's shape: a windowed layer builds a mask of the
-    same shape and must not lose its window.  The mask of a plain causal
-    layer is then the causal mask, which the kernel applies itself.  With
-    neither mask nor bias it runs full (non-causal) attention.  Everything
-    else goes to the plain `attend`."""
-    if bias is None and window == 0 and num_meta == 0:
+    layer's configuration (window 0, no ALiBi bias, Sq == Skv), never from
+    the mask's shape: a windowed layer builds a mask of the same shape and
+    must not lose its window.  Meta tokens matter only beside a window (they
+    stay visible from outside it, `build_mask`), so a full-attention layer of
+    a meta-token model (Hymba's) is plain causal and runs the kernel too.
+    The mask of a plain causal layer is then the causal mask, which the
+    kernel applies itself.  With neither mask nor bias it runs full
+    (non-causal) attention.  Everything else goes to the plain `attend`."""
+    if bias is None and window == 0:
         if mask is None:
             return _flash(q, k, v, causal=False)
         if q.shape[1] == k.shape[1]:
@@ -101,3 +103,14 @@ def kv_unpack_auto(cache, buf, t0: int, token_block: int = 8):
         check_unpack_args(cache, buf, int(t0), token_block)
         return ref.kv_unpack_ref(cache, buf, int(t0))
     return kv_unpack(cache, buf, t0, token_block=token_block)
+
+
+def ssd_auto(x, dt, a_neg, bmat, cmat, chunk: int = 128, h0=None):
+    """Chunked Mamba-2 SSD in chunks of min(chunk, S) tokens.  x [B,S,nh,hd];
+    dt [B,S,nh] f32; a_neg [nh] f32; B/C [B,S,G,N]; h0 [B,nh,hd,N] f32 or
+    None -> (y [B,S,nh,hd], h_final [B,nh,hd,N] f32)."""
+    q = min(int(chunk), x.shape[1])
+    if _route(x) == "cpu":
+        return ref.ssd_scan_ref(x, dt, a_neg, bmat, cmat, h0=h0, chunk=q)
+    return ssd_scan(x.contiguous(), dt.contiguous(), a_neg.contiguous(), bmat.contiguous(),
+                    cmat.contiguous(), None if h0 is None else h0.contiguous(), chunk=q)

@@ -10,6 +10,7 @@ from __future__ import annotations
 from typing import Optional, Sequence
 
 import torch
+import torch.nn.functional as F
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
 
@@ -98,3 +99,83 @@ def batched_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
     return out.reshape(b, hq, d)
+
+
+def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
+                 bmat: torch.Tensor, cmat: torch.Tensor,
+                 h0: Optional[torch.Tensor] = None, chunk: int = 128):
+    """Chunked Mamba-2 SSD (the reference's `models.ssm.ssd_chunked`).
+    x [B,S,nh,hd]; dt [B,S,nh] (post-softplus); a_neg [nh] (negative);
+    bmat/cmat [B,S,G,N]; h0 [B,nh,hd,N] or None.  Returns (y [B,S,nh,hd] in
+    x.dtype, h_final [B,nh,hd,N] f32).  All state math in f32; S is padded
+    with zeros to a multiple of `chunk` (padded rows have dt 0 and leave the
+    state unchanged)."""
+    b, s, nh, hd = x.shape
+    g, n = bmat.shape[-2], bmat.shape[-1]
+    rep = nh // g
+    a_neg = a_neg.float()
+    pad = (-s) % chunk
+    if pad:
+        x = F.pad(x, (0, 0, 0, 0, 0, pad))
+        dt = F.pad(dt, (0, 0, 0, pad))
+        bmat = F.pad(bmat, (0, 0, 0, 0, 0, pad))
+        cmat = F.pad(cmat, (0, 0, 0, 0, 0, pad))
+    sp = s + pad
+    nc = sp // chunk
+    xs = x.reshape(b, nc, chunk, nh, hd).float()
+    dts = dt.reshape(b, nc, chunk, nh).float()
+    bs = bmat.reshape(b, nc, chunk, g, n).float()
+    cs = cmat.reshape(b, nc, chunk, g, n).float()
+
+    da_cum = torch.cumsum(dts * a_neg, dim=2)                  # [b,nc,q,nh], inclusive
+    # intra-chunk decay exp(cum_i - cum_j) for i >= j.  Mask BEFORE exp: the
+    # i < j entries are positive and overflow, and inf * 0 is NaN.
+    li = da_cum[:, :, :, None, :] - da_cum[:, :, None, :, :]   # [b,nc,i,j,nh]
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    lmat = torch.exp(torch.where(tri[None, None, :, :, None], li, -1e30))
+
+    cb = torch.einsum("bcign,bcjgn->bcgij", cs, bs)            # [b,nc,g,i,j]
+    cb_h = torch.repeat_interleave(cb, rep, dim=2)             # [b,nc,nh,i,j]
+    scores = cb_h * lmat.movedim(-1, 2)
+    y_diag = torch.einsum("bchij,bcjh,bcjhd->bcihd", scores, dts, xs)
+
+    # chunk contributions S_c = sum_j exp(cum_last - cum_j) dt_j B_j x_j
+    decay_states = torch.exp(da_cum[:, :, -1:, :] - da_cum)    # [b,nc,j,nh]
+    b_h = torch.repeat_interleave(bs, rep, dim=3)              # [b,nc,j,nh,n]
+    states = torch.einsum("bcjhn,bcjh,bcjh,bcjhd->bchdn", b_h, decay_states, dts, xs)
+    chunk_decay = torch.exp(da_cum[:, :, -1, :])               # [b,nc,nh]
+
+    h = (torch.zeros(b, nh, hd, n, dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    h_in = []                                                  # the state entering each chunk
+    for c in range(nc):
+        h_in.append(h)
+        h = h * chunk_decay[:, c, :, None, None] + states[:, c]
+    h_in = torch.stack(h_in, dim=1)                            # [b,nc,nh,hd,n]
+
+    c_h = torch.repeat_interleave(cs, rep, dim=3)              # [b,nc,i,nh,n]
+    y_off = torch.einsum("bcihn,bchdn,bcih->bcihd", c_h, h_in, torch.exp(da_cum))
+    y = (y_diag + y_off).reshape(b, sp, nh, hd)[:, :s]
+    return y.to(x.dtype), h
+
+
+def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
+                       bmat: torch.Tensor, cmat: torch.Tensor,
+                       h0: Optional[torch.Tensor] = None):
+    """Token-by-token SSD recurrence, an oracle independent of the chunked
+    algorithm.  Shapes as `ssd_scan_ref`; returns (y, h_final)."""
+    b, s, nh, hd = x.shape
+    g, n = bmat.shape[-2:]
+    rep = nh // g
+    h = (torch.zeros(b, nh, hd, n, dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    a32 = a_neg.float()
+    ys = []
+    for t in range(s):
+        bt = torch.repeat_interleave(bmat[:, t].float(), rep, dim=1)   # [b,nh,n]
+        ct = torch.repeat_interleave(cmat[:, t].float(), rep, dim=1)
+        dtt = dt[:, t].float()
+        h = (h * torch.exp(dtt * a32)[:, :, None, None]
+             + dtt[:, :, None, None] * x[:, t].float()[:, :, :, None] * bt[:, :, None, :])
+        ys.append(torch.einsum("bhdn,bhn->bhd", h, ct))
+    return torch.stack(ys, dim=1).to(x.dtype), h

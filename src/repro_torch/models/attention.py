@@ -100,26 +100,28 @@ def attention_prefill(x, p, cfg, positions, *, window: int = 0, num_meta: int = 
         k = apply_rope(k, positions, cfg.rope_theta)
     mask = build_mask(positions, positions, causal=True, window=window, num_meta=num_meta)
     bias = alibi_bias(alibi, positions, positions) if alibi is not None else None
-    o = kops.attention_auto(q, k, v, mask=mask, bias=bias, window=window,
-                            num_meta=num_meta)
+    o = kops.attention_auto(q, k, v, mask=mask, bias=bias, window=window)
     return out_proj(o, p), k, v
 
 
 def attention_decode(x, p, cfg, k_cache, v_cache, kv_positions, pos: int, *,
                      window: int = 0, num_meta: int = 0, rope: bool = True,
-                     alibi: Optional[torch.Tensor] = None):
+                     alibi: Optional[torch.Tensor] = None,
+                     write_index: Optional[int] = None):
     """A decode step (C = 1) or prefill chunk (C > 1) of B sequences that
     share the positions pos..pos+C-1, over a cache [B,S,Hkv,Dh] whose slot
-    positions are kv_positions [S] (-1 = empty).  The chunk's
-    K/V is written into the cache in place at `pos` (clamped to the cache
-    end like the reference's dynamic update).  Returns (out, k, v)."""
+    positions are kv_positions [S] (-1 = empty).  The chunk's K/V is written
+    into the cache in place at `write_index` (default `pos`; a ring-buffer
+    cache passes its slot), clamped to the cache end like the reference's
+    dynamic update.  Returns (out, k, v)."""
     b, c, _ = x.shape
     q, k_new, v_new = qkv_proj(x, p, cfg)
     posv = pos + torch.arange(c, dtype=torch.int32, device=x.device)
     if rope:
         q = apply_rope(q, posv[None, :], cfg.rope_theta)
         k_new = apply_rope(k_new, posv[None, :], cfg.rope_theta)
-    wi = min(max(pos, 0), k_cache.shape[1] - c)
+    wi = pos if write_index is None else write_index
+    wi = min(max(wi, 0), k_cache.shape[1] - c)
     k_cache[:, wi:wi + c] = k_new.to(k_cache.dtype)
     v_cache[:, wi:wi + c] = v_new.to(v_cache.dtype)
     if c == 1 and alibi is None:

@@ -102,3 +102,29 @@ def dense_init(generator, shape, dtype, device, scale: Optional[float] = None):
 
 def embed_init(generator, shape, dtype, device):
     return (0.02 * _truncated_normal(shape, generator)).to(device=device, dtype=dtype)
+
+
+def head_init(generator, cfg, dtype, device) -> dict:
+    """The final norm and, for an untied head, lm_head [d, V]."""
+    p = {"final_norm": norm_init(cfg.norm, cfg.d_model, dtype, device)}
+    if not cfg.tie_embeddings:
+        p["lm_head"] = embed_init(generator, (cfg.d_model, cfg.vocab_size), dtype, device)
+    return p
+
+
+def unembed(cfg, params, x):
+    """The final norm, then the tied or untied LM head: x [..., d] -> [..., V]."""
+    head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
+    return norm_apply(cfg.norm, x, params["final_norm"]) @ head
+
+
+def stack_layers(items):
+    """Per-layer parameter trees -> one tree with the layers stacked [L, ...]."""
+    if isinstance(items[0], dict):
+        return {k: stack_layers([it[k] for it in items]) for k in items[0]}
+    return torch.stack(items)
+
+
+def layer_params(layers, i: int):
+    """Layer i's parameters from a stacked ``[L, ...]`` tree."""
+    return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}

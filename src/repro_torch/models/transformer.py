@@ -20,12 +20,9 @@ from repro_torch import not_ported, resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.models import attention as attn
-from repro_torch.models.common import alibi_slopes, embed_init, norm_apply, norm_init
+from repro_torch.models.common import (alibi_slopes, embed_init, head_init, layer_params,
+                                       norm_apply, norm_init, stack_layers, unembed)
 from repro_torch.models.mlp import mlp_apply, mlp_init
-
-def _layer_params(layers: Dict, i: int) -> Dict:
-    return {k: _layer_params(v, i) if isinstance(v, dict) else v[i]
-            for k, v in layers.items()}
 
 
 class DecoderLM:
@@ -60,26 +57,13 @@ class DecoderLM:
                     "ln2": norm_init(cfg.norm, cfg.d_model, dtype, dev),
                     "mlp": mlp_init(g, cfg, dtype, dev)}
 
-        layers = [one_layer() for _ in range(cfg.num_layers)]
-
-        def stack(items):
-            if isinstance(items[0], dict):
-                return {k: stack([it[k] for it in items]) for k in items[0]}
-            return torch.stack(items)
-
-        p["layers"] = stack(layers)
-        p["final_norm"] = norm_init(cfg.norm, cfg.d_model, dtype, dev)
-        if not cfg.tie_embeddings:
-            p["lm_head"] = embed_init(g, (cfg.d_model, cfg.vocab_size), dtype, dev)
+        p["layers"] = stack_layers([one_layer() for _ in range(cfg.num_layers)])
+        p.update(head_init(g, cfg, dtype, dev))
         return p
 
     # ------------------------------------------------------------------
-    def _unembed(self, sp, x):
-        head = sp["embed"].t() if self.cfg.tie_embeddings else sp["lm_head"]
-        return x @ head
-
     def _final(self, sp, x):
-        return self._unembed(sp, norm_apply(self.cfg.norm, x, sp["final_norm"]))
+        return unembed(self.cfg, sp, x)
 
     def _layer(self, x, lp, *, mode, kc=None, vc=None, kv_positions=None, pos=None,
                q_lens=None, positions=None, window=0):
@@ -104,7 +88,7 @@ class DecoderLM:
 
     def _layers(self, sp, x, kc, vc, **kw):
         for i, w in enumerate(sp["layer_window"]):
-            x, _, _ = self._layer(x, _layer_params(sp["layers"], i), kc=kc[i], vc=vc[i],
+            x, _, _ = self._layer(x, layer_params(sp["layers"], i), kc=kc[i], vc=vc[i],
                                   window=w, **kw)
         return x
 
@@ -145,7 +129,7 @@ class DecoderLM:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         ks, vs = [], []
         for i, w in enumerate(sp["layer_window"]):
-            x, k, v = self._layer(x, _layer_params(sp["layers"], i), mode="prefill",
+            x, k, v = self._layer(x, layer_params(sp["layers"], i), mode="prefill",
                                   positions=positions, window=w)
             ks.append(k)
             vs.append(v)

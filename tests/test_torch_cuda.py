@@ -20,6 +20,7 @@ torch.set_num_threads(1)
 
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
+from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -209,3 +210,95 @@ def test_run_on_the_card_gives_the_cpu_tokens(cuda):
         assert reps["cuda"] == reps["cpu"], kw
         assert launched["cuda"][kernel] > 0 and launched["cuda"]["decode_attention"] > 0
         assert not any(launched["cpu"].values())
+
+
+SSD_TOL = {torch.float32: 2e-4, torch.bfloat16: 2e-2}   # tests/test_kernels.py SSD band
+
+
+def _ssd_inputs(dev, b, s, nh, hd, g, n, dtype, with_h0, seed=0):
+    # scaled so that |y| stays below 4, where one bf16 step is inside the band
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    r = lambda *sh: torch.randn(*sh, generator=gen, device=dev)   # noqa: E731
+    return ((0.5 * r(b, s, nh, hd)).to(dtype), torch.nn.functional.softplus(r(b, s, nh)),
+            -torch.exp(0.3 * r(nh)), (0.25 * r(b, s, g, n)).to(dtype),
+            (0.25 * r(b, s, g, n)).to(dtype), 0.1 * r(b, nh, hd, n) if with_h0 else None)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_h0", [False, True])
+@pytest.mark.parametrize("b,s,nh,hd,g,n,ch", [
+    (2, 96, 4, 16, 1, 8, 32), (1, 64, 8, 8, 2, 16, 16), (2, 50, 4, 16, 1, 8, 32),
+    (1, 33, 2, 8, 1, 4, 16),
+    (8, 512, 48, 64, 1, 128, 128),              # mamba2-780m serving prefill
+    (2, 1228, 50, 64, 1, 16, 128),              # hymba-1.5b, ragged last chunk
+])
+def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, hd, g, n, ch, with_h0, dtype):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, b, s, nh, hd, g, n, dtype, with_h0)
+    n0 = LAUNCHES["ssd_scan"]
+    y, hf = ops.ssd_auto(x, dt, a, bm, cm, chunk=ch, h0=h0)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == n0 + 1
+    ye, he = ref.ssd_scan_ref(x, dt, a, bm, cm, h0=h0, chunk=min(ch, s))
+    assert y.dtype == dtype and hf.dtype == torch.float32
+    assert (y.float() - ye.float()).abs().max().item() <= SSD_TOL[dtype]
+    assert (hf - he).abs().max().item() <= SSD_TOL[dtype]
+
+
+def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 1, 16, 4, 8, 1, 4, torch.float32, True)
+    n0 = LAUNCHES["ssd_scan"]
+    with pytest.raises(ValueError, match="CUDA"):
+        ssd_scan(x.cpu(), dt.cpu(), a.cpu(), bm.cpu(), cm.cpu())
+    with pytest.raises(TypeError):
+        ssd_scan(x.half(), dt, a, bm.half(), cm.half())
+    with pytest.raises(ValueError, match="dt must be float32"):
+        ssd_scan(x, dt.double(), a, bm, cm)
+    with pytest.raises(ValueError, match="h0"):
+        ssd_scan(x, dt, a, bm, cm, h0[:, :2])
+    with pytest.raises(ValueError, match="contiguous"):
+        ssd_scan(x.transpose(2, 3).contiguous().transpose(2, 3), dt, a, bm, cm)
+    with pytest.raises(ValueError, match="nh % G"):
+        ssd_scan(x, dt, a, torch.cat([bm] * 3, 2), torch.cat([cm] * 3, 2))
+    big = _ssd_inputs(cuda, 1, 256, 2, 128, 1, 256, torch.float32, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan(*big[:5], chunk=256)
+    assert LAUNCHES["ssd_scan"] == n0
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_families_on_the_card_give_the_cpu_tokens(cuda, name):
+    """Reduced model, fp32: prefill and six greedy decode steps on the card
+    and on the CPU with the same weights give the same tokens, and the card
+    ran ssd_scan once per layer (and Hymba flash_attention once per
+    full-attention layer and decode_attention per layer and step)."""
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    prompts = np.random.default_rng(0).integers(0, cfg.vocab_size, (2, 30)).astype(np.int32)
+    toks, launched = {}, {}
+    for dev in ("cpu", "cuda"):
+        model = build_model(cfg, device=dev)
+        p = _tree_to(params, dev)
+        n0 = dict(LAUNCHES)
+        logits, state, pos = model.prefill(p, {"tokens": torch.as_tensor(prompts, device=dev)},
+                                           max_len=cfg.context_overhead + 40)
+        out = []
+        for i in range(6):
+            tok = logits.argmax(-1).to(torch.int32)
+            out.append(tok.cpu())
+            logits, state = model.decode_step(p, state, tok, pos + i)
+        toks[dev] = torch.stack(out, 1)
+        launched[dev] = {k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
+    assert torch.equal(toks["cuda"], toks["cpu"])
+    assert launched["cuda"]["ssd_scan"] == cfg.num_layers
+    assert launched["cuda"]["decode_attention"] == (
+        6 * cfg.num_layers if cfg.family == "hybrid" else 0)
+    assert launched["cuda"]["flash_attention"] == (
+        len(cfg.full_attn_layers) if cfg.family == "hybrid" else 0)
+    assert not any(launched["cpu"].values())
+
+
+def _tree_to(tree, dev):
+    if isinstance(tree, dict):
+        return {k: _tree_to(v, dev) for k, v in tree.items()}
+    return tree.to(dev)

@@ -93,14 +93,15 @@ def _spy_flash(monkeypatch):
     (dict(), True),                                    # plain causal
     (dict(window=6), False),
     (dict(window=6, num_meta=2), False),
-    (dict(num_meta=2), False),
+    (dict(num_meta=2), True),                          # meta tokens, no window: causal
     (dict(alibi=True), False),
 ])
 def test_attention_auto_routes_by_the_layer_not_the_mask_shape(kw, to_flash, monkeypatch):
     """A windowed layer's mask has the plain causal mask's shape; the
     reference's `attention_auto` tells them apart by shape alone and would
     drop the window under backend="pallas".  The port routes by the layer's
-    window, meta tokens and ALiBi, so the output is always `attend`'s."""
+    window and ALiBi; meta tokens without a window leave the mask causal, so
+    that layer goes to the kernel.  The output always equals `attend`'s."""
     calls = _spy_flash(monkeypatch)
     s, hq, hkv, d = 20, 4, 2, 16
     q, k, v = (torch.from_numpy(a) for a in _normal(2, (1, s, hq, d), (1, s, hkv, d),
@@ -112,7 +113,7 @@ def test_attention_auto_routes_by_the_layer_not_the_mask_shape(kw, to_flash, mon
     if kw.get("alibi"):
         bias = -torch.tensor([0.5, 0.25, 0.125, 0.0625])[:, None, None] * \
             (pos[:, None] - pos[None, :]).clamp(min=0).float()
-    out = ops.attention_auto(q, k, v, mask=mask, bias=bias, window=window, num_meta=meta)
+    out = ops.attention_auto(q, k, v, mask=mask, bias=bias, window=window)
     assert calls == ([True] if to_flash else [])
     assert torch.equal(out, attend(q, k, v, mask=mask, bias=bias))
 
@@ -191,10 +192,13 @@ def test_kv_unpack_plain_matches_pallas_and_round_trips(L, B, S, H, D, t0, w, tb
 def test_kv_unpack_writes_through_a_view():
     """The landing writes one layer-and-row slice of a larger cache."""
     big = torch.zeros(4, 3, 32, 2, 8)
-    buf = torch.randn(2, 1, 16, 2, 8)
+    buf = torch.randn(2, 1, 16, 2, 8, generator=torch.Generator().manual_seed(0))
     ops.kv_unpack_auto(big[1:3, 2:3], buf, 8)
     assert torch.equal(big[1:3, 2:3, 8:24], buf)
-    assert big.abs().sum() == buf.abs().sum()
+    # nothing outside the window was written
+    outside = torch.ones(big.shape, dtype=torch.bool)
+    outside[1:3, 2:3, 8:24] = False
+    assert not big[outside].any()
 
 
 @pytest.mark.parametrize("t0,w,msg", [(4, 8, "not aligned"), (0, 12, "not a multiple"),

@@ -109,3 +109,49 @@ def test_bound_is_the_larger_of_bytes_and_operations(smoke):
     assert by == "bytes" and ms == pytest.approx(1.0)
     ms, by = smoke.bound_ms(1.0, 989e9, "bfloat16")
     assert by == "operations" and ms == pytest.approx(1.0)
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_parity_phase_agrees(smoke, name):
+    """The ssm_parity phase at a tiny width (both sides on the CPU): the
+    same tokens, states of one shape and size, and no kernel launched."""
+    kw, n, _ = smoke.SSM_PARITY[name]
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32", **kw)
+    res = smoke.run_ssm_parity(cfg, n, 40, 8, "cpu")
+    assert len(res["tokens"]) == n and all(len(t) == 8 for t in res["tokens"])
+    assert res["max_abs_logit_diff"] == 0.0
+    assert res["state_bytes"]["cpu"] == res["state_bytes"]["card"] > 0
+    assert not any(res["launches"].values())
+    if cfg.family == "hybrid":    # the prompts wrap the ring, as at full width
+        assert cfg.num_meta_tokens + 40 > cfg.num_meta_tokens + cfg.sliding_window
+        assert res["state_shapes"]["swa_pos"][0] == [cfg.num_meta_tokens + cfg.sliding_window]
+
+
+@pytest.mark.parametrize("name", ["mamba2-780m", "hymba-1.5b"])
+def test_ssm_serve_phase_counts_calls(smoke, name):
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="bfloat16", num_layers=3)
+    from repro_torch.models import build_model
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    res = smoke.run_ssm_serve(cfg, "cpu", model, params, 4, 24, 5, 2, sync=lambda: None)
+    assert res["tokens_generated"] == 2 * 4 * 5
+    assert res["prefill_calls"] == 2 and res["decode_steps"] == 2 * 4
+    want = smoke.ssm_expected_launches(cfg, res["prefill_calls"], res["decode_steps"])
+    assert want["ssd_scan"] == 3 * 2
+    assert want["decode_attention"] == (3 * 8 if cfg.family == "hybrid" else 0)
+    # Hymba's one full-attention layer (layer 0) runs flash_attention per prefill
+    assert want["flash_attention"] == (1 * 2 if cfg.family == "hybrid" else 0)
+    assert sum(want.values()) == (want["ssd_scan"] + want["decode_attention"]
+                                  + want["flash_attention"])
+    assert res["state_bytes"] == 4 * res["state_bytes_per_sequence"] > 0
+
+
+def test_ssd_bound_at_the_serving_shape_is_bytes(smoke):
+    """mamba2-780m's prefill scan: about 8.1 GFLOP against 66 MB moved, so
+    bytes bound it on the card at bf16 rates."""
+    fl = smoke.ssd_flops(8, 512, 48, 64, 1, 128, 128)
+    assert fl == pytest.approx(8.13e9, rel=1e-3)
+    ms, by = smoke.bound_ms(65.9e6, fl, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.0197, rel=1e-2)
+    # a ragged last chunk counts only its own rows
+    assert smoke.ssd_flops(1, 200, 1, 1, 1, 1, 128) < smoke.ssd_flops(1, 256, 1, 1, 1, 1, 128)
