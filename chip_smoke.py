@@ -14,11 +14,17 @@ Phases, each printing one JSON line with its seconds:
                the plain version and one library call of the same function.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
-               trace that chunks its prompts and preempts.  Greedy tokens
-               must be identical.
+               trace that chunks its prompts and preempts; once plain (both
+               stages read the pages in place) and once with a sliding
+               window and meta sinks on layer 1 (stage 1 gathers the pages
+               dense).  Greedy tokens must be identical, and each run must
+               launch the kernels of its routes and no other.
 4. ``serve``   gpt2-1.5b, 48 layers, bf16, 2 stage workers: 16 requests
-               through fused continuous batching.  The kernels' launch
-               counts must match the passes the engine ran.
+               through fused continuous batching over the pages in place.
+               The paged kernels' launches must be the layers times the
+               fused passes the engine ran, and no fused pass may gather
+               the pages dense (each admission's first chunk, a
+               per-sequence pass, still does).
 5. ``mb_parity`` the microbatch round-robin path (`ServingEngine.run`) at
                the parity phase's size: colocated, with swapping and
                disaggregated, each on the card against the port on the CPU,
@@ -61,6 +67,8 @@ PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_par
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
+# the kernels of the fused passes of plain causal stages, which read the pages
+PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
 
 
 class SmokeFailure(RuntimeError):
@@ -371,8 +379,102 @@ def phase_kernels(state: dict) -> dict:
         ssd_case("groups2_s50", 2, 50, 4, 16, 2, 8, dt_)
     # the hymba-1.5b ssm_serve prefill: 4 x (128 meta + 1536) tokens, 50 heads, N 16
     ssd_case("hymba_prefill", 4, 1664, 50, 64, 1, 16, torch.bfloat16)
+
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+
+    def paged_decode_case(name, lengths, hq, hkv, dtype, time_it=False):
+        lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
+        kp, vp, tables = paged_inputs(g, lengths, hkv, 64, dtype)
+        q = torch.randn(len(lengths), hq, 64, generator=g, device=dev).to(dtype)
+        tname = str(dtype).replace("torch.", "")
+        err = held("paged_decode_attention", name,
+                   paged_decode_attention(q, kp, vp, tables, lens),
+                   ref.paged_decode_attention_ref(q, kp, vp, tables, lens), tname)
+        if time_it:
+            es = q.element_size()
+            live = int(sum(lengths))
+            nbytes = 2 * q.numel() * es + 2 * live * hkv * 64 * es + 4 * (tables.numel()
+                                                                          + len(lengths))
+            bms, by = bound_ms(nbytes, 4.0 * live * hq * 64, tname)
+            rows["paged_decode_attention"] = {
+                "ms": cuda_ms(lambda: paged_decode_attention(q, kp, vp, tables, lens)),
+                "plain_ms": cuda_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, tables,
+                                                                           lens)),
+                "library_ms": None,   # no one PyTorch call reads pages through a table
+                "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                "shape": f"q[{len(lengths)},{hq},64] pages {list(kp.shape)} of a 24-layer "
+                         f"pool, {tname}, lengths {list(lengths)}"}
+        del kp, vp
+
+    def paged_prefill_case(name, starts, qlens, c, hq, hkv, dtype, time_it=False):
+        ends = [s_ + n for s_, n in zip(starts, qlens)]
+        kp, vp, tables = paged_inputs(g, ends, hkv, 64, dtype)
+        q = torch.randn(len(starts), c, hq, 64, generator=g, device=dev).to(dtype)
+        qs = torch.tensor(starts, dtype=torch.int32, device=dev)
+        ql = torch.tensor(qlens, dtype=torch.int32, device=dev)
+        out = paged_prefill_attention(q, kp, vp, tables, qs, ql)
+        exp = ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql)
+        # rows past q_lens[b] are don't-care: only valid rows are compared
+        valid = torch.arange(c, device=dev)[None, :] < ql[:, None]
+        tname = str(dtype).replace("torch.", "")
+        err = held("paged_prefill_attention", name, out[valid], exp[valid], tname)
+        if time_it:
+            es = q.element_size()
+            pairs = sum(s_ * n + n * (n + 1) // 2 for s_, n in zip(starts, qlens))
+            nvalid = int(sum(qlens))
+            nbytes = (2 * nvalid * hq * 64 * es + 2 * int(sum(ends)) * hkv * 64 * es
+                      + 4 * (tables.numel() + 2 * len(starts)))
+            bms, by = bound_ms(nbytes, 4.0 * pairs * hq * 64, tname)
+            rows["paged_prefill_attention"] = {
+                "ms": cuda_ms(lambda: paged_prefill_attention(q, kp, vp, tables, qs, ql)),
+                "plain_ms": cuda_ms(lambda: ref.paged_prefill_attention_ref(
+                    q, kp, vp, tables, qs, ql)),
+                "library_ms": None,   # no one PyTorch call reads pages through a table
+                "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                "shape": f"q[{len(starts)},{c},{hq},64] pages {list(kp.shape)} of a 24-layer "
+                         f"pool, {tname}, q_starts {list(starts)} q_lens {list(qlens)}"}
+        del kp, vp
+
+    # the serve decode pass at row 1's lengths, one layer of a [N,24,8,25,64]
+    # pool with shuffled page ids; GQA 25:5 beside it
+    for dt_ in (torch.float32, torch.bfloat16):
+        paged_decode_case("gpt2", lengths, 25, 25, dt_, time_it=dt_ == torch.bfloat16)
+        paged_decode_case("gqa_25_5", [700, 9, 1, 333], 25, 5, dt_)
+    # the serve chunk-set pass: 8 chunks of 64 over prefixes of 0-448 tokens,
+    # one short final chunk of 5 whose padded rows are not compared
+    starts, qlens = [0, 64, 448, 128, 320, 192, 384, 256], [64] * 7 + [5]
+    for dt_ in (torch.float32, torch.bfloat16):
+        paged_prefill_case("gpt2_chunkset", starts, qlens, 64, 25, 25, dt_,
+                           time_it=dt_ == torch.bfloat16)
+        paged_prefill_case("gqa_25_5", [0, 40, 197], [64, 17, 64], 64, 25, 5, dt_)
     state["kernel_rows"] = rows
     return {"checks": checks, "timed": rows}
+
+
+def paged_inputs(g, lengths, hkv: int, d: int, dtype, layers: int = 24, bs: int = 8,
+                 layer: int = 5):
+    """Random K/V pages for sequences of `lengths` tokens: a pool [N, layers,
+    bs, hkv, d] whose pages go to the sequences in a shuffled order, its
+    layer `layer` as the strided view [N, bs, hkv, d] the paged kernels read,
+    and the int32 block tables [B, nb], short rows padded with page 0.
+    Returns (k view, v view, tables) on `g`'s device."""
+    import torch
+    dev = g.device
+    nbs = [-(-int(n) // bs) for n in lengths]
+    n_pages = sum(nbs) + 4
+    order = torch.randperm(n_pages, generator=torch.Generator().manual_seed(n_pages)).tolist()
+    rows, o = [], 0
+    for nb in nbs:
+        rows.append(order[o:o + nb] + [0] * (max(nbs) - nb))
+        o += nb
+    tables = torch.tensor(rows, dtype=torch.int32, device=dev)
+    views = []
+    for _ in range(2):
+        pool = torch.zeros(n_pages, layers, bs, hkv, d, dtype=dtype, device=dev)
+        pool[:, layer] = torch.randn(n_pages, bs, hkv, d, generator=g, device=dev).to(dtype)
+        views.append(pool[:, layer])
+    return views[0], views[1], tables
 
 
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py SSD band
@@ -450,32 +552,56 @@ def run_parity(cfg, trace, pool_blocks: int, max_active: int, card: str) -> dict
             "max_logit_diff": max(diffs) if diffs else None, "n_logit_rows": len(diffs)}
 
 
-def phase_parity(state: dict) -> dict:
-    import torch
+PARITY_VARIANTS = {         # name -> (config changes, kernels the card run must launch)
+    # every stage plain causal: both fused passes read the pages in place;
+    # each admission's first chunk (a per-sequence pass) packs its window back
+    "plain": ({}, PAGED_KERNELS + ("kv_pack",)),
+    # stage 0 (layer 0, full attention) reads the pages; stage 1 (windowed,
+    # meta sinks) gathers them dense and packs its windows back
+    "window_meta": (dict(sliding_window=32, num_meta_tokens=4, full_attn_layers=(0,)),
+                    PAGED_KERNELS + CONTINUOUS_KERNELS),
+}
 
-    from repro_torch.configs import get_arch
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), num_layers=2, dtype="float32")
-    lens = [40, 41, 42, 150, 60, 70]
-    res = run_parity(cfg, lambda: _requests(lens, 8, cfg.vocab_size, seed=1),
-                     pool_blocks=PARITY_POOL_BLOCKS, max_active=4, card="cuda")
+
+def check_parity(res: dict, max_new: int, launched: tuple) -> None:
+    """Tokens, schedule and preemption of a `run_parity` result, and the
+    kernels its card run must have launched (and no other kernel)."""
     cpu, card = res["cpu"]["report"], res["card"]["report"]
     check(card.tokens == cpu.tokens, f"card tokens differ from CPU tokens: "
           f"{card.tokens} vs {cpu.tokens}")
     check(card.batch_trace == cpu.batch_trace and card.pass_trace == cpu.pass_trace,
           "card and CPU ran different schedules")
     check(card.preemptions >= 1, f"the trace did not preempt ({card.preemptions})")
-    check(all(len(t) == 8 for t in card.tokens.values()), "a request fell short")
-    for name in CONTINUOUS_KERNELS:
-        check(res["card"]["launches"][name] > 0, f"{name} was not launched on the card run")
+    check(all(len(t) == max_new for t in card.tokens.values()), "a request fell short")
     check(not any(res["cpu"]["launches"].values()), "a kernel launched on the CPU run")
-    return {"config": "gpt2-1.5b full width, 2 layers, fp32, 2 workers",
-            "prompt_lens": lens, "max_new": 8, "kv_pool_blocks": PARITY_POOL_BLOCKS,
-            "tokens_identical": True, "preemptions": card.preemptions,
-            "max_abs_logit_diff": res["max_logit_diff"],
-            "logit_rows": res["n_logit_rows"], "card_launches": res["card"]["launches"],
-            "cpu_s": res["cpu"]["seconds"], "card_s": res["card"]["seconds"]}
+    for name, n in res["card"]["launches"].items():
+        check((n > 0) == (name in launched),
+              f"{name} launched {n} times; the path launches {launched}")
+
+
+def phase_parity(state: dict) -> dict:
+    import torch
+
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    lens, out = [40, 41, 42, 150, 60, 70], {}
+    for name, (kw, launched) in PARITY_VARIANTS.items():
+        cfg = dataclasses.replace(get_arch("gpt2-1.5b"), num_layers=2, dtype="float32", **kw)
+        res = run_parity(cfg, lambda: _requests(lens, 8, cfg.vocab_size, seed=1),
+                         pool_blocks=PARITY_POOL_BLOCKS, max_active=4, card="cuda")
+        check_parity(res, 8, launched)
+        out[name] = {"config": f"gpt2-1.5b full width, 2 layers, fp32, 2 workers {kw}",
+                     "tokens_identical": True,
+                     "preemptions": res["card"]["report"].preemptions,
+                     "max_abs_logit_diff": res["max_logit_diff"],
+                     "logit_rows": res["n_logit_rows"],
+                     "card_launches": res["card"]["launches"],
+                     "cpu_s": res["cpu"]["seconds"], "card_s": res["card"]["seconds"]}
+    # the gather route's kernels run on the windowed stage of this path
+    state["launches"].update({k: out["window_meta"]["card_launches"][k]
+                              for k in CONTINUOUS_KERNELS})
+    return {"prompt_lens": lens, "max_new": 8, "kv_pool_blocks": PARITY_POOL_BLOCKS, **out}
 
 
 # ---------------------------------------------------------------------------
@@ -491,6 +617,41 @@ def _timed(fn, bucket, sync):
         bucket.append((time.perf_counter() - t) * 1e3)
         return out
     return wrapper
+
+
+def count_gathers(eng) -> dict:
+    """Count the calls of every worker's `PagedKVCache.gather_dense` from
+    now on: {"fused": calls for a batch of sequences (a fused pass),
+    "per_sequence": calls for one sequence}."""
+    n = {"fused": 0, "per_sequence": 0}
+    for w in eng.cluster.workers():
+        def counted(seqs, pad_to, _f=w.pages.gather_dense):
+            n["per_sequence" if isinstance(seqs, int) else "fused"] += 1
+            return _f(seqs, pad_to)
+        w.pages.gather_dense = counted
+    return n
+
+
+def serve_expected_launches(eng, pc: dict) -> dict:
+    """The launches a fused continuous run implies where every stage reads
+    the pages in place: one paged_decode_attention per layer per fused
+    decode pass and one paged_prefill_attention per layer per chunk-set
+    pass.  Each admitted request's first chunk runs on the per-sequence path
+    (the engine's admission step), which gathers its pages, attends with the
+    plain `attend` (a chunk of more than one token: every prompt here has
+    64 or more) and packs its window back with one kv_pack per leaf per
+    stage.  No other kernel runs."""
+    from repro_torch.kernels import KERNELS
+    cl = eng.cluster
+    check(all(w.reads_pages() for w in cl.workers()), "a stage gathers its pages")
+    other = {k: n for k, n in pc.items()
+             if k not in ("fused_decode", "chunkset", "prefill_chunk", "one_token")}
+    check(not any(other.values()), f"passes off the fused paged path: {other}")
+    want = dict.fromkeys(KERNELS, 0)
+    want["paged_decode_attention"] = cl.cfg.num_layers * pc.get("fused_decode", 0)
+    want["paged_prefill_attention"] = cl.cfg.num_layers * pc.get("chunkset", 0)
+    want["kv_pack"] = 2 * len(cl.prompt_group) * pc.get("prefill_chunk", 0)
+    return want
 
 
 def run_serve(cfg, dev: str, lens, max_new: int, max_active: int, pool_blocks: int,
@@ -520,6 +681,7 @@ def run_serve(cfg, dev: str, lens, max_new: int, max_active: int, pool_blocks: i
     cl.prefill_chunkset_pass = _timed(cl.prefill_chunkset_pass, chunk_ms, sync)
     reqs = _requests(lens, max_new, cfg.vocab_size, seed=3)
     sampler.finite = True
+    gathers = count_gathers(eng)
     reset_launches()
     sync()
     t = time.perf_counter()
@@ -531,14 +693,13 @@ def run_serve(cfg, dev: str, lens, max_new: int, max_active: int, pool_blocks: i
     check(all(len(r.tokens) == max_new for r in reqs),
           "a request did not emit max_new tokens")
     check(sampler.finite, "non-finite logits")
+    want = serve_expected_launches(eng, pc)
     if dev != "cpu":
-        want = {"batched_decode_attention": cfg.num_layers * pc.get("one_token", 0),
-                "kv_pack_ragged": 2 * len(cl.token_group) * pc.get("fused_decode", 0)}
-        for name, n in want.items():
-            check(launches[name] == n,
-                  f"{name}: {launches[name]} launches, the passes say {n}")
-        check(all(launches[k] > 0 for k in CONTINUOUS_KERNELS),
-              f"a kernel of the path never launched: {launches}")
+        check(launches == want, f"launches {launches}, the passes say {want}")
+    check(gathers["fused"] == 0, f"a fused pass gathered its pages {gathers['fused']} times")
+    check(gathers["per_sequence"] == len(cl.prompt_group) * pc.get("prefill_chunk", 0),
+          f"{gathers['per_sequence']} per-sequence gathers for {pc.get('prefill_chunk', 0)} "
+          "per-sequence chunk passes")
     gen = sum(len(r.tokens) for r in reqs)
     return {"requests": len(reqs), "prompt_lens": list(lens), "max_new": max_new,
             "max_active": max_active, "kv_pool_blocks": pool_blocks, "init_s": init_s,
@@ -547,7 +708,7 @@ def run_serve(cfg, dev: str, lens, max_new: int, max_active: int, pool_blocks: i
             "median_decode_pass_ms": statistics.median(dec_ms),
             "median_chunk_pass_ms": statistics.median(chunk_ms),
             "decode_passes": len(dec_ms), "chunk_passes": len(chunk_ms),
-            "pass_counts": pc, "launches": launches}, eng
+            "gather_dense_calls": dict(gathers), "pass_counts": pc, "launches": launches}, eng
 
 
 def phase_serve(state: dict) -> dict:
@@ -561,7 +722,7 @@ def phase_serve(state: dict) -> dict:
     res, eng = run_serve(cfg, "cuda", lens, max_new=32, max_active=8, pool_blocks=1024,
                          generator=torch.Generator(device="cuda").manual_seed(0),
                          sync=torch.cuda.synchronize)
-    state["launches"].update({k: res["launches"][k] for k in CONTINUOUS_KERNELS})
+    state["launches"].update({k: res["launches"][k] for k in PAGED_KERNELS})
     out = {"config": "gpt2-1.5b, 48 layers, bf16, 2 workers", **res,
            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
     if state.get("profile"):
@@ -576,7 +737,9 @@ def profile_serve(eng, cfg, out_dir: Path) -> dict:
     return _profile(lambda: _passes(eng.run_continuous(
                         _requests([128] * 8, 8, cfg.vocab_size, seed=11), max_active=8)),
                     out_dir / "serve_profile.txt",
-                    {"batched_decode_attention": ("batched_decode",),
+                    {"paged_decode_attention": ("paged_decode",),
+                     "paged_prefill_attention": ("paged_prefill",),
+                     "batched_decode_attention": ("batched_decode",),
                      "kv_pack": ("kv_pack", "window_copy"),
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
                      "gather_scatter": ("index", "gather", "scatter")})
@@ -1046,6 +1209,10 @@ KERNEL_META = {
                   "src/repro/kernels/kv_pack.py:92"),
     "ssd_scan": ("src/repro_torch/kernels/csrc/ssd_scan.cu",
                  "src/repro/kernels/ssd_scan.py:65"),
+    "paged_decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
+                               "src/repro/kernels/decode_attention.py:90"),
+    "paged_prefill_attention": ("src/repro_torch/kernels/csrc/paged_prefill.cu",
+                                "src/repro/kernels/paged_prefill.py:71"),
 }
 
 

@@ -218,7 +218,6 @@ class StageWorker:
         pages through a token-block-aligned kv_pack (kc/vc [Lstage,1,S,H,D];
         the re-written head tokens of the aligned window hold identical
         values).  Shared by the per-sequence and fused chunk paths."""
-        bs = self.pool.block_size
         tb = self.cache.token_block
         t0a = (pos0 // tb) * tb
         w = min(-(-(pos0 + c - t0a) // tb) * tb, pad_to - t0a)
@@ -228,6 +227,13 @@ class StageWorker:
         win = {"k": kops.kv_pack_auto(kc, t0a, w, token_block=tbw)[:, 0],
                "v": kops.kv_pack_auto(vc, t0a, w, token_block=tbw)[:, 0]}
         self.pages.write_window(seq, win, t0a)
+        self._mark_chunk_dirty(seq, pos0, c)
+
+    def _mark_chunk_dirty(self, seq: int, pos0: int, c: int) -> None:
+        """The blocks a chunk [pos0, pos0+c) dirties: those its
+        token-block-aligned write-back window touches."""
+        bs = self.pool.block_size
+        t0a = (pos0 // self.cache.token_block) * self.cache.token_block
         self.paged_dirty.setdefault(seq, set()).update(
             range(t0a // bs, -(-(pos0 + c) // bs)))
 
@@ -252,16 +258,36 @@ class StageWorker:
         dense = self.pages.gather_dense(list(seqs), pad_to)
         return dense["k"], dense["v"], pad_to
 
+    def reads_pages(self) -> bool:
+        """Whether this stage's fused passes read the pool's pages in place
+        (every layer plain causal, `DecoderLM.reads_pages`), else gather."""
+        return self.model.reads_pages(self.sp)
+
     def decode_paged_batch(self, seqs, x_or_tokens, poses: Sequence[int]):
         """One fused pipeline pass: every sequence in `seqs` decodes one step
-        at its own position; the new-token K/V windows go back through one
-        ragged buffered copy per leaf.  The cluster pre-flights pool capacity
-        for the whole batch first."""
-        bs = self.pool.block_size
+        at its own position.  A plain causal stage reads and writes its pages
+        in place; otherwise the pages are gathered dense and the new-token
+        K/V windows go back through one ragged buffered copy per leaf.  The
+        cluster pre-flights pool capacity for the whole batch first."""
         for seq in seqs:
             self.pages.apply_cow(self.pool.append(seq))
-        kc, vc, pad_to = self._gather_batch(seqs)
         pos = torch.tensor(list(poses), dtype=torch.int32, device=self.device)
+        if self.reads_pages():
+            x = self._stage(self.model.stage_decode_paged, x_or_tokens, self.pages.k,
+                            self.pages.v, self.pages.block_tables(seqs),
+                            self.pages.write_indices(seqs, poses, [1] * len(seqs), 1), pos,
+                            tok_kw="token")
+        else:
+            x = self._decode_gathered(seqs, x_or_tokens, poses, pos)
+        for seq, p in zip(seqs, poses):
+            self.paged_dirty.setdefault(seq, set()).add(p // self.pool.block_size)
+        return x
+
+    def _decode_gathered(self, seqs, x_or_tokens, poses: Sequence[int], pos):
+        """The decode pass of a stage that gathers its pages: the dense
+        stage cache, then the new-token K/V windows back through one ragged
+        buffered copy per leaf."""
+        kc, vc, pad_to = self._gather_batch(seqs)
         x, kc, vc = self._stage(self.model.stage_decode_batch, x_or_tokens, kc, vc,
                                 pos, tok_kw="token")
         tb = self.cache.token_block
@@ -274,20 +300,29 @@ class StageWorker:
         else:                            # unaligned pool blocks: plain slices
             wins = [({"k": kc[:, i, p:p + 1], "v": vc[:, i, p:p + 1]}, p)
                     for i, p in enumerate(poses)]
-        for i, seq in enumerate(seqs):
-            win, t0 = wins[i]
+        for seq, (win, t0) in zip(seqs, wins):
             self.pages.write_window(seq, win, t0)
-            self.paged_dirty.setdefault(seq, set()).add(poses[i] // bs)
         return x
 
     def prefill_chunk_paged_batch(self, seqs, x_or_tokens, pos0s: List[int],
                                   q_lens: List[int]):
         """One fused chunk-set pass: one prefill chunk of each sequence, each
-        attending over its own resident prefix plus itself; each window goes
-        back into its own pages.  Requires `ensure_prefill_table` first."""
-        kc, vc, pad_to = self._gather_batch(seqs)
+        attending over its own resident prefix plus itself.  A plain causal
+        stage reads and writes its pages in place; otherwise the pages are
+        gathered dense and each window goes back into its own pages.
+        Requires `ensure_prefill_table` first."""
         pos = torch.tensor(pos0s, dtype=torch.int32, device=self.device)
         ql = torch.tensor(q_lens, dtype=torch.int32, device=self.device)
+        if self.reads_pages():
+            c = int(x_or_tokens.shape[1])
+            x = self._stage(self.model.stage_prefill_chunk_paged, x_or_tokens, self.pages.k,
+                            self.pages.v, self.pages.block_tables(seqs),
+                            self.pages.write_indices(seqs, pos0s, q_lens, c), pos, ql,
+                            tok_kw="tokens")
+            for seq, p0, n in zip(seqs, pos0s, q_lens):
+                self._mark_chunk_dirty(seq, p0, n)
+            return x
+        kc, vc, pad_to = self._gather_batch(seqs)
         x, kc, vc = self._stage(self.model.stage_prefill_chunk_batch, x_or_tokens,
                                 kc, vc, pos, ql, tok_kw="tokens")
         for i, seq in enumerate(seqs):

@@ -10,7 +10,8 @@ from __future__ import annotations
 from typing import Dict
 
 KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack", "decode_attention",
-           "flash_attention", "kv_unpack", "ssd_scan")
+           "flash_attention", "kv_unpack", "ssd_scan", "paged_decode_attention",
+           "paged_prefill_attention")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
 
 

@@ -20,7 +20,7 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kv_pack", "decode_attention", "flash_attention", "ssd_scan")
+SOURCES = ("kv_pack", "decode_attention", "flash_attention", "ssd_scan", "paged_prefill")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -41,6 +41,8 @@ _SIGNATURES = {
         "repro_batched_decode_smem": (_ll, [_i, _i, _i]),
         "repro_decode_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _vp]),
+        "repro_paged_decode_attention": (
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _ll, _i, _i, _i, _f, _vp]),
     },
     "flash_attention": {
         "repro_flash_attention": (
@@ -51,6 +53,12 @@ _SIGNATURES = {
         "repro_ssd_scan": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp]),
         "repro_ssd_scan_smem": (_ll, [_i, _i, _i]),
+    },
+    "paged_prefill": {
+        "repro_paged_prefill_attention": (
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _ll, _i, _i, _i, _f,
+                 _vp]),
+        "repro_paged_prefill_smem": (_ll, [_i]),
     },
 }
 

@@ -37,6 +37,21 @@
 // out as zeros here (the TPU kernel returns an average over its zero-padded
 // keys there).  Bound by bytes like the batched entry: the visible K/V bytes.
 //
+// paged_decode_attention replaces the TPU kernel `paged_decode_attention` of
+// the same file: q [B, Hq, D] over K/V pages [N, bs, Hkv, D] that sequence b
+// reads through its block-table row (logical block j of the sequence lives in
+// page block_tables[b, j]), masked to lengths[b] live tokens.  No window, meta
+// or ALiBi term, as in the TPU kernel.  It is the batched entry's kernel with
+// one change, the address of key p: page block_tables[b, p / bs], slot p % bs,
+// at base + page * page_stride + slot * Hkv * D + h * D.  The page stride is a
+// parameter, so the pages may be one layer's strided view of the pool
+// [N, L, bs, Hkv, D] and nothing is copied.  A key tile of 64 spans several
+// pages (8 of 8 slots), each row looked up on its own, so a small page does not
+// shrink the tile.  The loop walks keys [0, lengths[b]) only: a table entry
+// past a sequence's ceil(len / bs) pages, and a slot past its length, are never
+// read (a freed page keeps whatever it held).  Bound by bytes like the batched
+// entry: the live K/V bytes.
+//
 // A later PR adds wgmma for P·V and split-K when B*Hkv blocks underfill the
 // 132 SMs.
 
@@ -73,16 +88,16 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Copies n rows of D elements (row stride `row` elements) into f32 shared
-// memory rows of stride ldk, 16 bytes per thread per step.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src, long long row, int n,
-                                           int D, float* dst, int ldk) {
+// Copies keys t0 .. t0+n-1 (D elements each, key p at src + key_off(p)) into
+// f32 shared memory rows of stride ldk, 16 bytes per thread per step.
+template <typename T, typename KeyOff>
+__device__ __forceinline__ void stage_tile(const T* __restrict__ src, KeyOff key_off, int t0,
+                                           int n, int D, float* dst, int ldk) {
   constexpr int kVec = 16 / sizeof(T);
   const int per_row = D / kVec;
   for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
     const int j = i / per_row, c = i - j * per_row;
-    const uint4 u = *reinterpret_cast<const uint4*>(src + (long long)j * row + c * kVec);
+    const uint4 u = *reinterpret_cast<const uint4*>(src + key_off(t0 + j) + c * kVec);
     const T* e = reinterpret_cast<const T*>(&u);
     float* d = dst + j * ldk + c * kVec;
 #pragma unroll
@@ -90,13 +105,16 @@ __device__ __forceinline__ void stage_tile(const T* __restrict__ src, long long 
   }
 }
 
-template <typename T, bool kValidVec>
-__global__ void __launch_bounds__(kThreads)
-batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
-                      const T* __restrict__ v, const int* __restrict__ lengths,
-                      const int* __restrict__ win_starts, const float* __restrict__ slopes,
-                      const bool* __restrict__ valid, T* __restrict__ out, int S, int Hq,
-                      int Hkv, int D, int num_meta, float scale) {
+// The body of all three entries.  kPaged: k/v are pages read through tables
+// [B, S / bs] with page stride page_stride (elements); S is then the tables'
+// capacity in slots.
+template <typename T, bool kValidVec, bool kPaged>
+__device__ __forceinline__ void decode_body(
+    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
+    const int* __restrict__ lengths, const int* __restrict__ win_starts,
+    const float* __restrict__ slopes, const bool* __restrict__ valid,
+    const int* __restrict__ tables, int bs, long long page_stride, T* __restrict__ out, int S,
+    int Hq, int Hkv, int D, int num_meta, float scale) {
   const int h = blockIdx.x;  // KV head
   const int b = blockIdx.y;  // sequence
   const int G = Hq / Hkv;
@@ -129,8 +147,14 @@ batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   __syncthreads();
 
   const long long row = (long long)Hkv * D;  // elements between consecutive keys
-  const T* kb = k + (long long)b * S * row + (long long)h * D;
-  const T* vb = v + (long long)b * S * row + (long long)h * D;
+  const long long seq = kPaged ? 0 : (long long)b * S * row;
+  const T* kb = k + seq + (long long)h * D;
+  const T* vb = v + seq + (long long)h * D;
+  const int* table = kPaged ? tables + (long long)b * (S / bs) : nullptr;
+  auto key_off = [=](int p) -> long long {
+    if (kPaged) return (long long)table[p / bs] * page_stride + (long long)(p % bs) * row;
+    return (long long)p * row;
+  };
 
   for (int t0 = 0; t0 < len; t0 += kTileK) {
     const int t1 = min(t0 + kTileK, len);
@@ -143,8 +167,8 @@ batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
       continue;
     }
     const int n = t1 - t0;
-    stage_tile(kb + (long long)t0 * row, row, n, D, k_s, ldk);
-    stage_tile(vb + (long long)t0 * row, row, n, D, v_s, ldk);
+    stage_tile(kb, key_off, t0, n, D, k_s, ldk);
+    stage_tile(vb, key_off, t0, n, D, v_s, ldk);
     __syncthreads();
 
     for (int i = tid; i < G * kTileK; i += kThreads) {
@@ -209,24 +233,49 @@ batched_decode_kernel(const T* __restrict__ q, const T* __restrict__ k,
   }
 }
 
+#define REPRO_DECODE_PARAMS                                                                 \
+  const T *__restrict__ q, const T *__restrict__ k, const T *__restrict__ v,                \
+      const int *__restrict__ lengths, const int *__restrict__ win_starts,                  \
+      const float *__restrict__ slopes, const bool *__restrict__ valid,                     \
+      const int *__restrict__ tables, int bs, long long page_stride, T *__restrict__ out,   \
+      int S, int Hq, int Hkv, int D, int num_meta, float scale
+#define REPRO_DECODE_ARGS \
+  q, k, v, lengths, win_starts, slopes, valid, tables, bs, page_stride, out, S, Hq, Hkv, D, \
+      num_meta, scale
+
+// batched_decode_attention (kValidVec false) and decode_attention (true)
 template <typename T, bool kValidVec>
+__global__ void __launch_bounds__(kThreads) batched_decode_kernel(REPRO_DECODE_PARAMS) {
+  decode_body<T, kValidVec, false>(REPRO_DECODE_ARGS);
+}
+
+// paged_decode_attention: a kernel of its own name, so that profiles tell it apart
+template <typename T>
+__global__ void __launch_bounds__(kThreads) paged_decode_kernel(REPRO_DECODE_PARAMS) {
+  decode_body<T, false, true>(REPRO_DECODE_ARGS);
+}
+
+template <typename T, bool kValidVec, bool kPaged = false>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* lengths,
                    const int* win_starts, const float* slopes, const bool* valid, void* out,
                    int B, int S, int Hq, int Hkv, int D, int num_meta, float scale,
-                   cudaStream_t stream) {
+                   cudaStream_t stream, const int* tables = nullptr, int bs = 1,
+                   long long page_stride = 0) {
   const int G = Hq / Hkv;
   const size_t smem = sizeof(float) * ((size_t)2 * kTileK * (D + 1) + (size_t)2 * G * D +
                                        (size_t)G * kTileK + (size_t)3 * G);
+  auto kernel = kPaged ? paged_decode_kernel<T> : batched_decode_kernel<T, kValidVec>;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(batched_decode_kernel<T, kValidVec>,
+    cudaError_t e = cudaFuncSetAttribute(kernel,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((unsigned)Hkv, (unsigned)B);
-  batched_decode_kernel<T, kValidVec><<<grid, kThreads, smem, stream>>>(
+  kernel<<<grid, kThreads, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      win_starts, slopes, valid, static_cast<T*>(out), S, Hq, Hkv, D, num_meta, scale);
+      win_starts, slopes, valid, tables, bs, page_stride, static_cast<T*>(out), S, Hq, Hkv,
+      D, num_meta, scale);
   return cudaGetLastError();
 }
 
@@ -271,5 +320,31 @@ extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, c
   if (dtype == 1)
     return launch<__nv_bfloat16, true>(q, k, v, nullptr, nullptr, nullptr, valid, out, B, S,
                                        Hq, Hkv, D, 0, scale, s);
+  return static_cast<int>(cudaErrorInvalidValue);
+}
+
+// paged_decode_attention: dtype as above; q/out [B,Hq,D] contiguous; k/v
+// pages [N,bs,Hkv,D] whose (bs, Hkv, D) are dense and whose pages lie
+// page_stride elements apart (the same for k and v); block_tables device
+// int32 [B,max_blocks] contiguous, every entry of a sequence's first
+// ceil(lengths[b] / bs) a valid page id; lengths device int32 [B], each >= 1
+// and at most max_blocks * bs.  Shared memory as repro_batched_decode_smem.
+// Returns cudaGetLastError().
+extern "C" int repro_paged_decode_attention(int dtype, const void* q, const void* k_pages,
+                                            const void* v_pages, const int* block_tables,
+                                            const int* lengths, void* out, int B,
+                                            int max_blocks, int bs, long long page_stride,
+                                            int Hq, int Hkv, int D, float scale,
+                                            void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const int S = max_blocks * bs;
+  if (dtype == 0)
+    return launch<float, false, true>(q, k_pages, v_pages, lengths, nullptr, nullptr, nullptr,
+                                      out, B, S, Hq, Hkv, D, 0, scale, s, block_tables, bs,
+                                      page_stride);
+  if (dtype == 1)
+    return launch<__nv_bfloat16, false, true>(q, k_pages, v_pages, lengths, nullptr, nullptr,
+                                              nullptr, out, B, S, Hq, Hkv, D, 0, scale, s,
+                                              block_tables, bs, page_stride);
   return static_cast<int>(cudaErrorInvalidValue);
 }

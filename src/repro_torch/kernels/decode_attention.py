@@ -1,11 +1,12 @@
-"""batched_decode_attention and decode_attention as hand-written CUDA
-(``csrc/decode_attention.cu``), replacing the TPU kernels of those names in
-`repro.kernels.decode_attention`.
+"""batched_decode_attention, decode_attention and paged_decode_attention as
+hand-written CUDA (``csrc/decode_attention.cu``), replacing the TPU kernels
+of those names in `repro.kernels.decode_attention`.
 
-One query per sequence for B sequences over dense per-sequence K/V:
-`batched_decode_attention` masks each sequence to its own live length, with
+One query per sequence for B sequences: `batched_decode_attention` over
+dense per-sequence K/V, each sequence masked to its own live length, with
 optional window starts, meta sinks and ALiBi slopes; `decode_attention`
-masks every sequence with one shared validity vector.  The wrappers take
+over dense K/V with one shared validity vector; `paged_decode_attention`
+over pool pages read in place through block tables.  The wrappers take
 CUDA tensors only (the CPU goes to the plain versions through
 `repro_torch.kernels.ops`), check what the kernel needs, allocate the output
 and count their launches.
@@ -108,4 +109,72 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
+    return out
+
+
+def check_pages(k_pages: torch.Tensor, v_pages: torch.Tensor, what: str) -> int:
+    """The page layout the paged kernels take: k/v [N,bs,Hkv,D] with dense
+    (bs, Hkv, D), one page stride shared by k and v (one layer's view of the
+    pool [N,L,bs,Hkv,D] qualifies), 16-byte aligned.  Returns the page
+    stride in elements."""
+    if k_pages.dim() != 4 or v_pages.shape != k_pages.shape:
+        raise ValueError(f"{what}: want k/v pages [N,bs,Hkv,D], got "
+                         f"{tuple(k_pages.shape)}, {tuple(v_pages.shape)}")
+    _, bs, hkv, d = k_pages.shape
+    es = k_pages.element_size()
+    for t, name in ((k_pages, "k_pages"), (v_pages, "v_pages")):
+        if t.stride()[1:] != (hkv * d, d, 1) or t.stride() != k_pages.stride():
+            raise ValueError(f"{what}: {name} must have dense (bs, Hkv, D) and the "
+                             f"page stride of k_pages, got strides {t.stride()}")
+        if t.data_ptr() % 16 or (t.stride(0) * es) % 16:
+            raise ValueError(f"{what}: {name} base and page stride must be 16-byte aligned")
+    return k_pages.stride(0)
+
+
+def check_tables(block_tables: torch.Tensor, b: int, dev, what: str) -> int:
+    """block_tables: contiguous int32 [b, max_blocks] on `dev`.  Returns
+    max_blocks."""
+    if (block_tables.device != dev or block_tables.dtype != torch.int32
+            or block_tables.dim() != 2 or block_tables.shape[0] != b
+            or block_tables.shape[1] == 0 or not block_tables.is_contiguous()):
+        raise ValueError(f"{what}: block_tables must be a contiguous int32 [{b}, max_blocks] "
+                         f"on {dev}, got {tuple(block_tables.shape)} {block_tables.dtype}")
+    return block_tables.shape[1]
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+    """q [B,Hq,D]; k/v_pages [N,bs,Hkv,D] (see `check_pages`; not copied);
+    block_tables [B,max_blocks] int32; lengths [B] int32, each in
+    [1, max_blocks*bs], the new token included -> [B,Hq,D] in q.dtype."""
+    what = "paged_decode_attention"
+    if not q.is_cuda:
+        raise ValueError(f"{what} takes CUDA tensors; use repro_torch.kernels.ops "
+                         "for the CPU")
+    if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
+        raise TypeError(f"q/k/v must share float32 or bfloat16, got "
+                        f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")
+    dev = q.device
+    if q.dim() != 3 or k_pages.device != dev or v_pages.device != dev:
+        raise ValueError(f"{what}: want q [B,Hq,D] and pages on {dev}, got {tuple(q.shape)}")
+    page_stride = check_pages(k_pages, v_pages, what)
+    b, hq, d = q.shape
+    _, bs, hkv, dk = k_pages.shape
+    if dk != d or hkv == 0 or hq % hkv or b == 0:
+        raise ValueError(f"shape mismatch: q {tuple(q.shape)}, pages {tuple(k_pages.shape)}")
+    if d > 256 or d % 8:
+        raise ValueError(f"head dim {d} unsupported (needs D <= 256 and D % 8 == 0)")
+    if not q.is_contiguous() or q.data_ptr() % 16:
+        raise ValueError("q must be contiguous and 16-byte aligned")
+    max_blocks = check_tables(block_tables, b, dev, what)
+    _int_vec(lengths, b, "lengths", dev)
+    lib = _lib_for(hq, hkv, d)
+    out = torch.empty_like(q)
+    err = lib.repro_paged_decode_attention(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_tables.data_ptr(), lengths.data_ptr(), out.data_ptr(), b, max_blocks, bs,
+        page_stride, hq, hkv, d, float(d) ** -0.5,
+        ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
+    _build.check(err, what)
+    LAUNCHES["paged_decode_attention"] += 1
     return out

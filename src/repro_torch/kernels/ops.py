@@ -11,11 +11,13 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import ref
-from repro_torch.kernels.decode_attention import batched_decode_attention, decode_attention
+from repro_torch.kernels.decode_attention import (batched_decode_attention, decode_attention,
+                                                  paged_decode_attention)
 from repro_torch.kernels.flash_attention import flash_attention
 from repro_torch.kernels.kv_pack import (check_pack_args, check_ragged_args,
                                          check_unpack_args, kv_pack, kv_pack_ragged,
                                          kv_unpack)
+from repro_torch.kernels.paged_prefill import paged_prefill_attention
 from repro_torch.kernels.ssd_scan import ssd_scan
 
 
@@ -77,6 +79,30 @@ def batched_decode_attention_auto(q, k_cache, v_cache, lengths, *,
                                                 num_meta=num_meta)
     return batched_decode_attention(q, k_cache, v_cache, lengths, win_starts,
                                     alibi, num_meta=num_meta)
+
+
+def paged_decode_attention_auto(q, k_pages, v_pages, block_tables, lengths):
+    """Decode attention reading the pool's pages in place through block
+    tables.  q [B,1,Hq,D] or [B,Hq,D]; k/v_pages [N,bs,Hkv,D] (one layer's
+    view of the pool); block_tables [B,max_blocks] int32; lengths [B] int32."""
+    squeeze = q.dim() == 4
+    if squeeze:
+        q = q[:, 0]
+    if _route(q) == "cpu":
+        out = ref.paged_decode_attention_ref(q, k_pages, v_pages, block_tables, lengths)
+    else:
+        out = paged_decode_attention(q.contiguous(), k_pages, v_pages, block_tables, lengths)
+    return out[:, None] if squeeze else out
+
+
+def paged_prefill_attention_auto(q, k_pages, v_pages, block_tables, q_starts, q_lens):
+    """A prefill chunk per sequence over the pool's pages, read in place.
+    q [B,C,Hq,D]; the chunk's own K/V must already be in the pages."""
+    if _route(q) == "cpu":
+        return ref.paged_prefill_attention_ref(q, k_pages, v_pages, block_tables, q_starts,
+                                               q_lens)
+    return paged_prefill_attention(q.contiguous(), k_pages, v_pages, block_tables, q_starts,
+                                   q_lens)
 
 
 def kv_pack_auto(cache, t0: int, width: int, token_block: int = 8):

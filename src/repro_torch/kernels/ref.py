@@ -101,6 +101,53 @@ def batched_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     return out.reshape(b, hq, d)
 
 
+def paged_gather_ref(pages: torch.Tensor, block_tables: torch.Tensor) -> torch.Tensor:
+    """pages [N,bs,H,D] (any page stride, e.g. one layer of the pool
+    [N,L,bs,H,D]); block_tables [B,max_blocks] -> dense [B,max_blocks*bs,H,D]."""
+    b, mb = block_tables.shape
+    _, bs, h, d = pages.shape
+    return pages[block_tables.reshape(-1).long()].reshape(b, mb * bs, h, d)
+
+
+def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                               v_pages: torch.Tensor, block_tables: torch.Tensor,
+                               lengths: torch.Tensor) -> torch.Tensor:
+    """q [B,Hq,D]; k/v_pages [N,bs,Hkv,D]; block_tables [B,max_blocks] int32
+    (logical block j of sequence b in page block_tables[b,j]); lengths [B]
+    live tokens -> [B,Hq,D].  Gathers the pages dense, then the masked f32
+    softmax of `batched_decode_attention_ref`."""
+    k = paged_gather_ref(k_pages, block_tables)
+    v = paged_gather_ref(v_pages, block_tables)
+    return batched_decode_attention_ref(q, k, v, lengths)
+
+
+def paged_prefill_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
+                                v_pages: torch.Tensor, block_tables: torch.Tensor,
+                                q_starts: torch.Tensor, q_lens: torch.Tensor) -> torch.Tensor:
+    """q [B,C,Hq,D], query i of sequence b at position q_starts[b] + i;
+    k/v_pages [N,bs,Hkv,D] already holding the chunk's own K/V;
+    block_tables [B,max_blocks]; q_starts, q_lens [B] -> [B,C,Hq,D].  Slot
+    j is visible to query i iff j <= q_starts[b] + i and j < q_starts[b] +
+    q_lens[b].  Rows past q_lens[b] are don't-care."""
+    b, c, hq, d = q.shape
+    hkv = k_pages.shape[2]
+    g = hq // hkv
+    k = paged_gather_ref(k_pages, block_tables)
+    v = paged_gather_ref(v_pages, block_tables)
+    s = k.shape[1]
+    starts = q_starts.to(torch.int64)
+    qpos = starts[:, None] + torch.arange(c, device=q.device)[None, :]          # [B,C]
+    kvpos = torch.arange(s, device=q.device)[None, None, :]                      # [1,1,S]
+    valid = (kvpos <= qpos[:, :, None]) \
+        & (kvpos < (starts + q_lens.to(torch.int64))[:, None, None])           # [B,C,S]
+    qg = q.reshape(b, c, hkv, g, d)
+    scores = torch.einsum("bchgd,bkhd->bhgck", qg, k).float() * (d ** -0.5)
+    scores = torch.where(valid[:, None, None], scores, NEG_INF)
+    probs = torch.softmax(scores, dim=-1).to(q.dtype)
+    out = torch.einsum("bhgck,bkhd->bchgd", probs, v)
+    return out.reshape(b, c, hq, d)
+
+
 def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
                  bmat: torch.Tensor, cmat: torch.Tensor,
                  h0: Optional[torch.Tensor] = None, chunk: int = 128):

@@ -354,6 +354,34 @@ class PagedKVCache:
             pages[bids, :, offs] = win[:, lo - t0:hi - t0].transpose(0, 1).to(pages.dtype)
         return [table[j] for j in range(lo // bs, (hi - 1) // bs + 1)]
 
+    # --- reading the pages in place --------------------------------------
+    def block_tables(self, seqs: Sequence[int]) -> torch.Tensor:
+        """The block tables of `seqs` as one int32 [B, nb] device tensor, nb
+        the longest table, shorter rows padded with page 0 (the paged kernels
+        never read an entry past a sequence's length): one host-to-device
+        copy."""
+        tables = [self.pool.tables[s] for s in seqs]
+        nb = max(len(t) for t in tables)
+        return torch.tensor([t + [0] * (nb - len(t)) for t in tables], dtype=torch.int32,
+                            device=self.device)
+
+    def write_indices(self, seqs: Sequence[int], starts: Sequence[int],
+                      lens: Sequence[int], width: int) -> torch.Tensor:
+        """Where a pass's new K/V rows go: int64 [3, n] holding, for each
+        token t in [starts[i], starts[i] + lens[i]) of sequence seqs[i] in
+        that order, its page, its slot in the page, and its row
+        i * width + t - starts[i] among the pass's [B * width] rows (padding
+        rows past lens[i] are never written): one host-to-device copy."""
+        bs = self.pool.block_size
+        pages, slots, rows = [], [], []
+        for i, (seq, t0, n) in enumerate(zip(seqs, starts, lens)):
+            table = self.pool.tables[seq]
+            for t in range(t0, t0 + n):
+                pages.append(table[t // bs])
+                slots.append(t % bs)
+                rows.append(i * width + t - t0)
+        return torch.tensor([pages, slots, rows], dtype=torch.int64, device=self.device)
+
     def gather_dense(self, seqs, pad_to: int) -> Dict[str, torch.Tensor]:
         """Assemble the live tokens of `seqs` (one id or a list) into a dense
         ``[Lstage, B, pad_to, H, D]`` cache, the layout the stage functions

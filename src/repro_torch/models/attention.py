@@ -5,11 +5,14 @@ Kernel routing, as the reference's ``backend="pallas"`` routes it: a whole
 prompt goes through `ops.attention_auto` (the `flash_attention` kernel where
 the layer is plain causal); a one-query step over a cache with one shared
 position row goes through `decode_attention`, with ALiBi through
-`batched_decode_attention`, as does every fused-round step; multi-token
-chunks use the plain `attend`, which the reference also leaves to the
-compiler.  Masked scores take the finite NEG_INF of the reference: a padded
-query row masked everywhere then gives a finite uniform average instead of
-NaN.
+`batched_decode_attention`, as does every fused-round step over a gathered
+cache; multi-token chunks over a gathered cache use the plain `attend`,
+which the reference also leaves to the compiler.  A fused-round pass of a
+stage whose layers are all plain causal reads the pool's pages in place
+instead (`attention_paged_batch`): `paged_decode_attention` for a decode
+pass, `paged_prefill_attention` for a chunk-set pass.  Masked scores take
+the finite NEG_INF of the reference: a padded query row masked everywhere
+then gives a finite uniform average instead of NaN.
 """
 from __future__ import annotations
 
@@ -197,3 +200,34 @@ def attention_decode_batch(x, p, cfg, k_cache, v_cache, kv_positions, pos,
                 if alibi is not None else None)
         o = attend(q, k_cache, v_cache, mask=mask, bias=bias)
     return out_proj(o, p), k_cache, v_cache
+
+
+def attention_paged_batch(x, p, cfg, k_pages, v_pages, block_tables, write_idx, pos,
+                          lengths=None, q_lens=None, *, rope: bool = True):
+    """A fused-round pass of a plain causal layer (no window, no ALiBi) over
+    the pool's pages, read and written in place: no dense cache.  x [B,C,d];
+    k/v_pages [N,bs,Hkv,Dh], this layer's view of the stage's pool;
+    block_tables [B,nb] int32; write_idx int64 [3,n] from
+    `PagedKVCache.write_indices` (page, slot, row of the B*C new rows); pos
+    [B] int32, sequence b's first new position.  A decode pass (`q_lens`
+    None, C = 1) attends over `lengths` [B] = pos + 1 live tokens; a
+    chunk-set pass over each sequence's prefix plus the q_lens[b] valid rows
+    of its chunk.  The valid rows' K/V go into the pages before attending;
+    padding rows never do."""
+    b, c, _ = x.shape
+    q, k_new, v_new = qkv_proj(x, p, cfg)
+    if rope:
+        posv = pos[:, None] + torch.arange(c, dtype=torch.int32, device=x.device)[None, :]
+        q = apply_rope(q, posv, cfg.rope_theta)
+        k_new = apply_rope(k_new, posv, cfg.rope_theta)
+    page, slot, row = write_idx
+    for pages, new in ((k_pages, k_new), (v_pages, v_new)):
+        rows = new.reshape(b * c, *new.shape[2:])
+        if write_idx.shape[1] != b * c:           # ragged chunks: valid rows only
+            rows = rows.index_select(0, row)
+        pages[page, slot] = rows.to(pages.dtype)
+    if q_lens is None:
+        o = kops.paged_decode_attention_auto(q, k_pages, v_pages, block_tables, lengths)
+    else:
+        o = kops.paged_prefill_attention_auto(q, k_pages, v_pages, block_tables, pos, q_lens)
+    return out_proj(o, p)

@@ -174,14 +174,28 @@ class DecoderLM:
             x = self._final(sp, x)[:, 0]
         return x, kc, vc
 
+    def _embed_batch(self, sp, tokens, pos):
+        """Embed a fused pass's tokens [B,C], sequence b's at positions
+        pos[b].. (int32 [B])."""
+        x = F.embedding(tokens, sp["embed"])
+        if self.cfg.pos_emb == "learned":
+            c, table = tokens.shape[1], sp["pos_table"]
+            posm = pos[:, None].long() + torch.arange(c, device=x.device)[None, :]
+            x = x + table[posm.clamp(0, table.shape[0] - 1)]
+        return x
+
+    def _final_rows(self, sp, x, q_lens):
+        """Logits [B,V] of each sequence's final valid row, q_lens[b] - 1."""
+        rows = (q_lens.long() - 1).clamp(0, x.shape[1] - 1)
+        x = x[torch.arange(x.shape[0], device=x.device), rows]
+        return self._final(sp, x[:, None])[:, 0]
+
     def stage_decode_batch(self, sp, x, kc, vc, pos, *, first: bool, last: bool,
                            token=None):
         """Fused-round decode: B sequences each advance one step, sequence
         b's new token at its own position pos[b] (int32 [B])."""
         if first:
-            x = F.embedding(token[:, None], sp["embed"])
-            if self.cfg.pos_emb == "learned":
-                x = x + sp["pos_table"][pos.long()][:, None]
+            x = self._embed_batch(sp, token[:, None], pos)
         slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)[None, :]
         kv_positions = torch.where(slots <= pos[:, None], slots, -1)
         x = self._layers(sp, x, kc, vc, mode="decode_batch",
@@ -198,22 +212,64 @@ class DecoderLM:
         its own cache prefix plus itself.  The last stage returns each
         chunk's final-valid-token logits [B,V]."""
         if first:
-            x = F.embedding(tokens, sp["embed"])
-            if self.cfg.pos_emb == "learned":
-                c, table = tokens.shape[1], sp["pos_table"]
-                posm = pos[:, None].long() + torch.arange(c, device=x.device)[None, :]
-                x = x + table[posm.clamp(0, table.shape[0] - 1)]
-        c = x.shape[1]
+            x = self._embed_batch(sp, tokens, pos)
         slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)[None, :]
         kv_positions = torch.where(slots < (pos + q_lens)[:, None], slots, -1)
         x = self._layers(sp, x, kc, vc, mode="decode_batch",
                          kv_positions=kv_positions, pos=pos, q_lens=q_lens)
         if last:
-            # each sequence's final valid row (ragged chunks): row q_lens[b]-1
-            rows = (q_lens.long() - 1).clamp(0, c - 1)
-            x = x[torch.arange(x.shape[0], device=x.device), rows]
-            x = self._final(sp, x[:, None])[:, 0]
+            x = self._final_rows(sp, x, q_lens)
         return x, kc, vc
+
+    # ------------------------------------------------------------------
+    # fused passes over the pool's pages, read in place (plain causal stages)
+    # ------------------------------------------------------------------
+    def reads_pages(self, sp) -> bool:
+        """Whether the fused passes of this stage read the pool's pages in
+        place: every layer is plain causal (window 0, no ALiBi; meta tokens
+        matter only beside a window), which is all the paged kernels
+        compute.  Decided by configuration, never by a tensor's shape."""
+        return self.cfg.pos_emb != "alibi" and not any(sp["layer_window"])
+
+    def _paged_layers(self, sp, x, k_pages, v_pages, tables, write_idx, pos, *,
+                      lengths=None, q_lens=None):
+        cfg = self.cfg
+        for i in range(len(sp["layer_window"])):
+            lp = layer_params(sp["layers"], i)
+            h = norm_apply(cfg.norm, x, lp["ln1"])
+            x = x + attn.attention_paged_batch(
+                h, lp["attn"], cfg, k_pages[:, i], v_pages[:, i], tables, write_idx, pos,
+                lengths=lengths, q_lens=q_lens, rope=cfg.pos_emb == "rope")
+            h = norm_apply(cfg.norm, x, lp["ln2"])
+            x = x + mlp_apply(h, lp["mlp"], cfg)
+        return x
+
+    def stage_decode_paged(self, sp, x, k_pages, v_pages, tables, write_idx, pos, *,
+                           first: bool, last: bool, token=None):
+        """`stage_decode_batch` over the stage's pages [N,Lstage,bs,H,D], read
+        and written in place through `tables` [B,nb] and `write_idx` (see
+        `attention_paged_batch`).  Only where `reads_pages(sp)`."""
+        if first:
+            x = self._embed_batch(sp, token[:, None], pos)
+        x = self._paged_layers(sp, x, k_pages, v_pages, tables, write_idx, pos,
+                               lengths=pos + 1)
+        if last:
+            x = self._final(sp, x)[:, 0]
+        return x
+
+    def stage_prefill_chunk_paged(self, sp, x, k_pages, v_pages, tables, write_idx, pos,
+                                  q_lens, *, first: bool, last: bool, tokens=None):
+        """`stage_prefill_chunk_batch` over the stage's pages, read and
+        written in place: sequence b's chunk of q_lens[b] valid rows at
+        positions pos[b].. attends over its prefix plus itself.  Only where
+        `reads_pages(sp)`."""
+        if first:
+            x = self._embed_batch(sp, tokens, pos)
+        x = self._paged_layers(sp, x, k_pages, v_pages, tables, write_idx, pos,
+                               q_lens=q_lens)
+        if last:
+            x = self._final_rows(sp, x, q_lens)
+        return x
 
     # ------------------------------------------------------------------
     # whole-model generation: the one-stage case of the stage API

@@ -166,11 +166,141 @@ def test_kernels_refuse_what_they_do_not_take(cuda):
         ops.kv_pack_ragged_auto(torch.zeros(1, 2, 16, 1, 8, device=cuda), [0, 4], 8)
 
 
-def test_engine_on_the_card_gives_the_cpu_tokens(cuda):
+def _paged(g, ends, hkv, d, dtype, layers=4, bs=8):
+    """Pages for sequences holding `ends` tokens: layer 2's strided view of a
+    pool [N, layers, bs, hkv, d] with page ids in a shuffled order, and the
+    int32 tables [B, nb] padded with page 0."""
+    nbs = [-(-e // bs) for e in ends]
+    n = sum(nbs) + 3
+    order = torch.randperm(n, generator=torch.Generator().manual_seed(n)).tolist()
+    rows, o = [], 0
+    for nb in nbs:
+        rows.append(order[o:o + nb] + [0] * (max(nbs) - nb))
+        o += nb
+    pools = [torch.randn(n, layers, bs, hkv, d, generator=g, device=g.device).to(dtype)
+             for _ in range(2)]
+    return pools[0][:, 2], pools[1][:, 2], torch.tensor(rows, dtype=torch.int32,
+                                                        device=g.device)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("hq,hkv,d,bs,lengths", [
+    (4, 2, 16, 8, (90, 96, 7)),                  # GQA, ragged
+    (25, 25, 64, 8, (1, 300, 64)),               # gpt2 heads, a one-token sequence
+    (32, 1, 128, 16, (129, 64)),                 # G = 32: dynamic shared memory
+    (6, 2, 64, 4, (13,)),                        # tiny pages
+])
+def test_paged_decode_attention_kernel_matches_plain(cuda, hq, hkv, d, bs, lengths, dtype):
+    g = torch.Generator(device=cuda).manual_seed(5)
+    kp, vp, tables = _paged(g, list(lengths), hkv, d, dtype, bs=bs)
+    q = torch.randn(len(lengths), 1, hq, d, generator=g, device=cuda).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    n0 = LAUNCHES["paged_decode_attention"]
+    out = ops.paged_decode_attention_auto(q, kp, vp, tables, lens)
+    assert LAUNCHES["paged_decode_attention"] == n0 + 1
+    exp = ref.paged_decode_attention_ref(q[:, 0], kp, vp, tables, lens)[:, None]
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("c,hq,hkv,d,prefixes,qlens", [
+    (8, 4, 2, 16, (0, 9, 16), (8, 8, 8)),        # GQA, prefix 0, mid-block prefix
+    (16, 2, 1, 64, (24,), (16,)),                # a chunk spanning blocks
+    (64, 25, 25, 64, (0, 448, 130), (64, 64, 5)),   # gpt2 heads, a short final chunk
+    (40, 8, 2, 128, (3, 70), (40, 33)),          # head dim 128, C*G of 160 rows
+    (3, 4, 4, 32, (4, 7, 1), (3, 1, 2)),         # chunks shorter than a page
+])
+def test_paged_prefill_attention_kernel_matches_plain(cuda, c, hq, hkv, d, prefixes, qlens,
+                                                      dtype):
+    g = torch.Generator(device=cuda).manual_seed(6)
+    kp, vp, tables = _paged(g, [p + n for p, n in zip(prefixes, qlens)], hkv, d, dtype)
+    q = torch.randn(len(prefixes), c, hq, d, generator=g, device=cuda).to(dtype)
+    qs = torch.tensor(prefixes, dtype=torch.int32, device=cuda)
+    ql = torch.tensor(qlens, dtype=torch.int32, device=cuda)
+    n0 = LAUNCHES["paged_prefill_attention"]
+    out = ops.paged_prefill_attention_auto(q, kp, vp, tables, qs, ql)
+    assert LAUNCHES["paged_prefill_attention"] == n0 + 1
+    exp = ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    valid = torch.arange(c, device=cuda)[None, :] < ql[:, None]     # padding: don't-care
+    torch.testing.assert_close(out[valid].float(), exp[valid].float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+def test_paged_kernels_allocate_only_their_output(cuda):
+    """A call on one layer's view of a pool copies nothing: the device
+    memory it adds at its peak is its output (rounded to the allocator's
+    512-byte blocks)."""
+    g = torch.Generator(device=cuda).manual_seed(7)
+    kp, vp, tables = _paged(g, [500, 300, 64], 25, 64, torch.bfloat16, layers=8)
+    lens = torch.tensor([500, 300, 64], dtype=torch.int32, device=cuda)
+    q1 = torch.randn(3, 25, 64, generator=g, device=cuda).to(torch.bfloat16)
+    q64 = torch.randn(3, 64, 25, 64, generator=g, device=cuda).to(torch.bfloat16)
+    qs = torch.tensor([436, 236, 0], dtype=torch.int32, device=cuda)
+    ql = torch.tensor([64, 64, 64], dtype=torch.int32, device=cuda)
+    for call, q in ((lambda: ops.paged_decode_attention_auto(q1, kp, vp, tables, lens), q1),
+                    (lambda: ops.paged_prefill_attention_auto(q64, kp, vp, tables, qs, ql),
+                     q64)):
+        call()                                            # build and load first
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        out = call()
+        torch.cuda.synchronize()
+        out_bytes = -(-out.numel() * out.element_size() // 512) * 512
+        assert torch.cuda.max_memory_allocated() - base <= out_bytes
+
+
+def test_paged_kernels_refuse_what_they_do_not_take(cuda):
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    kp = torch.zeros(6, 3, 8, 2, 16, device=cuda)[:, 1]           # a layer view
+    q = torch.zeros(2, 4, 16, device=cuda)
+    qc = torch.zeros(2, 5, 4, 16, device=cuda)
+    tab = torch.zeros(2, 3, dtype=torch.int32, device=cuda)
+    lens = torch.ones(2, dtype=torch.int32, device=cuda)
+    n0 = dict(LAUNCHES)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        paged_decode_attention(q.cpu(), kp.cpu(), kp.cpu(), tab.cpu(), lens.cpu())
+    with pytest.raises(ValueError, match="block_tables"):
+        paged_decode_attention(q, kp, kp, tab.long(), lens)
+    with pytest.raises(ValueError, match="dense"):
+        paged_decode_attention(q, kp.transpose(2, 3), kp.transpose(2, 3), tab, lens)
+    with pytest.raises(ValueError, match="aligned"):
+        odd = torch.zeros(6 * 8 * 2 * 16 + 1, device=cuda)[1:].view(6, 8, 2, 16)
+        paged_decode_attention(q, odd, odd, tab, lens)
+    with pytest.raises(TypeError):
+        paged_prefill_attention(qc.to(torch.bfloat16), kp, kp, tab, lens, lens)
+    with pytest.raises(ValueError, match="head dim"):
+        kp12 = torch.zeros(6, 8, 2, 24, device=cuda)
+        paged_prefill_attention(torch.zeros(2, 5, 4, 24, device=cuda), kp12, kp12, tab, lens,
+                                lens)
+    with pytest.raises(ValueError, match="q_lens"):
+        paged_prefill_attention(qc, kp, kp, tab, lens, lens[:1])
+    assert LAUNCHES == n0, "a refused call must not launch"
+
+
+ENGINE_VARIANTS = {      # config changes -> the kernels the card run must launch
+    # plain: the fused passes read the pages in place; each admission's first
+    # chunk, a per-sequence pass, packs its window back
+    "plain": ({}, ("paged_decode_attention", "paged_prefill_attention", "kv_pack")),
+    # layer 1 windowed: stage 1 gathers, attends dense and packs back
+    "window_meta": (dict(sliding_window=6, num_meta_tokens=2, full_attn_layers=(0,)),
+                    ("paged_decode_attention", "paged_prefill_attention",
+                     "batched_decode_attention", "kv_pack_ragged", "kv_pack")),
+}
+
+
+@pytest.mark.parametrize("variant", list(ENGINE_VARIANTS))
+def test_engine_on_the_card_gives_the_cpu_tokens(cuda, variant):
     """Reduced gpt2-1.5b, fp32, 2 stage workers: the same weights and trace
     through the engine on the card and on the CPU give the same tokens, and
-    the card's run went through every kernel of that path."""
-    cfg = dataclasses.replace(get_arch("gpt2-1.5b").reduced(), dtype="float32")
+    the card's run went through exactly the kernels of its routes."""
+    kw, launches = ENGINE_VARIANTS[variant]
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b").reduced(), dtype="float32", **kw)
     params = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, n).astype(np.int32) for n in (8, 12, 40, 9)]
@@ -184,9 +314,8 @@ def test_engine_on_the_card_gives_the_cpu_tokens(cuda):
         launched[dev] = {k: LAUNCHES[k] - n0[k] for k in LAUNCHES}
     assert reps["cuda"].tokens == reps["cpu"].tokens
     assert reps["cuda"].pass_trace == reps["cpu"].pass_trace
-    # the kernels of the continuous-batching path (run() has its own test)
-    assert all(launched["cuda"][k] > 0 for k in
-               ("batched_decode_attention", "kv_pack_ragged", "kv_pack")), launched["cuda"]
+    # the kernels of the continuous-batching path's routes (run() has its own test)
+    assert {k for k, n in launched["cuda"].items() if n} == set(launches), launched["cuda"]
     assert not any(launched["cpu"].values())
 
 

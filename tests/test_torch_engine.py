@@ -6,7 +6,9 @@ bridged from the JAX package's, serves the traces of
 workers): the mixed trace, the 8-active round, chunk packing and the tiny
 pool that preempts.  Greedy tokens, the per-round batch and pass traces,
 preemptions and steps must be identical to the JAX engine's, and within the
-port the fused rounds must give the per-sequence path's tokens.
+port the fused rounds must give the per-sequence path's tokens.  Those
+traces run plain gpt2, whose fused passes read the pages in place; one
+windowed and one ALiBi trace hold the route that gathers them dense.
 """
 import dataclasses
 
@@ -26,6 +28,7 @@ from repro.serving import ServingEngine as JaxEngine  # noqa: E402
 from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import LAUNCHES  # noqa: E402
+from repro_torch.kvcache.paged import PagedKVCache  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
 
@@ -139,3 +142,76 @@ def test_port_chunk_packing_bounds_passes_per_round(port_model):
     base = run_port(port_model, "chunk_packing", fused_rounds=False)
     assert all(p <= 2 for p in fus.pass_trace[1:]), fus.pass_trace
     assert max(base.pass_trace[1:]) > 2, base.pass_trace
+
+
+# the gather route: a stage with a windowed or ALiBi layer gathers its pages
+GATHER_VARIANTS = {
+    "window_meta": dict(sliding_window=6, num_meta_tokens=2, full_attn_layers=(0,)),
+    "alibi": dict(pos_emb="alibi"),
+}
+
+
+@pytest.mark.parametrize("variant", list(GATHER_VARIANTS))
+def test_port_engine_matches_jax_engine_on_the_gather_route(variant):
+    """The chunk-packing trace (chunk-set and decode passes) on a windowed
+    model, whose layer-0 stage reads the pages and layer-1 stage gathers
+    them, and on an ALiBi model, whose stages both gather: tokens and traces
+    identical to the JAX engine's."""
+    kw = GATHER_VARIANTS[variant]
+    jcfg, tcfg = dataclasses.replace(CFG, **kw), dataclasses.replace(TCFG, **kw)
+    jm = build_model(jcfg)
+    jp = jm.init(jax.random.PRNGKey(0))
+    prompts, mx, ekw, ma = TRACES["chunk_packing"]
+    ref = JaxEngine(jcfg, jm, jp, 2, paged=True, **ekw).run_continuous(
+        [JaxRequest(rid=i, prompt=p.copy(), max_new=m)
+         for i, (p, m) in enumerate(zip(prompts, mx))], max_active=ma)
+    eng = ServingEngine(tcfg, DecoderLM(tcfg, device="cpu"),
+                        params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu"),
+                        2, paged=True, device="cpu", **ekw)
+    assert [w.reads_pages() for w in eng.cluster.workers()] == \
+        ([True, False] if variant == "window_meta" else [False, False])
+    rep = eng.run_continuous([Request(rid=i, prompt=p.copy(), max_new=m)
+                              for i, (p, m) in enumerate(zip(prompts, mx))], max_active=ma)
+    assert rep.tokens == ref.tokens
+    assert rep.batch_trace == ref.batch_trace and rep.pass_trace == ref.pass_trace
+    assert rep.pass_counts["chunkset"] > 0 and rep.pass_counts["fused_decode"] > 0
+
+
+def test_plain_route_never_gathers_and_a_windowed_stage_does(port_model, monkeypatch):
+    """With every stage plain causal the fused passes never call
+    `gather_dense` (patched to raise when given a batch of sequences, the
+    fused passes' call); each admitted request's first chunk runs on the
+    per-sequence path, which still gathers its one sequence.  With a
+    windowed layer its stage's fused passes gather, and only that stage's."""
+    per_seq = []
+
+    def fused_refused(self, seqs, pad_to):
+        if not isinstance(seqs, int):
+            raise AssertionError("gather_dense in a fused pass of the plain route")
+        per_seq.append(seqs)
+        return real(self, seqs, pad_to)
+
+    real = PagedKVCache.gather_dense
+    with monkeypatch.context() as m:
+        m.setattr(PagedKVCache, "gather_dense", fused_refused)
+        rep = run_port(port_model, "chunk_packing")
+    pc = rep.pass_counts
+    assert pc["chunkset"] > 0 and pc["fused_decode"] > 0
+    assert len(per_seq) == 2 * pc["prefill_chunk"] > 0       # one per stage per pass
+
+    tcfg = dataclasses.replace(TCFG, **GATHER_VARIANTS["window_meta"])
+    model = DecoderLM(tcfg, device="cpu")
+    eng = ServingEngine(tcfg, model, model.init(torch.Generator().manual_seed(0)), 2,
+                        paged=True, device="cpu", **TRACES["chunk_packing"][2])
+    fused = {}
+    for w in eng.cluster.workers():
+        def counted(seqs, pad_to, _wid=w.wid, _real=w.pages.gather_dense):
+            if not isinstance(seqs, int):
+                fused[_wid] = fused.get(_wid, 0) + 1
+            return _real(seqs, pad_to)
+        w.pages.gather_dense = counted
+    prompts, mx, _, ma = TRACES["chunk_packing"]
+    eng.run_continuous([Request(rid=i, prompt=p.copy(), max_new=n)
+                        for i, (p, n) in enumerate(zip(prompts, mx))], max_active=ma)
+    stage1 = eng.cluster.workers()[1].wid
+    assert set(fused) == {stage1} and fused[stage1] > 0

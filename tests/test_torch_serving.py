@@ -39,12 +39,32 @@ TCFG = dataclasses.replace(get_arch("gpt2-1.5b").reduced(), dtype="float32",
                            num_layers=2)
 
 
+# the worker test's variants: plain reads the pages in place; a stage with a
+# windowed or ALiBi layer gathers them dense (tests/test_torch_model.py)
+VARIANTS = {
+    "plain": {},
+    "window_meta": dict(sliding_window=6, num_meta_tokens=2, full_attn_layers=(0,)),
+    "alibi": dict(pos_emb="alibi"),
+}
+_MODELS: dict = {}
+
+
+def variant_models(name: str):
+    """(jax model, jax params, port model, port params) of a variant, made
+    once per module: the JAX weights from PRNGKey(0), bridged to the port."""
+    if name not in _MODELS:
+        jcfg = dataclasses.replace(CFG, **VARIANTS[name])
+        tcfg = dataclasses.replace(TCFG, **VARIANTS[name])
+        jm = build_model(jcfg)
+        jp = jm.init(jax.random.PRNGKey(0))
+        _MODELS[name] = (jm, jp, DecoderLM(tcfg, device="cpu"),
+                         params_from_jax(tcfg, jax.tree.map(np.asarray, jp), device="cpu"))
+    return _MODELS[name]
+
+
 @pytest.fixture(scope="module")
 def models():
-    jm = build_model(CFG)
-    jp = jm.init(jax.random.PRNGKey(0))
-    tm = DecoderLM(TCFG, device="cpu")
-    return jm, jp, tm, params_from_jax(TCFG, jax.tree.map(np.asarray, jp), device="cpu")
+    return variant_models("plain")
 
 
 # ---------------------------------------------------------------------------
@@ -162,13 +182,17 @@ def test_host_store_capacity_and_lru():
 # a stage worker: the same pages and logits as the reference worker
 # ---------------------------------------------------------------------------
 
-def test_worker_passes_leave_reference_pages(models):
+@pytest.mark.parametrize("variant", list(VARIANTS))
+def test_worker_passes_leave_reference_pages(variant):
     """One stage holding both layers: a packed chunk-set pass, a ragged one
     with a short chunk, a per-sequence chunk, two fused decode passes and a
-    per-sequence decode.  Pages and logits agree with the reference."""
-    jm, jp, tm, tp = models
+    per-sequence decode.  Pages, dirty blocks and logits agree with the
+    reference, whether the fused passes read the pages in place (plain) or
+    gather them dense (a windowed or ALiBi layer in the stage)."""
+    jm, jp, tm, tp = variant_models(variant)
     jw = JaxWorker(0, jm, jp, 0, 2, first=True, last=True)
     tw = StageWorker(0, tm, tp, 0, 2, first=True, last=True, device="cpu")
+    assert tw.reads_pages() == (variant == "plain")
     rng = np.random.default_rng(8)
     p0 = rng.integers(0, CFG.vocab_size, 20).astype(np.int32)
     p1 = rng.integers(0, CFG.vocab_size, 13).astype(np.int32)

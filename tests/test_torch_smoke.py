@@ -57,9 +57,63 @@ def test_serve_phase_counts_passes(smoke):
     assert res["decode_passes"] == pc["fused_decode"]
     assert res["chunk_passes"] == pc["chunkset"]
     # the 129-token prompt ends in a one-token chunk that runs in a chunk-set
-    # pass of its own: one more pass through the one-token attention kernel
+    # pass of its own: a one-token pass that is not a decode pass
     assert pc["one_token"] == pc["fused_decode"] + 1
     assert res["median_decode_pass_ms"] > 0 and eng.cluster.fused_ok
+    # every stage reads the pages in place: the paged kernels run once per
+    # layer per fused pass, the one-token chunk-set pass included, and only
+    # the admissions' per-sequence first chunks gather and pack
+    want = smoke.serve_expected_launches(eng, pc)
+    assert want["paged_decode_attention"] == 4 * pc["fused_decode"] > 0
+    assert want["paged_prefill_attention"] == 4 * pc["chunkset"] > 0
+    assert want["kv_pack"] == 2 * 2 * pc["prefill_chunk"] > 0
+    assert sum(want.values()) == (want["paged_decode_attention"]
+                                  + want["paged_prefill_attention"] + want["kv_pack"])
+    assert res["gather_dense_calls"] == {"fused": 0, "per_sequence": 2 * pc["prefill_chunk"]}
+
+
+def test_parity_phase_window_meta_trace_takes_both_routes(smoke):
+    """The parity phase's second trace at a tiny width: a sliding window
+    with meta sinks on layer 1, so stage 0 reads the pages in place and
+    stage 1 gathers them; it preempts, and two runs agree row for row."""
+    kw, launched = smoke.PARITY_VARIANTS["window_meta"]
+    cfg = _cfg(num_layers=2, dtype="float32", **kw)
+    lens = [40, 41, 42, 150, 60, 70]
+    res = smoke.run_parity(cfg, lambda: smoke._requests(lens, 8, cfg.vocab_size, seed=1),
+                           pool_blocks=smoke.PARITY_POOL_BLOCKS, max_active=4, card="cpu")
+    cpu, other = res["cpu"]["report"], res["card"]["report"]
+    assert cpu.preemptions >= 1 and other.tokens == cpu.tokens
+    assert res["max_logit_diff"] == 0.0
+    assert set(launched) == set(smoke.PAGED_KERNELS + smoke.CONTINUOUS_KERNELS)
+
+
+def test_parity_check_wants_exactly_the_route_kernels(smoke):
+    """`check_parity` passes a run that launched exactly the kernels of its
+    routes and fails one that launched fewer or others."""
+    cfg = _cfg(num_layers=2, dtype="float32")
+    lens = [40, 41, 42, 150, 60, 70]
+    res = smoke.run_parity(cfg, lambda: smoke._requests(lens, 8, cfg.vocab_size, seed=1),
+                           pool_blocks=smoke.PARITY_POOL_BLOCKS, max_active=4, card="cpu")
+    _, launched = smoke.PARITY_VARIANTS["plain"]
+    with pytest.raises(smoke.SmokeFailure, match="launched 0 times"):
+        smoke.check_parity(res, 8, launched)         # the CPU run launches nothing
+    # both sides ran on the CPU here: give the "card" side its own launches
+    res["card"] = dict(res["card"], launches={k: int(k in launched)
+                                              for k in res["cpu"]["launches"]})
+    smoke.check_parity(res, 8, launched)
+    res["card"]["launches"]["batched_decode_attention"] = 1
+    with pytest.raises(smoke.SmokeFailure, match="batched_decode_attention launched 1"):
+        smoke.check_parity(res, 8, launched)
+
+
+def test_paged_kernel_inputs_are_a_strided_view_with_shuffled_pages(smoke):
+    g = torch.Generator().manual_seed(0)
+    k, v, tables = smoke.paged_inputs(g, [20, 3, 9], 2, 16, torch.float32, layers=3, layer=1)
+    assert tuple(k.shape) == (3 + 1 + 2 + 4, 8, 2, 16) and not k.is_contiguous()
+    assert k.stride(0) == 3 * 8 * 2 * 16 and v.stride() == k.stride()
+    used = [p for row, n in zip(tables.tolist(), [3, 1, 2]) for p in row[:n]]
+    assert len(set(used)) == len(used) == 6 and used != sorted(used)
+    assert tables.tolist()[1][1:] == [0, 0]
 
 
 def test_mb_parity_phase_modes_agree(smoke):
