@@ -52,6 +52,7 @@ from __future__ import annotations
 import argparse
 import dataclasses
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -69,6 +70,9 @@ PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
 # the kernels of the fused passes of plain causal stages, which read the pages
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
+# the kernels' names in a profile: the f32 body, then the bf16 one
+FLASH_NAMES = ("flash_kernel", "flash_wgmma_kernel")
+SSD_NAMES = ("ssd_kernel", "ssd_mma_kernel")
 
 
 class SmokeFailure(RuntimeError):
@@ -97,6 +101,26 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     b.record()
     b.synchronize()
     return a.elapsed_time(b) / iters
+
+
+def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+    """Mean device time of one call: the kernels' own time under
+    torch.profiler, without the gaps where the device waits for the host
+    (which `cuda_ms` counts when a call's host work outlasts its kernels)."""
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 acc_events=True) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = sum(e.self_device_time_total for e in prof.key_averages()
+             if e.device_type == DeviceType.CUDA)
+    return us / 1e3 / iters
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -128,9 +152,28 @@ def phase_env(state: dict) -> dict:
     state["out"].mkdir(parents=True, exist_ok=True)
     (state["out"] / "ptxas.txt").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
+    emit({"sass": sass_counts()})
     return {"card": card, "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": build_s, "built": sorted(logs)}
+
+
+def sass_counts():
+    """Tensor-core instructions in each built library's SASS: HGMMA
+    (wgmma) and HMMA (mma.sync), by `cuobjdump -sass` from the toolkit; a
+    string saying so where cuobjdump is missing."""
+    import shutil
+
+    from repro_torch.kernels import _build
+    tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
+    if not Path(tool).exists():
+        return f"cuobjdump not found (looked on PATH and beside {_build._nvcc()})"
+    counts = {}
+    for name in _build.SOURCES:
+        sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
+                              capture_output=True, text=True, timeout=120).stdout
+        counts[name] = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+    return counts
 
 
 # ---------------------------------------------------------------------------
@@ -249,7 +292,9 @@ def phase_kernels(state: dict) -> dict:
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 starts {starts} width {wd}"}
     del cache
 
-    def flash_case(name, b, sq, skv, hq, hkv, d, dtype, causal=True, time_it=False):
+    def flash_case(name, b, sq, skv, hq, hkv, d, dtype, causal=True, time_it=None):
+        """Checks the kernel on one shape; `time_it` names the row its times
+        go to."""
         q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(dtype)
         k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(dtype)
         v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(dtype)
@@ -265,23 +310,35 @@ def phase_kernels(state: dict) -> dict:
         bms, by = bound_ms(es * (2 * q.numel() + 2 * k.numel()), 4.0 * b * hq * d * pairs,
                            tname)
         qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-        rows["flash_attention"] = {
-            "ms": cuda_ms(lambda: flash_attention(q, k, v, causal=causal)),
+
+        def mine():
+            return flash_attention(q, k, v, causal=causal)
+
+        def sdpa():
+            return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
+                                                  enable_gqa=hq != hkv)
+
+        rows[time_it] = {
+            "ms": cuda_ms(mine),
             "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal)),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qt, kt, vt, is_causal=causal)),
+            "library_ms": cuda_ms(sdpa),
+            # at these sizes a call's host work can outlast its kernel
+            "device_ms": device_ms(mine), "library_device_ms": device_ms(sdpa),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "shape": f"q[{b},{sq},{hq},{d}] kv[{b},{skv},{hkv},{d}] {tname} causal"}
 
     # the mb_serve prefill: microbatch 4 of 512-token prompts, gpt2 heads
-    flash_case("gpt2_prefill", 4, 512, 512, 25, 25, 64, torch.float32)
-    flash_case("gpt2_prefill", 4, 512, 512, 25, 25, 64, torch.bfloat16, time_it=True)
+    flash_case("gpt2_prefill", 4, 512, 512, 25, 25, 64, torch.float32,
+               time_it="flash_attention float32")
+    flash_case("gpt2_prefill", 4, 512, 512, 25, 25, 64, torch.bfloat16,
+               time_it="flash_attention")
     for dt in (torch.float32, torch.bfloat16):      # a query block at the end of the keys
         flash_case("sq_lt_skv", 2, 100, 512, 25, 25, 64, dt)
         flash_case("gqa_head16_full", 2, 70, 70, 4, 2, 16, dt, causal=False)
     # Hymba's full-attention layers, 25:5 GQA over 128 meta + prompt tokens:
     # the ssm_serve prefill (bf16) and the ssm_parity one (fp32)
-    flash_case("hymba_full_layer", 4, 1664, 1664, 25, 5, 64, torch.bfloat16)
+    flash_case("hymba_full_layer", 4, 1664, 1664, 25, 5, 64, torch.bfloat16,
+               time_it="flash_attention hymba")
     flash_case("hymba_full_layer", 2, 1228, 1228, 25, 5, 64, torch.float32)
 
     def decode_case(name, b, s, hq, hkv, d, valid, dtype, time_it=False):
@@ -334,21 +391,26 @@ def phase_kernels(state: dict) -> dict:
         "max_abs_err": (mine.float() - plain.float()).abs().max().item(),
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 t0 0 width {W}"}
 
-    def ssd_case(name, b, s, nh, hd, ng, n, dtype, with_h0=False, time_it=False):
+    def ssd_case(name, b, s, nh, hd, ng, n, dtype, with_h0=False, time_it=None):
         # scaled so that |y| stays below 4, where one bf16 step (1/64) is
         # inside the 2e-2 band: kernel and plain version round their f32
-        # results to bf16 on their own, and may land one step apart
+        # results to bf16 on their own, and may land one step apart.  C enters
+        # y alone (the read-out), so its scale sets |y| and leaves the state,
+        # and h_final's check, as they are; the premise is checked below
         x = (0.5 * torch.randn(b, s, nh, hd, generator=g, device=dev)).to(dtype)
         dt = F.softplus(torch.randn(b, s, nh, generator=g, device=dev))
         a_neg = -torch.exp(0.3 * torch.randn(nh, generator=g, device=dev))
         bm = (0.25 * torch.randn(b, s, ng, n, generator=g, device=dev)).to(dtype)
-        cm = (0.25 * torch.randn(b, s, ng, n, generator=g, device=dev)).to(dtype)
+        cm = (0.0625 * torch.randn(b, s, ng, n, generator=g, device=dev)).to(dtype)
         h0 = (0.1 * torch.randn(b, nh, hd, n, generator=g, device=dev)) if with_h0 else None
         q = min(128, s)
         tname = str(dtype).replace("torch.", "")
         y, hf = ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q)
         ye, he = ref.ssd_scan_ref(x, dt, a_neg, bm, cm, h0=h0, chunk=q)
         tag = f"{name}{' h0' if with_h0 else ''}"
+        ymax = ye.float().abs().max().item()
+        check(ymax < 4, f"ssd_scan {tag}: the plain |y| reaches {ymax}, past the 4 below "
+              "which one bf16 step fits the band")
         # h_final is f32 on both sides whatever x's dtype: the f32 band
         err = max(held("ssd_scan", f"{tag} y", y, ye, tname, SSD_TOL),
                   held("ssd_scan", f"{tag} h_final", hf, he, "float32", SSD_TOL))
@@ -359,7 +421,7 @@ def phase_kernels(state: dict) -> dict:
         nbytes = (2 * x.numel() * es + (bm.numel() + cm.numel()) * es + 4 * dt.numel()
                   + 4 * nh + 4 * hf.numel() * (2 if with_h0 else 1))
         bms, by = bound_ms(nbytes, fl, tname)
-        rows["ssd_scan"] = {
+        rows[time_it] = {
             "ms": cuda_ms(lambda: ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q)),
             "plain_ms": cuda_ms(lambda: ref.ssd_scan_ref(x, dt, a_neg, bm, cm, h0=h0,
                                                          chunk=q), iters=10),
@@ -373,12 +435,14 @@ def phase_kernels(state: dict) -> dict:
     # 64, one group of state 128; with and without an initial state
     for dt_ in (torch.float32, torch.bfloat16):
         for h0_ in (False, True):
+            timed = dt_ == torch.bfloat16 and not h0_
             ssd_case("mamba2_prefill", 8, 512, 48, 64, 1, 128, dt_, with_h0=h0_,
-                     time_it=dt_ == torch.bfloat16 and not h0_)
+                     time_it="ssd_scan" if timed else None)
         ssd_case("ragged_s200", 4, 200, 48, 64, 1, 128, dt_, with_h0=True)
         ssd_case("groups2_s50", 2, 50, 4, 16, 2, 8, dt_)
     # the hymba-1.5b ssm_serve prefill: 4 x (128 meta + 1536) tokens, 50 heads, N 16
-    ssd_case("hymba_prefill", 4, 1664, 50, 64, 1, 16, torch.bfloat16)
+    ssd_case("hymba_prefill", 4, 1664, 50, 64, 1, 16, torch.bfloat16,
+             time_it="ssd_scan hymba")
 
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
@@ -970,7 +1034,7 @@ def profile_mb(model, params, cfg, out_dir: Path) -> dict:
     return _profile(lambda: _passes(eng.run(_requests([512] * 4, 8, cfg.vocab_size,
                                                       seed=11))),
                     out_dir / "mb_profile.txt",
-                    {"flash_attention": ("flash_kernel",),
+                    {"flash_attention": FLASH_NAMES,
                      "decode_attention": ("batched_decode",), "kv_pack": ("kv_pack", "window_copy"),
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
                      "gather_scatter": ("index", "gather", "scatter")})
@@ -1188,7 +1252,7 @@ def profile_ssm(model, params, n: int, plen: int, out_dir: Path) -> dict:
         generate(model, params, prompts, 8, torch.cuda.synchronize)
         return 8
     return _profile(window, out_dir / f"{model.cfg.name}_profile.txt",
-                    {"ssd_scan": ("ssd_kernel",), "flash_attention": ("flash_kernel",),
+                    {"ssd_scan": SSD_NAMES, "flash_attention": FLASH_NAMES,
                      "decode_attention": ("batched_decode",),
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
                      "softmax": ("softmax",)})

@@ -47,12 +47,12 @@ _SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _vp]),
-        "repro_flash_attention_smem": (_ll, [_i]),
+        "repro_flash_attention_smem": (_ll, [_i, _i]),
     },
     "ssd_scan": {
         "repro_ssd_scan": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp]),
-        "repro_ssd_scan_smem": (_ll, [_i, _i, _i]),
+        "repro_ssd_scan_smem": (_ll, [_i, _i, _i, _i]),
     },
     "paged_prefill": {
         "repro_paged_prefill_attention": (

@@ -5,7 +5,8 @@ Whole-prompt attention: q [B,Sq,Hq,D] over k/v [B,Skv,Hkv,D], causal with
 the offset of a query block at the end of the keys, or full.  The wrapper
 takes CUDA tensors only (the CPU goes to the plain version through
 `repro_torch.kernels.ops`), checks what the kernel needs, allocates the
-output and counts its launches.
+output and counts its launches.  The C function picks the body by dtype:
+bf16 runs on wgmma with TMA loads, float32 on the CUDA cores.
 """
 from __future__ import annotations
 

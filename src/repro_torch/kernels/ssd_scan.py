@@ -6,7 +6,8 @@ f32, B/C [B,S,G,N], an optional initial state h0 [B,nh,hd,N] f32 -> (y
 [B,S,nh,hd] in x.dtype, the final state [B,nh,hd,N] f32).  The wrapper takes
 CUDA tensors only (the CPU goes to the plain version through
 `repro_torch.kernels.ops`), checks what the kernel needs, allocates the
-outputs and counts its launches.
+outputs and counts its launches.  The C function picks the body by dtype:
+bf16 runs its products on the tensor cores, float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -55,7 +56,7 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor, bmat: torch
         if t.device != x.device or not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous and on {x.device}")
     lib = _build.lib("ssd_scan")
-    smem = lib.repro_ssd_scan_smem(hd, n, q)
+    smem = lib.repro_ssd_scan_smem(_DTYPE_CODE[x.dtype], hd, n, q)
     if smem > MAX_SMEM:
         raise ValueError(f"hd {hd}, N {n}, chunk {q} need {smem} bytes of shared memory "
                          f"per block, more than {MAX_SMEM}")

@@ -86,6 +86,9 @@ def test_kv_pack_kernels_match_plain_bit_for_bit(cuda, dtype):
     (1, 70, 50, 2, 1, 64, False),                # full attention, Sq > Skv
     (2, 130, 130, 25, 25, 64, True),             # gpt2 heads
     (1, 65, 65, 8, 2, 128, True),                # head dim 128: dynamic shared memory
+    (2, 1228, 1228, 25, 5, 64, True),            # Hymba's GQA, Skv not a multiple of 64
+    (2, 100, 300, 8, 2, 64, True),               # Sq < Skv: the tile past a batch row's
+    (2, 70, 200, 4, 2, 128, True),               # end reads zeros, not the next row
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -370,7 +373,8 @@ def test_ssd_scan_kernel_matches_plain(cuda, b, s, nh, hd, g, n, ch, with_h0, dt
     ye, he = ref.ssd_scan_ref(x, dt, a, bm, cm, h0=h0, chunk=min(ch, s))
     assert y.dtype == dtype and hf.dtype == torch.float32
     assert (y.float() - ye.float()).abs().max().item() <= SSD_TOL[dtype]
-    assert (hf - he).abs().max().item() <= SSD_TOL[dtype]
+    # h_final is f32 whatever x's dtype, and feeds every later call: the f32 band
+    assert (hf - he).abs().max().item() <= SSD_TOL[torch.float32]
 
 
 def test_ssd_scan_kernel_refuses_what_it_does_not_take(cuda):
