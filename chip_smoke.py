@@ -11,7 +11,9 @@ Phases, each printing one JSON line with its seconds:
                every CUDA kernel of the serving path from ``csrc/``.
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
                the card (TF32 off), with CUDA-event times beside the bound,
-               the plain version and one library call of the same function.
+               the plain version and one library call of the same function,
+               and the profiler's device time of the kernel and the library
+               call.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
                trace that chunks its prompts and preempts; once plain (both
@@ -188,7 +190,8 @@ def phase_kernels(state: dict) -> dict:
     import torch.nn.functional as F
 
     from repro_torch.kernels import ref
-    from repro_torch.kernels.decode_attention import batched_decode_attention, decode_attention
+    from repro_torch.kernels.decode_attention import (batched_decode_attention,
+                                                      decode_attention, split_plan)
     from repro_torch.kernels.flash_attention import flash_attention
     from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged, kv_unpack
     from repro_torch.kernels.ssd_scan import ssd_scan
@@ -198,6 +201,15 @@ def phase_kernels(state: dict) -> dict:
     dev = torch.device("cuda")
     g = torch.Generator(device=dev).manual_seed(0)
     rows, checks = {}, []
+
+    def times(mine, plain, lib=None, plain_iters=50):
+        """Event times of a kernel, its plain version and its library call,
+        and the profiler's device times of the kernel and the library call
+        (at these sizes a call's host work can outlast its kernel)."""
+        return {"ms": cuda_ms(mine), "plain_ms": cuda_ms(plain, iters=plain_iters),
+                "library_ms": None if lib is None else cuda_ms(lib),
+                "device_ms": device_ms(mine),
+                "library_device_ms": None if lib is None else device_ms(lib)}
 
     def held(kernel, name, out, exp, tname, tol=TOL):
         """Max |err| of a kernel's output against its plain version, checked
@@ -223,21 +235,19 @@ def phase_kernels(state: dict) -> dict:
         err = held("batched_decode_attention", name, out, exp, tname)
         if not time_it:
             return err
-        ms = cuda_ms(lambda: batched_decode_attention(q, k, v, lens, ws, sl,
-                                                      num_meta=meta))
-        plain = cuda_ms(lambda: ref.batched_decode_attention_ref(q, k, v, lens, ws, sl,
-                                                                 num_meta=meta))
         # yardstick: SDPA over the same K/V with a boolean length mask
         mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
         qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
-        lib = cuda_ms(lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask))
         es = q.element_size()
         live = int(sum(lengths))
         nbytes = 2 * q.numel() * es + 2 * live * hkv * d * es + 4 * b
         bms, by = bound_ms(nbytes, 4.0 * live * hq * d, tname)
         rows["batched_decode_attention"] = {
-            "ms": ms, "plain_ms": plain, "library_ms": lib, "bound_ms": bms,
-            "bound_by": by, "max_abs_err": err,
+            **times(lambda: batched_decode_attention(q, k, v, lens, ws, sl, num_meta=meta),
+                    lambda: ref.batched_decode_attention_ref(q, k, v, lens, ws, sl,
+                                                             num_meta=meta),
+                    lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} "
                      f"lengths {list(lengths)}"}
         return err
@@ -251,6 +261,8 @@ def phase_kernels(state: dict) -> dict:
     for dt in (torch.float32, torch.bfloat16):
         attn_case("gqa_window_meta_alibi", 4, 16, 4, 64, 300, [300, 257, 64, 9], dt,
                   win=96, meta=4, slopes=slopes)
+        # a row at length 0 gets the average of V over the S slots
+        attn_case("length_zero", 3, 4, 2, 16, 300, [0, 77, 300], dt)
 
     # the buffered copies at [L 24, B 8, S 1024, H 25, D 64] bf16: bit-exact
     L, B, S, H, D = 24, 8, 1024, 25, 64
@@ -268,9 +280,9 @@ def phase_kernels(state: dict) -> dict:
     nb = 2 * L * B * w_chunk * H * D * es
     bms, by = bound_ms(nb, 0.0, "bfloat16")
     rows["kv_pack"] = {
-        "ms": cuda_ms(lambda: kv_pack(cache, t0, width=w_chunk)),
-        "plain_ms": cuda_ms(lambda: ref.kv_pack_ref(cache, t0, w_chunk)),
-        "library_ms": cuda_ms(lambda: cache[:, :, t0:t0 + w_chunk].contiguous()),
+        **times(lambda: kv_pack(cache, t0, width=w_chunk),
+                lambda: ref.kv_pack_ref(cache, t0, w_chunk),
+                lambda: cache[:, :, t0:t0 + w_chunk].contiguous()),
         "bound_ms": bms, "bound_by": by, "max_abs_err": pack_err,
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 t0 {t0} width {w_chunk}"}
     starts = [1016, 8, 504, 0, 256, 1000, 64, 128]
@@ -285,9 +297,9 @@ def phase_kernels(state: dict) -> dict:
     nb = 2 * L * B * wd * H * D * es
     bms, by = bound_ms(nb, 0.0, "bfloat16")
     rows["kv_pack_ragged"] = {
-        "ms": cuda_ms(lambda: kv_pack_ragged(cache, starts, width=wd)),
-        "plain_ms": cuda_ms(lambda: ref.kv_pack_ragged_ref(cache, starts, wd)),
-        "library_ms": cuda_ms(lambda: cache[:, bidx, idx]),
+        **times(lambda: kv_pack_ragged(cache, starts, width=wd),
+                lambda: ref.kv_pack_ragged_ref(cache, starts, wd),
+                lambda: cache[:, bidx, idx]),
         "bound_ms": bms, "bound_by": by, "max_abs_err": ragged_err,
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 starts {starts} width {wd}"}
     del cache
@@ -319,11 +331,7 @@ def phase_kernels(state: dict) -> dict:
                                                   enable_gqa=hq != hkv)
 
         rows[time_it] = {
-            "ms": cuda_ms(mine),
-            "plain_ms": cuda_ms(lambda: ref.flash_attention_ref(q, k, v, causal=causal)),
-            "library_ms": cuda_ms(sdpa),
-            # at these sizes a call's host work can outlast its kernel
-            "device_ms": device_ms(mine), "library_device_ms": device_ms(sdpa),
+            **times(mine, lambda: ref.flash_attention_ref(q, k, v, causal=causal), sdpa),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "shape": f"q[{b},{sq},{hq},{d}] kv[{b},{skv},{hkv},{d}] {tname} causal"}
 
@@ -341,7 +349,9 @@ def phase_kernels(state: dict) -> dict:
                time_it="flash_attention hymba")
     flash_case("hymba_full_layer", 2, 1228, 1228, 25, 5, 64, torch.float32)
 
-    def decode_case(name, b, s, hq, hkv, d, valid, dtype, time_it=False):
+    def decode_case(name, b, s, hq, hkv, d, valid, dtype, time_it=None):
+        """Checks decode_attention on one shape; `time_it` names the row its
+        times go to."""
         q = torch.randn(b, hq, d, generator=g, device=dev).to(dtype)
         k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
         v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
@@ -356,22 +366,31 @@ def phase_kernels(state: dict) -> dict:
                            4.0 * b * hq * d * n_valid, tname)
         qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
         mask = valid[None, None, None, :]
-        rows["decode_attention"] = {
-            "ms": cuda_ms(lambda: decode_attention(q, k, v, valid)),
-            "plain_ms": cuda_ms(lambda: ref.decode_attention_ref(q, k, v, valid)),
-            "library_ms": cuda_ms(lambda: F.scaled_dot_product_attention(
-                qs, ks, vs, attn_mask=mask)),
+        splits, stages, _ = split_plan(dtype, b, s, hq, hkv, d)
+        rows[time_it] = {
+            **times(lambda: decode_attention(q, k, v, valid),
+                    lambda: ref.decode_attention_ref(q, k, v, valid),
+                    lambda: F.scaled_dot_product_attention(
+                        qs, ks, vs, attn_mask=mask, enable_gqa=hq != hkv)),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "cluster": splits, "stages": stages,
             "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} valid {n_valid}/{s}"}
 
     # the mb_serve decode: microbatch 4, cache of 544 slots, query at 527
     slots = torch.arange(544, device=dev)
     decode_case("gpt2_mb_decode", 4, 544, 25, 25, 64, slots <= 527, torch.float32)
     decode_case("gpt2_mb_decode", 4, 544, 25, 25, 64, slots <= 527, torch.bfloat16,
-                time_it=True)
+                time_it="decode_attention")
     window_meta = (slots <= 300) & ((slots > 300 - 96) | (slots < 4))
     for dt in (torch.float32, torch.bfloat16):      # not a prefix: window + sinks
         decode_case("gqa_window_meta", 3, 544, 16, 4, 64, window_meta, dt)
+        # no valid key: the average of V over the S slots
+        decode_case("none_valid", 3, 544, 16, 4, 64, slots < 0, dt)
+    # Hymba's decode: 25:5 heads over its full ring of 1024 window + 128 meta slots
+    ring = torch.ones(1152, dtype=torch.bool, device=dev)
+    decode_case("hymba_ring", 4, 1152, 25, 5, 64, ring, torch.float32)
+    decode_case("hymba_ring", 4, 1152, 25, 5, 64, ring, torch.bfloat16,
+                time_it="decode_attention hymba")
 
     # the disaggregated landing: one stage's 24 layers of a microbatch of 4,
     # 512 prompt tokens into a 544-slot cache, bf16: bit-exact
@@ -384,9 +403,8 @@ def phase_kernels(state: dict) -> dict:
     check(torch.equal(mine, plain), "kv_unpack differs from its plain version")
     bms, by = bound_ms(2 * buf.numel() * buf.element_size(), 0.0, "bfloat16")
     rows["kv_unpack"] = {
-        "ms": cuda_ms(lambda: kv_unpack(mine, buf, 0)),
-        "plain_ms": cuda_ms(lambda: ref.kv_unpack_ref(plain, buf, 0)),
-        "library_ms": cuda_ms(lambda: plain[:, :, 0:W].copy_(buf)),
+        **times(lambda: kv_unpack(mine, buf, 0), lambda: ref.kv_unpack_ref(plain, buf, 0),
+                lambda: plain[:, :, 0:W].copy_(buf)),
         "bound_ms": bms, "bound_by": by,
         "max_abs_err": (mine.float() - plain.float()).abs().max().item(),
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 t0 0 width {W}"}
@@ -422,10 +440,10 @@ def phase_kernels(state: dict) -> dict:
                   + 4 * nh + 4 * hf.numel() * (2 if with_h0 else 1))
         bms, by = bound_ms(nbytes, fl, tname)
         rows[time_it] = {
-            "ms": cuda_ms(lambda: ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q)),
-            "plain_ms": cuda_ms(lambda: ref.ssd_scan_ref(x, dt, a_neg, bm, cm, h0=h0,
-                                                         chunk=q), iters=10),
-            "library_ms": None,       # no one PyTorch call computes the SSD scan
+            # no one PyTorch call computes the SSD scan
+            **times(lambda: ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q),
+                    lambda: ref.ssd_scan_ref(x, dt, a_neg, bm, cm, h0=h0, chunk=q),
+                    plain_iters=10),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err, "flops": fl,
             "bytes": nbytes,
             "shape": f"x[{b},{s},{nh},{hd}] B/C[{b},{s},{ng},{n}] {tname} chunk {q}"
@@ -461,12 +479,14 @@ def phase_kernels(state: dict) -> dict:
             nbytes = 2 * q.numel() * es + 2 * live * hkv * 64 * es + 4 * (tables.numel()
                                                                           + len(lengths))
             bms, by = bound_ms(nbytes, 4.0 * live * hq * 64, tname)
+            splits, stages, _ = split_plan(dtype, len(lengths), tables.shape[1] * kp.shape[1],
+                                           hq, hkv, 64)
             rows["paged_decode_attention"] = {
-                "ms": cuda_ms(lambda: paged_decode_attention(q, kp, vp, tables, lens)),
-                "plain_ms": cuda_ms(lambda: ref.paged_decode_attention_ref(q, kp, vp, tables,
-                                                                           lens)),
-                "library_ms": None,   # no one PyTorch call reads pages through a table
+                # no one PyTorch call reads pages through a table
+                **times(lambda: paged_decode_attention(q, kp, vp, tables, lens),
+                        lambda: ref.paged_decode_attention_ref(q, kp, vp, tables, lens)),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+                "cluster": splits, "stages": stages,
                 "shape": f"q[{len(lengths)},{hq},64] pages {list(kp.shape)} of a 24-layer "
                          f"pool, {tname}, lengths {list(lengths)}"}
         del kp, vp
@@ -491,10 +511,9 @@ def phase_kernels(state: dict) -> dict:
                       + 4 * (tables.numel() + 2 * len(starts)))
             bms, by = bound_ms(nbytes, 4.0 * pairs * hq * 64, tname)
             rows["paged_prefill_attention"] = {
-                "ms": cuda_ms(lambda: paged_prefill_attention(q, kp, vp, tables, qs, ql)),
-                "plain_ms": cuda_ms(lambda: ref.paged_prefill_attention_ref(
-                    q, kp, vp, tables, qs, ql)),
-                "library_ms": None,   # no one PyTorch call reads pages through a table
+                # no one PyTorch call reads pages through a table
+                **times(lambda: paged_prefill_attention(q, kp, vp, tables, qs, ql),
+                        lambda: ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql)),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                 "shape": f"q[{len(starts)},{c},{hq},64] pages {list(kp.shape)} of a 24-layer "
                          f"pool, {tname}, q_starts {list(starts)} q_lens {list(qlens)}"}
@@ -505,6 +524,8 @@ def phase_kernels(state: dict) -> dict:
     for dt_ in (torch.float32, torch.bfloat16):
         paged_decode_case("gpt2", lengths, 25, 25, dt_, time_it=dt_ == torch.bfloat16)
         paged_decode_case("gqa_25_5", [700, 9, 1, 333], 25, 5, dt_)
+        # a row at length 0 reads its whole table and averages V over its slots
+        paged_decode_case("length_zero", [300, 0, 77], 25, 5, dt_)
     # the serve chunk-set pass: 8 chunks of 64 over prefixes of 0-448 tokens,
     # one short final chunk of 5 whose padded rows are not compared
     starts, qlens = [0, 64, 448, 128, 320, 192, 384, 256], [64] * 7 + [5]
@@ -1035,7 +1056,7 @@ def profile_mb(model, params, cfg, out_dir: Path) -> dict:
                                                       seed=11))),
                     out_dir / "mb_profile.txt",
                     {"flash_attention": FLASH_NAMES,
-                     "decode_attention": ("batched_decode",), "kv_pack": ("kv_pack", "window_copy"),
+                     "decode_attention": ("valid_decode",), "kv_pack": ("kv_pack", "window_copy"),
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
                      "gather_scatter": ("index", "gather", "scatter")})
 
@@ -1253,7 +1274,7 @@ def profile_ssm(model, params, n: int, plen: int, out_dir: Path) -> dict:
         return 8
     return _profile(window, out_dir / f"{model.cfg.name}_profile.txt",
                     {"ssd_scan": SSD_NAMES, "flash_attention": FLASH_NAMES,
-                     "decode_attention": ("batched_decode",),
+                     "decode_attention": ("valid_decode",),
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass"),
                      "softmax": ("softmax",)})
 
@@ -1330,6 +1351,7 @@ def main() -> int:
         kernels.append({"name": name, "route": "cuda", "source": source,
                         "replaces": replaces, "launches": launches.get(name),
                         "max_abs_err": r.get("max_abs_err"), "ms": r.get("ms"),
+                        "device_ms": r.get("device_ms"),
                         "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
                         "bound_by": r.get("bound_by"),
                         "library_ms": r.get("library_ms")})

@@ -29,6 +29,7 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _logs: Dict[str, str] = {}
 
 _vp, _i, _ll, _f = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong, ctypes.c_float
+_ip = ctypes.POINTER(ctypes.c_int)
 _SIGNATURES = {
     "kv_pack": {
         "repro_kv_pack": (_i, [_vp, _vp, _vp, _i, _i, _i, _ll, _ll, _ll, _i, _i, _vp]),
@@ -39,6 +40,7 @@ _SIGNATURES = {
         "repro_batched_decode_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp]),
         "repro_batched_decode_smem": (_ll, [_i, _i, _i]),
+        "repro_decode_split_plan": (_ll, [_i, _i, _i, _i, _i, _i, _ip, _ip]),
         "repro_decode_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _vp]),
         "repro_paged_decode_attention": (

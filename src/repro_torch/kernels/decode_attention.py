@@ -6,14 +6,18 @@ One query per sequence for B sequences: `batched_decode_attention` over
 dense per-sequence K/V, each sequence masked to its own live length, with
 optional window starts, meta sinks and ALiBi slopes; `decode_attention`
 over dense K/V with one shared validity vector; `paged_decode_attention`
-over pool pages read in place through block tables.  The wrappers take
-CUDA tensors only (the CPU goes to the plain versions through
-`repro_torch.kernels.ops`), check what the kernel needs, allocate the output
-and count their launches.
+over pool pages read in place through block tables.  The last two split
+each (KV head, sequence)'s keys across a thread-block cluster and combine
+the partials on chip, in one launch (`split_plan` gives its shape).  A row
+with no valid key gets the uniform average of V over its S slots, as the
+plain versions give.  The wrappers take CUDA tensors only (the CPU goes to
+the plain versions through `repro_torch.kernels.ops`), check what the
+kernel needs, allocate the output and count their launches.
 """
 from __future__ import annotations
 
 import ctypes
+import functools
 from typing import Optional
 
 import torch
@@ -59,14 +63,35 @@ def _lib_for(hq: int, hkv: int, d: int):
     return lib
 
 
+@functools.lru_cache(maxsize=256)
+def split_plan(dtype: torch.dtype, b: int, s: int, hq: int, hkv: int, d: int):
+    """The launch shape of `decode_attention` (s the cache length) and
+    `paged_decode_attention` (s = max_blocks * bs): (blocks per cluster, ring
+    stages, shared memory bytes per block), chosen from the shapes alone."""
+    lib = _build.lib("decode_attention")
+    splits, stages = ctypes.c_int(), ctypes.c_int()
+    smem = lib.repro_decode_split_plan(_DTYPE_CODE[dtype], b, s, hq, hkv, d,
+                                       ctypes.byref(splits), ctypes.byref(stages))
+    return splits.value, stages.value, smem
+
+
+def _split_lib(q: torch.Tensor, s: int, hkv: int):
+    b, hq, d = q.shape
+    smem = split_plan(q.dtype, b, s, hq, hkv, d)[2]
+    if smem > MAX_SMEM:
+        raise ValueError(f"{smem} bytes of shared memory per block exceed {MAX_SMEM}")
+    return _build.lib("decode_attention")
+
+
 def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              lengths: torch.Tensor,
                              win_starts: Optional[torch.Tensor] = None,
                              slopes: Optional[torch.Tensor] = None, *,
                              num_meta: int = 0) -> torch.Tensor:
-    """q [B,Hq,D]; k/v [B,S,Hkv,D]; lengths [B] int32 (>= 1, the new token
-    included); win_starts [B] int32 or None; slopes [Hq] float32 or None
-    -> [B,Hq,D] in q.dtype."""
+    """q [B,Hq,D]; k/v [B,S,Hkv,D]; lengths [B] int32 (the new token
+    included; a row at 0 gets the average of V over the S slots);
+    win_starts [B] int32 or None; slopes [Hq] float32 or None -> [B,Hq,D] in
+    q.dtype."""
     _check_qkv(q, k, v, "batched_decode_attention")
     dev = q.device
     b, hq, d = q.shape
@@ -93,15 +118,15 @@ def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_valid: torch.Tensor) -> torch.Tensor:
     """q [B,Hq,D]; k/v [B,S,Hkv,D]; kv_valid bool [S], one validity row
-    shared by every sequence -> [B,Hq,D] in q.dtype.  A row with no valid
-    key comes out as zeros."""
+    shared by every sequence -> [B,Hq,D] in q.dtype.  With no valid key,
+    a row gets the uniform average of V over the S slots."""
     _check_qkv(q, k, v, "decode_attention")
     b, hq, d = q.shape
     _, s, hkv, _ = k.shape
     if (kv_valid.device != q.device or kv_valid.dtype != torch.bool
             or kv_valid.shape != (s,) or not kv_valid.is_contiguous()):
         raise ValueError(f"kv_valid must be a contiguous bool [{s}] on {q.device}")
-    lib = _lib_for(hq, hkv, d)
+    lib = _split_lib(q, s, hkv)
     out = torch.empty_like(q)
     err = lib.repro_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
@@ -145,8 +170,11 @@ def check_tables(block_tables: torch.Tensor, b: int, dev, what: str) -> int:
 def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
                            block_tables: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
     """q [B,Hq,D]; k/v_pages [N,bs,Hkv,D] (see `check_pages`; not copied);
-    block_tables [B,max_blocks] int32; lengths [B] int32, each in
-    [1, max_blocks*bs], the new token included -> [B,Hq,D] in q.dtype."""
+    block_tables [B,max_blocks] int32, every entry a valid page id (pad with
+    0); lengths [B] int32, each in [0, max_blocks*bs], the new token
+    included -> [B,Hq,D] in q.dtype.  A row reads the pages of its first
+    ceil(lengths[b] / bs) entries only; a row at 0 gets the average of V over
+    all max_blocks*bs slots of its table, as the plain version does."""
     what = "paged_decode_attention"
     if not q.is_cuda:
         raise ValueError(f"{what} takes CUDA tensors; use repro_torch.kernels.ops "
@@ -168,7 +196,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
         raise ValueError("q must be contiguous and 16-byte aligned")
     max_blocks = check_tables(block_tables, b, dev, what)
     _int_vec(lengths, b, "lengths", dev)
-    lib = _lib_for(hq, hkv, d)
+    lib = _split_lib(q, max_blocks * bs, hkv)
     out = torch.empty_like(q)
     err = lib.repro_paged_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),

@@ -132,12 +132,85 @@ def test_decode_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, kind, dty
     torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
-def test_decode_attention_row_without_a_valid_key_is_zero(cuda):
-    q, k = torch.randn(2, 4, 16, device=cuda), torch.randn(2, 70, 2, 16, device=cuda)
+def _split_edges(dtype, b, s, hq, hkv, d):
+    """The first key of each block of the split body's cluster for this
+    shape, and the capacity: [0, ..., s]."""
+    from repro_torch.kernels.decode_attention import split_plan
+    splits = split_plan(dtype, b, s, hq, hkv, d)[0]
+    nt = -(-s // 64)
+    return [min(nt * r // splits * 64, s) for r in range(splits + 1)]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("kind", ["split_edge", "mid_split", "one_tile", "uneven",
+                                  "scattered_empty_splits"])
+def test_decode_attention_split_matches_plain(cuda, kind, d, dtype):
+    """Hymba's 25:5 heads over a ring of 1152 slots (8 blocks of 2-3 tiles),
+    one of 40 (below one tile: one block) and one of 600 (10 tiles, the last
+    partial, over 8 blocks).  At D 256 the ring has two stages (bf16) or one
+    (f32)."""
+    b, hq, hkv = 2, 25, 5
+    s = {"one_tile": 40, "uneven": 600}.get(kind, 1152)
+    edges = _split_edges(dtype, b, s, hq, hkv, d)
+    assert len(edges) - 1 == (1 if kind == "one_tile" else 8)
+    g = torch.Generator(device=cuda).manual_seed(8)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    pos = torch.arange(s, device=cuda)
+    if kind == "split_edge":            # blocks 3.. wholly past the last valid key
+        valid = pos < edges[3]
+    elif kind == "mid_split":
+        valid = pos < edges[3] + 37
+    elif kind == "scattered_empty_splits":
+        valid = torch.rand(s, generator=g, device=cuda) < 0.3
+        valid[edges[1]:edges[3]] = False          # blocks 1 and 2 see no valid key
+        valid[edges[6]:] = False
+        valid[edges[4] + 5] = True
+    else:
+        valid = pos < s - 3
     from repro_torch.kernels.decode_attention import decode_attention
-    out = decode_attention(q, k, k, torch.zeros(70, dtype=torch.bool, device=cuda))
+    n0 = LAUNCHES["decode_attention"]
+    out = decode_attention(q, k, v, valid)
+    assert LAUNCHES["decode_attention"] == n0 + 1
+    exp = ref.decode_attention_ref(q, k, v, valid)
     torch.cuda.synchronize()
-    assert not out.any()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_decode_entries_average_v_where_no_key_is_valid(cuda, dtype):
+    """A row with no valid key gets the uniform average of V over its S
+    slots, as the plain versions (and the Pallas kernels) give: an all-false
+    validity vector for decode_attention, a length of 0 for the others."""
+    from repro_torch.kernels.decode_attention import (batched_decode_attention,
+                                                      decode_attention,
+                                                      paged_decode_attention)
+    g = torch.Generator(device=cuda).manual_seed(3)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def close(out, exp):
+        torch.cuda.synchronize()
+        torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype],
+                                   atol=TOL[dtype])
+
+    for s in (70, 1152):                 # one block, and a cluster of 8
+        q, k, v = rand(2, 25, 64), rand(2, s, 5, 64), rand(2, s, 5, 64)
+        none = torch.zeros(s, dtype=torch.bool, device=cuda)
+        close(decode_attention(q, k, v, none), ref.decode_attention_ref(q, k, v, none))
+    lengths = [0, 77, 300]
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    q, k, v = rand(3, 4, 16), rand(3, 300, 2, 16), rand(3, 300, 2, 16)
+    close(batched_decode_attention(q, k, v, lens),
+          ref.batched_decode_attention_ref(q, k, v, lens))
+    # the row at 0 reads its whole table, padded with page 0
+    kp, vp, tables = _paged(g, lengths, 5, 64, dtype)
+    q = rand(3, 25, 64)
+    close(paged_decode_attention(q, kp, vp, tables, lens),
+          ref.paged_decode_attention_ref(q, kp, vp, tables, lens))
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -233,6 +306,38 @@ def test_paged_prefill_attention_kernel_matches_plain(cuda, c, hq, hkv, d, prefi
                                atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("kind", ["split_edge", "one_tile", "uneven"])
+def test_paged_decode_attention_split_matches_plain(cuda, kind, d, dtype):
+    """Hymba's 25:5 heads over layer 2 of a pool with shuffled pages.
+    split_edge: a capacity of 1024 slots over 8 blocks, lengths ending on a
+    block's first key, inside a block, at 1 (every block but the first past
+    it) and at the capacity; one_tile: a capacity below one tile; uneven: a
+    capacity of 600 (10 tiles, the last partial, over 8 blocks)."""
+    b, hq, hkv, bs = 4, 25, 5, 8
+    s = {"one_tile": 40, "uneven": 600}.get(kind, 1024)
+    edges = _split_edges(dtype, b, s, hq, hkv, d)
+    assert len(edges) - 1 == (1 if kind == "one_tile" else 8)
+    if kind == "split_edge":
+        lengths = [edges[2], edges[2] + 37, 1, s]
+    else:
+        lengths = [5, 40, 17, 33] if kind == "one_tile" else [s, 333, 64, 129]
+    g = torch.Generator(device=cuda).manual_seed(9)
+    kp, vp, tables = _paged(g, lengths, hkv, d, dtype, bs=bs)
+    assert tables.shape[1] * bs == s
+    q = torch.randn(b, hq, d, generator=g, device=cuda).to(dtype)
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    from repro_torch.kernels.decode_attention import paged_decode_attention
+    n0 = LAUNCHES["paged_decode_attention"]
+    out = paged_decode_attention(q, kp, vp, tables, lens)
+    assert LAUNCHES["paged_decode_attention"] == n0 + 1
+    exp = ref.paged_decode_attention_ref(q, kp, vp, tables, lens)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
 def test_paged_kernels_allocate_only_their_output(cuda):
     """A call on one layer's view of a pool copies nothing: the device
     memory it adds at its peak is its output (rounded to the allocator's
@@ -244,9 +349,14 @@ def test_paged_kernels_allocate_only_their_output(cuda):
     q64 = torch.randn(3, 64, 25, 64, generator=g, device=cuda).to(torch.bfloat16)
     qs = torch.tensor([436, 236, 0], dtype=torch.int32, device=cuda)
     ql = torch.tensor([64, 64, 64], dtype=torch.int32, device=cuda)
+    # decode_attention's dense cache and validity row, as the run() path passes them
+    kd, vd = (torch.randn(3, 544, 25, 64, generator=g, device=cuda).to(torch.bfloat16)
+              for _ in range(2))
+    valid = torch.arange(544, device=cuda) <= 527
     for call, q in ((lambda: ops.paged_decode_attention_auto(q1, kp, vp, tables, lens), q1),
                     (lambda: ops.paged_prefill_attention_auto(q64, kp, vp, tables, qs, ql),
-                     q64)):
+                     q64),
+                    (lambda: ops.decode_attention_auto(q1[:, None], kd, vd, valid[None]), q1)):
         call()                                            # build and load first
         torch.cuda.synchronize()
         torch.cuda.reset_peak_memory_stats()

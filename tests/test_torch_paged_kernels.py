@@ -76,6 +76,9 @@ DECODE_CASES = {        # b, hq, hkv, d, bs, lengths, pool layers (0 = a bare pa
     "tiny_blocks": (1, 6, 2, 64, 4, (13,), 0),
     "mqa_aligned_odd": (4, 8, 1, 16, 8, (8, 16, 9, 3), 0),
     "pool_layer_view": (3, 4, 2, 16, 8, (20, 7, 33), 3),    # layer 1 of [N,3,bs,H,D]
+    # a row at length 0 reads its whole table (padded with page 0, a valid
+    # id) and gets the average of V over those slots
+    "length_zero": (3, 4, 2, 16, 8, (12, 0, 5), 0),
 }
 
 

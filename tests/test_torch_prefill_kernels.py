@@ -141,6 +141,8 @@ def _valid(kind: str, s: int) -> np.ndarray:
         return pos < 70
     if kind == "window_meta":           # query at 80, window 24, 4 meta sinks
         return (pos <= 80) & ((pos > 80 - 24) | (pos < 4))
+    if kind == "none_valid":            # every slot weighs the same: the average of V
+        return np.zeros(s, bool)
     rng = np.random.default_rng(4)      # scattered, no structure at all
     v = rng.random(s) < 0.3
     v[17] = True
@@ -148,7 +150,7 @@ def _valid(kind: str, s: int) -> np.ndarray:
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("kind", ["prefix", "window_meta", "scattered"])
+@pytest.mark.parametrize("kind", ["prefix", "window_meta", "scattered", "none_valid"])
 def test_decode_attention_plain_matches_pallas(kind, dtype):
     b, s, hq, hkv, d = 2, 96, 4, 2, 16
     q, k, v = _normal(5, (b, hq, d), (b, s, hkv, d), (b, s, hkv, d))
