@@ -13,7 +13,9 @@ Phases, each printing one JSON line with its seconds:
                the card (TF32 off), with CUDA-event times beside the bound,
                the plain version and one library call of the same function,
                and the profiler's device time of the kernel and the library
-               call.
+               call; a decode or paged row must show its body's name in the
+               profile, and the bf16 bodies of ``flash_attention`` and
+               ``paged_prefill_attention`` HGMMA in their libraries.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
                trace that chunks its prompts and preempts; once plain (both
@@ -105,10 +107,11 @@ def cuda_ms(fn, iters: int = 50, warmup: int = 5) -> float:
     return a.elapsed_time(b) / iters
 
 
-def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
+def device_ms(fn, iters: int = 50, warmup: int = 5):
     """Mean device time of one call: the kernels' own time under
     torch.profiler, without the gaps where the device waits for the host
-    (which `cuda_ms` counts when a call's host work outlasts its kernels)."""
+    (which `cuda_ms` counts when a call's host work outlasts its kernels).
+    Returns (ms, the names of the device kernels the calls ran)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -120,9 +123,10 @@ def device_ms(fn, iters: int = 50, warmup: int = 5) -> float:
         for _ in range(iters):
             fn()
         torch.cuda.synchronize()
-    us = sum(e.self_device_time_total for e in prof.key_averages()
-             if e.device_type == DeviceType.CUDA)
-    return us / 1e3 / iters
+    ran = [e for e in prof.key_averages()
+           if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
+    return (sum(e.self_device_time_total for e in ran) / 1e3 / iters,
+            sorted({e.key for e in ran}))
 
 
 def bound_ms(nbytes: float, flops: float, dtype: str):
@@ -154,7 +158,11 @@ def phase_env(state: dict) -> dict:
     state["out"].mkdir(parents=True, exist_ok=True)
     (state["out"] / "ptxas.txt").write_text(
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
-    emit({"sass": sass_counts()})
+    sass = sass_counts()
+    emit({"sass": sass})
+    if isinstance(sass, dict):      # the bf16 bodies run on wgmma
+        for lib in ("flash_attention", "paged_prefill"):
+            check(sass[lib]["HGMMA"] > 0, f"no HGMMA in the {lib} library")
     return {"card": card, "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": build_s, "built": sorted(logs)}
@@ -202,14 +210,19 @@ def phase_kernels(state: dict) -> dict:
     g = torch.Generator(device=dev).manual_seed(0)
     rows, checks = {}, []
 
-    def times(mine, plain, lib=None, plain_iters=50):
+    def times(mine, plain, lib=None, plain_iters=50, body=None):
         """Event times of a kernel, its plain version and its library call,
         and the profiler's device times of the kernel and the library call
-        (at these sizes a call's host work can outlast its kernel)."""
+        (at these sizes a call's host work can outlast its kernel), with the
+        names of the device kernels the kernel's calls ran; `body`, where
+        given, must be among them."""
+        dms, names = device_ms(mine)
+        if body is not None:
+            check(any(body in n for n in names), f"the calls ran {names}, not {body}")
         return {"ms": cuda_ms(mine), "plain_ms": cuda_ms(plain, iters=plain_iters),
                 "library_ms": None if lib is None else cuda_ms(lib),
-                "device_ms": device_ms(mine),
-                "library_device_ms": None if lib is None else device_ms(lib)}
+                "device_ms": dms, "device_kernels": names,
+                "library_device_ms": None if lib is None else device_ms(lib)[0]}
 
     def held(kernel, name, out, exp, tname, tol=TOL):
         """Max |err| of a kernel's output against its plain version, checked
@@ -221,7 +234,9 @@ def phase_kernels(state: dict) -> dict:
         return err
 
     def attn_case(name, b, hq, hkv, d, s, lengths, dtype, win=None, meta=0,
-                  slopes=None, time_it=False):
+                  slopes=None, time_it=None):
+        """Checks batched_decode_attention on one shape; `time_it` names the
+        row its times go to."""
         q = torch.randn(b, hq, d, generator=g, device=dev).to(dtype)
         k = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
         v = torch.randn(b, s, hkv, d, generator=g, device=dev).to(dtype)
@@ -235,34 +250,60 @@ def phase_kernels(state: dict) -> dict:
         err = held("batched_decode_attention", name, out, exp, tname)
         if not time_it:
             return err
-        # yardstick: SDPA over the same K/V with a boolean length mask
-        mask = (torch.arange(s, device=dev)[None, :] < lens[:, None])[:, None, None, :]
+        # yardstick: SDPA over the same K/V, the visible slots as a boolean
+        # mask, or with ALiBi as a float mask holding the bias
+        pos = torch.arange(s, device=dev)[None, :]
+        vis = pos < lens[:, None]                                        # [B,S]
+        if ws is not None:
+            vis &= (pos >= ws[:, None]) | (pos < meta)
+        if sl is None:
+            mask = vis[:, None, None, :]
+        else:
+            bias = -sl[None, :, None] * (lens[:, None] - 1 - pos).clamp(min=0)[:, None, :]
+            mask = torch.where(vis[:, None, :], bias, float("-inf")).to(dtype)[:, :, None, :]
         qs, ks, vs = q[:, :, None, :], k.transpose(1, 2), v.transpose(1, 2)
         es = q.element_size()
-        live = int(sum(lengths))
-        nbytes = 2 * q.numel() * es + 2 * live * hkv * d * es + 4 * b
+        live = int(vis.sum())           # the keys this call has to read
+        nbytes = (2 * q.numel() * es + 2 * live * hkv * d * es
+                  + 4 * b * (1 if ws is None else 2) + (0 if sl is None else 4 * hq))
         bms, by = bound_ms(nbytes, 4.0 * live * hq * d, tname)
-        rows["batched_decode_attention"] = {
+        splits, stages, _ = split_plan(dtype, b, s, hq, hkv, d)
+        rows[time_it] = {
             **times(lambda: batched_decode_attention(q, k, v, lens, ws, sl, num_meta=meta),
                     lambda: ref.batched_decode_attention_ref(q, k, v, lens, ws, sl,
                                                              num_meta=meta),
-                    lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask)),
+                    lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
+                                                           enable_gqa=hq != hkv),
+                    body="batched_decode_split_kernel"),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            "cluster": splits, "stages": stages,
             "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} "
-                     f"lengths {list(lengths)}"}
+                     f"lengths {list(lengths)}"
+                     + ("" if win is None else f" window {win} meta {meta}")
+                     + ("" if sl is None else " alibi")}
         return err
 
     # gpt2-1.5b decode shapes: B 8, Hq = Hkv = 25, D 64, S 1024, ragged
     lengths = [1024, 977, 613, 512, 301, 129, 64, 1]
     attn_case("gpt2", 8, 25, 25, 64, 1024, lengths, torch.float32)
-    attn_case("gpt2", 8, 25, 25, 64, 1024, lengths, torch.bfloat16, time_it=True)
+    attn_case("gpt2", 8, 25, 25, 64, 1024, lengths, torch.bfloat16,
+              time_it="batched_decode_attention")
+    # the gather route's own setting (the parity phase's windowed layer): a
+    # 32-slot window, 4 meta sinks, ALiBi, at row 1's lengths
+    gpt2_slopes = [2.0 ** -(8 * (i + 1) / 25) for i in range(25)]
+    for dt in (torch.float32, torch.bfloat16):
+        attn_case("gpt2_window_meta_alibi", 8, 25, 25, 64, 1024, lengths, dt, win=32, meta=4,
+                  slopes=gpt2_slopes,
+                  time_it="batched_decode_attention window" if dt == torch.bfloat16 else None)
     # GQA with sliding-window starts, meta sinks and ALiBi slopes
     slopes = [2.0 ** -(i + 1) / 4 for i in range(16)]
     for dt in (torch.float32, torch.bfloat16):
         attn_case("gqa_window_meta_alibi", 4, 16, 4, 64, 300, [300, 257, 64, 9], dt,
                   win=96, meta=4, slopes=slopes)
-        # a row at length 0 gets the average of V over the S slots
+        # a row at length 0 gets the sum of V over the S slots over S, or at
+        # S = 544 (past 512) over the Pallas kernel's padded 1024
         attn_case("length_zero", 3, 4, 2, 16, 300, [0, 77, 300], dt)
+        attn_case("length_zero_padded", 3, 4, 2, 16, 544, [0, 77, 544], dt)
 
     # the buffered copies at [L 24, B 8, S 1024, H 25, D 64] bf16: bit-exact
     L, B, S, H, D = 24, 8, 1024, 25, 64
@@ -371,7 +412,8 @@ def phase_kernels(state: dict) -> dict:
             **times(lambda: decode_attention(q, k, v, valid),
                     lambda: ref.decode_attention_ref(q, k, v, valid),
                     lambda: F.scaled_dot_product_attention(
-                        qs, ks, vs, attn_mask=mask, enable_gqa=hq != hkv)),
+                        qs, ks, vs, attn_mask=mask, enable_gqa=hq != hkv),
+                    body="valid_decode_split_kernel"),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "cluster": splits, "stages": stages,
             "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} valid {n_valid}/{s}"}
@@ -384,7 +426,7 @@ def phase_kernels(state: dict) -> dict:
     window_meta = (slots <= 300) & ((slots > 300 - 96) | (slots < 4))
     for dt in (torch.float32, torch.bfloat16):      # not a prefix: window + sinks
         decode_case("gqa_window_meta", 3, 544, 16, 4, 64, window_meta, dt)
-        # no valid key: the average of V over the S slots
+        # no valid key: the sum of V over the S slots over the padded 1024
         decode_case("none_valid", 3, 544, 16, 4, 64, slots < 0, dt)
     # Hymba's decode: 25:5 heads over its full ring of 1024 window + 128 meta slots
     ring = torch.ones(1152, dtype=torch.bool, device=dev)
@@ -484,7 +526,8 @@ def phase_kernels(state: dict) -> dict:
             rows["paged_decode_attention"] = {
                 # no one PyTorch call reads pages through a table
                 **times(lambda: paged_decode_attention(q, kp, vp, tables, lens),
-                        lambda: ref.paged_decode_attention_ref(q, kp, vp, tables, lens)),
+                        lambda: ref.paged_decode_attention_ref(q, kp, vp, tables, lens),
+                        body="paged_decode_split_kernel"),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                 "cluster": splits, "stages": stages,
                 "shape": f"q[{len(lengths)},{hq},64] pages {list(kp.shape)} of a 24-layer "
@@ -513,7 +556,8 @@ def phase_kernels(state: dict) -> dict:
             rows["paged_prefill_attention"] = {
                 # no one PyTorch call reads pages through a table
                 **times(lambda: paged_prefill_attention(q, kp, vp, tables, qs, ql),
-                        lambda: ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql)),
+                        lambda: ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql),
+                        body="paged_prefill_wgmma_kernel"),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                 "shape": f"q[{len(starts)},{c},{hq},64] pages {list(kp.shape)} of a 24-layer "
                          f"pool, {tname}, q_starts {list(starts)} q_lens {list(qlens)}"}
@@ -1354,7 +1398,8 @@ def main() -> int:
                         "device_ms": r.get("device_ms"),
                         "plain_ms": r.get("plain_ms"), "bound_ms": r.get("bound_ms"),
                         "bound_by": r.get("bound_by"),
-                        "library_ms": r.get("library_ms")})
+                        "library_ms": r.get("library_ms"),
+                        "library_device_ms": r.get("library_device_ms")})
     print(state["card"], flush=True)
     emit({"kernels": kernels})
     emit({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -3,7 +3,8 @@
 Each source under ``csrc/`` becomes one shared library with a plain C
 interface, compiled for ``sm_90a`` at first use into ``build/repro_torch/``
 at the root of the checkout.  A library's file name carries a hash of its
-source and flags, so an edited source rebuilds and an unchanged one loads.
+source, the headers under ``csrc/`` and the flags, so an edited source or
+header rebuilds and an unchanged one loads.
 All sources compile in parallel, one nvcc each.  A failed build raises with
 nvcc's stderr.  Nothing here runs at import time.
 """
@@ -38,11 +39,11 @@ _SIGNATURES = {
     },
     "decode_attention": {
         "repro_batched_decode_attention": (
-            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _vp]),
-        "repro_batched_decode_smem": (_ll, [_i, _i, _i]),
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _f, _i,
+                 _vp]),
         "repro_decode_split_plan": (_ll, [_i, _i, _i, _i, _i, _i, _ip, _ip]),
         "repro_decode_attention": (
-            _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _vp]),
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _vp]),
         "repro_paged_decode_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _ll, _i, _i, _i, _f, _vp]),
     },
@@ -60,7 +61,7 @@ _SIGNATURES = {
         "repro_paged_prefill_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _ll, _i, _i, _i, _f,
                  _vp]),
-        "repro_paged_prefill_smem": (_ll, [_i]),
+        "repro_paged_prefill_smem": (_ll, [_i, _i]),
     },
 }
 
@@ -78,6 +79,8 @@ def _nvcc() -> str:
 
 def _lib_path(name: str) -> Path:
     h = hashlib.sha256((CSRC / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC.glob("*.cuh")):      # what a source may include
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:16]}.so"
 

@@ -1,13 +1,15 @@
 // batched_decode_attention, decode_attention and paged_decode_attention —
-// one-query decode attention on Hopper, in two kernel bodies.
+// one-query decode attention on Hopper, in one kernel body.
 //
 // All three replace the TPU kernels of those names in
 // src/repro/kernels/decode_attention.py and compute what they compute:
 // online softmax with f32 m / l / acc, scale D^-0.5, the finite
 // NEG_INF = -0.7 * FLT_MAX of the reference, query head h*G+g reading KV
-// head h.  A row with no valid key gives the uniform average of V over its
-// S slots, as the Pallas kernels and the plain versions do (their scores
-// are all NEG_INF, so every slot weighs the same).
+// head h.  A row with no valid key gives the sum of V over its S slots
+// divided by the caller's `no_key_div`, as the Pallas kernels do: their
+// scores are all NEG_INF, so every slot of their walk weighs the same, and
+// over a dense cache that walk pads S with zero rows to a multiple of
+// min(512, S) (the wrappers pass the padded length; pages are not padded).
 //
 // What bounds them on the H100: bytes.  Each K/V element is read once and
 // used for 2*G flops (one multiply-add per query head of its group), that
@@ -16,20 +18,28 @@
 // not the memory, set the pace, and even the CUDA cores' f32 rate (67
 // TFLOP/s, 20 flops per byte at 3.35 TB/s) is four times what G = 5 asks.
 // So no tensor core: the least time is the visible K/V bytes over
-// 3.35 TB/s, and the designs are about keeping enough bytes in flight.
+// 3.35 TB/s, and the design is about keeping enough bytes in flight.
 //
-// decode_attention (validity vector [S] shared by the batch: the run()
-// path's microbatch decode and Hymba's ring) and paged_decode_attention
-// (K/V pages [N,bs,Hkv,D] read through block tables to lengths[b]: the
-// fused decode pass of run_continuous) run the split body:
+// One split body, in three modes of finding its keys: a validity vector [S]
+// shared by the batch (decode_attention: the run() path's microbatch decode
+// and Hymba's ring), K/V pages [N,bs,Hkv,D] read through block tables to
+// lengths[b] (paged_decode_attention: the fused decode pass of
+// run_continuous), and a dense cache [B,S,Hkv,D] masked per sequence to
+// lengths[b] with optional window starts, meta sinks and ALiBi slopes
+// (batched_decode_attention: the gather route of stages with a windowed or
+// ALiBi layer).
 //   * Split-K across a thread-block cluster.  One (KV head, sequence) holds
 //     far too few bytes for one block to keep the memory busy, and B*Hkv
 //     blocks leave the 132 SMs short (100 at mb_serve's decode, 20 at
 //     Hymba's).  A cluster of `splits` blocks (at most 8, the portable size)
-//     shares the key range, cut in whole 64-key tiles of the capacity S: the
-//     fewest splits for which the blocks cover the SMs twice, chosen on the
-//     host from S alone (no read of lengths).  A block past the length
-//     contributes (m = NEG_INF, l = 0, acc = 0).
+//     shares the key range in whole 64-key tiles: the fewest splits for
+//     which the blocks cover the SMs twice, chosen on the host from S alone
+//     (no read of lengths).  The validity and paged modes cut the capacity's
+//     tiles into equal ranges; the ragged mode cuts the sequence's live
+//     tiles (its meta tiles, then the tiles from its window start to its
+//     length), which each block forms from two int loads, so that a short
+//     window or length still spreads over the cluster.  A block with no key
+//     to read contributes (m = NEG_INF, l = 0, acc = 0).
 //   * The combine stays on chip, in one launch with no workspace: each warp
 //     keeps its own online softmax, the warps merge in shared memory, and
 //     after cluster.sync() each block reads every block's (m, l) and its
@@ -40,7 +50,9 @@
 //     is scored.  Paged keys take their page from block_tables[b, p / bs];
 //     only keys below the length are read.  For a validity vector one load
 //     of 64 flags a lane marks which of 32 tiles hold a valid key; a tile
-//     with none is neither loaded nor scored.
+//     with none is neither loaded nor scored.  The ragged mode masks per slot
+//     only on a tile that holds the window start; its ALiBi slopes sit in
+//     registers and bias the f32 score before the mask, as the reference.
 //   * Scores: two lanes split each key's row (one shuffle), Q in shared
 //     memory as f32, K rows stored with their 16-byte chunks swizzled so the
 //     two lanes of 4 keys hit distinct banks; no serial D loop.  P.V: lanes
@@ -50,21 +62,16 @@
 //     of 8 rows).
 // At the live shapes each block walks 1-8 tiles, so the fixed costs (the
 // first loads, the two cluster barriers, the combine) weigh as much as the
-// streaming; chip_smoke.py's kernels phase times both bodies.
-//
-// batched_decode_attention (dense per-sequence K/V [B,S,Hkv,D], lengths,
-// optional window starts, meta sinks and ALiBi slopes: the gather route of
-// stages with a windowed or ALiBi layer) keeps the first body: one block
-// per (KV head, sequence) staging f32 tiles of 64 keys, skipping tiles that
-// lie wholly outside the window.  It runs on that route alone.
+// streaming; chip_smoke.py's kernels phase times every mode.
 
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
-#include <climits>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -90,203 +97,44 @@ __device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
   return __float2bfloat16(x);
 }
 
-__device__ __forceinline__ float warp_max(float x) {
-  for (int o = 16; o > 0; o >>= 1) x = fmaxf(x, __shfl_xor_sync(0xffffffffu, x, o));
-  return x;
-}
-__device__ __forceinline__ float warp_sum(float x) {
-  for (int o = 16; o > 0; o >>= 1) x += __shfl_xor_sync(0xffffffffu, x, o);
-  return x;
-}
-
-// The sum of dimension d of V over the slots [p0, p1) of one (KV head,
-// sequence), key p at vb + key_off(p): what a row with no valid key averages.
-// A cold path, kept out of line.
-template <typename T, typename KeyOff>
-__device__ __noinline__ float slot_sum(const T* __restrict__ vb, KeyOff key_off, int p0, int p1,
-                                       int d) {
-  float s = 0.f;
-  for (int p = p0; p < p1; ++p) s += to_float(vb[key_off(p) + d]);
-  return s;
-}
-
 // ---------------------------------------------------------------------------
-// batched_decode_attention: one block per (KV head, sequence)
+// the split body: split-K over a cluster
 // ---------------------------------------------------------------------------
 
-// Copies keys t0 .. t0+n-1 of a row stride `row` into f32 shared memory rows
-// of stride ldk, 16 bytes per thread per step.
-template <typename T>
-__device__ __forceinline__ void stage_tile(const T* __restrict__ src, long long row, int t0,
-                                           int n, int D, float* dst, int ldk) {
-  constexpr int kVec = 16 / sizeof(T);
-  const int per_row = D / kVec;
-  for (int i = threadIdx.x; i < n * per_row; i += kThreads) {
-    const int j = i / per_row, c = i - j * per_row;
-    const uint4 u = *reinterpret_cast<const uint4*>(src + (t0 + j) * row + c * kVec);
-    const T* e = reinterpret_cast<const T*>(&u);
-    float* d = dst + j * ldk + c * kVec;
-#pragma unroll
-    for (int x = 0; x < kVec; ++x) d[x] = to_float(e[x]);
-  }
-}
-
-template <typename T>
-__global__ void __launch_bounds__(kThreads) batched_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-    const int* __restrict__ lengths, const int* __restrict__ win_starts,
-    const float* __restrict__ slopes, T* __restrict__ out, int S, int Hq, int Hkv, int D,
-    int num_meta, float scale) {
-  const int h = blockIdx.x;  // KV head
-  const int b = blockIdx.y;  // sequence
-  const int G = Hq / Hkv;
-  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
-  const int ldk = D + 1;  // padded rows: column reads hit distinct banks
-
-  extern __shared__ float smem[];
-  float* k_s = smem;                    // [kTileK][D+1]
-  float* v_s = k_s + kTileK * ldk;      // [kTileK][D+1]
-  float* q_s = v_s + kTileK * ldk;      // [G][D]
-  float* acc_s = q_s + G * D;           // [G][D]
-  float* p_s = acc_s + G * D;           // [G][kTileK]
-  float* m_s = p_s + G * kTileK;        // [G]
-  float* l_s = m_s + G;                 // [G]
-  float* alpha_s = l_s + G;             // [G]
-
-  const int len = max(0, min(lengths[b], S));
-  const int ws = win_starts ? max(win_starts[b], 0) : 0;
-  if (len == 0) {
-    // no valid key: the uniform average of V over the S slots, taken before
-    // the loop (where the hot path keeps its registers)
-    const long long row = (long long)Hkv * D;
-    const T* vb = v + (long long)b * S * row + (long long)h * D;
-    T* ob = out + ((long long)b * Hq + (long long)h * G) * D;
-    for (int i = tid; i < G * D; i += kThreads)
-      ob[i] = from_float<T>(slot_sum(vb, [=](int p) { return p * row; }, 0, S, i % D) / (float)S);
-    return;
-  }
-
-  const T* qb = q + ((long long)b * Hq + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) {
-    q_s[i] = to_float(qb[i]);
-    acc_s[i] = 0.f;
-  }
-  for (int g = tid; g < G; g += kThreads) {
-    m_s[g] = kNegInf;
-    l_s[g] = 0.f;
-  }
-  __syncthreads();
-
-  const long long row = (long long)Hkv * D;  // elements between consecutive keys
-  const T* kb = k + (long long)b * S * row + (long long)h * D;
-  const T* vb = v + (long long)b * S * row + (long long)h * D;
-
-  for (int t0 = 0; t0 < len; t0 += kTileK) {
-    const int t1 = min(t0 + kTileK, len);
-    if (t0 >= num_meta && t1 <= ws) {
-      // every key of this tile is past the meta sinks and before the window
-      // start: all masked, so it adds exactly nothing once a visible key exists
-      continue;
-    }
-    const int n = t1 - t0;
-    stage_tile(kb, row, t0, n, D, k_s, ldk);
-    stage_tile(vb, row, t0, n, D, v_s, ldk);
-    __syncthreads();
-
-    for (int i = tid; i < G * kTileK; i += kThreads) {
-      const int g = i / kTileK, j = i - g * kTileK;
-      float s = kNegInf;
-      if (j < n) {
-        const int pos = t0 + j;
-        const float* kr = k_s + j * ldk;
-        const float* qr = q_s + g * D;
-        float dot = 0.f;
-        for (int d = 0; d < D; ++d) dot = fmaf(qr[d], kr[d], dot);
-        s = dot * scale;
-        if (slopes != nullptr) s -= slopes[h * G + g] * (float)max(len - 1 - pos, 0);
-        if (!(pos >= ws || pos < num_meta)) s = kNegInf;
-      }
-      p_s[i] = s;
-    }
-    __syncthreads();
-
-    for (int g = warp; g < G; g += kWarps) {
-      float* pr = p_s + g * kTileK;
-      float mx = kNegInf;
-      for (int j = lane; j < kTileK; j += 32) mx = fmaxf(mx, pr[j]);
-      mx = warp_max(mx);
-      const float m_old = m_s[g];
-      const float m_new = fmaxf(m_old, mx);
-      float sum = 0.f;
-      for (int j = lane; j < kTileK; j += 32) {
-        const float p = j < n ? expf(pr[j] - m_new) : 0.f;
-        pr[j] = p;
-        sum += p;
-      }
-      sum = warp_sum(sum);
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        alpha_s[g] = alpha;
-        l_s[g] = l_s[g] * alpha + sum;
-        m_s[g] = m_new;
-      }
-    }
-    __syncthreads();
-
-    for (int i = tid; i < G * D; i += kThreads) {
-      const int g = i / D, d = i - g * D;
-      const float* pr = p_s + g * kTileK;
-      float a = 0.f;
-      for (int j = 0; j < n; ++j) a = fmaf(pr[j], v_s[j * ldk + d], a);
-      acc_s[i] = acc_s[i] * alpha_s[g] + a;
-    }
-    __syncthreads();
-  }
-
-  T* ob = out + ((long long)b * Hq + (long long)h * G) * D;
-  for (int i = tid; i < G * D; i += kThreads) ob[i] = from_float<T>(acc_s[i] / l_s[i / D]);
-}
-
-size_t batched_smem(int G, int D) {
-  return sizeof(float) * ((size_t)2 * kTileK * (D + 1) + (size_t)2 * G * D +
-                          (size_t)G * kTileK + (size_t)3 * G);
-}
-
-// ---------------------------------------------------------------------------
-// decode_attention and paged_decode_attention: split-K over a cluster
-// ---------------------------------------------------------------------------
+// How the split body finds its keys: a validity vector shared by the batch
+// (decode_attention), pages through block tables to a length
+// (paged_decode_attention), a dense cache to a length with an optional
+// window, meta sinks and ALiBi (batched_decode_attention).
+enum class Mode { kValid, kPaged, kRagged };
 
 struct SplitArgs {
   const void* q;           // [B, Hq, D]
   const void* k;           // dense [B, S, Hkv, D], or pages [N, bs, Hkv, D]
   const void* v;
-  const bool* valid;       // decode_attention: [S]
-  const int* lengths;      // paged: [B]
-  const int* tables;       // paged: [B, max_blocks]
+  const bool* valid;       // kValid: [S]
+  const int* lengths;      // kPaged, kRagged: [B]
+  const int* tables;       // kPaged: [B, max_blocks]
+  const int* win_starts;   // kRagged: [B] or null
+  const float* slopes;     // kRagged: [Hq] or null
   void* out;               // [B, Hq, D]
-  long long page_stride;   // paged: elements between pages
-  int bs, bs_log2;         // paged: page size, and its log2 (-1 if not a power of 2)
-  int max_blocks;          // paged
+  long long page_stride;   // kPaged: elements between pages
+  int bs, bs_log2;         // kPaged: page size, and its log2 (-1 if not a power of 2)
+  int max_blocks;          // kPaged
   int S, Hq, Hkv, D;       // S: the dense length, or max_blocks * bs
+  int num_meta;            // kRagged: slots below it stay visible outside the window
+  int no_key_div;          // a row with no valid key: sum of V over S slots / this
   int stages;              // ring stages, 1..kMaxStages
   float scale;
 };
 
 constexpr int kWarpKeys = kTileK / kWarps;   // the keys of a tile one warp scores
 
-__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
-  const unsigned d = static_cast<unsigned>(__cvta_generic_to_shared(dst));
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(d), "l"(src) : "memory");
-}
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
-}
 // waits until at most `pending` (0 or 1) committed groups are still in flight
 __device__ __forceinline__ void cp_async_wait(int pending) {
   if (pending >= 1)
-    asm volatile("cp.async.wait_group 1;\n" ::: "memory");
+    cp_async_wait<1>();
   else
-    asm volatile("cp.async.wait_group 0;\n" ::: "memory");
+    cp_async_wait<0>();
 }
 
 // one 16-byte chunk (4 f32 or 8 bf16) as f32, into f[0..]; by value and
@@ -309,15 +157,17 @@ __device__ __forceinline__ void load_chunk(const T* p, float* f) {
   unpack<T>(*reinterpret_cast<const uint4*>(p), f);
 }
 
-// The split body: one block of a cluster of `splits` walks whole 64-key tiles
-// [tlo, thi) of one (KV head, sequence) for query rows g0 .. g0+kG-1 of the
-// head's group.  Each warp keeps its own online softmax over its 16 keys of
-// every tile: two lanes score a key (half of its row each, one shuffle),
-// and for P.V `lpk` lanes share a key's V row, one 16-byte chunk each (two
-// for f32 rows past 128).  The warps merge in shared memory, then the blocks
-// of the cluster through distributed shared memory.
-template <typename T, bool kPaged, int kG>
+// The split body: one block of a cluster of `splits` walks its share of the
+// whole 64-key tiles of one (KV head, sequence) for query rows g0 .. g0+kG-1
+// of the head's group.  Each warp keeps its own online softmax over its 16
+// keys of every tile: two lanes score a key (half of its row each, one
+// shuffle), and for P.V `lpk` lanes share a key's V row, one 16-byte chunk
+// each (two for f32 rows past 128).  The warps merge in shared memory, then
+// the blocks of the cluster through distributed shared memory.
+template <typename T, Mode kMode, int kG>
 __device__ __forceinline__ void split_body(const SplitArgs& a) {
+  constexpr bool kPaged = kMode == Mode::kPaged;
+  constexpr bool kRagged = kMode == Mode::kRagged;
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = (int)cluster.num_blocks();   // the cluster spans grid x
   const int r = (int)cluster.block_rank();
@@ -352,10 +202,22 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   float2* ml_s = reinterpret_cast<float2*>(acc_s + kG * D);     // [kG]: its m, l
   int* tile_s = reinterpret_cast<int*>(ml_s + kG);              // [kMaxStages]
 
-  // this block's keys: whole tiles [tlo, thi) of the capacity, cut at kend
+  // keys below kend are read; the capacity has nt tiles
   const int nt = (S + kTileK - 1) / kTileK;
-  const int tlo = nt * r / splits, thi = nt * (r + 1) / splits;
-  const int kend = kPaged ? max(0, min(a.lengths[b], S)) : S;
+  const int kend = kMode == Mode::kValid ? S : max(0, min(a.lengths[b], S));
+  // The tiles this sequence needs, n_live of them: the capacity's, or for
+  // kRagged the meta tiles [0, mt) then the window's tiles [wt, ceil(kend/64))
+  // past them.  This block takes the indices [ilo, ihi) of them; index i is
+  // tile tile_at(i).
+  int ws = 0, mt = 0, wt = 0, n_live = nt;
+  if constexpr (kRagged) {
+    ws = a.win_starts ? max(a.win_starts[b], 0) : 0;
+    mt = (min(a.num_meta, kend) + kTileK - 1) / kTileK;
+    wt = max(ws / kTileK, mt);
+    n_live = mt + max(0, (kend + kTileK - 1) / kTileK - wt);
+  }
+  const int ilo = n_live * r / splits, ihi = n_live * (r + 1) / splits;
+  auto tile_at = [=](int i) { return kRagged && i >= mt ? wt + i - mt : i; };
 
   const long long row = (long long)a.Hkv * D;  // elements between consecutive keys
   const long long seq = kPaged ? 0 : (long long)b * S * row;
@@ -376,12 +238,12 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   // Validity: bit i of live_mask says whether tile mask_base + i holds a
   // valid key; lane i reads that tile's 64 flags, 32 tiles at a time.
   unsigned live_mask = 0;
-  int mask_base = thi;
+  int mask_base = ihi;
   auto load_mask = [&](int t) {
     mask_base = t;
     const int p0 = (t + lane) * kTileK;
     bool any = false;
-    if (t + lane < thi) {
+    if (t + lane < ihi) {
       if (p0 + kTileK <= S && (reinterpret_cast<uintptr_t>(valid + p0) & 15) == 0) {
 #pragma unroll
         for (int i = 0; i < kTileK / 16; ++i) {
@@ -394,29 +256,32 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
     }
     live_mask = __ballot_sync(0xffffffffu, any);
   };
-  // The first tile at or after t that holds a key this block reads, thi if
-  // none.  Every warp computes the same answer, so it is block-uniform.
-  auto next_tile = [&](int t) -> int {
+  // The first index at or after i whose tile holds a key this block reads,
+  // ihi if none.  Every warp computes the same answer, so it is block-uniform.
+  auto next_tile = [&](int i) -> int {
     if constexpr (kPaged) {
-      return (t < thi && t * kTileK < kend) ? t : thi;
+      return (i < ihi && i * kTileK < kend) ? i : ihi;
+    } else if constexpr (kRagged) {
+      return i < ihi ? i : ihi;    // every live tile holds keys below kend
     } else {
-      while (t < thi) {
-        if (t < mask_base || t >= mask_base + 32) load_mask(t);
-        const unsigned bits = live_mask >> (t - mask_base);
-        if (bits) return t + __ffs(bits) - 1;
-        t = mask_base + 32;
+      while (i < ihi) {
+        if (i < mask_base || i >= mask_base + 32) load_mask(i);
+        const unsigned bits = live_mask >> (i - mask_base);
+        if (bits) return i + __ffs(bits) - 1;
+        i = mask_base + 32;
       }
-      return thi;
+      return ihi;
     }
   };
-  // Loads tile t into ring slot `slot` (16-byte cp.async, keys below kend;
-  // lpk threads a row) and records it there; thi records that none follows.
-  auto issue = [&](int t, int slot) {
-    if (tid == 0) tile_s[slot] = t;
-    if (t >= thi) return;
+  // Loads the tile of index i into ring slot `slot` (16-byte cp.async, keys
+  // below kend; lpk threads a row) and records i there; ihi records that
+  // none follows.
+  auto issue = [&](int i, int slot) {
+    if (tid == 0) tile_s[slot] = i;
+    if (i >= ihi) return;
     T* ks = ring + (size_t)slot * 2 * kTileK * D;
     T* vs = ks + kTileK * D;
-    const int t0 = t * kTileK, n = min(kTileK, kend - t0);
+    const int t0 = tile_at(i) * kTileK, n = min(kTileK, kend - t0);
 #pragma unroll 4
     for (int j = tid >> lpk_log2; j < n; j += kThreads >> lpk_log2) {
       const long long off = key_off(t0 + j);
@@ -442,19 +307,21 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
 #pragma unroll
   for (int i = 0; i < kQ; ++i)
     if (tid + i * kThreads < qn) qv[i] = qb[tid + i * kThreads];
-  int iss = next_tile(tlo);
+  int iss = next_tile(ilo);
   for (int s = 0; s < a.stages - 1; ++s) {
     issue(iss, s);
-    if (iss < thi) iss = next_tile(iss + 1);
+    if (iss < ihi) iss = next_tile(iss + 1);
     cp_async_commit();
   }
 #pragma unroll
   for (int i = 0; i < kQ; ++i)
     if (tid + i * kThreads < qn) unpack<T>(qv[i], q_s + (tid + i * kThreads) * kVec);
   for (int i = GB * D + tid; i < kG * D; i += kThreads) q_s[i] = 0.f;
-  float acc[kG][kCpl * kVec], m[kG], l[kG];
+  float acc[kG][kCpl * kVec], m[kG], l[kG], sl[kG];
+  const bool alibi = kRagged && a.slopes != nullptr;
 #pragma unroll
   for (int g = 0; g < kG; ++g) {
+    sl[g] = alibi && g < GB ? a.slopes[h * G + g0 + g] : 0.f;
     m[g] = kNegInf;
     l[g] = 0.f;
 #pragma unroll
@@ -468,23 +335,31 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
     if (a.stages > 1) cp_async_wait(a.stages - 2);
     __syncthreads();  // this slot's tile landed; every warp is done with the last one
     issue(iss, islot);  // into the last tile's slot
-    if (iss < thi) iss = next_tile(iss + 1);
+    if (iss < ihi) iss = next_tile(iss + 1);
     cp_async_commit();
     if (a.stages == 1) {
       cp_async_wait(0);
       __syncthreads();
     }
     const int use = tile_s[slot];
-    if (use >= thi) break;
+    if (use >= ihi) break;
     const T* ks = ring + (size_t)slot * 2 * kTileK * D;
     const T* vs = ks + kTileK * D;
-    const int t0 = use * kTileK, n = min(kTileK, kend - t0);
+    const int t0 = tile_at(use) * kTileK, n = min(kTileK, kend - t0);
 
     // the score of key kl on lanes 2kl and 2kl+1, NEG_INF where masked or
-    // past the tile
+    // past the tile; a ragged key below the window start is masked unless it
+    // is a meta sink, which only a tile below ws and past num_meta can hold
     const int j = warp * kWarpKeys + kl;
+    const int pos = t0 + j;
     const bool live = j < n;
-    const bool ok = live && (kPaged || valid[t0 + j]);
+    bool ok = live;
+    if constexpr (kMode == Mode::kValid) ok = live && valid[pos];
+    if constexpr (kRagged) {
+      if (t0 < ws && t0 + kTileK > a.num_meta) ok = live && (pos >= ws || pos < a.num_meta);
+    }
+    // ALiBi: the query sits at kend - 1
+    const float dist = (float)max(kend - 1 - pos, 0);
     float sc[kG];
 #pragma unroll
     for (int g = 0; g < kG; ++g) sc[g] = 0.f;
@@ -513,7 +388,7 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
 #pragma unroll
     for (int g = 0; g < kG; ++g) {
       const float dot = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 1);
-      const float s = ok ? dot * a.scale : kNegInf;
+      const float s = ok ? (alibi ? dot * a.scale - sl[g] * dist : dot * a.scale) : kNegInf;
       float mx = s;
 #pragma unroll
       for (int o = 2; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
@@ -651,35 +526,41 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
       ob[e] = from_float<T>(o / L);
     }
   } else {
-    // no valid key in the row: the uniform average of V over all S slots,
-    // each block summing the slots of its tiles (through the tables for
-    // pages); what another block may still read of acc_s here is not used
-    const int p1 = min(thi * kTileK, S);
+    // no valid key in the row: the sum of V over all S slots over
+    // no_key_div, each block summing the slots of its share of the
+    // capacity's tiles (through the tables for pages); what another block
+    // may still read of acc_s here is not used
+    const int p0 = nt * r / splits * kTileK, p1 = min(nt * (r + 1) / splits * kTileK, S);
     for (int d = tid; d < D; d += kThreads) {
       float sum = 0.f;
-      for (int p = tlo * kTileK; p < p1; ++p) sum += to_float(vb[key_off(p) + d]);
+      for (int p = p0; p < p1; ++p) sum += to_float(vb[key_off(p) + d]);
       acc_s[d] = sum;
     }
     cluster.sync();
     for (int e = e_first; e < e1; e += kThreads) {
       float sum = 0.f;
       for (int rr = 0; rr < splits; ++rr) sum += *cluster.map_shared_rank(acc_s + e % D, rr);
-      ob[e] = from_float<T>(sum / (float)S);
+      ob[e] = from_float<T>(sum / (float)a.no_key_div);
     }
   }
   // keep this block's shared memory alive until the cluster has read it
   cluster.sync();
 }
 
-// decode_attention: a name of its own, so that profiles tell it apart
+// one name for each mode, so that profiles tell them apart
 template <typename T, int kG>
 __global__ void __launch_bounds__(kThreads) valid_decode_split_kernel(SplitArgs a) {
-  split_body<T, false, kG>(a);
+  split_body<T, Mode::kValid, kG>(a);
 }
 
 template <typename T, int kG>
 __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(SplitArgs a) {
-  split_body<T, true, kG>(a);
+  split_body<T, Mode::kPaged, kG>(a);
+}
+
+template <typename T, int kG>
+__global__ void __launch_bounds__(kThreads) batched_decode_split_kernel(SplitArgs a) {
+  split_body<T, Mode::kRagged, kG>(a);
 }
 
 // query rows one block takes: the whole group for gpt2 (G 1) and Hymba (G 5),
@@ -726,11 +607,12 @@ SplitPlan plan_split(size_t es, int B, int S, int Hq, int Hkv, int D) {
   return {splits, stages, split_smem(es, D, stages, kG)};
 }
 
-template <typename T, bool kPaged, int kG>
+template <typename T, Mode kMode, int kG>
 cudaError_t launch_split_rows(const SplitArgs& a, const SplitPlan& p, int B,
                               cudaStream_t stream) {
-  void (*kernel)(SplitArgs) =
-      kPaged ? paged_decode_split_kernel<T, kG> : valid_decode_split_kernel<T, kG>;
+  void (*kernel)(SplitArgs) = valid_decode_split_kernel<T, kG>;
+  if constexpr (kMode == Mode::kPaged) kernel = paged_decode_split_kernel<T, kG>;
+  if constexpr (kMode == Mode::kRagged) kernel = batched_decode_split_kernel<T, kG>;
   // once per kernel and device: allow the most shared memory a block may use
   static bool allowed[64] = {};
   int dev = 0;
@@ -759,41 +641,26 @@ cudaError_t launch_split_rows(const SplitArgs& a, const SplitPlan& p, int B,
   return cudaGetLastError();
 }
 
-template <typename T, bool kPaged>
+template <typename T, Mode kMode>
 cudaError_t launch_split(SplitArgs a, int B, cudaStream_t stream) {
   const SplitPlan p = plan_split(sizeof(T), B, a.S, a.Hq, a.Hkv, a.D);
   a.stages = p.stages;
   switch (rows_per_block(a.Hq / a.Hkv)) {
-    case 1: return launch_split_rows<T, kPaged, 1>(a, p, B, stream);
-    case 5: return launch_split_rows<T, kPaged, 5>(a, p, B, stream);
-    default: return launch_split_rows<T, kPaged, 8>(a, p, B, stream);
+    case 1: return launch_split_rows<T, kMode, 1>(a, p, B, stream);
+    case 5: return launch_split_rows<T, kMode, 5>(a, p, B, stream);
+    default: return launch_split_rows<T, kMode, 8>(a, p, B, stream);
   }
 }
 
-template <typename T>
-cudaError_t launch_batched(const void* q, const void* k, const void* v, const int* lengths,
-                           const int* win_starts, const float* slopes, void* out, int B,
-                           int S, int Hq, int Hkv, int D, int num_meta, float scale,
-                           cudaStream_t stream) {
-  const size_t smem = batched_smem(Hq / Hkv, D);
-  if (smem > 48 * 1024) {
-    const cudaError_t e = cudaFuncSetAttribute(
-        batched_decode_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-  }
-  batched_decode_kernel<T><<<dim3((unsigned)Hkv, (unsigned)B), kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v), lengths,
-      win_starts, slopes, static_cast<T*>(out), S, Hq, Hkv, D, num_meta, scale);
-  return cudaGetLastError();
+template <Mode kMode>
+int launch_dtype(int dtype, const SplitArgs& a, int B, void* stream) {
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (dtype == 0) return launch_split<float, kMode>(a, B, s);
+  if (dtype == 1) return launch_split<__nv_bfloat16, kMode>(a, B, s);
+  return static_cast<int>(cudaErrorInvalidValue);
 }
 
 }  // namespace
-
-// Shared memory (bytes) one batched_decode_attention block needs; the wrapper
-// refuses shapes above the 227 KB a block may use.
-extern "C" long long repro_batched_decode_smem(int Hq, int Hkv, int D) {
-  return (long long)batched_smem(Hq / Hkv, D);
-}
 
 // The split body's launch shape for decode_attention (S the cache length) and
 // paged_decode_attention (S = max_blocks * bs): writes the cluster size and
@@ -807,40 +674,41 @@ extern "C" long long repro_decode_split_plan(int dtype, int B, int S, int Hq, in
   return (long long)p.smem;
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  q [B,Hq,D], k/v [B,S,Hkv,D], out [B,Hq,D]
-// contiguous; lengths (and win_starts when non-null) device int32 [B], each
-// length in [0, S] (a row at 0 gets the average of V over the S slots);
-// slopes device float32 [Hq] or null.  Returns cudaGetLastError() after the
-// launch.
+// batched_decode_attention: dtype 0 = float32, 1 = bfloat16.  q [B,Hq,D],
+// k/v [B,S,Hkv,D], out [B,Hq,D] contiguous; lengths (and win_starts when
+// non-null) device int32 [B], each length in [0, S]; slot p of sequence b is
+// valid iff p < lengths[b] and (p >= win_starts[b] or p < num_meta); slopes
+// device float32 [Hq] or null (bias -slope * max(lengths[b] - 1 - p, 0)
+// before the mask).  A row with no valid key gets the sum of V over its S
+// slots divided by no_key_div.  One cluster launch; shared memory as
+// repro_decode_split_plan.  Returns the launch's error, or
+// cudaGetLastError() after it.
 extern "C" int repro_batched_decode_attention(int dtype, const void* q, const void* k,
                                               const void* v, const int* lengths,
                                               const int* win_starts, const float* slopes,
                                               void* out, int B, int S, int Hq, int Hkv,
-                                              int D, int num_meta, float scale,
+                                              int D, int num_meta, float scale, int no_key_div,
                                               void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_batched<float>(q, k, v, lengths, win_starts, slopes, out, B, S, Hq, Hkv, D,
-                                 num_meta, scale, s);
-  if (dtype == 1)
-    return launch_batched<__nv_bfloat16>(q, k, v, lengths, win_starts, slopes, out, B, S, Hq,
-                                         Hkv, D, num_meta, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs a = {};
+  a.q = q, a.k = k, a.v = v, a.lengths = lengths, a.win_starts = win_starts;
+  a.slopes = slopes, a.out = out, a.S = S, a.Hq = Hq, a.Hkv = Hkv, a.D = D;
+  a.num_meta = num_meta, a.no_key_div = no_key_div, a.scale = scale;
+  return launch_dtype<Mode::kRagged>(dtype, a, B, stream);
 }
 
 // decode_attention: dtype as above; q/out [B,Hq,D], k/v [B,S,Hkv,D]
 // contiguous; valid a device bool [S] shared by every sequence (a row with
-// no valid key gets the average of V over the S slots).  One cluster launch;
-// shared memory as repro_decode_split_plan.  Returns the launch's error, or
-// cudaGetLastError() after it.
+// no valid key gets the sum of V over the S slots divided by no_key_div).
+// One cluster launch; shared memory as repro_decode_split_plan.  Returns the
+// launch's error, or cudaGetLastError() after it.
 extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, const void* v,
                                       const bool* valid, void* out, int B, int S, int Hq,
-                                      int Hkv, int D, float scale, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  SplitArgs a = {q, k, v, valid, nullptr, nullptr, out, 0, 1, 0, 0, S, Hq, Hkv, D, 1, scale};
-  if (dtype == 0) return launch_split<float, false>(a, B, s);
-  if (dtype == 1) return launch_split<__nv_bfloat16, false>(a, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+                                      int Hkv, int D, float scale, int no_key_div,
+                                      void* stream) {
+  SplitArgs a = {};
+  a.q = q, a.k = k, a.v = v, a.valid = valid, a.out = out;
+  a.S = S, a.Hq = Hq, a.Hkv = Hkv, a.D = D, a.no_key_div = no_key_div, a.scale = scale;
+  return launch_dtype<Mode::kValid>(dtype, a, B, stream);
 }
 
 // paged_decode_attention: dtype as above; q/out [B,Hq,D] contiguous; k/v
@@ -858,15 +726,13 @@ extern "C" int repro_paged_decode_attention(int dtype, const void* q, const void
                                             int max_blocks, int bs, long long page_stride,
                                             int Hq, int Hkv, int D, float scale,
                                             void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
   int bs_log2 = 0;
   while ((1 << bs_log2) < bs) ++bs_log2;
   if ((1 << bs_log2) != bs) bs_log2 = -1;
-  SplitArgs a = {q,       k_pages,    v_pages,         nullptr, lengths, block_tables,
-                 out,     page_stride, bs,             bs_log2, max_blocks,
-                 max_blocks * bs,      Hq,              Hkv,     D,       1,
-                 scale};
-  if (dtype == 0) return launch_split<float, true>(a, B, s);
-  if (dtype == 1) return launch_split<__nv_bfloat16, true>(a, B, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  SplitArgs a = {};
+  a.q = q, a.k = k_pages, a.v = v_pages, a.lengths = lengths, a.tables = block_tables;
+  a.out = out, a.page_stride = page_stride, a.bs = bs, a.bs_log2 = bs_log2;
+  a.max_blocks = max_blocks, a.S = max_blocks * bs, a.Hq = Hq, a.Hkv = Hkv, a.D = D;
+  a.no_key_div = max_blocks * bs, a.scale = scale;
+  return launch_dtype<Mode::kPaged>(dtype, a, B, stream);
 }

@@ -19,8 +19,9 @@
 // C*G rows, KV head, sequence) and loops over the keys itself, as
 // flash_attention.cu does.  Row r of the tile is (chunk row r / G, group
 // member r % G), so the G query heads of a KV head share every K/V tile.  A
-// key tile is 64 slots, 8 pages of 8 slots, each row's page looked up in the
-// table (base + page * page_stride + slot * Hkv * D + h * D).  The page stride
+// key tile is 64 slots (8 pages at the serving page size of 8), each row's
+// page looked up in the table (base + page * page_stride + slot * Hkv * D +
+// h * D).  The page stride
 // is a parameter, so the pages may be one layer's strided view of the pool
 // [N, L, bs, Hkv, D]: nothing is copied.  The loop stops at the causal limit
 // of the tile's last row, min(q_start + q_len, q_start + its query + 1), so
@@ -31,17 +32,42 @@
 // (query, slot) pair against the pages read and q / out moved once: with
 // G = 1 in bf16, fewer than C flops per byte of K/V, so at the chunk-set
 // shape (C = 64, D = 64) the bytes bound it, far below the 295 at which the
-// tensor cores would.  This first version computes in f32 on the
-// CUDA cores, as flash_attention.cu does (each thread a 4 x 8 patch of the
-// score tile and a 4 x D/8 patch of the output, shared rows padded to D + 1
-// floats), and reaches neither bound.  wgmma, TMA-fed tiles and pipelining
-// are left for later.
+// tensor cores would.  Reaching the bytes' bound needs the products off the
+// CUDA cores and the page loads off the critical path.
+//
+// bf16 (paged_prefill_wgmma_kernel): the block is one warpgroup, and the
+// body is flash_attention.cu's wgmma body with its loads made for pages.
+//   * Loads: 16-byte cp.async by every thread, no TMA.  A 64-slot key tile
+//     spans 64 / bs pages anywhere in the pool (for any bs, not only one
+//     that divides 64), and the 64 query rows (chunk row, group member) are
+//     not one box when 64 is not a multiple of G.  Each thread copies one
+//     16-byte column chunk of four rows into the 128-byte swizzle
+//     (hopper.cuh), Q once and the K/V tiles into a ring of three stages;
+//     its rows' page offsets for the tile after next are read from the table
+//     while the ring fills, so no table read sits between two copies.  A key
+//     at or past the loop's limit, a row past the tile's rows and a column
+//     past D are written as zeros (cp.async with a source size of 0), never
+//     left stale: P = 0 times a NaN in shared memory is NaN inside wgmma.
+//     No table entry or page past that limit is read.  Each thread fences
+//     its copies to the async proxy after they land, before the barrier that
+//     hands the tile to wgmma.
+//   * S = Q.K^T on wgmma m64n64k16, Q and K K-major; softmax on the
+//     accumulator fragment (mask only on the tiles that cross a row's causal
+//     limit or the chunk's end, ex2.approx with the scale folded in); O +=
+//     P.V with P converted to bf16 in registers as the A fragment and V read
+//     MN-major from its swizzled tile.
+// f32 (paged_prefill_kernel) keeps the CUDA-core body: TF32 or bf16 products
+// cannot hold the f32 parity band of 2e-5.  Each of its 128 threads holds a
+// 4 x 8 patch of the score tile and a 4 x D/8 patch of the output, over f32
+// shared rows padded to D + 1 floats.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
 #include <cfloat>
 #include <cstdint>
+
+#include "hopper.cuh"
 
 namespace {
 
@@ -55,16 +81,11 @@ constexpr int kCols = kBK / kLanes;                // 8 keys per thread per tile
 constexpr int kLdp = kBK + 1;
 
 __device__ __forceinline__ float to_float(float x) { return x; }
-__device__ __forceinline__ float to_float(__nv_bfloat16 x) { return __bfloat162float(x); }
 
 template <typename T>
 __device__ __forceinline__ T from_float(float x);
 template <>
 __device__ __forceinline__ float from_float<float>(float x) { return x; }
-template <>
-__device__ __forceinline__ __nv_bfloat16 from_float<__nv_bfloat16>(float x) {
-  return __float2bfloat16(x);
-}
 
 // Copies rows [0, n) of D elements, row j starting at src(j), into f32 shared
 // rows of stride ld, 16 bytes per thread per step; rows [n, fill) are zeroed.
@@ -239,6 +260,245 @@ constexpr size_t smem_bytes(int D) {
                           (size_t)kBQ * kLdp);
 }
 
+// ---------------------------------------------------------------------------
+// bf16: one warpgroup on wgmma, K/V pages by cp.async
+// ---------------------------------------------------------------------------
+
+constexpr int kStages = 3;                 // K/V tiles in the ring
+
+// Q, kStages K and V tiles, and 1 KB to align the tiles to the 1024 bytes the
+// 128-byte swizzle repeats over.
+constexpr size_t wgmma_smem_bytes(int D) {
+  return 1024 + (size_t)(1 + 2 * kStages) * tile_bytes(D);
+}
+
+// Fragment of a wgmma m64nN f32 accumulator: thread (warp w, lane l) holds
+// d[i] at row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) + (i & 1).
+template <int D>
+__global__ void __launch_bounds__(kThreads)
+paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
+                           const __nv_bfloat16* __restrict__ k,
+                           const __nv_bfloat16* __restrict__ v, const int* __restrict__ tables,
+                           const int* __restrict__ q_starts, const int* __restrict__ q_lens,
+                           __nv_bfloat16* __restrict__ out, int C, int max_blocks, int bs,
+                           long long page_stride, int Hq, int Hkv, float scale_log2) {
+  constexpr int kBoxes = D > 64 ? 2 : 1;   // 64-column boxes across the head dim
+  constexpr int kDP = 64 * kBoxes;         // head dim padded to the boxes
+  constexpr int kTile = tile_bytes(D);
+  constexpr int kCopyRows = kBK / (kThreads / 8);   // rows a thread copies per tile: 4
+  const int G = Hq / Hkv;
+  const int r0 = blockIdx.x * kBQ;         // first query row (chunk row, member) of the tile
+  const int h = blockIdx.y;                // KV head
+  const int b = blockIdx.z;                // sequence
+  const int nr = min(kBQ, C * G - r0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;               // [kBoxes][64][64]
+  unsigned char* kv_s = q_s + kTile;       // [kStages][K, V][kBoxes][64][64]
+
+  const int start = q_starts[b];
+  // slots any row of this sequence may see: [0, end)
+  const int end = min(start + q_lens[b], max_blocks * bs);
+  // slots past the causal limit of the tile's last row are masked for every
+  // row of the tile: the loop never reads them, nor their table entries
+  const int kend = max(0, min(end, start + (r0 + nr - 1) / G + 1));
+  const int ntiles = (kend + kBK - 1) / kBK;
+
+  // Thread tid copies 16-byte chunk cc of rows rr + 16 i of every box; as
+  // 16 i is a multiple of 8, each of its rows puts the chunk at cc ^ (rr & 7).
+  const int cc = tid % 8, rr = tid / 8;
+  const int swz = rr * 128 + ((cc ^ (rr & 7)) * 16);
+  auto dst = [&](unsigned char* tile, int i, int x) { return tile + x * kAtom + i * 2048 + swz; };
+
+  const long long qrow = (long long)Hq * D;    // elements between consecutive chunk rows
+  const __nv_bfloat16* qb = q + (long long)b * C * qrow + (long long)h * G * D;
+#pragma unroll
+  for (int i = 0; i < kCopyRows; ++i) {
+    const int j = rr + 16 * i, r = r0 + j;
+    const __nv_bfloat16* src = qb + (long long)(r / G) * qrow + (long long)(r % G) * D;
+#pragma unroll
+    for (int x = 0; x < kBoxes; ++x) {
+      const int col = 64 * x + 8 * cc;
+      const bool ok = j < nr && col < D;
+      cp_async16_zfill(dst(q_s, i, x), ok ? src + col : qb, ok ? 16 : 0);
+    }
+  }
+
+  const long long krow = (long long)Hkv * D;   // elements between consecutive slots
+  const int* table = tables + (long long)b * max_blocks;
+  const __nv_bfloat16* kb = k + (long long)h * D;
+  const __nv_bfloat16* vb = v + (long long)h * D;
+  // the element offsets of this thread's rows of tile t in the pages, -1 at
+  // or past kend (whose table entries are not read)
+  long long off[kCopyRows];
+  auto fetch = [&](int t) {
+#pragma unroll
+    for (int i = 0; i < kCopyRows; ++i) {
+      const int p = t * kBK + rr + 16 * i;
+      const int page = p / bs;
+      off[i] = p < kend ? (long long)table[page] * page_stride + (long long)(p - page * bs) * krow
+                        : -1;
+    }
+  };
+  auto issue = [&](int t) {
+    unsigned char* ks = kv_s + (t % kStages) * 2 * kTile;
+#pragma unroll
+    for (int i = 0; i < kCopyRows; ++i) {
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        const int col = 64 * x + 8 * cc;
+        const bool ok = off[i] >= 0 && col < D;
+        cp_async16_zfill(dst(ks, i, x), ok ? kb + off[i] + col : kb, ok ? 16 : 0);
+        cp_async16_zfill(dst(ks + kTile, i, x), ok ? vb + off[i] + col : vb, ok ? 16 : 0);
+      }
+    }
+  };
+  // Q goes out with tile 0, then the ring fills; each group is committed
+  // even when empty, so that group j is tile j's
+  fetch(0);
+  for (int t = 0; t < kStages - 1; ++t) {
+    if (t < ntiles) issue(t);
+    cp_async_commit();
+    fetch(t + 1);
+  }
+
+  float o[kDP / 2];
+#pragma unroll
+  for (int i = 0; i < kDP / 2; ++i) o[i] = 0.f;
+  float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // rows w0 and w0 + 8, log2 units
+  const int w0 = warp * 16 + lane / 4;
+  // the last slot each of the thread's two rows sees; the tile's first row
+  // sees the fewest, and the limits grow with the row
+  int lim[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) lim[r] = min(start + (r0 + w0 + 8 * r) / G, end - 1);
+  const int lim_lo = min(start + r0 / G, end - 1);
+  const uint32_t q_addr = smem_u32(q_s);
+
+  for (int j = 0; j < ntiles; ++j) {
+    cp_async_wait<kStages - 2>();
+    fence_proxy_async();
+    __syncthreads();  // tile j (and Q) landed; every warp is done with tile j - 1
+    if (j + kStages - 1 < ntiles) issue(j + kStages - 1);   // into tile j - 1's stage
+    cp_async_commit();
+    fetch(j + kStages);
+    const unsigned char* ks = kv_s + (j % kStages) * 2 * kTile;
+
+    // S = Q.K^T: K-major boxes; a k16 step is 32 bytes along a 128-byte row
+    float s[32];
+#pragma unroll
+    for (int i = 0; i < 32; ++i) s[i] = 0.f;
+    const uint32_t k_addr = smem_u32(ks);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kDP / 16; ++kk) {
+      const uint32_t step = (kk / 4) * kAtom + (kk % 4) * 32;
+      wgmma_ss_n64(s, gmma_desc(q_addr + step, 16, 1024), gmma_desc(k_addr + step, 16, 1024),
+                   kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(s);
+
+    // the mask and the row max act on raw scores; the scale (positive)
+    // enters once, in the exponent's multiply-add.  Slots past a row's
+    // limit, the zero-filled ones past kend among them, are masked.
+    const int t0 = j * kBK;
+    if (t0 + kBK - 1 > lim_lo) {
+#pragma unroll
+      for (int i = 0; i < 32; ++i) {
+        const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+        if (key > lim[(i >> 1) & 1]) s[i] = kNegInf;
+      }
+    }
+    float alpha[2];
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      float mx = kNegInf;
+#pragma unroll
+      for (int i = 0; i < 32; ++i)
+        if (((i >> 1) & 1) == r) mx = fmaxf(mx, s[i]);
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+      const float m_new = fmaxf(m[r], mx * scale_log2);
+      alpha[r] = fast_exp2(m[r] - m_new);
+      m[r] = m_new;
+    }
+    float sum[2] = {0.f, 0.f};
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int r = (i >> 1) & 1;
+      s[i] = fast_exp2(fmaf(s[i], scale_log2, -m[r]));
+      sum[r] += s[i];
+    }
+#pragma unroll
+    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
+#pragma unroll
+    for (int i = 0; i < kDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+
+    // O += P.V: P's k16 step kk is score columns 16 kk .. 16 kk + 15, which
+    // the accumulator fragment holds as the A fragment wants them; V's k16
+    // step is 16 key rows, two 1024-byte swizzle atoms
+    const uint32_t v_addr = smem_u32(ks + kTile);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBK / 16; ++kk) {
+      const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+      wgmma_rs<kDP>(o, a, gmma_desc(v_addr + kk * 2048, kAtom, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait_all();
+    fence_regs(o);
+  }
+  cp_async_wait<0>();                      // Q's copy, where no tile was walked
+
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // l == 0 only when the sequence shows no slot at all (q_start + q_len == 0)
+    l[r] = l[r] > 0.f ? 1.f / l[r] : 0.f;
+  }
+  __nv_bfloat16* ob = out + (long long)b * C * qrow + (long long)h * G * D;
+#pragma unroll
+  for (int i = 0; i < kDP / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = w0 + 8 * r;
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    if (col < D && row < nr) {
+      const int R = r0 + row;
+      __nv_bfloat16* dst_o = ob + (long long)(R / G) * qrow + (long long)(R % G) * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dst_o) =
+          __floats2bfloat162_rn(o[i] * l[r], o[i + 1] * l[r]);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const int* tables,
+                         const int* q_starts, const int* q_lens, void* out, int B, int C,
+                         int max_blocks, int bs, long long page_stride, int Hq, int Hkv,
+                         float scale, cudaStream_t stream) {
+  const size_t smem = wgmma_smem_bytes(D);
+  const cudaError_t e = cudaFuncSetAttribute(paged_prefill_wgmma_kernel<D>,
+                                             cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                             (int)smem);
+  if (e != cudaSuccess) return e;
+  const int rows = C * (Hq / Hkv);
+  dim3 grid((unsigned)((rows + kBQ - 1) / kBQ), (unsigned)Hkv, (unsigned)B);
+  paged_prefill_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(k),
+      static_cast<const __nv_bfloat16*>(v), tables, q_starts, q_lens,
+      static_cast<__nv_bfloat16*>(out), C, max_blocks, bs, page_stride, Hq, Hkv,
+      scale * kLog2e);
+  return cudaGetLastError();
+}
+
 template <typename T, int D>
 cudaError_t launch(const void* q, const void* k, const void* v, const int* tables,
                    const int* q_starts, const int* q_lens, void* out, int B, int C,
@@ -259,36 +519,36 @@ cudaError_t launch(const void* q, const void* k, const void* v, const int* table
   return cudaGetLastError();
 }
 
-template <typename T>
-cudaError_t launch_d(const void* q, const void* k, const void* v, const int* tables,
-                     const int* qs, const int* ql, void* out, int B, int C, int max_blocks,
-                     int bs, long long ps, int Hq, int Hkv, int D, float scale,
-                     cudaStream_t s) {
-  switch (D) {
-#define REPRO_LAUNCH(DIM) \
-  launch<T, DIM>(q, k, v, tables, qs, ql, out, B, C, max_blocks, bs, ps, Hq, Hkv, scale, s)
-    case 16: return REPRO_LAUNCH(16);
-    case 32: return REPRO_LAUNCH(32);
-    case 64: return REPRO_LAUNCH(64);
-    case 128: return REPRO_LAUNCH(128);
-#undef REPRO_LAUNCH
-    default: return cudaErrorInvalidValue;
-  }
+template <int D>
+cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
+                         const int* tables, const int* qs, const int* ql, void* out, int B,
+                         int C, int max_blocks, int bs, long long ps, int Hq, int Hkv,
+                         float scale, cudaStream_t s) {
+  if (dtype == 0)
+    return launch<float, D>(q, k, v, tables, qs, ql, out, B, C, max_blocks, bs, ps, Hq, Hkv,
+                            scale, s);
+  if (dtype == 1)
+    return launch_wgmma<D>(q, k, v, tables, qs, ql, out, B, C, max_blocks, bs, ps, Hq, Hkv,
+                           scale, s);
+  return cudaErrorInvalidValue;
 }
 
 }  // namespace
 
-// Shared memory (bytes) one block needs at head dim D.
-extern "C" long long repro_paged_prefill_smem(int D) { return (long long)smem_bytes(D); }
+// Shared memory (bytes) one block needs at dtype code `dtype` and head dim D.
+extern "C" long long repro_paged_prefill_smem(int dtype, int D) {
+  return (long long)(dtype == 1 ? wgmma_smem_bytes(D) : smem_bytes(D));
+}
 
-// dtype: 0 = float32, 1 = bfloat16.  q/out [B,C,Hq,D] contiguous; k/v pages
+// dtype: 0 = float32 (paged_prefill_kernel), 1 = bfloat16
+// (paged_prefill_wgmma_kernel).  q/out [B,C,Hq,D] contiguous; k/v pages
 // [N,bs,Hkv,D] whose (bs, Hkv, D) are dense and whose pages lie page_stride
 // elements apart (the same for k and v); block_tables device int32
 // [B,max_blocks] contiguous, every entry of a sequence's first
-// ceil(min(q_starts[b] + q_lens[b], max_blocks * bs) / bs) a valid page id;
-// q_starts, q_lens device int32 [B], non-negative.  D in {16, 32, 64, 128};
-// Hq % Hkv == 0; base pointers and strides 16-byte aligned.  Returns
-// cudaGetLastError() after the launch.
+// ceil(min(q_starts[b] + q_lens[b], max_blocks * bs) / bs) a valid page id
+// (the kernels read no other entry); q_starts, q_lens device int32 [B],
+// non-negative.  D in {16, 32, 64, 128}; Hq % Hkv == 0; base pointers and
+// strides 16-byte aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_paged_prefill_attention(int dtype, const void* q, const void* k_pages,
                                              const void* v_pages, const int* block_tables,
                                              const int* q_starts, const int* q_lens, void* out,
@@ -296,11 +556,15 @@ extern "C" int repro_paged_prefill_attention(int dtype, const void* q, const voi
                                              long long page_stride, int Hq, int Hkv, int D,
                                              float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0)
-    return launch_d<float>(q, k_pages, v_pages, block_tables, q_starts, q_lens, out, B, C,
-                           max_blocks, bs, page_stride, Hq, Hkv, D, scale, s);
-  if (dtype == 1)
-    return launch_d<__nv_bfloat16>(q, k_pages, v_pages, block_tables, q_starts, q_lens, out,
-                                   B, C, max_blocks, bs, page_stride, Hq, Hkv, D, scale, s);
-  return static_cast<int>(cudaErrorInvalidValue);
+  switch (D) {
+#define REPRO_LAUNCH(DIM)                                                                     \
+  launch_dtype<DIM>(dtype, q, k_pages, v_pages, block_tables, q_starts, q_lens, out, B, C,     \
+                    max_blocks, bs, page_stride, Hq, Hkv, scale, s)
+    case 16: return REPRO_LAUNCH(16);
+    case 32: return REPRO_LAUNCH(32);
+    case 64: return REPRO_LAUNCH(64);
+    case 128: return REPRO_LAUNCH(128);
+#undef REPRO_LAUNCH
+    default: return static_cast<int>(cudaErrorInvalidValue);
+  }
 }

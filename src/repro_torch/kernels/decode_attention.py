@@ -6,13 +6,14 @@ One query per sequence for B sequences: `batched_decode_attention` over
 dense per-sequence K/V, each sequence masked to its own live length, with
 optional window starts, meta sinks and ALiBi slopes; `decode_attention`
 over dense K/V with one shared validity vector; `paged_decode_attention`
-over pool pages read in place through block tables.  The last two split
-each (KV head, sequence)'s keys across a thread-block cluster and combine
-the partials on chip, in one launch (`split_plan` gives its shape).  A row
-with no valid key gets the uniform average of V over its S slots, as the
-plain versions give.  The wrappers take CUDA tensors only (the CPU goes to
-the plain versions through `repro_torch.kernels.ops`), check what the
-kernel needs, allocate the output and count their launches.
+over pool pages read in place through block tables.  All three split each
+(KV head, sequence)'s keys across a thread-block cluster and combine the
+partials on chip, in one launch (`split_plan` gives its shape).  A row with
+no valid key gets the sum of V over its S slots divided by what the Pallas
+kernel's walk covers (`ref.no_key_divisor(S)` over a dense cache, S over
+pages), as the plain versions give.  The wrappers take CUDA tensors only
+(the CPU goes to the plain versions through `repro_torch.kernels.ops`),
+check what the kernel needs, allocate the output and count their launches.
 """
 from __future__ import annotations
 
@@ -23,6 +24,7 @@ from typing import Optional
 import torch
 
 from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels.ref import no_key_divisor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 MAX_SMEM = 232448          # bytes of shared memory one block may use (H100)
@@ -55,19 +57,12 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> 
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {dev}")
 
 
-def _lib_for(hq: int, hkv: int, d: int):
-    lib = _build.lib("decode_attention")
-    smem = lib.repro_batched_decode_smem(hq, hkv, d)
-    if smem > MAX_SMEM:
-        raise ValueError(f"{smem} bytes of shared memory per block exceed {MAX_SMEM}")
-    return lib
-
-
 @functools.lru_cache(maxsize=256)
 def split_plan(dtype: torch.dtype, b: int, s: int, hq: int, hkv: int, d: int):
-    """The launch shape of `decode_attention` (s the cache length) and
-    `paged_decode_attention` (s = max_blocks * bs): (blocks per cluster, ring
-    stages, shared memory bytes per block), chosen from the shapes alone."""
+    """The launch shape of `decode_attention` and `batched_decode_attention`
+    (s the cache length) and `paged_decode_attention` (s = max_blocks * bs):
+    (blocks per cluster, ring stages, shared memory bytes per block), chosen
+    from the shapes alone."""
     lib = _build.lib("decode_attention")
     splits, stages = ctypes.c_int(), ctypes.c_int()
     smem = lib.repro_decode_split_plan(_DTYPE_CODE[dtype], b, s, hq, hkv, d,
@@ -88,10 +83,11 @@ def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                              win_starts: Optional[torch.Tensor] = None,
                              slopes: Optional[torch.Tensor] = None, *,
                              num_meta: int = 0) -> torch.Tensor:
-    """q [B,Hq,D]; k/v [B,S,Hkv,D]; lengths [B] int32 (the new token
-    included; a row at 0 gets the average of V over the S slots);
-    win_starts [B] int32 or None; slopes [Hq] float32 or None -> [B,Hq,D] in
-    q.dtype."""
+    """q [B,Hq,D]; k/v [B,S,Hkv,D]; lengths [B] int32, each in [0, S] (the
+    new token included); win_starts [B] int32 or None; slopes [Hq] float32
+    or None -> [B,Hq,D] in q.dtype.  A row with no valid key (length 0, or
+    a window start past its length and no meta sink below it) gets the sum
+    of V over the S slots divided by `no_key_divisor(S)`."""
     _check_qkv(q, k, v, "batched_decode_attention")
     dev = q.device
     b, hq, d = q.shape
@@ -102,13 +98,15 @@ def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     if slopes is not None and (slopes.device != dev or slopes.dtype != torch.float32
                                or slopes.shape != (hq,) or not slopes.is_contiguous()):
         raise ValueError(f"slopes must be a contiguous float32 [{hq}] on {dev}")
-    lib = _lib_for(hq, hkv, d)
+    if num_meta < 0:
+        raise ValueError(f"num_meta must be non-negative, got {num_meta}")
+    lib = _split_lib(q, s, hkv)
     out = torch.empty_like(q)
     err = lib.repro_batched_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
         lengths.data_ptr(), None if win_starts is None else win_starts.data_ptr(),
         None if slopes is None else slopes.data_ptr(), out.data_ptr(),
-        b, s, hq, hkv, d, int(num_meta), float(d) ** -0.5,
+        b, s, hq, hkv, d, int(num_meta), float(d) ** -0.5, no_key_divisor(s),
         ctypes.c_void_p(torch.cuda.current_stream(dev).cuda_stream))
     _build.check(err, "batched_decode_attention")
     LAUNCHES["batched_decode_attention"] += 1
@@ -119,7 +117,8 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      kv_valid: torch.Tensor) -> torch.Tensor:
     """q [B,Hq,D]; k/v [B,S,Hkv,D]; kv_valid bool [S], one validity row
     shared by every sequence -> [B,Hq,D] in q.dtype.  With no valid key,
-    a row gets the uniform average of V over the S slots."""
+    a row gets the sum of V over the S slots divided by
+    `no_key_divisor(S)`."""
     _check_qkv(q, k, v, "decode_attention")
     b, hq, d = q.shape
     _, s, hkv, _ = k.shape
@@ -130,7 +129,7 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     out = torch.empty_like(q)
     err = lib.repro_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
-        out.data_ptr(), b, s, hq, hkv, d, float(d) ** -0.5,
+        out.data_ptr(), b, s, hq, hkv, d, float(d) ** -0.5, no_key_divisor(s),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1

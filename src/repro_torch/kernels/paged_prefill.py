@@ -6,7 +6,8 @@ attends causally over the K/V pages [N,bs,Hkv,D] it reads in place through
 its block-table row; the chunk's own K/V are already in the pages.  The
 wrapper takes CUDA tensors only (the CPU goes to the plain version through
 `repro_torch.kernels.ops`), checks what the kernel needs, allocates the
-output and counts its launches.
+output and counts its launches.  The C function picks the body by dtype:
+bf16 runs on wgmma over cp.async-fed page tiles, float32 on the CUDA cores.
 """
 from __future__ import annotations
 
@@ -27,7 +28,9 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
     `decode_attention.check_pages`; not copied); block_tables [B,max_blocks]
     int32; q_starts, q_lens [B] int32 -> [B,C,Hq,D] in q.dtype.  Query i of
     sequence b sees slot j iff j <= q_starts[b] + i and j < q_starts[b] +
-    q_lens[b]; rows past q_lens[b] are don't-care."""
+    q_lens[b]; rows past q_lens[b] are don't-care.  Table entries past a
+    sequence's first ceil(min(q_starts[b] + q_lens[b], max_blocks*bs) / bs)
+    are never read and may hold any value."""
     what = "paged_prefill_attention"
     if not q.is_cuda:
         raise ValueError(f"{what} takes CUDA tensors; use repro_torch.kernels.ops "
@@ -52,7 +55,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
     _int_vec(q_starts, b, "q_starts", dev)
     _int_vec(q_lens, b, "q_lens", dev)
     lib = _build.lib("paged_prefill")
-    smem = lib.repro_paged_prefill_smem(d)
+    smem = lib.repro_paged_prefill_smem(_DTYPE_CODE[q.dtype], d)
     if smem > MAX_SMEM:
         raise ValueError(f"{smem} bytes of shared memory per block exceed {MAX_SMEM}")
     out = torch.empty_like(q)

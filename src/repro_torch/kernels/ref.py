@@ -13,6 +13,28 @@ import torch
 import torch.nn.functional as F
 
 NEG_INF = -0.7 * float(torch.finfo(torch.float32).max)
+# The Pallas decode kernels' default key block (`block_k`,
+# src/repro/kernels/decode_attention.py:179,243), which their callers keep.
+# They pad S with zero K/V rows up to a multiple of min(512, S), so a row
+# with no valid key averages V over that padded length.
+PALLAS_BLOCK_K = 512
+
+
+def no_key_divisor(s: int) -> int:
+    """What a row with no valid key divides the sum of V over its S slots
+    by in the Pallas decode kernels over a dense cache: S rounded up to a
+    multiple of min(PALLAS_BLOCK_K, S)."""
+    bk = min(PALLAS_BLOCK_K, s)
+    return -(-s // bk) * bk
+
+
+def _average_where_no_key(out: torch.Tensor, v: torch.Tensor, none: torch.Tensor,
+                          divisor: int) -> torch.Tensor:
+    """out [B,Hkv,G,D]; v [B,S,Hkv,D]; none [B] or [] bool, the rows with no
+    valid key -> out with those rows replaced by sum of V over S / divisor,
+    summed in f32 as the kernels do."""
+    avg = (v.float().sum(dim=1) / divisor).to(out.dtype)[:, :, None, :]    # [B,Hkv,1,D]
+    return torch.where(none.reshape(-1, 1, 1, 1), avg, out)
 
 
 def kv_pack_ref(cache: torch.Tensor, t0: int, width: int) -> torch.Tensor:
@@ -56,15 +78,18 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                          kv_valid: torch.Tensor) -> torch.Tensor:
     """q [B,Hq,D]; k/v [B,S,Hkv,D]; kv_valid [S] bool, one validity row
-    shared by every sequence (any pattern, not only a prefix) -> [B,Hq,D]."""
+    shared by every sequence (any pattern, not only a prefix) -> [B,Hq,D].
+    With no valid key, every row is the sum of V over the S slots divided by
+    `no_key_divisor(S)`, as the Pallas kernel gives."""
     b, hq, d = q.shape
-    hkv = k.shape[2]
+    s, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
     qg = q.reshape(b, hkv, g, d)
     scores = torch.einsum("bhgd,bkhd->bhgk", qg, k).float() * (d ** -0.5)
     scores = torch.where(kv_valid.bool(), scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
+    out = _average_where_no_key(out, v, ~kv_valid.bool().any(), no_key_divisor(s))
     return out.reshape(b, hq, d)
 
 
@@ -79,7 +104,15 @@ def batched_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     win_starts: optional [B] first non-meta slot each sequence may attend;
     slots below `num_meta` are always visible.  slopes: optional [Hq] ALiBi
     slopes, the query sitting at position lengths[b]-1.  Probabilities are
-    cast to q.dtype before P·V, as in the reference's oracle."""
+    cast to q.dtype before P·V, as in the reference's oracle.  A row with no
+    valid key is the sum of V over the S slots divided by
+    `no_key_divisor(S)`, as the Pallas kernel gives."""
+    return _ragged_decode(q, k, v, lengths, win_starts, slopes, num_meta,
+                          no_key_divisor(k.shape[1]))
+
+
+def _ragged_decode(q, k, v, lengths, win_starts, slopes, num_meta: int, divisor: int):
+    """`batched_decode_attention_ref` with the no-valid-key divisor given."""
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -98,6 +131,7 @@ def batched_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,
     scores = torch.where(valid[:, None, None, :], scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
+    out = _average_where_no_key(out, v, ~valid.any(dim=1), divisor)
     return out.reshape(b, hq, d)
 
 
@@ -115,10 +149,12 @@ def paged_decode_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,
     """q [B,Hq,D]; k/v_pages [N,bs,Hkv,D]; block_tables [B,max_blocks] int32
     (logical block j of sequence b in page block_tables[b,j]); lengths [B]
     live tokens -> [B,Hq,D].  Gathers the pages dense, then the masked f32
-    softmax of `batched_decode_attention_ref`."""
+    softmax of `batched_decode_attention_ref`; a row at length 0 averages V
+    over its max_blocks * bs slots (the Pallas kernel walks whole pages and
+    pads nothing)."""
     k = paged_gather_ref(k_pages, block_tables)
     v = paged_gather_ref(v_pages, block_tables)
-    return batched_decode_attention_ref(q, k, v, lengths)
+    return _ragged_decode(q, k, v, lengths, None, None, 0, k.shape[1])
 
 
 def paged_prefill_attention_ref(q: torch.Tensor, k_pages: torch.Tensor,

@@ -181,9 +181,11 @@ def test_decode_attention_split_matches_plain(cuda, kind, d, dtype):
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 def test_decode_entries_average_v_where_no_key_is_valid(cuda, dtype):
-    """A row with no valid key gets the uniform average of V over its S
-    slots, as the plain versions (and the Pallas kernels) give: an all-false
-    validity vector for decode_attention, a length of 0 for the others."""
+    """A row with no valid key gets the sum of V over its S slots divided by
+    what the Pallas kernel walks (S padded to a multiple of 512 over a dense
+    cache, S over pages), as the plain versions give: an all-false validity
+    vector for decode_attention, a length of 0 (or a window start past the
+    length) for the others.  S = 544 is mb_serve's cache, padded to 1024."""
     from repro_torch.kernels.decode_attention import (batched_decode_attention,
                                                       decode_attention,
                                                       paged_decode_attention)
@@ -197,8 +199,8 @@ def test_decode_entries_average_v_where_no_key_is_valid(cuda, dtype):
         torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype],
                                    atol=TOL[dtype])
 
-    for s in (70, 1152):                 # one block, and a cluster of 8
-        q, k, v = rand(2, 25, 64), rand(2, s, 5, 64), rand(2, s, 5, 64)
+    for s in (70, 544, 1152):            # one block, and clusters of 8
+        q, k, v = rand(2, 25, 64), rand(2, s, 5, 64), rand(2, s, 5, 64) + 1
         none = torch.zeros(s, dtype=torch.bool, device=cuda)
         close(decode_attention(q, k, v, none), ref.decode_attention_ref(q, k, v, none))
     lengths = [0, 77, 300]
@@ -206,11 +208,66 @@ def test_decode_entries_average_v_where_no_key_is_valid(cuda, dtype):
     q, k, v = rand(3, 4, 16), rand(3, 300, 2, 16), rand(3, 300, 2, 16)
     close(batched_decode_attention(q, k, v, lens),
           ref.batched_decode_attention_ref(q, k, v, lens))
+    # S = 544: a length-0 row, and a window start past a row's length, with
+    # and without meta sinks and ALiBi
+    lens = torch.tensor([0, 77, 544], dtype=torch.int32, device=cuda)
+    ws = torch.tensor([0, 90, 500], dtype=torch.int32, device=cuda)
+    slopes = torch.tensor([2.0 ** -(i + 1) for i in range(25)], device=cuda)
+    q, k, v = rand(3, 25, 64), rand(3, 544, 5, 64), rand(3, 544, 5, 64) + 1
+    for win, sl, meta in ((None, None, 0), (ws, None, 0), (ws, slopes, 0), (ws, slopes, 4)):
+        close(batched_decode_attention(q, k, v, lens, win, sl, num_meta=meta),
+              ref.batched_decode_attention_ref(q, k, v, lens, win, sl, num_meta=meta))
     # the row at 0 reads its whole table, padded with page 0
     kp, vp, tables = _paged(g, lengths, 5, 64, dtype)
     q = rand(3, 25, 64)
     close(paged_decode_attention(q, kp, vp, tables, lens),
           ref.paged_decode_attention_ref(q, kp, vp, tables, lens))
+
+
+BATCHED_SPLIT_KINDS = {   # lengths, window starts (or a window), meta sinks, ALiBi, heads
+    # window starts on a 64-key tile edge, and off one
+    "window_on_tile_edge": ([1024, 700, 450, 64], [512, 640, 128, 0], 0, False, (25, 5)),
+    "window_off_tile_edge": ([1024, 700, 450, 64], [515, 641, 100, 3], 0, False, (25, 5)),
+    # meta sinks spanning all of tile 0 and part of tile 1, beside a window
+    "meta_spans_tile": ([1024, 700, 450, 64], 32, 70, False, (25, 5)),
+    # a 32-slot window: 1-2 live tiles for a cluster of 8 blocks
+    "few_live_tiles": ([1024, 700, 450, 100], 32, 0, False, (25, 5)),
+    "ragged_1_and_s": ([1, 1024, 2, 1023], None, 0, False, (25, 5)),
+    "alibi_window_meta": ([1024, 700, 450, 64], 96, 4, True, (25, 5)),
+    # G = 32: four blocks of 8 query rows
+    "g32_alibi_window": ([1024, 700, 450, 64], 96, 4, True, (32, 1)),
+}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("kind", list(BATCHED_SPLIT_KINDS))
+def test_batched_decode_attention_split_matches_plain(cuda, kind, d, dtype):
+    """batched_decode_attention on the split body over a dense cache of
+    1024 slots: each block of a cluster of 8 takes its share of a sequence's
+    live tiles (meta tiles, then the window's), masking per slot only on the
+    tile that holds the window start."""
+    lengths, win, meta, alibi, (hq, hkv) = BATCHED_SPLIT_KINDS[kind]
+    from repro_torch.kernels.decode_attention import batched_decode_attention, split_plan
+    b, s = len(lengths), 1024
+    assert split_plan(dtype, b, s, hq, hkv, d)[0] == 8
+    g = torch.Generator(device=cuda).manual_seed(10)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, hq, d), (b, s, hkv, d), (b, s, hkv, d)))
+    lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+    if isinstance(win, int):
+        ws = (lens - win).clamp(min=0)
+    else:
+        ws = None if win is None else torch.tensor(win, dtype=torch.int32, device=cuda)
+    slopes = (torch.tensor([2.0 ** -(i % 8 + 1) for i in range(hq)], device=cuda)
+              if alibi else None)
+    n0 = LAUNCHES["batched_decode_attention"]
+    out = batched_decode_attention(q, k, v, lens, ws, slopes, num_meta=meta)
+    assert LAUNCHES["batched_decode_attention"] == n0 + 1
+    exp = ref.batched_decode_attention_ref(q, k, v, lens, ws, slopes, num_meta=meta)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
@@ -302,6 +359,78 @@ def test_paged_prefill_attention_kernel_matches_plain(cuda, c, hq, hkv, d, prefi
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == q.shape
     valid = torch.arange(c, device=cuda)[None, :] < ql[:, None]     # padding: don't-care
+    torch.testing.assert_close(out[valid].float(), exp[valid].float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+# chunks of 40: one ending mid-tile at 40, two ending mid-tile and mid-page
+# for every page size below (113 and 207), and one that shows no slot
+PREFILL_STARTS, PREFILL_LENS = (0, 83, 0, 190), (40, 30, 0, 17)
+
+
+def _poisoned_tables(tables, ends, bs):
+    """The tables with every entry past a sequence's ceil(end / bs) pages set
+    to a page id far past the pool: a kernel that read one would fault."""
+    bad = tables.clone()
+    for i, e in enumerate(ends):
+        bad[i, -(-e // bs):] = 10 ** 7
+    return bad
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("group", [1, 5])
+@pytest.mark.parametrize("bs", [4, 8, 16, 12])
+def test_paged_prefill_attention_kernel_matches_plain_over_page_sizes(cuda, bs, group, d,
+                                                                      dtype):
+    """Both bodies (bf16 on wgmma, f32 on the CUDA cores) at every page size,
+    G 1 and 5 and every head dim, over tables whose padded entries hold a
+    page id far past the pool: only the entries below each chunk's end are
+    read.  The plain version reads the same tables padded with page 0."""
+    hkv, c = 2, 40
+    ends = [p + n for p, n in zip(PREFILL_STARTS, PREFILL_LENS)]
+    g = torch.Generator(device=cuda).manual_seed(11)
+    kp, vp, tables = _paged(g, ends, hkv, d, dtype, bs=bs)
+    hq = hkv * group
+    q = torch.randn(len(ends), c, hq, d, generator=g, device=cuda).to(dtype)
+    qs = torch.tensor(PREFILL_STARTS, dtype=torch.int32, device=cuda)
+    ql = torch.tensor(PREFILL_LENS, dtype=torch.int32, device=cuda)
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    n0 = LAUNCHES["paged_prefill_attention"]
+    out = paged_prefill_attention(q, kp, vp, _poisoned_tables(tables, ends, bs), qs, ql)
+    assert LAUNCHES["paged_prefill_attention"] == n0 + 1
+    exp = ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == (len(ends), c, hq, d)
+    valid = torch.arange(c, device=cuda)[None, :] < ql[:, None]     # padding: don't-care
+    torch.testing.assert_close(out[valid].float(), exp[valid].float(), rtol=TOL[dtype],
+                               atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_paged_prefill_attention_leaves_no_stale_shared_memory(cuda, dtype):
+    """A launch over pages full of NaN leaves NaN in the shared memory the
+    next launch's blocks get; that launch's last tiles are partial (chunks
+    ending mid-tile and mid-page), and must zero their slots past the end
+    rather than multiply a stale NaN by a probability of 0."""
+    hkv, group, d, bs, c = 5, 5, 64, 12, 64
+    starts, qlens = (0, 70, 131, 0, 300, 17), (64, 50, 64, 29, 64, 40)
+    ends = [p + n for p, n in zip(starts, qlens)]
+    g = torch.Generator(device=cuda).manual_seed(12)
+    kp, vp, tables = _paged(g, ends, hkv, d, dtype, bs=bs)
+    q = torch.randn(len(ends), c, hkv * group, d, generator=g, device=cuda).to(dtype)
+    qs = torch.tensor(starts, dtype=torch.int32, device=cuda)
+    ql = torch.tensor(qlens, dtype=torch.int32, device=cuda)
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    full = torch.tensor([c] * len(ends), dtype=torch.int32, device=cuda)
+    nan_k, nan_v = torch.full_like(kp, float("nan")), torch.full_like(vp, float("nan"))
+    for _ in range(3):
+        paged_prefill_attention(q, nan_k, nan_v, tables, qs, full)
+    out = paged_prefill_attention(q, kp, vp, tables, qs, ql)
+    exp = ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql)
+    torch.cuda.synchronize()
+    valid = torch.arange(c, device=cuda)[None, :] < ql[:, None]
+    assert torch.isfinite(out[valid].float()).all()
     torch.testing.assert_close(out[valid].float(), exp[valid].float(), rtol=TOL[dtype],
                                atol=TOL[dtype])
 

@@ -19,7 +19,7 @@ import jax.numpy as jnp  # noqa: E402
 from repro.kernels.decode_attention import batched_decode_attention as jax_bda  # noqa: E402
 from repro.kernels.kv_pack import kv_pack as jax_kv_pack  # noqa: E402
 from repro.kernels.kv_pack import kv_pack_ragged as jax_kv_pack_ragged  # noqa: E402
-from repro_torch.kernels import LAUNCHES, ops  # noqa: E402
+from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
 from repro_torch.kernels.decode_attention import batched_decode_attention  # noqa: E402
 from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged  # noqa: E402
 
@@ -47,6 +47,9 @@ def _f32(x) -> np.ndarray:
 ATTN_SHAPES = {            # b, s, hq, hkv, d, lengths
     "gqa": (3, 96, 4, 2, 16, (90, 96, 7)),
     "mha_odd_heads": (2, 40, 5, 5, 8, (1, 33)),
+    # the CUDA body walks 64-key tiles: a window start on a tile edge (row 0,
+    # 192 - 128 = 64) and meta sinks spanning a whole tile
+    "tile_edges": (2, 200, 4, 2, 16, (192, 130)),
 }
 VARIANTS = {               # window, num_meta, alibi
     "plain": (0, 0, False),
@@ -54,6 +57,8 @@ VARIANTS = {               # window, num_meta, alibi
     "window_meta": (24, 2, False),
     "alibi": (0, 0, True),
     "window_meta_alibi": (24, 2, True),
+    "window_tile_edge": (128, 0, False),
+    "meta_spans_tile": (32, 70, True),
 }
 
 
@@ -68,8 +73,9 @@ def _attn_inputs(shape: str, seed: int = 0):
 
 
 # every variant at the GQA shape; the odd-head MHA shape plain and combined
-ATTN_CASES = ([("gqa", v) for v in VARIANTS]
-              + [("mha_odd_heads", "plain"), ("mha_odd_heads", "window_meta_alibi")])
+ATTN_CASES = ([("gqa", v) for v in list(VARIANTS)[:5]]
+              + [("mha_odd_heads", "plain"), ("mha_odd_heads", "window_meta_alibi"),
+                 ("tile_edges", "window_tile_edge"), ("tile_edges", "meta_spans_tile")])
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
@@ -89,6 +95,40 @@ def test_batched_decode_attention_plain_matches_pallas(shape, variant, dtype):
     assert out_t.dtype == DTYPES[dtype][1] and tuple(out_t.shape) == q.shape
     np.testing.assert_allclose(_f32(out_t), _f32(out_j), rtol=TOL[dtype],
                                atol=TOL[dtype])
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("variant", list(VARIANTS)[:5])
+@pytest.mark.parametrize("s", [544, 600])
+def test_batched_decode_attention_plain_matches_pallas_where_no_key_is_valid(s, variant,
+                                                                            dtype):
+    """Rows with no valid key at S > 512, not a multiple of it: the Pallas
+    kernel, at the default block_k its callers keep, pads S with zero K/V
+    rows to a multiple of 512 and averages V over that padded length (1024
+    here).  Row 0 has length 0; with a window, row 2 is given a window start
+    past its length, which leaves it no valid key where there are no meta
+    sinks.  V is offset by 1 so that the divisors S and
+    1024 lie far apart in both bands."""
+    window, meta, use_alibi = VARIANTS[variant]
+    b, hq, hkv, d = 3, 4, 2, 16
+    rng = np.random.default_rng(11)
+    q = rng.standard_normal((b, hq, d)).astype(np.float32)
+    k = rng.standard_normal((b, s, hkv, d)).astype(np.float32)
+    v = rng.standard_normal((b, s, hkv, d)).astype(np.float32) + 1.0
+    lens = np.asarray([0, s - 3, 300], np.int32)
+    slopes = np.asarray([2.0 ** -(i + 1) for i in range(hq)], np.float32)
+    ws = None
+    if window:
+        ws = np.maximum(lens - window, 0).astype(np.int32)
+        ws[2] = 310
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    out_j = jax_bda(jq, jk, jv, jnp.asarray(lens), None if ws is None else jnp.asarray(ws),
+                    jnp.asarray(slopes) if use_alibi else None, num_meta=meta)
+    out_t = ref.batched_decode_attention_ref(
+        tq, tk, tv, torch.from_numpy(lens), None if ws is None else torch.from_numpy(ws),
+        torch.from_numpy(slopes) if use_alibi else None, num_meta=meta)
+    np.testing.assert_allclose(_f32(out_t), _f32(out_j), rtol=TOL[dtype], atol=TOL[dtype])
+    assert ref.no_key_divisor(s) == 1024
 
 
 def test_batched_decode_attention_plain_matches_per_sequence_softmax():

@@ -79,6 +79,8 @@ DECODE_CASES = {        # b, hq, hkv, d, bs, lengths, pool layers (0 = a bare pa
     # a row at length 0 reads its whole table (padded with page 0, a valid
     # id) and gets the average of V over those slots
     "length_zero": (3, 4, 2, 16, 8, (12, 0, 5), 0),
+    # pages of 12 slots: a 64-key tile of the CUDA bodies ends mid-page
+    "bs12": (2, 4, 2, 16, 12, (13, 70), 0),
 }
 
 
@@ -126,6 +128,8 @@ PREFILL_CASES = {       # b, c, hq, hkv, d, bs, prefixes, q_lens (None = full), 
     "chunk_lt_block": (3, 3, 4, 4, 16, 4, (4, 7, 1), None, 0),
     "chunk_spans_blocks": (1, 16, 2, 1, 64, 8, (24,), None, 0),
     "ragged_pool_layer_view": (3, 8, 4, 2, 16, 8, (0, 13, 40), (8, 3, 5), 3),
+    # pages of 12 slots; one chunk ends mid-page past the first 64-key tile
+    "bs12": (2, 8, 4, 2, 16, 12, (58, 9), (8, 5), 0),
 }
 
 

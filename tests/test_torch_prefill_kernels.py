@@ -165,6 +165,25 @@ def test_decode_attention_plain_matches_pallas(kind, dtype):
     np.testing.assert_allclose(_f32(out_t), _f32(out_j), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("s", [544, 600])
+def test_decode_attention_plain_matches_pallas_where_no_key_is_valid_past_one_block(s, dtype):
+    """At S > 512 and not a multiple of it the Pallas kernel, at the default
+    block_k its callers keep, pads S with zero K/V rows to a multiple of 512:
+    a row with no valid key averages V over that padded length (1024 here),
+    not over S.  V is offset by 1 so that the two divisors lie far apart in
+    both bands."""
+    b, hq, hkv, d = 2, 4, 2, 16
+    q, k, v = _normal(7, (b, hq, d), (b, s, hkv, d), (b, s, hkv, d))
+    v = v + 1.0
+    valid = np.zeros(s, bool)
+    (jq, tq), (jk, tk), (jv, tv) = (_pair(a, dtype) for a in (q, k, v))
+    out_j = jax_decode(jq, jk, jv, jnp.asarray(valid))
+    out_t = ops.decode_attention_auto(tq[:, None], tk, tv, torch.from_numpy(valid)[None])[:, 0]
+    np.testing.assert_allclose(_f32(out_t), _f32(out_j), rtol=TOL[dtype], atol=TOL[dtype])
+    assert ref.no_key_divisor(s) == 1024
+
+
 # ---------------------------------------------------------------------------
 # kv_unpack: the inverse of kv_pack, in place
 # ---------------------------------------------------------------------------
