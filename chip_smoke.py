@@ -45,6 +45,23 @@ Phases, each printing one JSON line with its seconds:
                bf16 through prefill and the decode_step loop.  The launches
                of ``ssd_scan`` (and Hymba's ``decode_attention``) must match
                the prefill calls and decode steps.
+9. ``recover`` ring replication and 4-step recovery on `run_continuous`:
+               ``serve``'s model and trace, with and without replication in
+               turns, then worker 1 lost mid-decode and worker 0 mid-prefill,
+               each with no other prefill in flight (tokens as the
+               failure-free run's), and worker 1 lost while prefills are in
+               flight (they restart: its differing bf16 tokens are shown
+               beside those of a max_active change); then all three exactly
+               at fp32 with 4 layers.  Prints tokens/s, the replicated
+               bytes, the replication barrier's and the streamer's seconds,
+               and time to recover split into its parts.
+10. ``mb_recover`` the same on `run()`: ``mb_serve``'s model and trace on 4
+               workers with replication, colocated, swapping and
+               disaggregated (2, 2), a worker lost in each (a prompt worker
+               when disaggregated); tokens bit for bit as the failure-free
+               run's.  Both phases check launches exactly: the passes, each
+               replicated window (``kv_pack``), and the stages a failed pass
+               ran before the dead worker.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
@@ -68,7 +85,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
 PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
-          "ssm_serve")
+          "ssm_serve", "recover", "mb_recover")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -1323,6 +1340,302 @@ def profile_ssm(model, params, n: int, plen: int, out_dir: Path) -> dict:
                      "softmax": ("softmax",)})
 
 
+# ---------------------------------------------------------------------------
+# phases 9 and 10: ring replication and 4-step recovery
+# ---------------------------------------------------------------------------
+
+def _recovery_times(rep) -> dict:
+    """Time to recover, in wall ms: from the kill to the first token emitted
+    after the recovery, split into its parts.  `recompute_ms` is what is
+    left: the first re-executed pass (the rolled-back steps run from it)."""
+    rec = rep.recovery_log[0]
+    parts = ("detect_ms", "rebuild_ms", "replica_ms", "rereplicate_ms", "rollback_ms")
+    out = {k: rec.get(k, 0.0) for k in parts}
+    out["first_token_ms"] = rec["first_token_ms"]
+    out["recompute_ms"] = rec["first_token_ms"] - sum(out[k] for k in parts)
+    return out
+
+
+def _resumed_units(eng) -> int:
+    """Microbatches (or sequences) the recoveries rolled back."""
+    return sum(len(e.get("resume", {})) for e in eng.cluster.controller.events
+               if e["kind"] == "recovery")
+
+
+def differing_tokens(a: dict, b: dict) -> int:
+    return sum(x != y for rid in a for x, y in zip(a[rid], b[rid])) + \
+        sum(abs(len(a[rid]) - len(b[rid])) for rid in a)
+
+
+def run_recover(cfg, model, params, trace, *, replication: bool, fail_at=None,
+                record: bool = False, max_active: int = 8, pool_blocks: int = 1024,
+                dev: str = "cuda") -> dict:
+    """One fused continuous run of `trace` through 2 stage workers on
+    `dev`, with `fail_at` and, with `record`, a recording fault injector.
+    Checks the tokens' count, the leaks and the kernels' launches: those of
+    the passes the engine reports (as `serve`) plus, for a decode pass that a
+    failure cut short, one launch per layer of the stages before the dead
+    worker."""
+    import torch
+
+    from repro_torch.core.dejavulib import FaultInjector, assert_no_leaks
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingEngine
+
+    eng = ServingEngine(cfg, model, params, 2, paged=True, kv_pool_blocks=pool_blocks,
+                        replication=replication, device=dev)
+    inj = FaultInjector(record=True) if record else None
+    reqs = trace()
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    reset_launches()
+    sync()
+    t = time.perf_counter()
+    rep = eng.run_continuous(reqs, max_active=max_active, fail_at=fail_at, fault_injector=inj)
+    sync()
+    wall = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    check(all(len(r.tokens) == r.max_new for r in reqs), "a request fell short")
+    assert_no_leaks(eng.cluster)
+    want = serve_expected_launches(eng, rep.pass_counts)
+    for f in rep.fault_trace:
+        dead = next(w for w in eng.cluster.workers() if w.wid == f["wid"])
+        if f["tag"].startswith("decode-"):
+            want["paged_decode_attention"] += dead.lo
+        else:                    # a prefill: stage 0 is the dead one
+            check(dead.lo == 0, f"no launch count for a failure at {f}")
+    if dev != "cpu":
+        check(launches == want, f"launches {launches}, the passes and failures say {want}")
+    gen = sum(len(r.tokens) for r in reqs)
+    out = {"wall_s": wall, "tokens_per_s": gen / wall, "tokens": rep.tokens,
+           "failures": rep.failures, "recoveries": rep.recoveries,
+           "steps_redone": rep.steps_redone, "fault_trace": rep.fault_trace,
+           "pass_counts": rep.pass_counts, "launches": launches, "expected_launches": want,
+           "transfer_bytes": eng.transfer_summary(),
+           "replication_s": eng.cluster.replication_s,
+           "stream_busy_s": eng.cluster.streamer.busy_s}
+    if rep.recovery_log:
+        out["recovery"] = _recovery_times(rep)
+    if inj is not None:
+        out["steps"] = [(n, tag) for p, n, tag in inj.trace if p == "engine.step"]
+    return out
+
+
+def fail_points(steps) -> dict:
+    """Failure points from a recorded engine.step trace, each the middle of
+    its candidates, all while decodes run:
+
+    - ``fail_decode_w1``: worker 1 dies before a fused decode pass, no
+      prefill in flight;
+    - ``fail_prefill_w0``: worker 0 dies as a prompt's prefill begins (its
+      admission step), no other prefill in flight;
+    - ``fail_inflight_w1``: worker 1 dies before a fused decode pass while
+      prefills are in flight.  Those lose their partial pages and begin
+      again, as in the reference, which moves every later batch's shapes."""
+    first, last = {}, {}         # rid -> its admission step, its last prefill step
+    for n, tag in steps:
+        if tag.startswith("r"):
+            first.setdefault(int(tag[1:]), n)
+        elif tag.startswith("prefill-r"):
+            last[int(tag[len("prefill-r"):])] = n
+
+    def in_flight(n):
+        return any(first[o] < n <= last.get(o, -1) for o in first)
+
+    dec = [n for n, tag in steps if tag.startswith("decode-")]
+    quiet = [n for n in dec if not in_flight(n)]
+    busy = [n for n in dec if in_flight(n)]
+    alone = sorted(n for rid, n in first.items()
+                   if dec[0] < n < dec[-1] and rid in last and not in_flight(n))
+    check(bool(quiet) and bool(busy) and bool(alone), "the trace lacks a failure point")
+    return {"fail_decode_w1": {quiet[len(quiet) // 2]: 1},
+            "fail_prefill_w0": {alone[len(alone) // 2]: 0},
+            "fail_inflight_w1": {busy[len(busy) // 2]: 1}}
+
+
+def phase_recover(state: dict) -> dict:
+    """run_continuous with replication: serve's model and trace (bf16, 48
+    layers), failure-free with and without replication, then the failures
+    of `fail_points`; the same at 4 layers in fp32, where every failure must
+    give the failure-free tokens.  At bf16 the first two must too (their
+    recovery rolls nothing back, so every later pass has the failure-free
+    run's shapes); the third restarts the prefills in flight, and its
+    differing tokens are shown beside those of the failure-free run with
+    max_active 7 (a GEMM of another M rounds bf16 otherwise)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import DecoderLM
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]   # serve's
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), dtype="bfloat16")
+    t = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"config": "gpt2-1.5b, 48 layers, bf16, 2 workers, serve's trace",
+           "init_s": time.perf_counter() - t}
+
+    def trace():
+        return _requests(lens, 32, cfg.vocab_size, seed=3)
+
+    # warm-up: library handles and the first launch of every path
+    run_recover(cfg, model, params, lambda: _requests([70, 9], 3, cfg.vocab_size, seed=7),
+                replication=True, max_active=2)
+    torch.cuda.reset_peak_memory_stats()
+    # without and with replication in turns, as the host's noise moves a
+    # run's rate by tens of percent
+    plain = run_recover(cfg, model, params, trace, replication=False)
+    clean = run_recover(cfg, model, params, trace, replication=True, record=True)
+    check(clean["tokens"] == plain["tokens"], "replication changed the tokens")
+    points = fail_points(clean.pop("steps"))
+    out["no_replication"] = {k: v for k, v in plain.items() if k != "tokens"}
+    out["replication"] = {k: v for k, v in clean.items() if k != "tokens"}
+    again = [run_recover(cfg, model, params, trace, replication=r) for r in (True, False)]
+    out["tokens_per_s_in_turns"] = {
+        "no_replication": [plain["tokens_per_s"], again[1]["tokens_per_s"]],
+        "replication": [clean["tokens_per_s"], again[0]["tokens_per_s"]]}
+    control = None
+    for name, fail_at in points.items():
+        res = run_recover(cfg, model, params, trace, replication=True, fail_at=fail_at)
+        check(res["failures"] == 1 and res["recoveries"] == 1, f"{name}: {res['failures']} "
+              f"failures, {res['recoveries']} recoveries")
+        diff = differing_tokens(res.pop("tokens"), clean["tokens"])
+        res.update(fail_at=fail_at, differing_tokens=diff)
+        if diff or name == "fail_inflight_w1":
+            if control is None:
+                ctl = run_recover(cfg, model, params, trace, replication=True, max_active=7)
+                control = differing_tokens(ctl["tokens"], clean["tokens"])
+            res["control_differing_tokens"] = control
+        if name != "fail_inflight_w1":
+            check(diff == 0, f"{name}: {diff} tokens differ from the failure-free run "
+                  f"({control} in the max_active control)")
+        out[name] = res
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    del model, params
+    # the exact gate: fp32, 4 layers, the same trace and failure points
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=4)
+    model = DecoderLM(cfg32, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    ref = run_recover(cfg32, model, params, trace, replication=True)
+    out["fp32_4_layers"] = {"tokens_per_s": ref["tokens_per_s"]}
+    for name, fail_at in points.items():
+        res = run_recover(cfg32, model, params, trace, replication=True, fail_at=fail_at)
+        check(res["failures"] == 1 and res["recoveries"] == 1, f"fp32 {name}: no recovery")
+        check(res["tokens"] == ref["tokens"], f"fp32 {name}: tokens differ from the "
+              "failure-free run")
+        out["fp32_4_layers"][name] = {"tokens_identical": True,
+                                      "steps_redone": res["steps_redone"],
+                                      "recovery": res["recovery"]}
+    return out
+
+
+MB_RECOVER = {   # mode -> (engine kwargs, fail_at: {global step: wid})
+    # 4 slots: steps 1-4 prefill microbatches 0-3, then 4 decode steps a round
+    "colocated": ({}, {67: 2}),
+    "swapping": ({"swapping": True}, {67: 1}),
+    # 2 slots: microbatch 2's prefill is step 65; its prompt worker dies first
+    "disaggregated": ({"mode": "disaggregated", "dp_split": (2, 2)}, {65: 0}),
+}
+
+
+def mb_recover_expected_launches(eng, pc: dict, failed: dict, resumed: int) -> dict:
+    """`mb_expected_launches` with replication: one kv_pack per leaf per
+    token stage per pass (each replicates its window), one per leaf per
+    microbatch the predecessor re-replicated in a recovery, and, for a
+    decode pass that a failure cut short, one decode_attention per layer of
+    the stages before the dead worker."""
+    want = mb_expected_launches(eng, pc)
+    cl = eng.cluster
+    if cl.replication:
+        want["kv_pack"] += 2 * len(cl.token_group) * (pc.get("mb_prefill", 0)
+                                                      + pc.get("mb_decode", 0))
+    want["kv_pack"] += 2 * resumed
+    if failed.get("decode"):
+        want["decode_attention"] += failed["decode"]
+    return want
+
+
+def run_mb_recover(cfg, model, params, mode: str, fail_at=None, dev: str = "cuda",
+                   plen: int = 512, replication: bool = True) -> dict:
+    """run() of mb_serve's trace (16 prompts of `plen` tokens, 32 new,
+    microbatch 4) on 4 workers on `dev`, in `mode`, with `fail_at`."""
+    import torch
+
+    from repro_torch.core.dejavulib import assert_no_leaks
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.serving import ServingEngine
+
+    kw, _ = MB_RECOVER[mode]
+    eng = ServingEngine(cfg, model, params, 4, microbatch=4, replication=replication,
+                        device=dev, **kw)
+    reqs = _requests([plen] * 16, 32, cfg.vocab_size, seed=5)
+    sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+    reset_launches()
+    sync()
+    t = time.perf_counter()
+    rep = eng.run(reqs, fail_at=fail_at)
+    sync()
+    wall = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    check(all(len(r.tokens) == 32 for r in reqs), "a request did not emit 32 tokens")
+    assert_no_leaks(eng.cluster)
+    failed = {}
+    for f in rep.fault_trace:       # a token worker dies before a decode step
+        dead = next(w for w in eng.cluster.workers() if w.wid == f["wid"])
+        if dead in eng.cluster.token_group and mode != "disaggregated":
+            failed["decode"] = dead.lo
+    want = mb_recover_expected_launches(eng, rep.pass_counts, failed, _resumed_units(eng))
+    if dev != "cpu":
+        check(launches == want, f"run() {mode}: launches {launches}, the passes say {want}")
+    gen = sum(len(r.tokens) for r in reqs)
+    out = {"wall_s": wall, "tokens_per_s": gen / wall, "tokens": rep.tokens,
+           "failures": rep.failures, "recoveries": rep.recoveries,
+           "steps_redone": rep.steps_redone, "fault_trace": rep.fault_trace,
+           "pass_counts": rep.pass_counts, "launches": launches, "expected_launches": want,
+           "resumed": _resumed_units(eng), "transfer_bytes": eng.transfer_summary(),
+           "replication_s": eng.cluster.replication_s,
+           "stream_busy_s": eng.cluster.streamer.busy_s}
+    if rep.recovery_log:
+        out["recovery"] = _recovery_times(rep)
+    return out
+
+
+def phase_mb_recover(state: dict) -> dict:
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import DecoderLM
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), dtype="bfloat16")
+    t = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"config": "gpt2-1.5b, 48 layers, bf16, 4 workers, microbatch 4, "
+                     "16 prompts of 512 tokens, 32 new, replication",
+           "init_s": time.perf_counter() - t}
+    # warm-up: library handles and the first launch of every path
+    from repro_torch.serving import ServingEngine
+    ServingEngine(cfg, model, params, 4, microbatch=4, replication=True,
+                  device="cuda").run(_requests([16] * 4, 3, cfg.vocab_size, seed=7))
+    plain = run_mb_recover(cfg, model, params, "colocated", replication=False)
+    out["colocated_no_replication"] = {k: v for k, v in plain.items() if k != "tokens"}
+    for mode, (_, fail_at) in MB_RECOVER.items():
+        clean = run_mb_recover(cfg, model, params, mode)
+        if mode == "colocated":
+            check(clean["tokens"] == plain["tokens"], "replication changed the tokens")
+        res = run_mb_recover(cfg, model, params, mode, fail_at)
+        check(res["failures"] == 1 and res["recoveries"] == 1,
+              f"run() {mode}: {res['failures']} failures, {res['recoveries']} recoveries")
+        # a re-executed step has the same microbatch and shapes: bit for bit
+        check(res.pop("tokens") == clean.pop("tokens"),
+              f"run() {mode}: tokens differ from the failure-free run")
+        out[mode] = {"fail_at": fail_at, "tokens_identical": True,
+                     "replication": clean, "failure": res}
+    return out
+
+
 KERNEL_META = {
     "batched_decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                  "src/repro/kernels/decode_attention.py:179"),
@@ -1374,7 +1687,8 @@ def main() -> int:
     sys.path.insert(0, str(SRC))
     fns = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "serve": phase_serve, "mb_parity": phase_mb_parity, "mb_serve": phase_mb_serve,
-           "ssm_parity": phase_ssm_parity, "ssm_serve": phase_ssm_serve}
+           "ssm_parity": phase_ssm_parity, "ssm_serve": phase_ssm_serve,
+           "recover": phase_recover, "mb_recover": phase_mb_recover}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     if "env" not in phases:
         phases.insert(0, "env")

@@ -11,12 +11,20 @@ Two serving paths share the stage workers:
   the block pool, fused decode and chunk-set passes, the per-sequence path,
   and preemption by block-granular swap to host memory.
 
-Replication and recovery, tiers, swapping and disaggregation on the paged
-path, and the modeled clock are later slices and raise NotImplementedError
-where asked for.
+On both paths ring replication copies each stage's KV, after every pass, to
+its ring successor's host memory (`replication=True`), and a failed worker
+is rebuilt by the paper's 4-step recovery (§4.2.3): the successor returns
+the failed worker's replica, the predecessor re-replicates its own KV to
+the new worker, the controller finds the last replicated step, and every
+stage rolls back to it.  The same machinery migrates a straggler, and
+`repartition` re-splits the token pipeline through DéjàVuLib's streams.
+
+Tiers, swapping and disaggregation on the paged path, and the modeled
+clock are later slices and raise NotImplementedError where asked for.
 """
 from __future__ import annotations
 
+import time
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
 
@@ -25,7 +33,10 @@ import torch
 
 from repro_torch import not_ported, resolve_device
 from repro_torch.configs.base import ArchConfig
-from repro_torch.core.dejavulib import NetworkTransport, PipelineTopo, stream_in, stream_out
+from repro_torch.core.controller import Controller
+from repro_torch.core.dejavulib import (NetworkTransport, PipelineTopo, StreamEngine, faults,
+                                        stream_in, stream_in_blocks, stream_out,
+                                        stream_out_blocks)
 from repro_torch.core.worker import StageWorker
 from repro_torch.kvcache.cache import decode_state_shapes, state_bytes
 from repro_torch.kvcache.paged import BlockPool, PoolExhausted, blocks_for
@@ -62,18 +73,20 @@ class DejaVuCluster:
                              f"got {dp_split}")
         # the stage API (slice_params, stage_prefill, ...) exists for the dense
         # family only; MambaLM and HybridLM serve through prefill/decode_step
-        not_ported(**{f"family={cfg.family} in the cluster": cfg.family != "dense",
-                      "replication": replication, "compress_replicas": compress_replicas,
-                      "tiered": tiered, "host_cache_blocks": host_cache_blocks,
-                      "ssd_cache_blocks": ssd_cache_blocks,
-                      "swapping with paged=True": swapping and paged,
-                      "mode=disaggregated with paged=True": paged and mode != "colocated"})
+        not_ported(**{f"family={cfg.family} in the cluster (A.12)": cfg.family != "dense",
+                      "tiered (A.10)": tiered, "host_cache_blocks (A.10)": host_cache_blocks,
+                      "ssd_cache_blocks (A.10)": ssd_cache_blocks,
+                      "swapping with paged=True (A.9)": swapping and paged,
+                      "mode=disaggregated with paged=True (A.9)":
+                          paged and mode != "colocated"})
         self.cfg = cfg
         self.model = model
-        self.params = params
+        self.params = params             # full weights (the checkpoint store)
         self.device = resolve_device(device)
         self.mode = mode
         self.swapping = swapping
+        self.replication = replication
+        self.compress_replicas = compress_replicas
         self.paged = paged
         self.kv_block_size = kv_block_size or cfg.kv_block_size
         self.kv_pool_blocks = kv_pool_blocks or cfg.kv_pool_blocks or 512
@@ -81,6 +94,8 @@ class DejaVuCluster:
                                      if prefill_chunk_tokens is None
                                      else prefill_chunk_tokens)
         self.fused_rounds = cfg.fused_rounds if fused_rounds is None else fused_rounds
+        self.streamer = StreamEngine("cluster", device=self.device)
+        self.controller = Controller()
         self.net = NetworkTransport()
         if mode == "colocated":
             self.prompt_group = self.token_group = self._build_group(n_workers, wid0=0)
@@ -88,15 +103,20 @@ class DejaVuCluster:
             dp, dt = dp_split
             self.prompt_group = self._build_group(dp, wid0=0)
             self.token_group = self._build_group(dt, wid0=dp)
+        for w in self.workers():
+            self.controller.register(w)
         if paged:
             for w in self.token_group:
                 w.enable_paging(self.kv_pool_blocks, self.kv_block_size)
-        # microbatch (run() path) bookkeeping: KV length, cache length, batch
+        # microbatch (run() path) bookkeeping: KV length, prompt length,
+        # cache length, batch
         self.mb_pos: Dict[int, int] = {}
+        self.mb_prompt_len: Dict[int, int] = {}
         self.mb_max_len: Dict[int, int] = {}
         self.mb_batch: Dict[int, int] = {}
         # paged (per-sequence) bookkeeping
         self.seq_len: Dict[int, int] = {}       # live tokens per sequence
+        self.seq_prompt_len: Dict[int, int] = {}
         self.seq_hashes: Dict[int, List[int]] = {}
         self.kv_bytes_peak = 0
         self._pending_prefill: Dict[int, dict] = {}
@@ -104,6 +124,12 @@ class DejaVuCluster:
         # attention ran with one query per sequence (every decode pass, and
         # any prefill pass whose longest chunk is a single token)
         self.pass_counts: Counter = Counter()
+        # one entry per delivered failure: the wall clock of the kill and of
+        # each recovery step, in ms (`_recover_worker`); the engine adds the
+        # first token emitted after the recovery
+        self.recovery_log: List[dict] = []
+        # wall seconds spent in replication rounds, the drain barrier included
+        self.replication_s = 0.0
 
     # ------------------------------------------------------------------
     def workers(self) -> List[StageWorker]:
@@ -130,11 +156,19 @@ class DejaVuCluster:
         if c == 1:
             self.pass_counts["one_token"] += 1
 
+    def _worker(self, wid: int, lo: int, hi: int, first: bool, last: bool) -> StageWorker:
+        return StageWorker(wid, self.model, self.params, lo, hi, first=first, last=last,
+                           device=self.device, streamer=self.streamer,
+                           compress_replicas=self.compress_replicas)
+
     def _build_group(self, depth: int, wid0: int) -> List[StageWorker]:
         ranges = _stage_ranges(self.cfg.num_layers, depth)
-        return [StageWorker(wid0 + i, self.model, self.params, lo, hi, first=(i == 0),
-                            last=(i == len(ranges) - 1), device=self.device)
+        return [self._worker(wid0 + i, lo, hi, i == 0, i == len(ranges) - 1)
                 for i, (lo, hi) in enumerate(ranges)]
+
+    def _heartbeats(self) -> None:
+        for w in self.workers():
+            w.heartbeat()
 
     # ------------------------------------------------------------------
     # microbatch serving primitives (the run() path)
@@ -149,6 +183,7 @@ class DejaVuCluster:
         max_len = -(-(plen + max_new) // 8) * 8
         self.mb_batch[mb] = b
         self.mb_pos[mb] = plen
+        self.mb_prompt_len[mb] = plen
         self.mb_max_len[mb] = max_len
         x = tokens
         for w in self.prompt_group:
@@ -156,6 +191,8 @@ class DejaVuCluster:
         self._count_pass("mb_prefill", plen)
         if self.mode == "disaggregated":
             self._stream_prompt_kv(mb, plen)
+        if self.replication:
+            self._replicate(mb, (0, plen), step=0)
         if self.swapping:
             for w in self.token_group:
                 w.offload(mb)            # full first offload to host
@@ -197,11 +234,33 @@ class DejaVuCluster:
             x = w.decode(mb, x, pos)
         self._count_pass("mb_decode", 1)
         self.mb_pos[mb] = pos + 1
+        if self.replication:
+            self._replicate(mb, (pos, pos + 1), step=step)
         if self.swapping:
             for w in self.token_group:
                 w.offload(mb, token_range=(pos, pos + 1))
+        self._heartbeats()
         self._track_kv_peak()
         return x
+
+    def _replicate(self, mb: int, token_range: Tuple[int, int], step: int) -> None:
+        """Ring-replicate a microbatch's KV window: each token stage sends
+        it to its successor's replica store (from its host copy when
+        swapped out), then the streamer is drained (the barrier)."""
+        t = time.perf_counter()
+        group = self.token_group
+        n = len(group)
+        for i, w in enumerate(group):
+            if mb not in w.kv and not self.swapping:
+                continue
+            kv = w.kv.get(mb)
+            if kv is None:               # swapped out: from the host copy
+                kv = {leaf: w.cache.host.get(f"swap/mb{mb}/{leaf}").to(w.device)
+                      for leaf in ("k", "v")}
+            w.cache.replicate_to(group[(i + 1) % n].cache, mb, kv, token_range, step,
+                                 self.controller.ack_replication)
+        self.streamer.drain()
+        self.replication_s += time.perf_counter() - t
 
     # ------------------------------------------------------------------
     @property
@@ -223,6 +282,7 @@ class DejaVuCluster:
         `prefill_chunk_tokens=0` always runs the whole prompt."""
         plen = int(prompt.shape[0])
         self.seq_len[rid] = plen
+        self.seq_prompt_len[rid] = plen
         token_ids = [int(t) for t in prompt]
         self.seq_hashes[rid] = BlockPool.chain_hashes(token_ids, self.kv_block_size)
         for w in self.prompt_group:      # re-prefill after rollback-to-0
@@ -272,8 +332,18 @@ class DejaVuCluster:
 
     def _finish_prefill(self, rid: int) -> torch.Tensor:
         st = self._pending_prefill.pop(rid)
+        if self.replication:
+            self._replicate_paged(rid, step=0)
         self._track_kv_peak()
         return st["x"]
+
+    def abort_prefill(self, rid: int) -> None:
+        """Drop an in-flight prefill (a worker died mid-chunk and took the
+        partial tables with it); the engine begins it again."""
+        self._pending_prefill.pop(rid, None)
+        for w in self.prompt_group:
+            if rid in w.pool.tables:
+                w.free_paged_seq(rid)
 
     def prefill_pending(self, rid: int) -> bool:
         return rid in self._pending_prefill
@@ -296,6 +366,9 @@ class DejaVuCluster:
             x = w.decode_paged(rid, x, pos)
         self.seq_len[rid] = pos + 1
         self._count_pass("perseq_decode", 1)
+        if self.replication:
+            self._replicate_paged(rid, step=step, pos=pos)
+        self._heartbeats()
         self._track_kv_peak()
         return x
 
@@ -316,6 +389,10 @@ class DejaVuCluster:
         for rid, pos in zip(rids, poses):
             self.seq_len[rid] = pos + 1
         self._count_pass("fused_decode", 1)
+        if self.replication:
+            for rid, step, pos in zip(rids, steps, poses):
+                self._replicate_paged(rid, step=step, pos=pos)
+        self._heartbeats()
         self._track_kv_peak()
         return x
 
@@ -346,6 +423,24 @@ class DejaVuCluster:
                 out[rid] = self._finish_prefill(rid)
         return out
 
+    def _replicate_paged(self, rid: int, step: int, pos: Optional[int] = None) -> None:
+        """Ring-replicate at block granularity: a prefill sends every live
+        block, a decode step only the block it touched; then the streamer
+        is drained (the barrier)."""
+        t = time.perf_counter()
+        group = self.token_group
+        n = len(group)
+        for i, w in enumerate(group):
+            if rid not in w.pool.tables:
+                continue
+            peer = group[(i + 1) % n].cache
+            blocks = w.live_blocks(rid) if pos is None else dict([w.touched_block(rid, pos)])
+            for j, arrays in blocks.items():
+                w.cache.replicate_block_to(peer, rid, j, arrays, step,
+                                           self.controller.ack_replication)
+        self.streamer.drain()
+        self.replication_s += time.perf_counter() - t
+
     def preempt_seq(self, rid: int) -> None:
         """Swap a running sequence out (block-granular) to free pool space;
         `resume_seq` brings it back."""
@@ -365,9 +460,225 @@ class DejaVuCluster:
             w.paged_restore(rid)
 
     def free_seq(self, rid: int) -> None:
-        """Retire a finished sequence: its blocks return to the pool."""
-        for w in self.token_group:
+        """Retire a finished sequence: its blocks return to the pool and its
+        replica blocks are dropped."""
+        for w in self.workers():
             w.free_paged_seq(rid)
+            for key in [k for k in w.cache.replica.keys() if f"/seq{rid}/" in k]:
+                w.cache.replica.delete(key)
         self.seq_len.pop(rid, None)
+        self.seq_prompt_len.pop(rid, None)
         self.seq_hashes.pop(rid, None)
         self._pending_prefill.pop(rid, None)
+
+    # ------------------------------------------------------------------
+    # failure handling (paper §4.2.3) and straggler migration
+    # ------------------------------------------------------------------
+    def _sync(self) -> None:
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+    def _lap(self, rec: dict, key: str, t: float) -> float:
+        """Record the wall ms since `t` under `key`; returns the clock now."""
+        self._sync()
+        now = time.perf_counter()
+        rec[key] = (now - t) * 1e3
+        return now
+
+    def inject_failure(self, wid: int) -> None:
+        faults.fire("cluster.fail", tag=f"w{wid}")
+        for w in self.workers():
+            if w.wid == wid:
+                self._sync()
+                self.recovery_log.append({"wid": wid, "t_fail": time.perf_counter()})
+                w.kill()
+                self.controller.log_event("failure", wid=wid)
+                return
+        raise KeyError(wid)
+
+    def detect_and_recover(self, active: List[int]) -> Dict[int, int]:
+        """Controller-driven recovery of every dead worker.  Returns {mb or
+        rid: step to resume from} (empty if no worker failed)."""
+        resume: Dict[int, int] = {}
+        for wid in self.controller.check_failures():
+            resume.update(self._recover_worker(wid, active))
+        return resume
+
+    def _replace(self, group: List[StageWorker], idx: int) -> StageWorker:
+        """A fresh worker in place of `group[idx]`: its weights are views of
+        the full params (already on the device), its KV empty."""
+        old = group[idx]
+        neww = self._worker(old.wid, old.lo, old.hi, old.first, old.last)
+        group[idx] = neww
+        self.controller.workers = [neww if w.wid == old.wid else w
+                                   for w in self.controller.workers]
+        return neww
+
+    def _recover_worker(self, wid: int, active: List[int]) -> Dict[int, int]:
+        rec = next((r for r in reversed(self.recovery_log) if r["wid"] == wid), None)
+        if rec is None:
+            rec = {"wid": wid, "t_fail": time.perf_counter()}
+            self.recovery_log.append(rec)
+        t = self._lap(rec, "detect_ms", rec["t_fail"])
+        if self.mode == "disaggregated" and any(w.wid == wid for w in self.prompt_group):
+            # prompt workers hold no state across microbatches: rebuild in place
+            self._replace(self.prompt_group,
+                          next(i for i, w in enumerate(self.prompt_group) if w.wid == wid))
+            self._lap(rec, "rebuild_ms", t)
+            self.controller.log_event("recovery", wid=wid, resume={})
+            return {}
+        group = self.token_group
+        idx = next(i for i, w in enumerate(group) if w.wid == wid)
+        n = len(group)
+        neww = self._replace(group, idx)
+        if self.paged:
+            neww.enable_paging(self.kv_pool_blocks, self.kv_block_size)
+        t = self._lap(rec, "rebuild_ms", t)
+        succ, pred = group[(idx + 1) % n], group[(idx - 1) % n]
+        if self.paged:
+            return self._recover_worker_paged(wid, neww, succ, pred, active, rec, t)
+        # step 1: the successor returns the failed worker's replica
+        for mb in active:
+            arrays = {leaf: succ.cache.replica.get(f"w{wid}/mb{mb}/{leaf}")
+                      for leaf in ("k", "v") if f"w{wid}/mb{mb}/{leaf}" in succ.cache.replica}
+            if arrays:                   # a copy: the replica stays the successor's
+                neww.install_kv(mb, {k: a.to(neww.device, copy=True)
+                                     for k, a in arrays.items()})
+                if self.swapping:        # rebuild the host copy too
+                    neww.cache.swap_out(mb, neww.kv[mb])
+        t = self._lap(rec, "replica_ms", t)
+        # step 2: the predecessor re-replicates its own KV to the new worker
+        for mb in active:
+            kv = pred.kv.get(mb)
+            if kv is None and pred.cache.host_has(mb):
+                kv = {leaf: pred.cache.host.get(f"swap/mb{mb}/{leaf}").to(pred.device)
+                      for leaf in ("k", "v")}
+            if kv is not None:
+                pred.cache.replicate_to(neww.cache, mb, kv, (0, self.mb_pos[mb]),
+                                        self.controller.replicated_step(pred.wid, mb),
+                                        self.controller.ack_replication)
+        self.streamer.drain()
+        t = self._lap(rec, "rereplicate_ms", t)
+        # steps 3 and 4: the resume point per microbatch, and the rollback;
+        # step i writes at prompt_len + i - 1
+        resume = self.controller.resume_point(wid, active)
+        for mb, r in resume.items():
+            self.mb_pos[mb] = self.mb_prompt_len[mb] + max(r - 1, 0)
+        self._lap(rec, "rollback_ms", t)
+        self.controller.log_event("recovery", wid=wid, resume=dict(resume))
+        return resume
+
+    def _recover_worker_paged(self, wid: int, neww: StageWorker, succ: StageWorker,
+                              pred: StageWorker, active: List[int], rec: dict,
+                              t: float) -> Dict[int, int]:
+        """Paged 4-step recovery: only live blocks move.  Each sequence is
+        restored from the successor's replica blocks, the predecessor
+        re-streams its own blocks, and every sequence rolls back to its last
+        fully replicated step."""
+        bs = self.kv_block_size
+        # step 1: restore each sequence from the successor's replica blocks
+        for rid in active:
+            rep = self.controller.replicated_step(wid, rid)
+            if rep < 0:
+                continue                 # nothing replicated: the engine re-prefills
+            avail = self.seq_prompt_len[rid] + rep
+            keep = blocks_for(avail, bs)
+            blocks = {j: a for j, a in succ.cache.replica_blocks(wid, rid).items() if j < keep}
+            # full prompt blocks shared with co-resident sequences are shared
+            # again, so a pool that fit its load by sharing still fits it
+            neww.install_blocks(rid, avail, blocks,
+                                hashes=self.seq_hashes.get(rid, [])[:avail // bs])
+            # a preempted sequence goes back to host memory on the new worker
+            # too: recovery leaves residency as it found it
+            if rid in pred.paged_swapped:
+                neww.paged_offload(rid)
+        t = self._lap(rec, "replica_ms", t)
+        # step 2: the predecessor re-replicates its own live blocks; a
+        # preempted sequence comes back for the send and goes out again
+        for rid in active:
+            was_swapped = rid in pred.paged_swapped
+            pred.paged_restore(rid)
+            if rid not in pred.pool.tables:
+                continue
+            step = self.controller.replicated_step(pred.wid, rid)
+            for j, arrays in pred.live_blocks(rid).items():
+                pred.cache.replicate_block_to(neww.cache, rid, j, arrays, step,
+                                              self.controller.ack_replication)
+            if was_swapped:
+                pred.paged_offload(rid)
+        self.streamer.drain()
+        t = self._lap(rec, "rereplicate_ms", t)
+        # steps 3 and 4: the resume point per sequence; every pool rolls back
+        resume = self.controller.resume_point(wid, active)
+        for rid, r in resume.items():
+            new_len = self.seq_prompt_len[rid] + max(r - 1, 0) if r > 0 else 0
+            self.seq_len[rid] = new_len
+            for w in self.token_group:
+                if rid in w.pool.tables:
+                    if new_len > 0:
+                        w.pool.truncate(rid, new_len)
+                    else:
+                        w.free_paged_seq(rid)
+                if rid in w.paged_swapped:
+                    w.paged_swapped[rid] = min(w.paged_swapped[rid], new_len)
+        self._lap(rec, "rollback_ms", t)
+        self.controller.log_event("recovery", wid=wid, resume=dict(resume))
+        return resume
+
+    def migrate_worker(self, wid: int, active: List[int]) -> Dict[int, int]:
+        """Straggler mitigation: move a slow stage to a fresh worker through
+        the replication ring (beyond the paper, the same machinery)."""
+        self.controller.log_event("migrate", wid=wid)
+        self.inject_failure(wid)
+        return self.detect_and_recover(active)
+
+    # ------------------------------------------------------------------
+    # elastic repartitioning (beyond the paper)
+    # ------------------------------------------------------------------
+    def repartition(self, new_depth: int, active: List[int]) -> None:
+        """Re-split the token pipeline into `new_depth` stages, moving all
+        live KV through DéjàVuLib's stream_out / stream_in (dense) or
+        stream_out_blocks / stream_in_blocks (paged)."""
+        old_group = self.token_group
+        bsz = max(self.mb_batch.values()) if self.mb_batch else 1
+        topo_old = PipelineTopo(len(old_group), self.cfg.num_layers, bsz)
+        topo_new = PipelineTopo(new_depth, self.cfg.num_layers, bsz)
+        ranges = _stage_ranges(self.cfg.num_layers, new_depth)
+        wid0 = max(w.wid for w in self.workers()) + 1
+        new_group = [self._worker(wid0 + i, lo, hi, i == 0, i == len(ranges) - 1)
+                     for i, (lo, hi) in enumerate(ranges)]
+        dst_stores = {i: w.cache.host for i, w in enumerate(new_group)}
+        if self.paged:
+            for w in new_group:
+                w.enable_paging(self.kv_pool_blocks, self.kv_block_size)
+            for rid in active:
+                for si, w in enumerate(old_group):
+                    stream_out_blocks(w.live_blocks(rid), si, topo_old, topo_new, dst_stores,
+                                      self.net, seq=rid)
+                for di, w in enumerate(new_group):
+                    blocks = stream_in_blocks(w.cache.host, di, topo_new, topo_old, self.net,
+                                              seq=rid, device=w.device)
+                    w.install_blocks(rid, self.seq_len[rid], blocks)
+        else:
+            for mb in active:
+                cur = self.mb_pos[mb]
+                for si, w in enumerate(old_group):
+                    if self.swapping:
+                        w.restore(mb)
+                    stream_out({"kv": w.kv[mb]}, si, topo_old, topo_new, dst_stores,
+                               self.net, mb=mb, token_range=(0, cur))
+                for di, w in enumerate(new_group):
+                    lo, hi = topo_new.layer_range(di)
+                    shapes = decode_state_shapes(self.cfg, self.mb_batch[mb],
+                                                 self.mb_max_len[mb], layers=hi - lo)
+                    local = stream_in(w.cache.host, di, topo_new, topo_old, shapes, self.net,
+                                      mb=mb, token_range=(0, cur), device=w.device)
+                    w.install_kv(mb, local["kv"])
+                    for key in [k for k in w.cache.host.keys() if k.startswith(f"mb{mb}/")]:
+                        w.cache.host.delete(key)
+        self.token_group = new_group
+        if self.mode == "colocated":
+            self.prompt_group = new_group
+        for w in new_group:
+            self.controller.register(w)
+        self.controller.log_event("repartition", depth=new_depth)

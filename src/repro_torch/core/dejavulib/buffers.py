@@ -4,6 +4,8 @@ reference's `HostMemoryStore`, holding CPU tensors instead of numpy arrays).
 Capacity is enforced on every `put`: the store either raises
 (``on_full="raise"``, the default) or evicts least-recently-used entries
 (``on_full="evict_lru"``), handing each victim to an optional ``spill_cb``.
+The store keeps a running count of its bytes, so a `put` costs the same
+however many entries it holds (a replica store holds thousands of blocks).
 """
 from __future__ import annotations
 
@@ -31,6 +33,7 @@ class HostMemoryStore:
         self.on_full = on_full
         self.spill_cb = spill_cb
         self._data: "OrderedDict[str, torch.Tensor]" = OrderedDict()
+        self._used = 0                         # bytes of every entry
         self._lock = threading.Lock()
 
     def put(self, key: str, array: torch.Tensor) -> List[Tuple[str, torch.Tensor]]:
@@ -40,8 +43,7 @@ class HostMemoryStore:
         evicted: List[Tuple[str, torch.Tensor]] = []
         with self._lock:
             old = self._data.get(key)
-            new_bytes = (self._used_bytes_locked() - (0 if old is None else _nbytes(old))
-                         + _nbytes(arr))
+            new_bytes = self._used - (0 if old is None else _nbytes(old)) + _nbytes(arr)
             if self.capacity_bytes is not None and new_bytes > self.capacity_bytes:
                 if self.on_full == "raise":
                     raise MemoryError(f"store {self.name!r}: {new_bytes} > capacity "
@@ -53,12 +55,14 @@ class HostMemoryStore:
                     victim = self._data.pop(victim_key)
                     evicted.append((victim_key, victim))
                     new_bytes -= _nbytes(victim)
+                    self._used -= _nbytes(victim)
                 if new_bytes > self.capacity_bytes:
                     raise MemoryError(f"store {self.name!r}: single array of "
                                       f"{_nbytes(arr)} bytes exceeds capacity "
                                       f"{self.capacity_bytes}")
             self._data[key] = arr
             self._data.move_to_end(key)
+            self._used = new_bytes
         if self.spill_cb is not None:
             for k, a in evicted:
                 self.spill_cb(k, a)
@@ -72,11 +76,15 @@ class HostMemoryStore:
 
     def pop(self, key: str) -> torch.Tensor:
         with self._lock:
-            return self._data.pop(key)
+            arr = self._data.pop(key)
+            self._used -= _nbytes(arr)
+            return arr
 
     def delete(self, key: str) -> None:
         with self._lock:
-            self._data.pop(key, None)
+            arr = self._data.pop(key, None)
+            if arr is not None:
+                self._used -= _nbytes(arr)
 
     def keys(self):
         with self._lock:
@@ -88,11 +96,9 @@ class HostMemoryStore:
 
     def used_bytes(self) -> int:
         with self._lock:
-            return self._used_bytes_locked()
-
-    def _used_bytes_locked(self) -> int:
-        return sum(_nbytes(a) for a in self._data.values())
+            return self._used
 
     def clear(self) -> None:
         with self._lock:
             self._data.clear()
+            self._used = 0

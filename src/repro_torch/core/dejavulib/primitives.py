@@ -8,6 +8,8 @@ Layered as in the paper:
                            chunks of the stacked decode state go to which
                            peer (split at the source, merged at the
                            destination) and move them;
+  stream_out_blocks /      the same at block granularity for the paged
+  stream_in_blocks         pool: only live blocks move, split by layers;
   scatter                  middle: a token window of a stacked cache leaf
                            becomes one contiguous transfer, packed on the
                            device by the `kv_pack` kernel first (the paper's
@@ -225,3 +227,58 @@ def stream_in(store: HostMemoryStore, dst_stage: int, dst_topo: PipelineTopo,
         return out
 
     return build(state_shapes)
+
+
+# ---------------------------------------------------------------------------
+# stream_out_blocks / stream_in_blocks: live paged blocks only
+# ---------------------------------------------------------------------------
+
+def stream_out_blocks(block_arrays: Dict[int, Dict[str, torch.Tensor]], src_stage: int,
+                      src_topo: PipelineTopo, dst_topo: PipelineTopo,
+                      dst_stores: Dict[int, HostMemoryStore], transport: Transport, *,
+                      seq: int | str) -> int:
+    """Block-granularity `stream_out`: move only live paged-KV blocks.
+    `block_arrays` {logical block: {"k": [Lstage,w,H,D], "v": ...}} holds
+    this stage's layer slice of each block; each is split by the destination
+    topology's layer ranges and flushed under
+    ``seq{seq}/blk{j}/l{lo}-{hi}/{leaf}``.  Returns bytes."""
+    my_lo, my_hi = src_topo.layer_range(src_stage)
+    total = 0
+    for ds in range(dst_topo.depth):
+        ov = _overlap((my_lo, my_hi), dst_topo.layer_range(ds))
+        if ov is None:
+            continue
+        lo, hi = ov
+        for j, arrays in block_arrays.items():
+            for leaf, arr in arrays.items():
+                total += flush(arr[lo - my_lo:hi - my_lo], dst_stores[ds],
+                               f"seq{seq}/blk{j}/l{lo}-{hi}/{leaf}", transport)
+    return total
+
+
+def stream_in_blocks(store: HostMemoryStore, dst_stage: int, dst_topo: PipelineTopo,
+                     src_topo: PipelineTopo, transport: Transport, *, seq: int | str,
+                     device="cpu") -> Dict[int, Dict[str, torch.Tensor]]:
+    """Inverse of `stream_out_blocks`: fetch the layer-overlap chunks each
+    source stage landed (and drop them from the store) and concatenate them
+    into this stage's layer frame on `device`.  Returns {logical block:
+    {"k": ..., "v": ...}}."""
+    my_lo, my_hi = dst_topo.layer_range(dst_stage)
+    pieces: Dict[int, Dict[str, Dict[int, torch.Tensor]]] = {}
+    prefix = f"seq{seq}/blk"
+    for ss in range(src_topo.depth):
+        ov = _overlap((my_lo, my_hi), src_topo.layer_range(ss))
+        if ov is None:
+            continue
+        lo, hi = ov
+        for key in store.keys():
+            if not key.startswith(prefix) or f"/l{lo}-{hi}/" not in key:
+                continue
+            j = int(key[len(prefix):].split("/")[0])
+            leaf = key.rsplit("/", 1)[1]
+            pieces.setdefault(j, {}).setdefault(leaf, {})[lo] = fetch(
+                store, key, transport, device=device)
+            store.delete(key)
+    return {j: {leaf: torch.cat([chunks[lo] for lo in sorted(chunks)], 0)
+                for leaf, chunks in leaves.items()}
+            for j, leaves in pieces.items()}

@@ -2,39 +2,68 @@
 
 A `StageWorker` owns a contiguous layer slice of the model, its dense
 microbatch KV slots (the run() path), its block pool and device pages (the
-paged path), and a host store: the swap target and the landing zone of the
-prompt KV streamed from the prompt pipeline.  Every byte between the device
-and the host moves through the `CacheManager`'s transports.  Replication
-and the KV tiers of the reference are later slices.
+paged path), a host store (the swap target and the landing zone of the
+prompt KV streamed from the prompt pipeline) and a replica store holding
+its ring predecessor's KV copies (paper §4.2.3: worker x streams to worker
+(x+1) % N).  Every byte between the device and the host moves through the
+`CacheManager`'s transports.
+
+Failure semantics (paper): killing a worker loses its device KV, its host
+store and the replica it hosts; a dead worker's stage ops raise
+`WorkerDead`.  The KV tiers of the reference are a later slice.
 """
 from __future__ import annotations
 
 import math
+import time
 from typing import Dict, List, Optional, Sequence, Tuple
 
 import torch
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.core.dejavulib import (HostLinkTransport, HostMemoryStore, LocalTransport,
-                                        NetworkTransport)
+                                        NetworkTransport, StreamEngine)
 from repro_torch.kernels import ops as kops
 from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.kvcache.paged import BlockPool, PagedKVCache, PoolExhausted, blocks_for
 
 
-class CacheManager:
-    """Per-worker KV movement between the device and host memory: microbatch
-    swapping (paper §4.2.2) over the host link, and the paged path's
-    block-granular swap.  The transports count their bytes; the reference's
-    modeled transfer time is not ported."""
+class WorkerDead(RuntimeError):
+    """A stage op reached a dead worker: the one error the serving engine
+    recovers from.  Any other error, a failed kernel launch included,
+    propagates."""
 
-    def __init__(self, wid: int, token_block: int = 8):
+
+class CacheManager:
+    """Per-worker KV movement: microbatch swapping (paper §4.2.2) over the
+    host link, the paged path's block-granular swap, and ring replication
+    over the network into the successor's replica store (§4.2.3).  The
+    transports count their bytes; the reference's modeled transfer time is
+    not ported.
+
+    Replication runs on the cluster's `StreamEngine`: the window or block is
+    produced on the compute stream, handed to the streamer's side stream
+    behind an event, copied to host memory there, and acknowledged to the
+    controller only once the copy has landed.  Replicas live in pageable
+    host memory: the dense replica of a microbatch leaf is allocated once,
+    at the full cache shape, and updated in place; a replica block is kept
+    as it arrives.
+
+    `compress_replicas=True` (beyond the paper) quantises each replicated
+    window or block to int8 with one scale before it crosses the network
+    and dequantises it into the peer's replica store."""
+
+    def __init__(self, wid: int, streamer: StreamEngine, token_block: int = 8,
+                 compress_replicas: bool = False):
         self.wid = wid
         self.host = HostMemoryStore(f"w{wid}-host")
+        self.replica = HostMemoryStore(f"w{wid}-replica")   # the predecessor's KV
         self.hostlink = HostLinkTransport()
         self.net = NetworkTransport()
         self.local = LocalTransport()
+        self.streamer = streamer
         self.token_block = token_block
+        self.compress_replicas = compress_replicas
 
     # --- swapping (microbatch granularity) -----------------------------
     def swap_out(self, mb: int, kv: Dict[str, torch.Tensor],
@@ -89,6 +118,85 @@ class CacheManager:
         for key in [k for k in self.host.keys() if k.startswith(f"pagedswap/seq{seq}/")]:
             self.host.delete(key)
 
+    # --- replication (ring, paper §4.2.3) ---------------------------------
+    def _hand_off(self, tensors: List[torch.Tensor]):
+        """Make device tensors made on the compute stream safe for the
+        streamer's side stream: an event recorded after them, which the
+        task waits on, and each tensor marked as used by the side stream,
+        so its memory is not reused before the copy has run."""
+        side = self.streamer.stream
+        if side is None or not tensors[0].is_cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        for t in tensors:
+            t.record_stream(side)
+        return ev
+
+    def _send(self, buf: torch.Tensor, key: str) -> torch.Tensor:
+        """One replica copy over the network into the peer's pageable host
+        memory, as the peer stores it."""
+        if not self.compress_replicas:
+            return self.net.transfer(buf, tag=key, pin=False)
+        scale = max(float(buf.abs().max()), 1e-8) / 127.0
+        q = torch.clamp(torch.round(buf.float() / scale), -127, 127).to(torch.int8)
+        return (self.net.transfer(q, tag=key + "/int8", pin=False).float() * scale
+                ).to(buf.dtype)
+
+    def replicate_to(self, peer: "CacheManager", mb: int, kv: Dict[str, torch.Tensor],
+                     token_range: Tuple[int, int], step: int, ack_cb) -> None:
+        """Stream the KV window [t0, t1) of a microbatch to the ring
+        successor's replica store: packed on the device by kv_pack (token
+        block aligned), then sent on the streamer."""
+        t0, t1 = token_range
+        tb = self.token_block
+        t0a = (t0 // tb) * tb
+        packed = {}
+        for leaf, arr in kv.items():
+            w = min(-(-(t1 - t0a) // tb) * tb, arr.shape[2] - t0a)
+            packed[leaf] = (kops.kv_pack_auto(arr, t0a, w, token_block=tb), arr.shape,
+                            arr.dtype)
+        ev = self._hand_off([b for b, _, _ in packed.values()])
+
+        def send():
+            if ev is not None:
+                ev.wait()                    # the side stream waits for the pack
+            for leaf, (buf, shape, dtype) in packed.items():
+                key = f"w{self.wid}/mb{mb}/{leaf}"
+                recv = self._send(buf, key)
+                if key not in peer.replica:
+                    peer.replica.put(key, torch.zeros(shape, dtype=dtype))
+                peer.replica.get(key)[:, :, t0a:t0a + recv.shape[2]] = recv
+            ack_cb(self.wid, mb, step)       # only once the copies have landed
+
+        self.streamer.submit(send, tag=f"rep-w{self.wid}-mb{mb}-s{step}")
+
+    def replicate_block_to(self, peer: "CacheManager", seq: int, j: int,
+                           arrays: Dict[str, torch.Tensor], step: int, ack_cb) -> None:
+        """Stream one live KV block of a sequence to the ring successor's
+        replica store (a decode step sends only the block it touched)."""
+        ev = self._hand_off(list(arrays.values()))
+
+        def send():
+            if ev is not None:
+                ev.wait()
+            for leaf, arr in arrays.items():
+                key = f"w{self.wid}/seq{seq}/blk{j}/{leaf}"
+                peer.replica.put(key, self._send(arr, key))
+            ack_cb(self.wid, seq, step)
+
+        self.streamer.submit(send, tag=f"rep-w{self.wid}-seq{seq}-blk{j}-s{step}")
+
+    def replica_blocks(self, wid: int, seq: int) -> Dict[int, Dict[str, torch.Tensor]]:
+        """Every replica block this store holds for (failed worker, seq)."""
+        prefix = f"w{wid}/seq{seq}/blk"
+        out: Dict[int, Dict[str, torch.Tensor]] = {}
+        for key in self.replica.keys():
+            if key.startswith(prefix):
+                j, leaf = key[len(prefix):].split("/")
+                out.setdefault(int(j), {})[leaf] = self.replica.get(key)
+        return out
+
 
 def _to_device(tree, device):
     if isinstance(tree, dict):
@@ -101,20 +209,42 @@ class StageWorker:
     previous stage's activations; the last stage returns logits."""
 
     def __init__(self, wid: int, model, full_params, lo: int, hi: int, *,
-                 first: bool, last: bool, device="cuda"):
+                 first: bool, last: bool, device="cuda",
+                 streamer: Optional[StreamEngine] = None, compress_replicas: bool = False):
         self.wid = wid
         self.model = model
         self.device = resolve_device(device)
         self.lo, self.hi = lo, hi
         self.first, self.last = first, last
+        self.alive = True
+        self.last_heartbeat = time.monotonic()
+        # views of the full params where those already lie on the device
         self.sp = _to_device(model.slice_params(full_params, lo, hi, first=first,
                                                 last=last), self.device)
-        self.cache = CacheManager(wid)
+        self.cache = CacheManager(wid, streamer or StreamEngine(f"w{wid}", self.device),
+                                  compress_replicas=compress_replicas)
         self.kv: Dict[int, Dict[str, torch.Tensor]] = {}   # microbatch -> stage KV
         self.pool: BlockPool = None
         self.pages: PagedKVCache = None
         self.paged_dirty: Dict[int, set] = {}       # seq -> dirty logical blocks
         self.paged_swapped: Dict[int, int] = {}     # seq -> offloaded length
+
+    def heartbeat(self) -> bool:
+        if self.alive:
+            self.last_heartbeat = time.monotonic()
+        return self.alive
+
+    def kill(self) -> None:
+        """Machine failure: the device KV, the host store and the hosted
+        replica all die."""
+        self.alive = False
+        self.kv.clear()
+        self.cache.host.clear()
+        self.cache.replica.clear()
+
+    def _check(self) -> None:
+        if not self.alive:
+            raise WorkerDead(f"worker {self.wid} is dead")
 
     def _stage(self, fn, x_or_tokens, *args, tok_kw: str):
         if self.first:
@@ -128,6 +258,7 @@ class StageWorker:
     def prefill(self, mb: int, x_or_tokens, max_len: int):
         """Whole-prompt prefill of a microbatch; its K/V lands at the head of
         a zero cache of `max_len` slots, [Lstage,B,max_len,H,D]."""
+        self._check()
         x, ks, vs = self._stage(self.model.stage_prefill, x_or_tokens, tok_kw="tokens")
         slot = init_decode_state(self.model.cfg, ks.shape[1], max_len, device=self.device,
                                  layers=self.hi - self.lo)["kv"]
@@ -138,6 +269,7 @@ class StageWorker:
 
     def decode(self, mb: int, x_or_token, pos: int):
         """One decode step of a microbatch at the shared position `pos`."""
+        self._check()
         slot = self.kv[mb]
         x, _, _ = self._stage(self.model.stage_decode, x_or_token, slot["k"], slot["v"],
                               pos, tok_kw="token")
@@ -172,6 +304,7 @@ class StageWorker:
         """Whole-prompt prefill of one request (batch 1) into pool blocks;
         with `token_ids`, full prompt blocks whose prefix is live are
         shared.  Returns (x, fresh blocks)."""
+        self._check()
         x, ks, vs = self._stage(self.model.stage_prefill, x_or_tokens, tok_kw="tokens")
         _, fresh = self.pool.allocate(seq, ks.shape[2], token_ids=token_ids)
         # shared blocks already hold these values (same prefix, same
@@ -185,6 +318,7 @@ class StageWorker:
         prefill (fresh blocks stay unpublished until their pages are
         written, see `publish_prefix_hashes`).  Raises PoolExhausted before
         mutating."""
+        self._check()
         if seq not in self.pool.tables:
             self.pool.allocate(seq, plen, token_ids=token_ids, publish=False)
             self.paged_dirty.setdefault(seq, set())
@@ -204,6 +338,7 @@ class StageWorker:
         """One chunk [pos0, pos0+C) of a paged prefill: gather the pages,
         run the chunk stage function, and write the chunk's K/V window back
         through kv_pack.  Requires `ensure_prefill_table` first."""
+        self._check()
         c = int(x_or_tokens.shape[1])
         pad_to = len(self.pool.tables[seq]) * self.pool.block_size
         dense = self.pages.gather_dense(seq, pad_to)
@@ -241,6 +376,7 @@ class StageWorker:
         """One decode step of one sequence (the per-sequence path): append a
         slot (copy-on-write if the tail block is shared), gather, run the
         stage, write the new token's K/V back into its block."""
+        self._check()
         self.pages.apply_cow(self.pool.append(seq))
         pad_to = len(self.pool.tables[seq]) * self.pool.block_size
         dense = self.pages.gather_dense(seq, pad_to)
@@ -269,6 +405,7 @@ class StageWorker:
         in place; otherwise the pages are gathered dense and the new-token
         K/V windows go back through one ragged buffered copy per leaf.  The
         cluster pre-flights pool capacity for the whole batch first."""
+        self._check()
         for seq in seqs:
             self.pages.apply_cow(self.pool.append(seq))
         pos = torch.tensor(list(poses), dtype=torch.int32, device=self.device)
@@ -311,6 +448,7 @@ class StageWorker:
         stage reads and writes its pages in place; otherwise the pages are
         gathered dense and each window goes back into its own pages.
         Requires `ensure_prefill_table` first."""
+        self._check()
         pos = torch.tensor(pos0s, dtype=torch.int32, device=self.device)
         ql = torch.tensor(q_lens, dtype=torch.int32, device=self.device)
         if self.reads_pages():

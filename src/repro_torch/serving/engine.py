@@ -17,21 +17,29 @@ fused rounds on (the default) a round runs one batched decode pass plus one
 chunk-set pass for the prefills in flight; ``fused_rounds=False`` runs one
 pass per sequence, the path the fused one is tested against.
 
-With greedy sampling every path gives the same tokens.  Not in this slice
-(NotImplementedError where asked for): fault injection and recovery,
-migration and repartition, telemetry and tracing with the modeled clock,
-and sampling other than a given callable.
+With greedy sampling every path gives the same tokens.
+
+Failure injection, detection and 4-step recovery run between steps in both
+loops (``replication=True``): ``fail_at={step: wid}``, or a `FaultPlan` /
+`FaultInjector` of `dejavulib.faults`.  Recovered work rolls back to its
+last replicated step and regenerates the same tokens.  Only `WorkerDead`
+starts a recovery; any other error propagates.  `run` also takes
+``migrate_at`` (straggler migration) and ``repartition_at`` (elastic
+re-split of the token pipeline).  Telemetry and tracing with the modeled
+clock are a later slice.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass, field
-from typing import Callable, Dict, List, Optional
+import time
+from dataclasses import asdict, dataclass, field
+from typing import Callable, Dict, List, Optional, Tuple
 
 import numpy as np
 
-from repro_torch import not_ported
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.cluster import DejaVuCluster
+from repro_torch.core.dejavulib import faults
+from repro_torch.core.worker import WorkerDead
 from repro_torch.kvcache.paged import PoolExhausted
 from repro_torch.serving.request import Microbatch, Request, form_microbatches
 from repro_torch.serving.sampling import greedy
@@ -42,6 +50,9 @@ from repro_torch.serving.scheduler import RoundScheduler, StepPlan
 class EngineReport:
     tokens: Dict[int, List[int]]            # rid -> generated tokens
     steps_executed: int = 0
+    steps_redone: int = 0
+    failures: int = 0
+    recoveries: int = 0
     preemptions: int = 0
     peak_kv_bytes: int = 0
     # one entry per round: live batch size that round
@@ -50,6 +61,13 @@ class EngineReport:
     pass_trace: List[int] = field(default_factory=list)
     # pipeline passes by kind over the run (see DejaVuCluster.pass_counts)
     pass_counts: Dict[str, int] = field(default_factory=dict)
+    # one dict per fault the run's FaultInjector realised (point, n, kind,
+    # tag, wid)
+    fault_trace: List[dict] = field(default_factory=list)
+    # one dict per failure delivered in the run: the wall ms of each
+    # recovery step (DejaVuCluster.recovery_log) and, under
+    # "first_token_ms", from the kill to the first token emitted after it
+    recovery_log: List[dict] = field(default_factory=list)
 
 
 class ServingEngine:
@@ -76,36 +94,135 @@ class ServingEngine:
             ssd_cache_blocks=ssd_cache_blocks,
             prefill_chunk_tokens=prefill_chunk_tokens, fused_rounds=fused_rounds,
             device=device)
+        self._log0 = 0
+        self._open_recoveries: List[dict] = []
 
+    # ------------------------------------------------------------------
+    # fault injection (shared by both serving loops)
+    # ------------------------------------------------------------------
+    def _install_faults(self, fail_at, fault_plan, fault_injector, report: EngineReport
+                        ) -> Tuple[Optional[faults.FaultInjector], object]:
+        """Bind this run's FaultInjector and install it as the process-wide
+        active injector.  ``fail_at={gstep: wid}`` becomes ``engine.step``
+        worker_death specs (that point fires once per scheduled step, so
+        occurrence == gstep).  Returns (injector, the injector it replaced)
+        for `_teardown_faults`."""
+        if fault_injector is None and not fail_at and fault_plan is None:
+            return None, None
+        inj = fault_injector if fault_injector is not None \
+            else faults.FaultInjector(fault_plan)
+        for g, w in sorted((fail_at or {}).items()):
+            inj.plan.add(faults.FaultSpec("engine.step", nth=g, kind="worker_death", wid=w))
+
+        def kill(wid):
+            self.cluster.inject_failure(wid)
+            report.failures += 1
+
+        inj.worker_killer = kill
+        prev = faults.current()
+        faults.install(inj)
+        return inj, prev
+
+    @staticmethod
+    def _teardown_faults(inj, prev, report: EngineReport) -> None:
+        if inj is None:
+            return
+        if prev is None:
+            faults.uninstall()
+        else:
+            faults.install(prev)
+        report.fault_trace = [asdict(f) for f in inj.fired]
+
+    def _start(self, requests: List[Request], fail_at, fault_plan, fault_injector):
+        report = EngineReport(tokens={r.rid: r.tokens for r in requests})
+        inj, prev = self._install_faults(fail_at, fault_plan, fault_injector, report)
+        self._log0 = len(self.cluster.recovery_log)     # this run's first failure
+        return report, inj, prev, dict(self.cluster.pass_counts)
+
+    def _finish(self, report: EngineReport, inj, prev, counts0: dict) -> None:
+        cl = self.cluster
+        self._teardown_faults(inj, prev, report)
+        report.peak_kv_bytes = cl.kv_bytes_peak
+        report.pass_counts = {k: v - counts0.get(k, 0) for k, v in cl.pass_counts.items()}
+        report.recovery_log = [{k: v for k, v in r.items() if k != "t_fail"}
+                               for r in cl.recovery_log[self._log0:]]
+        self._open_recoveries = []
+
+    def _recovered(self, report: EngineReport) -> None:
+        """Count one recovery and open its clock: the next emitted token
+        closes it (`_emit`)."""
+        report.recoveries += 1
+        self._open_recoveries = [r for r in self.cluster.recovery_log[self._log0:]
+                                 if "detect_ms" in r and "first_token_ms" not in r]
+
+    # ------------------------------------------------------------------
     def run(self, requests: List[Request], *,
             fail_at: Optional[Dict[int, int]] = None,
             migrate_at: Optional[Dict[int, int]] = None,
             repartition_at: Optional[Dict[int, int]] = None,
-            fault_plan=None, fault_injector=None) -> EngineReport:
+            fault_plan: Optional[faults.FaultPlan] = None,
+            fault_injector: Optional[faults.FaultInjector] = None) -> EngineReport:
         """Microbatch round-robin: requests group into length-homogeneous
         microbatches of `microbatch`; each round, every occupied slot (one
         per token-pipeline stage) advances its microbatch one step, and a
-        drained slot takes the next microbatch from the queue."""
-        not_ported(fail_at=fail_at, migrate_at=migrate_at, repartition_at=repartition_at,
-                   fault_plan=fault_plan, fault_injector=fault_injector)
+        drained slot takes the next microbatch from the queue.
+
+        fail_at / migrate_at: {global step: wid}; repartition_at: {global
+        step: new depth}.  A step that reaches a dead worker triggers
+        detect-and-recover, then runs again."""
+        migrate_at = dict(migrate_at or {})
+        repartition_at = dict(repartition_at or {})
         cl = self.cluster
         queue = form_microbatches(requests, self.microbatch)
         slots: List[Optional[Microbatch]] = [None] * len(cl.token_group)
-        report = EngineReport(tokens={r.rid: r.tokens for r in requests})
-        counts0 = dict(cl.pass_counts)
-        while any(s is not None for s in slots) or queue:
-            for q, mb in enumerate(slots):
-                if mb is None and queue:
-                    slots[q] = queue.pop(0)
-            for q, mb in enumerate(slots):
-                if mb is None:
-                    continue
-                self._advance(mb, report)
-                if mb.done:
-                    slots[q] = None
-        report.peak_kv_bytes = cl.kv_bytes_peak
-        report.pass_counts = {k: v - counts0.get(k, 0) for k, v in cl.pass_counts.items()}
+        report, inj, prev, counts0 = self._start(requests, fail_at, fault_plan,
+                                                 fault_injector)
+        gstep = 0
+
+        def active_ids() -> List[int]:
+            return [s.mb for s in slots if s is not None]
+
+        try:
+            while any(s is not None for s in slots) or queue:
+                for q, mb in enumerate(slots):
+                    if mb is None and queue:
+                        slots[q] = queue.pop(0)
+                for q, mb in enumerate(slots):
+                    if mb is None:
+                        continue
+                    gstep += 1
+                    # scheduled control events
+                    faults.fire("engine.step", tag=f"mb{mb.mb}")
+                    if gstep in migrate_at:
+                        res = cl.migrate_worker(migrate_at.pop(gstep), active_ids())
+                        self._recovered(report)
+                        self._apply_resume(res, slots, report)
+                    if gstep in repartition_at:
+                        cl.repartition(repartition_at.pop(gstep), active_ids())
+                    try:
+                        self._advance(mb, report)
+                    except WorkerDead:
+                        # a dead worker hit mid-pipeline: detect, recover and
+                        # run the step again
+                        self._apply_resume(cl.detect_and_recover(active_ids()), slots,
+                                           report)
+                        self._recovered(report)
+                        self._advance(mb, report)
+                    if mb.done:
+                        slots[q] = None
+        finally:
+            self._finish(report, inj, prev, counts0)
         return report
+
+    def _apply_resume(self, resume: Dict[int, int], slots: List[Optional[Microbatch]],
+                      report: EngineReport) -> None:
+        for s in slots:
+            if s is not None and s.mb in resume:
+                r = resume[s.mb]
+                report.steps_redone += max(0, s.next_step - r)
+                s.next_step = min(s.next_step, max(r, 0))
+                for req in s.requests:   # drop the tokens past the resume point
+                    del req.tokens[s.next_step:]
 
     def _advance(self, mb: Microbatch, report: EngineReport) -> None:
         """One pipeline pass of a microbatch: its prefill (token 0), else
@@ -137,33 +254,35 @@ class ServingEngine:
 
     def run_continuous(self, requests: List[Request], *, max_active: int = 4,
                        fail_at: Optional[Dict[int, int]] = None,
-                       fault_plan=None, fault_injector=None) -> EngineReport:
+                       fault_plan: Optional[faults.FaultPlan] = None,
+                       fault_injector: Optional[faults.FaultInjector] = None
+                       ) -> EngineReport:
         """Continuous-batching loop: per round, the scheduler resumes
         preempted and admits queued requests (each admission runs its first
         step at once), every live request advances one step, and finished
         requests retire.  Each request generates `max_new` tokens (or stops
-        at eos)."""
-        not_ported(fail_at=fail_at, fault_plan=fault_plan,
-                   fault_injector=fault_injector)
+        at eos).  `fail_at` counts per-request steps as `run` counts global
+        steps."""
         cl = self.cluster
         if not cl.paged:
             raise ValueError("run_continuous needs ServingEngine(..., paged=True)")
         sched = RoundScheduler(cl, requests, max_active=max_active)
-        report = EngineReport(tokens={r.rid: r.tokens for r in requests})
-        counts0 = dict(cl.pass_counts)
+        report, inj, prev, counts0 = self._start(requests, fail_at, fault_plan,
+                                                 fault_injector)
         fused = cl.fused_ok
-        while sched.pending():
-            self._round_passes = 0
-            plan = sched.plan_round(lambda r: self._step_seq(r, sched.next_step, report))
-            report.batch_trace.append(plan.n_active)
-            if fused:
-                self._execute_round_fused(plan, sched, report)
-            else:
-                self._execute_round(plan, sched, report)
-            sched.retire()
-            report.pass_trace.append(self._round_passes)
-        report.peak_kv_bytes = cl.kv_bytes_peak
-        report.pass_counts = {k: v - counts0.get(k, 0) for k, v in cl.pass_counts.items()}
+        try:
+            while sched.pending():
+                self._round_passes = 0
+                plan = sched.plan_round(lambda r: self._advance_seq(r, sched, report))
+                report.batch_trace.append(plan.n_active)
+                if fused:
+                    self._execute_round_fused(plan, sched, report)
+                else:
+                    self._execute_round(plan, sched, report)
+                sched.retire()
+                report.pass_trace.append(self._round_passes)
+        finally:
+            self._finish(report, inj, prev, counts0)
         return report
 
     # ------------------------------------------------------------------
@@ -178,7 +297,7 @@ class ServingEngine:
                 continue        # budget spent at admission (or eos'd)
             while True:
                 try:
-                    self._step_seq(r, sched.next_step, report)
+                    self._advance_seq(r, sched, report)
                     break
                 except PoolExhausted:
                     self._preempt_victim_or_raise(sched, report, exclude=(r.rid,))
@@ -229,32 +348,40 @@ class ServingEngine:
                             report: EngineReport) -> None:
         """Advance every in-flight prefill: chunk-mode prefills one chunk
         each in one pipeline pass, whole-prompt ones (chunking off) in a
-        pass each."""
+        pass each.  After a worker death is recovered, the prefills it
+        rolled back begin again next round, and the round goes on to its
+        decode pass."""
         cl = self.cluster
-        for r in pf:
-            while not cl.prefill_pending(r.rid):
-                try:
-                    cl.prefill_seq_begin(r.rid, r.prompt, r.max_new)
-                except PoolExhausted:
-                    self._preempt_victim_or_raise(sched, report)
-        chunk = [r for r in pf if cl.prefill_mode(r.rid) == "chunk"]
-        rest = [r for r in pf if cl.prefill_mode(r.rid) != "chunk"]
-        if chunk:
-            out = cl.prefill_chunkset_pass([r.rid for r in chunk])
-            self._round_passes += 1
-            report.steps_executed += len(chunk)
-            for r in chunk:
-                self._finish_prefill_step(r, out[r.rid], sched)
-        for r in rest:
-            while True:
-                try:
-                    logits = cl.prefill_seq_step(r.rid)
-                    break
-                except PoolExhausted:
-                    self._preempt_victim_or_raise(sched, report)
-            self._round_passes += 1
-            report.steps_executed += 1
-            self._finish_prefill_step(r, logits, sched)
+        for r in pf:            # one logical step per packed prefill, so the
+            # engine.step occurrences land as on the per-sequence path
+            faults.fire("engine.step", tag=f"prefill-r{r.rid}")
+        try:
+            for r in pf:
+                while not cl.prefill_pending(r.rid):
+                    try:
+                        cl.prefill_seq_begin(r.rid, r.prompt, r.max_new)
+                    except PoolExhausted:
+                        self._preempt_victim_or_raise(sched, report)
+            chunk = [r for r in pf if cl.prefill_mode(r.rid) == "chunk"]
+            rest = [r for r in pf if cl.prefill_mode(r.rid) != "chunk"]
+            if chunk:
+                out = cl.prefill_chunkset_pass([r.rid for r in chunk])
+                self._round_passes += 1
+                report.steps_executed += len(chunk)
+                for r in chunk:
+                    self._finish_prefill_step(r, out[r.rid], sched)
+            for r in rest:
+                while True:
+                    try:
+                        logits = cl.prefill_seq_step(r.rid)
+                        break
+                    except PoolExhausted:
+                        self._preempt_victim_or_raise(sched, report)
+                self._round_passes += 1
+                report.steps_executed += 1
+                self._finish_prefill_step(r, logits, sched)
+        except WorkerDead:
+            self._recover_fused(sched, report)
 
     def _finish_prefill_step(self, r: Request, logits, sched: RoundScheduler) -> None:
         if logits is None:
@@ -264,14 +391,81 @@ class ServingEngine:
 
     def _fused_decode_pass(self, dec: List[Request], sched: RoundScheduler,
                            report: EngineReport) -> None:
-        steps = [sched.next_step[r.rid] for r in dec]
-        last = np.asarray([r.tokens[s - 1] for r, s in zip(dec, steps)], np.int32)
-        logits = self.cluster.decode_batch([r.rid for r in dec], last, steps)
+        """One batched decode pass.  A worker death inside it is recovered
+        and the pass runs again at once over the sequences still due a step
+        (as `run` and the per-sequence path re-execute theirs), so a failure
+        that rolls nothing back leaves the schedule, and every later batch's
+        shapes, as they were."""
+        for r in dec:
+            faults.fire("engine.step", tag=f"decode-r{r.rid}")
+        while True:
+            steps = [sched.next_step[r.rid] for r in dec]
+            last = np.asarray([r.tokens[s - 1] for r, s in zip(dec, steps)], np.int32)
+            try:
+                logits = self.cluster.decode_batch([r.rid for r in dec], last, steps)
+                break
+            except WorkerDead:
+                self._recover_fused(sched, report)
+                dec = [r for r in dec if sched.is_active(r.rid) and not r.done
+                       and 1 <= sched.next_step[r.rid] < r.max_new]
+                if not dec:
+                    return
         self._round_passes += 1
         for i, (r, s) in enumerate(zip(dec, steps)):
             self._emit([r], self.sampler(logits[i:i + 1], s), s)
             sched.next_step[r.rid] = s + 1
             report.steps_executed += 1
+
+    def _recover_fused(self, sched: RoundScheduler, report: EngineReport) -> None:
+        """Detect and recover after a worker died inside a fused pass: every
+        covered sequence rolls back to its last replicated step (one still
+        in prefill starts again), as on the per-sequence path."""
+        cl = self.cluster
+        covered = sched.covered()
+        resume = cl.detect_and_recover([a.rid for a in covered if not a.done])
+        self._recovered(report)
+        self._apply_resume_seqs(resume, covered, sched.next_step, report)
+        for rr in covered:
+            if sched.next_step.get(rr.rid, 1) == 0:
+                cl.abort_prefill(rr.rid)
+
+    def _advance_seq(self, r: Request, sched: RoundScheduler, report: EngineReport) -> None:
+        """One per-request step (prefill while next_step is 0, else decode)
+        with detect-and-recover: preempted sequences join the recovery set,
+        since their swap copies on the failed worker die with it."""
+        cl = self.cluster
+        next_step = sched.next_step
+        faults.fire("engine.step", tag=f"r{r.rid}")
+        covered = sched.covered()
+        live = [a.rid for a in covered if not a.done]
+        if r.rid not in live:
+            live.append(r.rid)
+        try:
+            self._step_seq(r, next_step, report)
+        except WorkerDead:
+            resume = cl.detect_and_recover(live)
+            self._recovered(report)
+            self._apply_resume_seqs(resume, covered + [r], next_step, report)
+            # a worker death takes mid-prefill partial tables with it (their
+            # sequences have no replicated step to restore from): begin those
+            # prefills again on the recovered cluster
+            for rr in covered + [r]:
+                if next_step.get(rr.rid, 1) == 0:
+                    cl.abort_prefill(rr.rid)
+            self._step_seq(r, next_step, report)
+
+    @staticmethod
+    def _apply_resume_seqs(resume: Dict[int, int], requests: List[Request],
+                           next_step: Dict[int, int], report: EngineReport) -> None:
+        seen = set()
+        for r in requests:
+            if r.rid in seen or r.rid not in resume:
+                continue
+            seen.add(r.rid)
+            rr = max(resume[r.rid], 0)
+            report.steps_redone += max(0, next_step[r.rid] - rr)
+            next_step[r.rid] = min(next_step[r.rid], rr)
+            del r.tokens[next_step[r.rid]:]
 
     def _step_seq(self, r: Request, next_step: Dict[int, int],
                   report: EngineReport) -> None:
@@ -294,13 +488,18 @@ class ServingEngine:
         self._emit([r], self.sampler(logits, i), i)
         next_step[r.rid] = i + 1
 
-    @staticmethod
-    def _emit(requests: List[Request], tok: np.ndarray, i: int) -> None:
-        """Token i of each request from the sampled row of the same index."""
+    def _emit(self, requests: List[Request], tok: np.ndarray, i: int) -> None:
+        """Token i of each request from the sampled row of the same index;
+        the first token after a recovery closes its clock."""
         for b, r in enumerate(requests):
             if len(r.tokens) == i:
                 r.tokens.append(int(tok[b]))
-            else:
+            else:                      # regeneration after a rollback
                 r.tokens[i] = int(tok[b])
             if r.eos_id is not None and int(tok[b]) == r.eos_id:
                 r.done = True
+        if self._open_recoveries:
+            now = time.perf_counter()
+            for rec in self._open_recoveries:
+                rec["first_token_ms"] = (now - rec["t_fail"]) * 1e3
+            self._open_recoveries = []

@@ -63,6 +63,12 @@ class RoundScheduler:
     def is_active(self, rid: int) -> bool:
         return rid in self._active_ids
 
+    def covered(self) -> List[Request]:
+        """Requests a worker failure can touch (the recovery rollback set):
+        the running batch and the preempted, whose swap copies die with the
+        failed worker too."""
+        return self.active + list(self.preempted)
+
     # ------------------------------------------------------------------
     # policy
     # ------------------------------------------------------------------

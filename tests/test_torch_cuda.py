@@ -674,3 +674,88 @@ def _tree_to(tree, dev):
     if isinstance(tree, dict):
         return {k: _tree_to(v, dev) for k, v in tree.items()}
     return tree.to(dev)
+
+
+# ---------------------------------------------------------------------------
+# replication on the streamer's side stream, and recovery on the card
+# ---------------------------------------------------------------------------
+
+def _sync_copy(t):
+    """The plain synchronous device-to-host copy the replica must equal."""
+    torch.cuda.synchronize()
+    return t.cpu()
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_side_stream_replication_equals_a_synchronous_copy(cuda, dtype):
+    """`replicate_to` and `replicate_block_to` copy on the streamer's side
+    stream; the replica must equal a synchronous copy even when the compute
+    stream frees the source right after the submit and writes over memory
+    the allocator hands out next."""
+    from repro_torch.core.dejavulib import StreamEngine
+    from repro_torch.core.worker import CacheManager
+
+    eng = StreamEngine("t", device=cuda)
+    src, dst = CacheManager(0, eng), CacheManager(1, eng)
+    acks = []
+    g = torch.Generator(device=cuda).manual_seed(0)
+    cache = {leaf: torch.randn(3, 2, 64, 5, 16, generator=g, device=cuda).to(dtype)
+             for leaf in ("k", "v")}
+    want = {leaf: _sync_copy(c) for leaf, c in cache.items()}
+    n0 = LAUNCHES["kv_pack"]
+    src.replicate_to(dst, 0, cache, (5, 40), 7, lambda *a: acks.append(a))
+    assert LAUNCHES["kv_pack"] == n0 + 2
+    block = {leaf: c[:, 0, 8:16].clone() for leaf, c in cache.items()}
+    bwant = {leaf: _sync_copy(b) for leaf, b in block.items()}
+    src.replicate_block_to(dst, 3, 1, block, 2, lambda *a: acks.append(a))
+    # the compute stream drops every source and scribbles over what the
+    # caching allocator gives back
+    del cache, block
+    junk = [torch.full((3, 2, 64, 5, 16), 7.0, device=cuda, dtype=dtype) for _ in range(8)]
+    eng.drain(timeout=60)
+    for leaf in ("k", "v"):
+        rep = dst.replica.get(f"w0/mb0/{leaf}")
+        assert torch.equal(rep[:, :, :40], want[leaf][:, :, :40])   # the aligned window
+        assert not rep[:, :, 40:].any()
+        assert torch.equal(dst.replica.get(f"w0/seq3/blk1/{leaf}"), bwant[leaf])
+    assert acks == [(0, 0, 7), (0, 3, 2)]
+    assert src.net.retransmits == 0 and junk[0].sum().item() != 0
+    eng.close()
+
+
+def _recovery_runs(cuda, fused: bool):
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b").reduced(), dtype="float32", num_layers=4)
+    model = DecoderLM(cfg, device=cuda)
+    params = model.init(torch.Generator(device=cuda).manual_seed(0))
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, (n,)).astype(np.int32)
+               for n in [8, 12, 8, 12, 8, 12]]
+    mx = [6, 3, 7, 4, 3, 6]
+
+    def run(paged, fail_at):
+        kw = (dict(paged=True, kv_pool_blocks=64, fused_rounds=fused) if paged
+              else dict(microbatch=2))
+        eng = ServingEngine(cfg, model, params, 2 if paged else 4, replication=True,
+                            device=cuda, **kw)
+        reqs = [Request(rid=i, prompt=p.copy(), max_new=m if paged else 6)
+                for i, (p, m) in enumerate(zip(prompts, mx))]
+        rep = (eng.run_continuous(reqs, max_active=4, fail_at=fail_at) if paged
+               else eng.run(reqs, fail_at=fail_at))
+        return eng, rep
+    return run
+
+
+@pytest.mark.parametrize("fused", [True, False])
+def test_recovery_on_the_card_gives_the_failure_free_tokens(cuda, fused):
+    """fp32, 4 layers: run_continuous and run() with a worker failure give
+    the failure-free run's tokens on the card, and leak nothing."""
+    from repro_torch.core.dejavulib import assert_no_leaks
+
+    run = _recovery_runs(cuda, fused)
+    for paged, fails in ((True, ({9: 1}, {5: 0})), (False, ({9: 2}, {14: 0}))):
+        _, clean = run(paged, None)
+        for fail_at in fails:
+            eng, rep = run(paged, fail_at)
+            assert rep.failures == 1 and rep.recoveries == 1
+            assert rep.tokens == clean.tokens, (paged, fail_at)
+            assert_no_leaks(eng.cluster)

@@ -209,3 +209,68 @@ def test_ssd_bound_at_the_serving_shape_is_bytes(smoke):
     assert by == "bytes" and ms == pytest.approx(0.0197, rel=1e-2)
     # a ragged last chunk counts only its own rows
     assert smoke.ssd_flops(1, 200, 1, 1, 1, 1, 128) < smoke.ssd_flops(1, 256, 1, 1, 1, 1, 128)
+
+
+def test_recover_phase_points_and_counts(smoke):
+    """The recover phase at a tiny width: its three failure points exist in
+    serve's trace, each run recovers once to the failure-free tokens, and a
+    decode pass that a failure cut short adds the first stage's layers to
+    the launches the passes imply."""
+    import numpy as np
+    cfg = _cfg(num_layers=4, dtype="float32")
+    model = DecoderLM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]
+
+    def trace():
+        return smoke._requests(lens, 32, cfg.vocab_size, seed=3)
+
+    clean = smoke.run_recover(cfg, model, params, trace, replication=True, record=True,
+                              dev="cpu")
+    points = smoke.fail_points(clean.pop("steps"))
+    assert list(points) == ["fail_decode_w1", "fail_prefill_w0", "fail_inflight_w1"]
+    assert [w for p in points.values() for w in p.values()] == [1, 0, 1]
+    assert clean["transfer_bytes"]["net"] > 0 and clean["failures"] == 0
+    for name, fail_at in points.items():
+        res = smoke.run_recover(cfg, model, params, trace, replication=True,
+                                fail_at=fail_at, dev="cpu")
+        assert (res["failures"], res["recoveries"]) == (1, 1), name
+        assert smoke.differing_tokens(res["tokens"], clean["tokens"]) == 0, name
+        tag = res["fault_trace"][0]["tag"]
+        assert tag.startswith("r" if name == "fail_prefill_w0" else "decode-"), tag
+        rec = res["recovery"]
+        assert rec["first_token_ms"] >= rec["rebuild_ms"] + rec["replica_ms"]
+
+
+@pytest.mark.parametrize("mode", ["colocated", "swapping", "disaggregated"])
+def test_mb_recover_phase_counts(smoke, mode):
+    """The mb_recover phase at a tiny width: the failure lands where the
+    script says (a decode step, or a prompt worker before a later prefill),
+    recovery regenerates the failure-free tokens, and the launch count adds
+    one kv_pack per leaf per token stage per pass and per re-replicated
+    microbatch."""
+    cfg = _cfg(num_layers=4, dtype="float32")
+    model = DecoderLM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    _, fail_at = smoke.MB_RECOVER[mode]
+    clean = smoke.run_mb_recover(cfg, model, params, mode, dev="cpu", plen=16)
+    res = smoke.run_mb_recover(cfg, model, params, mode, fail_at, dev="cpu", plen=16)
+    assert (res["failures"], res["recoveries"]) == (1, 1)
+    assert res["tokens"] == clean["tokens"]
+    pc = res["pass_counts"]
+    assert pc["mb_prefill"] == 4 and pc["mb_decode"] == 4 * 31
+    assert res["fault_trace"][0]["n"] == next(iter(fail_at))
+    n_token = 2 if mode == "disaggregated" else 4
+    replicated = 2 * n_token * (pc["mb_prefill"] + pc["mb_decode"])
+    # colocated: all 4 microbatches in flight roll back; a prompt worker's
+    # recovery rolls back nothing
+    assert res["resumed"] == (0 if mode == "disaggregated" else 4)
+    extra = {"colocated": 2 * 4,                       # re-replication
+             "swapping": 2 * 4 + 2 * 4 * pc["mb_decode"],   # and the swap deltas
+             "disaggregated": 2 * 2 * pc["mb_prefill"]}[mode]  # the prompt KV stream
+    want = res["expected_launches"]
+    assert want["kv_pack"] == replicated + extra
+    assert want["flash_attention"] == 4 * pc["mb_prefill"]
+    # a token worker dies before a decode step: the stages before it ran
+    dead_lo = {"colocated": 2, "swapping": 1, "disaggregated": 0}[mode]
+    assert want["decode_attention"] == 4 * pc["mb_decode"] + dead_lo
