@@ -62,6 +62,15 @@ Phases, each printing one JSON line with its seconds:
                run's.  Both phases check launches exactly: the passes, each
                replicated window (``kv_pack``), and the stages a failed pass
                ran before the dead worker.
+11. ``telemetry`` ``serve``'s model and trace with the telemetry registry
+               and the tracer installed: two such runs must give
+               byte-identical snapshots and dumps; tokens/s instrumented,
+               with the engine's own registry and with none, in turns; each
+               pass kind's modeled time for one H100 beside its measured
+               median; the modeled (H100 datasheet) time to first token,
+               token gap and recovery time, p50 and p99, of a run whose
+               worker 1 dies; and the host copy and host-link rates that
+               `HardwareModel`'s host figures assume.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
@@ -85,7 +94,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
 PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
-          "ssm_serve", "recover", "mb_recover")
+          "ssm_serve", "recover", "mb_recover", "telemetry")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -1636,6 +1645,328 @@ def phase_mb_recover(state: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 11: telemetry, tracing and the modeled clock
+# ---------------------------------------------------------------------------
+
+# the serving modes the phase runs in turns: a registry and a tracer
+# installed around the run; the engine's own registry for the run
+TELEMETRY_MODES = ("instrumented", "default")
+# rounds of the two modes, the order flipped each round: the host's rate
+# drifts by tens of percent within a call, so a mode never runs only early
+# or only late
+TELEMETRY_ROUNDS = 6
+# the pass kinds of a fused continuous run, and the cluster method of each
+PASS_METHODS = {"fused_decode": "decode_batch", "chunkset": "prefill_chunkset_pass",
+                "prefill_chunk": "prefill_seq_step"}
+
+
+def observed_run(eng, trace, mode: str, sync, *, fail_at=None, inj=None,
+                 instruments=None) -> dict:
+    """One `run_continuous` of `trace()` in `mode` (`TELEMETRY_MODES`),
+    instrumented with `instruments` (a registry and a tracer) or fresh
+    ones.  Returns its tokens/s and report and, instrumented, the
+    registry's and the tracer's JSON."""
+    from repro_torch.core import telemetry, tracing
+    reqs = trace()
+    reg = tracer = None
+    if mode == "instrumented":
+        reg, tracer = instruments or (telemetry.Telemetry(), tracing.Tracer())
+        prev_t, prev_r = telemetry.install(reg), tracing.install(tracer)
+    try:
+        sync()
+        t = time.perf_counter()
+        rep = eng.run_continuous(reqs, max_active=8, fail_at=fail_at, fault_injector=inj)
+        sync()
+        wall = time.perf_counter() - t
+    finally:
+        if reg is not None:
+            tracing.uninstall(prev_r)
+            telemetry.uninstall(prev_t)
+    check(all(len(r.tokens) == r.max_new for r in reqs), "a request fell short")
+    out = {"tokens_per_s": sum(len(r.tokens) for r in reqs) / wall, "wall_s": wall,
+           "report": rep}
+    if reg is not None:
+        out["snapshot"], out["trace"] = reg.to_json(), tracer.to_json()
+    return out
+
+
+def slo_quantiles(snapshot: dict) -> dict:
+    """p50 and p99, in modeled ms, of the SLO histograms of a snapshot."""
+    return {name: {"count": h["count"], "p50_ms": h["p50_s"] * 1e3, "p99_ms": h["p99_s"] * 1e3}
+            for name, h in snapshot["histograms"].items()
+            if name in ("engine.ttft_s", "engine.inter_token_s", "cluster.recovery_s",
+                        "engine.queue_wait_s")}
+
+
+def counted_instruments():
+    """A registry and a tracer that count the calls of each of their
+    recording methods.  Returns (registry, tracer, {method: calls})."""
+    from collections import Counter
+
+    from repro_torch.core import telemetry, tracing
+    calls = Counter()
+    reg, tracer = telemetry.Telemetry(), tracing.Tracer()
+    for obj, names in ((reg, ("count", "observe", "gauge", "advance", "span")),
+                       (tracer, ("event", "span"))):
+        for name in names:
+            def counted(*a, _fn=getattr(obj, name), _key=f"{type(obj).__name__}.{name}", **kw):
+                calls[_key] += 1
+                return _fn(*a, **kw)
+            setattr(obj, name, counted)
+    return reg, tracer, calls
+
+
+def per_call_us(cfg) -> dict:
+    """Host µs of one call of each recording method through its module
+    helper, with a registry and a tracer installed ("off": with none, the
+    `is None` check), and of one cost-model evaluation of a pass."""
+    from repro_torch.core import costmodel as cm
+    from repro_torch.core import telemetry, tracing
+    from repro_torch.core.dejavulib.transport import DEFAULT_HW
+    rids = list(range(8))
+
+    def span_t():
+        with telemetry.span("pass", kind="fused_decode"):
+            pass
+
+    def span_r():
+        with tracing.span("pass", kind="fused_decode", rids=rids):
+            pass
+
+    fns = {"Telemetry.count": lambda: telemetry.count("worker.stage_calls", 1, wid=1),
+           "Telemetry.observe": lambda: telemetry.observe("engine.inter_token_s", 3e-4),
+           "Telemetry.gauge": lambda: telemetry.gauge("engine.bubble_frac", 0.5),
+           "Telemetry.advance": lambda: telemetry.advance(1e-4),
+           "Telemetry.span": span_t,
+           "Tracer.event": lambda: tracing.event("stage.decode_batch", track="w1", n=8),
+           "Tracer.span": span_r,
+           "costmodel": lambda: cm.decode_round_time(cfg, 8, 450, cfg.num_layers, 8,
+                                                     DEFAULT_HW)}
+
+    def timed(fn, n=20000):
+        t = time.perf_counter()
+        for _ in range(n):
+            fn()
+        return (time.perf_counter() - t) / n * 1e6
+
+    out = {"off": timed(fns["Telemetry.count"])}
+    prev_t = telemetry.install(telemetry.Telemetry())
+    prev_r = tracing.install(tracing.Tracer())
+    try:
+        out.update({k: timed(fn) for k, fn in fns.items()})
+    finally:
+        tracing.uninstall(prev_r)
+        telemetry.uninstall(prev_t)
+    return out
+
+
+# the cost-model functions the cluster charges its passes with
+PASS_COSTS = ("stage_prompt_time", "stage_token_time", "chunked_prefill_pass_time",
+              "decode_round_time")
+
+
+def one_card_costmodel(running: list, one_card: dict):
+    """A stand-in for the cluster's `costmodel`: each of `PASS_COSTS`
+    returns the engine's modeled time (an 8-GPU node per stage) and adds
+    the same call's time on one card (``chips=1``) to
+    ``one_card[running[-1]]``, the pass kind being timed."""
+    import inspect
+    import types
+
+    from repro_torch.core import costmodel as cm
+
+    def on_one_card(fn):
+        sig = inspect.signature(fn)
+
+        def wrapper(*a, **kw):
+            if running:
+                bound = sig.bind(*a, **kw)
+                bound.arguments["chips"] = 1
+                one_card[running[-1]] += fn(*bound.args, **bound.kwargs)
+            return fn(*a, **kw)
+        return wrapper
+    names = {k: v for k, v in vars(cm).items() if not k.startswith("__")}
+    names.update({k: on_one_card(names[k]) for k in PASS_COSTS})
+    return types.SimpleNamespace(**names)
+
+
+def modeled_against_measured(eng, trace, sync) -> dict:
+    """An instrumented run with each pass kind's wall time taken around it
+    (synchronised), its modeled time from the snapshot's span aggregates
+    (the engine's model: an 8-GPU node per stage) and from the same
+    cost-model calls charged to the one card that ran the pipeline.  Also
+    records the `engine.step` trace, which picks the failure point of the
+    recovery run, and counts the recording calls.  Returns ({kind: modeled
+    and measured ms}, the recorded steps, {method: calls})."""
+    from repro_torch.core import cluster as cluster_mod
+    from repro_torch.core.dejavulib import FaultInjector
+    cl = eng.cluster
+    buckets = {kind: [] for kind in PASS_METHODS}
+    one_card = dict.fromkeys(PASS_METHODS, 0.0)
+    running = []
+
+    def timed_pass(fn, kind):
+        timed = _timed(fn, buckets[kind], sync)
+
+        def wrapper(*a, **kw):
+            running.append(kind)
+            try:
+                return timed(*a, **kw)
+            finally:
+                running.pop()
+        return wrapper
+    for kind, name in PASS_METHODS.items():
+        setattr(cl, name, timed_pass(getattr(cl, name), kind))
+    cm = cluster_mod.cm
+    cluster_mod.cm = one_card_costmodel(running, one_card)
+    inj = FaultInjector(record=True)
+    reg, tracer, calls = counted_instruments()
+    try:
+        res = observed_run(eng, trace, "instrumented", sync, inj=inj, instruments=(reg, tracer))
+    finally:
+        cluster_mod.cm = cm
+        for name in PASS_METHODS.values():
+            vars(cl).pop(name)
+    spans = json.loads(res["snapshot"])["spans"]
+    rows = {}
+    for kind, ms in buckets.items():
+        agg = spans.get(f"round/pass[kind={kind}]")
+        check(agg is not None and agg["count"] == len(ms),
+              f"{kind}: {len(ms)} timed passes, spans {agg}")
+        modeled = agg["total_s"] / agg["count"] * 1e3
+        one = one_card[kind] / len(ms) * 1e3
+        measured = statistics.median(ms)
+        rows[kind] = {"passes": len(ms), "modeled_ms": modeled, "modeled_ms_one_h100": one,
+                      "measured_median_wall_ms": measured,
+                      "measured_over_modeled": measured / modeled,
+                      "measured_over_modeled_one_h100": measured / one}
+    steps = [(n, tag) for p, n, tag in inj.trace if p == "engine.step"]
+    return rows, steps, dict(calls)
+
+
+def link_rates(nbytes: int = 1 << 28) -> dict:
+    """Measured GB/s of what `HardwareModel`'s host figures describe: a copy
+    in host memory and pinned copies over the host link, each direction."""
+    import torch
+    host_a = torch.empty(nbytes, dtype=torch.uint8)
+    host_b = torch.empty(nbytes, dtype=torch.uint8)
+    pinned = torch.empty(nbytes, dtype=torch.uint8, pin_memory=True)
+    dev = torch.empty(nbytes, dtype=torch.uint8, device="cuda")
+
+    def rate(fn):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(3):
+            fn()
+        torch.cuda.synchronize()
+        return 3 * nbytes / (time.perf_counter() - t) / 1e9
+
+    return {"host_memcpy_gb_s": rate(lambda: host_b.copy_(host_a)),
+            "pinned_to_device_gb_s": rate(lambda: dev.copy_(pinned, non_blocking=True)),
+            "device_to_pinned_gb_s": rate(lambda: pinned.copy_(dev, non_blocking=True))}
+
+
+def run_telemetry(cfg, dev: str, lens, generator, sync, pool_blocks: int = 1024) -> dict:
+    """(a)-(d) of the `telemetry` phase for `lens`-long prompts (32 new
+    tokens each, at most 8 active) on `dev`.  Launches are checked on a
+    card only."""
+    from repro_torch.core.dejavulib.transport import DEFAULT_HW
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving import ServingEngine
+    model = DecoderLM(cfg, device=dev)
+    params = model.init(generator)
+
+    def trace():
+        return _requests(lens, 32, cfg.vocab_size, seed=3)
+
+    eng = ServingEngine(cfg, model, params, 2, paged=True, kv_pool_blocks=pool_blocks,
+                        device=dev)
+    eng.run_continuous(_requests([70, 9], 3, cfg.vocab_size, seed=7), max_active=2)   # warm-up
+    runs = {m: [] for m in TELEMETRY_MODES}
+    order = []
+    for r in range(TELEMETRY_ROUNDS):
+        order += TELEMETRY_MODES[::-1] if r % 2 else TELEMETRY_MODES
+    for mode in order:
+        reset_launches()
+        res = observed_run(eng, trace, mode, sync)
+        res["launches"] = dict(LAUNCHES)
+        runs[mode].append(res)
+    first = runs["instrumented"][0]
+    for again in runs["instrumented"][1:]:
+        check(again["snapshot"] == first["snapshot"], "instrumented runs gave other snapshots")
+        check(again["trace"] == first["trace"], "instrumented runs gave other dumps")
+    want = serve_expected_launches(eng, first["report"].pass_counts)
+    if dev != "cpu":
+        check(first["launches"] == want, f"launches {first['launches']}, the passes say {want}")
+    tokens = first["report"].tokens
+    for mode, rs in runs.items():
+        check(all(r["report"].tokens == tokens for r in rs), f"{mode}: other tokens")
+        check(all(r["launches"] == first["launches"] for r in rs), f"{mode}: other launches")
+    snap = json.loads(first["snapshot"])
+    dump = json.loads(first["trace"])
+    out = {"hardware_model": dataclasses.asdict(DEFAULT_HW),
+           "identical_snapshots_and_dumps": True,
+           "snapshot_bytes": len(first["snapshot"]), "trace_bytes": len(first["trace"]),
+           "trace_events": sum(t["emitted"] for t in dump["tracks"].values()),
+           "turn_order": order,
+           "tokens_per_s_in_turns": {m: [r["tokens_per_s"] for r in rs]
+                                     for m, rs in runs.items()},
+           "median_tokens_per_s": {m: statistics.median(r["tokens_per_s"] for r in rs)
+                                   for m, rs in runs.items()},
+           "modeled_clock_s": snap["clock_s"],
+           "modeled_h100_datasheet_slo": slo_quantiles(snap)}
+    rows, steps, calls = modeled_against_measured(eng, trace, sync)
+    out["pass_times_modeled_vs_measured"] = rows
+    # the instruments' host cost: each recording method's calls in one run
+    # times its measured cost per call, against the run's wall time
+    us = per_call_us(cfg)
+    passes = sum(n for k, n in first["report"].pass_counts.items() if k != "one_token")
+    cost_s = (sum(n * us[k] for k, n in calls.items()) + passes * us["costmodel"]) / 1e6
+    wall = statistics.median(r["wall_s"] for r in runs["instrumented"])
+    out["instrument_cost"] = {"calls_per_run": calls, "per_call_us": us, "passes": passes,
+                              "estimated_s_per_run": cost_s, "run_wall_s": wall,
+                              "estimated_share": cost_s / wall}
+    # (d): a recover-style run, worker 1 lost before a fused decode pass
+    fail_at = fail_points(steps)["fail_decode_w1"]
+    rep_eng = ServingEngine(cfg, model, params, 2, paged=True, kv_pool_blocks=pool_blocks,
+                            replication=True, device=dev)
+    res = observed_run(rep_eng, trace, "instrumented", sync, fail_at=fail_at)
+    fsnap = json.loads(res["snapshot"])
+    check(res["report"].recoveries == 1 and
+          fsnap["histograms"]["cluster.recovery_s"]["count"] == 1, "no modeled recovery time")
+    out["recover_run"] = {"fail_at": fail_at, "tokens_per_s": res["tokens_per_s"],
+                          "modeled_h100_datasheet_slo": slo_quantiles(fsnap),
+                          "wall_recovery": res["report"].recovery_log[0]}
+    return out
+
+
+def phase_telemetry(state: dict) -> dict:
+    """`serve`'s model and trace (gpt2-1.5b, 48 layers, bf16, 2 workers),
+    with the telemetry registry and the tracer: (a) every instrumented run
+    must give the same snapshot and dump, byte for byte, and launch the
+    kernels as its passes say; (b) tokens/s instrumented and with the
+    engine's own registry, in `TELEMETRY_ROUNDS` rounds of turns, all with
+    the same tokens, and the instruments' host cost from their calls; (c)
+    each pass kind's modeled time, for the engine's 8-GPU stage and for
+    one H100, beside its measured median wall time; (d) the modeled SLO quantiles of
+    a run with replication whose worker 1 dies before a fused decode pass.
+    Modeled times use the H100 datasheet figures (`DEFAULT_HW`)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]   # serve's
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), dtype="bfloat16")
+    out = {"config": "gpt2-1.5b, 48 layers, bf16, 2 workers, serve's trace",
+           **run_telemetry(cfg, "cuda", lens, torch.Generator(device="cuda").manual_seed(0),
+                           torch.cuda.synchronize)}
+    out["link_rates_measured"] = link_rates()
+    return out
+
+
 KERNEL_META = {
     "batched_decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                  "src/repro/kernels/decode_attention.py:179"),
@@ -1688,7 +2019,8 @@ def main() -> int:
     fns = {"env": phase_env, "kernels": phase_kernels, "parity": phase_parity,
            "serve": phase_serve, "mb_parity": phase_mb_parity, "mb_serve": phase_mb_serve,
            "ssm_parity": phase_ssm_parity, "ssm_serve": phase_ssm_serve,
-           "recover": phase_recover, "mb_recover": phase_mb_recover}
+           "recover": phase_recover, "mb_recover": phase_mb_recover,
+           "telemetry": phase_telemetry}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     if "env" not in phases:
         phases.insert(0, "env")

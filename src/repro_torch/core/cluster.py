@@ -19,8 +19,15 @@ the new worker, the controller finds the last replicated step, and every
 stage rolls back to it.  The same machinery migrates a straggler, and
 `repartition` re-splits the token pipeline through DéjàVuLib's streams.
 
-Tiers, swapping and disaggregation on the paged path, and the modeled
-clock are later slices and raise NotImplementedError where asked for.
+Every pass runs inside a ``pass`` span of the telemetry registry and the
+tracer (kinds ``mb_prefill``, ``mb_decode``, ``prefill_<mode>``,
+``perseq_decode``, ``fused_decode``, ``chunkset``) and advances the modeled
+clock by the cost model's time for it (`costmodel`, with `hw`, one stage
+on an 8-GPU node), at the reference's call sites with its arguments; a
+kill marks the clock for the engine's ``cluster.recovery_s``.
+
+Tiers, swapping and disaggregation on the paged path are later slices and
+raise NotImplementedError where asked for.
 """
 from __future__ import annotations
 
@@ -33,13 +40,21 @@ import torch
 
 from repro_torch import not_ported, resolve_device
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import costmodel as cm
+from repro_torch.core import telemetry, tracing
 from repro_torch.core.controller import Controller
 from repro_torch.core.dejavulib import (NetworkTransport, PipelineTopo, StreamEngine, faults,
                                         stream_in, stream_in_blocks, stream_out,
                                         stream_out_blocks)
+from repro_torch.core.dejavulib.transport import DEFAULT_HW, HardwareModel
 from repro_torch.core.worker import StageWorker
 from repro_torch.kvcache.cache import decode_state_shapes, state_bytes
 from repro_torch.kvcache.paged import BlockPool, PoolExhausted, blocks_for
+
+
+# the chips one pipeline stage's modeled pass runs on: an 8-GPU node
+# (`planner.MachineSpec`)
+_STAGE_CHIPS = 8
 
 
 def _stage_ranges(num_layers: int, depth: int) -> List[Tuple[int, int]]:
@@ -65,7 +80,8 @@ class DejaVuCluster:
                  host_cache_blocks: Optional[int] = None,
                  ssd_cache_blocks: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
-                 fused_rounds: Optional[bool] = None, device="cuda"):
+                 fused_rounds: Optional[bool] = None, hw: HardwareModel = DEFAULT_HW,
+                 device="cuda"):
         if mode not in ("colocated", "disaggregated"):
             raise ValueError(f"mode must be 'colocated' or 'disaggregated', not {mode!r}")
         if mode == "disaggregated" and (dp_split is None or sum(dp_split) != n_workers):
@@ -87,6 +103,7 @@ class DejaVuCluster:
         self.swapping = swapping
         self.replication = replication
         self.compress_replicas = compress_replicas
+        self.hw = hw
         self.paged = paged
         self.kv_block_size = kv_block_size or cfg.kv_block_size
         self.kv_pool_blocks = kv_pool_blocks or cfg.kv_pool_blocks or 512
@@ -96,7 +113,7 @@ class DejaVuCluster:
         self.fused_rounds = cfg.fused_rounds if fused_rounds is None else fused_rounds
         self.streamer = StreamEngine("cluster", device=self.device)
         self.controller = Controller()
-        self.net = NetworkTransport()
+        self.net = NetworkTransport(hw)
         if mode == "colocated":
             self.prompt_group = self.token_group = self._build_group(n_workers, wid0=0)
         else:
@@ -130,6 +147,12 @@ class DejaVuCluster:
         self.recovery_log: List[dict] = []
         # wall seconds spent in replication rounds, the drain barrier included
         self.replication_s = 0.0
+        # modeled prefill seconds this round (the engine resets it)
+        self.round_prefill_model_s = 0.0
+        # the modeled clock at each delivered kill; the engine closes each
+        # into a `cluster.recovery_s` observation at the first token emitted
+        # after the recovery (the paper's fail -> first restored token)
+        self._recovery_marks: List[float] = []
 
     # ------------------------------------------------------------------
     def workers(self) -> List[StageWorker]:
@@ -158,7 +181,7 @@ class DejaVuCluster:
 
     def _worker(self, wid: int, lo: int, hi: int, first: bool, last: bool) -> StageWorker:
         return StageWorker(wid, self.model, self.params, lo, hi, first=first, last=last,
-                           device=self.device, streamer=self.streamer,
+                           hw=self.hw, device=self.device, streamer=self.streamer,
                            compress_replicas=self.compress_replicas)
 
     def _build_group(self, depth: int, wid0: int) -> List[StageWorker]:
@@ -185,10 +208,15 @@ class DejaVuCluster:
         self.mb_pos[mb] = plen
         self.mb_prompt_len[mb] = plen
         self.mb_max_len[mb] = max_len
-        x = tokens
-        for w in self.prompt_group:
-            x = w.prefill(mb, x, max_len)
-        self._count_pass("mb_prefill", plen)
+        with telemetry.span("pass", kind="mb_prefill"), \
+                tracing.span("pass", kind="mb_prefill", mb=mb, batch=b):
+            x = tokens
+            for w in self.prompt_group:
+                x = w.prefill(mb, x, max_len)
+            self._count_pass("mb_prefill", plen)
+            telemetry.advance(cm.stage_prompt_time(
+                self.cfg, cm.WorkloadSpec(prompt_len=plen, new_tokens=1, microbatch=b),
+                self.cfg.num_layers, _STAGE_CHIPS, self.hw))
         if self.mode == "disaggregated":
             self._stream_prompt_kv(mb, plen)
         if self.replication:
@@ -226,13 +254,19 @@ class DejaVuCluster:
         swapping the KV comes in from host memory and the new token's window
         goes back out.  Returns logits [B,V]."""
         pos = self.mb_pos[mb]
-        if self.swapping:
+        with telemetry.span("pass", kind="mb_decode"), \
+                tracing.span("pass", kind="mb_decode", mb=mb, step=step):
+            if self.swapping:
+                for w in self.token_group:
+                    w.restore(mb)
+            x = self._tokens(token)
             for w in self.token_group:
-                w.restore(mb)
-        x = self._tokens(token)
-        for w in self.token_group:
-            x = w.decode(mb, x, pos)
-        self._count_pass("mb_decode", 1)
+                x = w.decode(mb, x, pos)
+            self._count_pass("mb_decode", 1)
+            telemetry.advance(cm.stage_token_time(
+                self.cfg, cm.WorkloadSpec(prompt_len=max(pos, 1), new_tokens=1,
+                                          microbatch=self.mb_batch.get(mb, 1)),
+                self.cfg.num_layers, _STAGE_CHIPS, pos + 1, self.hw))
         self.mb_pos[mb] = pos + 1
         if self.replication:
             self._replicate(mb, (pos, pos + 1), step=step)
@@ -302,33 +336,40 @@ class DejaVuCluster:
         Returns the prefill logits once the prompt is done, else None."""
         st = self._pending_prefill[rid]
         plen, pos = st["plen"], st["pos"]
-        if st["mode"] == "batch":
-            x = self._tokens(st["prompt"])[None]
-            token_ids = [int(t) for t in st["prompt"]]
-            for w in self.prompt_group:
-                x, _ = w.prefill_paged(rid, x, token_ids=token_ids)
-            c = plen
-            self._count_pass("prefill_batch", c)
-        else:
-            c = min(self.prefill_chunk_tokens, plen - pos)
-            x = self._tokens(st["prompt"][pos:pos + c])[None]
-            for w in self.prompt_group:
-                x = w.prefill_chunk_paged(rid, x, pos)
-            self._count_pass("prefill_chunk", c)
-        st["x"] = x
-        self._after_prefill_pass(rid, st, c)
+        with telemetry.span("pass", kind=f"prefill_{st['mode']}"), \
+                tracing.span("pass", rid=rid, kind=f"prefill_{st['mode']}", pos=pos,
+                             plen=plen):
+            if st["mode"] == "batch":
+                x = self._tokens(st["prompt"])[None]
+                token_ids = [int(t) for t in st["prompt"]]
+                for w in self.prompt_group:
+                    x, _ = w.prefill_paged(rid, x, token_ids=token_ids)
+                c = plen
+                self._count_pass("prefill_batch", c)
+            else:
+                c = min(self.prefill_chunk_tokens, plen - pos)
+                x = self._tokens(st["prompt"][pos:pos + c])[None]
+                for w in self.prompt_group:
+                    x = w.prefill_chunk_paged(rid, x, pos)
+                self._count_pass("prefill_chunk", c)
+            st["x"] = x
+            self._after_prefill_pass(rid, st, c)
         if st["pos"] < plen:
             return None
         return self._finish_prefill(rid)
 
     def _after_prefill_pass(self, rid: int, st: dict, n_q: int) -> None:
-        """Advance the cursor and, in chunk mode, publish the prefix hashes
-        of the blocks whose pages the cursor just completed (a whole-prompt
-        pass publishes them as it allocates)."""
+        """Advance the cursor, in chunk mode publish the prefix hashes of the
+        blocks whose pages the cursor just completed (a whole-prompt pass
+        publishes them as it allocates), and charge the modeled pass time."""
         st["pos"] += n_q
         if st["mode"] == "chunk":
             for w in self.prompt_group:
                 w.publish_prefix_hashes(rid, self.seq_hashes[rid], st["pos"])
+        t = cm.chunked_prefill_pass_time(self.cfg, n_q, st["pos"], self.cfg.num_layers,
+                                         _STAGE_CHIPS, self.hw)
+        self.round_prefill_model_s += t
+        telemetry.advance(t)
 
     def _finish_prefill(self, rid: int) -> torch.Tensor:
         st = self._pending_prefill.pop(rid)
@@ -358,14 +399,19 @@ class DejaVuCluster:
         """One decode step for one sequence.  Raises PoolExhausted before
         mutating any pool, so the engine can preempt a victim and retry."""
         pos = self.seq_len[rid]
-        for w in self.token_group:
-            if w.pool.append_needs_block(rid) and w.pool.num_free() == 0:
-                raise PoolExhausted(f"worker {w.wid} pool full (seq {rid})")
-        x = self._tokens(token)
-        for w in self.token_group:
-            x = w.decode_paged(rid, x, pos)
-        self.seq_len[rid] = pos + 1
-        self._count_pass("perseq_decode", 1)
+        with telemetry.span("pass", kind="perseq_decode"), \
+                tracing.span("pass", rid=rid, seq=step, kind="perseq_decode"):
+            for w in self.token_group:
+                if w.pool.append_needs_block(rid) and w.pool.num_free() == 0:
+                    raise PoolExhausted(f"worker {w.wid} pool full (seq {rid})")
+            x = self._tokens(token)
+            for w in self.token_group:
+                x = w.decode_paged(rid, x, pos)
+            self.seq_len[rid] = pos + 1
+            self._count_pass("perseq_decode", 1)
+            telemetry.advance(cm.stage_token_time(
+                self.cfg, cm.WorkloadSpec(prompt_len=max(pos, 1), new_tokens=1, microbatch=1),
+                self.cfg.num_layers, _STAGE_CHIPS, pos + 1, self.hw))
         if self.replication:
             self._replicate_paged(rid, step=step, pos=pos)
         self._heartbeats()
@@ -377,18 +423,25 @@ class DejaVuCluster:
         Capacity is pre-flighted across the whole batch, so PoolExhausted
         raises before any pool mutates.  Returns logits [B,V]."""
         poses = [self.seq_len[rid] for rid in rids]
-        for w in self.token_group:
-            need = sum(1 for rid in rids if w.pool.append_needs_block(rid))
-            if need > w.pool.num_free():
-                raise PoolExhausted(
-                    f"worker {w.wid} pool cannot absorb a fused round of "
-                    f"{len(rids)} appends ({need} needed, {w.pool.num_free()} free)")
-        x = self._tokens(tokens)
-        for w in self.token_group:
-            x = w.decode_paged_batch(rids, x, poses)
-        for rid, pos in zip(rids, poses):
-            self.seq_len[rid] = pos + 1
-        self._count_pass("fused_decode", 1)
+        with telemetry.span("pass", kind="fused_decode"), \
+                tracing.span("pass", kind="fused_decode", rids=list(rids)):
+            for w in self.token_group:
+                need = sum(1 for rid in rids if w.pool.append_needs_block(rid))
+                if need > w.pool.num_free():
+                    raise PoolExhausted(
+                        f"worker {w.wid} pool cannot absorb a fused round of "
+                        f"{len(rids)} appends ({need} needed, {w.pool.num_free()} free)")
+            x = self._tokens(tokens)
+            for w in self.token_group:
+                x = w.decode_paged_batch(rids, x, poses)
+            for rid, pos in zip(rids, poses):
+                self.seq_len[rid] = pos + 1
+            self._count_pass("fused_decode", 1)
+            # the mean context of the batch, as the reference rounds it
+            ctx = max(1, (sum(poses) + len(poses)) // max(len(poses), 1))
+            telemetry.advance(cm.decode_round_time(self.cfg, len(rids), ctx,
+                                                   self.cfg.num_layers, _STAGE_CHIPS, self.hw,
+                                                   fused=True))
         if self.replication:
             for rid, step, pos in zip(rids, steps, poses):
                 self._replicate_paged(rid, step=step, pos=pos)
@@ -401,6 +454,11 @@ class DejaVuCluster:
         """Advance the staged prefills of all `rids` by one chunk each in ONE
         pipeline pass.  Ragged chunks are padded to the longest and masked
         inside the pass.  Returns {rid: prefill logits | None}."""
+        with telemetry.span("pass", kind="chunkset"), \
+                tracing.span("pass", kind="chunkset", rids=list(rids)):
+            return self._prefill_chunkset_pass(rids)
+
+    def _prefill_chunkset_pass(self, rids: List[int]) -> Dict[int, Optional[torch.Tensor]]:
         sts = [self._pending_prefill[r] for r in rids]
         ck = self.prefill_chunk_tokens
         cs = [min(ck, st["plen"] - st["pos"]) for st in sts]
@@ -486,7 +544,14 @@ class DejaVuCluster:
         return now
 
     def inject_failure(self, wid: int) -> None:
+        # an observation point only: a recorded trace and `fault_trace` show
+        # every delivered kill, whatever path asked for it
         faults.fire("cluster.fail", tag=f"w{wid}")
+        tracing.event("cluster.kill", wid=wid)
+        t = telemetry.current()
+        if t is not None:
+            self._recovery_marks.append(t.clock_s)
+            t.count("cluster.failures", 1)
         for w in self.workers():
             if w.wid == wid:
                 self._sync()
@@ -501,8 +566,15 @@ class DejaVuCluster:
         rid: step to resume from} (empty if no worker failed)."""
         resume: Dict[int, int] = {}
         for wid in self.controller.check_failures():
-            resume.update(self._recover_worker(wid, active))
+            with tracing.span("recovery", wid=wid):
+                resume.update(self._recover_worker(wid, active))
         return resume
+
+    def take_recovery_marks(self) -> List[float]:
+        """Drain the clock marks of the kills delivered since the last call
+        (see `inject_failure`)."""
+        marks, self._recovery_marks = self._recovery_marks, []
+        return marks
 
     def _replace(self, group: List[StageWorker], idx: int) -> StageWorker:
         """A fresh worker in place of `group[idx]`: its weights are views of

@@ -8,11 +8,13 @@ from repro_torch.core.dejavulib.primitives import (CacheChunk, PipelineTopo, fet
                                                    stream_in_blocks, stream_out,
                                                    stream_out_blocks)
 from repro_torch.core.dejavulib.streamer import StreamEngine
-from repro_torch.core.dejavulib.transport import (HostLinkTransport, LocalTransport,
+from repro_torch.core.dejavulib.transport import (DEFAULT_HW, HardwareModel,
+                                                  HostLinkTransport, LocalTransport,
                                                   NetworkTransport, Transport)
 
-__all__ = ["HostMemoryStore", "CacheChunk", "PipelineTopo", "fetch", "flush",
-           "plan_repartition", "scatter", "stream_in", "stream_out", "stream_in_blocks",
-           "stream_out_blocks", "HostLinkTransport", "LocalTransport", "NetworkTransport",
-           "Transport", "StreamEngine", "faults", "FaultInjected", "FaultInjector",
-           "FaultPlan", "FaultSpec", "FiredFault", "StreamTaskError", "assert_no_leaks"]
+__all__ = ["DEFAULT_HW", "HardwareModel", "HostMemoryStore", "CacheChunk", "PipelineTopo",
+           "fetch", "flush", "plan_repartition", "scatter", "stream_in", "stream_out",
+           "stream_in_blocks", "stream_out_blocks", "HostLinkTransport", "LocalTransport",
+           "NetworkTransport", "Transport", "StreamEngine", "faults", "FaultInjected",
+           "FaultInjector", "FaultPlan", "FaultSpec", "FiredFault", "StreamTaskError",
+           "assert_no_leaks"]

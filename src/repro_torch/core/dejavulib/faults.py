@@ -1,5 +1,5 @@
 """Deterministic fault injection (the port's copy of
-`repro.core.dejavulib.faults`, without the telemetry and tracing calls).
+`repro.core.dejavulib.faults`).
 
 Named **injection points** are fired from the streaming hot paths; each
 point keeps a deterministic per-run occurrence count, and a `FaultPlan`
@@ -44,6 +44,8 @@ import threading
 from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Callable, Dict, Iterable, List, Optional, Tuple
+
+from repro_torch.core import telemetry, tracing
 
 FAULT_KINDS = ("error", "task_error", "worker_death", "drop", "corrupt",
                "ssd_write", "delay")
@@ -174,6 +176,12 @@ class FaultInjector:
                 self.fired.append(FiredFault(point, n, spec.kind, tag, spec.wid))
         if spec is None:
             return None
+        telemetry.count("faults.fired", 1, kind=spec.kind, point=point)
+        if tracing.active():
+            # every realised fault becomes a trace instant on the firing
+            # thread's track, beside the passes it disrupted
+            tracing.event(f"fault.{spec.kind}", point=point, n=n, tag=tag,
+                          **({} if spec.wid is None else {"wid": spec.wid}))
         # actions run outside the lock: worker_killer may re-enter fire()
         # (inject_failure fires "cluster.fail")
         if spec.kind == "worker_death":

@@ -106,17 +106,18 @@ def plan_repartition(src: PipelineTopo, dst: PipelineTopo
 # flush / fetch: one contiguous chunk
 # ---------------------------------------------------------------------------
 
-def flush(t: torch.Tensor, store: HostMemoryStore, key: str, transport: Transport) -> int:
+def flush(t: torch.Tensor, store: HostMemoryStore, key: str, transport: Transport, *,
+          tag: str = "") -> int:
     """Copy one chunk into a (possibly remote) host store; returns bytes."""
-    out = transport.transfer(t)
+    out = transport.transfer(t, tag=tag or key)
     store.put(key, out)
     return out.numel() * out.element_size()
 
 
-def fetch(store: HostMemoryStore, key: str, transport: Transport, *,
+def fetch(store: HostMemoryStore, key: str, transport: Transport, *, tag: str = "",
           device="cpu") -> torch.Tensor:
     """A copy of one stored chunk on `device`."""
-    return transport.transfer(store.get(key), device=device)
+    return transport.transfer(store.get(key), device=device, tag=tag or key)
 
 
 # ---------------------------------------------------------------------------

@@ -19,10 +19,16 @@ tasks nobody waits on are raised at the next `drain()` or `close()` as
 Fault injection: `submit`, the worker loop, `wait` and `drain` fire the
 ``stream.submit``, ``stream.task``, ``stream.wait`` and ``stream.drain``
 points (`faults`).  A task that fails with a transient fault
-(`faults.RETRYABLE_KINDS`) is retried once.
+(`faults.RETRYABLE_KINDS`) is retried once; a ``delay`` adds its seconds to
+the task's modeled time.
 
-The reference's modeled streaming time (`model_seconds`, `compute_span`,
-`overlap_report`) waits for the H100 cost model (ROADMAP A.7).
+Modeled time: each task carries a `model_seconds` estimate (its transfers'
+`HardwareModel` time); `overlap_report()` holds the streamed total against
+the compute registered through `compute_span()`, and the exposed remainder
+is what DéjàVu's streaming optimisations minimise.  From the worker thread
+the engine records only integer-ns counters (``stream.*``) and the
+``stream.task`` trace event on the streamer track, never the modeled clock
+or a span, so snapshots stay byte-identical from run to run.
 """
 from __future__ import annotations
 
@@ -34,6 +40,7 @@ from typing import Callable, List, Optional
 
 import torch
 
+from repro_torch.core import telemetry, tracing
 from repro_torch.core.dejavulib import faults
 from repro_torch.core.dejavulib.faults import StreamTaskError
 
@@ -43,6 +50,7 @@ __all__ = ["StreamEngine", "StreamTaskError"]
 @dataclass
 class _Task:
     fn: Callable[[], object]
+    model_seconds: float
     tag: str
     done: threading.Event = field(default_factory=threading.Event)
     result: object = None
@@ -62,6 +70,8 @@ class StreamEngine:
         self._closed = False
         self._submit_lock = threading.Lock()
         self.busy_s = 0.0                # wall seconds the worker thread ran tasks
+        self._stream_model_time = 0.0
+        self._compute_model_time = 0.0
         self._thread = threading.Thread(target=self._run, daemon=True,
                                         name=f"dejavu-{name}")
         self._thread.start()
@@ -79,11 +89,15 @@ class StreamEngine:
             if task is None:
                 return
             t0 = time.perf_counter()
+            extra_model = 0.0
             try:
-                faults.fire("stream.task", tag=task.tag)
+                spec = faults.fire("stream.task", tag=task.tag)
+                if spec is not None and spec.kind == "delay":
+                    extra_model = spec.delay_s   # an injected straggler
                 task.result = task.fn()
             except faults.FaultInjected as e:
                 if e.spec.kind in faults.RETRYABLE_KINDS:
+                    telemetry.count("stream.retries")
                     try:                 # transient fault: one retry
                         task.result = task.fn()
                     except BaseException as e2:   # noqa: BLE001 -- surfaced on wait/drain
@@ -92,15 +106,31 @@ class StreamEngine:
                     task.error = e
             except BaseException as e:   # noqa: BLE001 -- surfaced on wait/drain/close
                 task.error = e
+            if task.error is not None:
+                telemetry.count("stream.task_errors")
+            model = task.model_seconds + extra_model
             with self._lock:
                 self.busy_s += time.perf_counter() - t0
+                self._stream_model_time += model
                 if task.error is not None:
                     self._errors.append(task)
+            # integer-ns counters only from this thread: no span, no clock
+            telemetry.count("stream.tasks_done")
+            telemetry.count_time("stream.model_ns", model)
+            if tracing.active():
+                # a non-owner thread: the event lands on the streamer track
+                # at that track's own cursor
+                tracing.event("stream.task", tag=task.tag, dur_ns=int(round(model * 1e9)),
+                              failed=task.error is not None)
             task.done.set()
 
-    def submit(self, fn: Callable[[], object], *, tag: str = "") -> _Task:
-        faults.fire("stream.submit", tag=tag)
-        t = _Task(fn, tag)
+    def submit(self, fn: Callable[[], object], *, model_seconds: float = 0.0,
+               tag: str = "") -> _Task:
+        spec = faults.fire("stream.submit", tag=tag)
+        if spec is not None and spec.kind == "delay":
+            model_seconds += spec.delay_s
+        t = _Task(fn, model_seconds, tag)
+        telemetry.count("stream.tasks_submitted")
         with self._submit_lock:
             if self._closed:
                 raise RuntimeError(f"stream engine {self.name!r} is closed; "
@@ -135,6 +165,19 @@ class StreamEngine:
                 f"{len(failed)} background stream task(s) failed on {self.name!r}; "
                 f"first: {first.tag!r} ({type(first.error).__name__}: {first.error})"
             ) from first.error
+
+    def compute_span(self, model_seconds: float) -> None:
+        """Register modeled compute time that streaming can hide behind."""
+        with self._lock:
+            self._compute_model_time += model_seconds
+
+    def overlap_report(self) -> dict:
+        """Modeled seconds streamed, computed, hidden and exposed."""
+        with self._lock:
+            hidden = min(self._stream_model_time, self._compute_model_time)
+            return {"stream_s": self._stream_model_time,
+                    "compute_s": self._compute_model_time,
+                    "hidden_s": hidden, "exposed_s": self._stream_model_time - hidden}
 
     def close(self) -> None:
         """Stop the worker thread.  Idempotent.  Raises if the thread does

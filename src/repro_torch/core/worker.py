@@ -11,6 +11,11 @@ its ring predecessor's KV copies (paper §4.2.3: worker x streams to worker
 Failure semantics (paper): killing a worker loses its device KV, its host
 store and the replica it hosts; a dead worker's stage ops raise
 `WorkerDead`.  The KV tiers of the reference are a later slice.
+
+Each stage op counts ``worker.stage_calls{wid}`` and, with a tracer
+installed, records a ``stage.<op>`` event on the worker's own track (the
+reference's op names, on both routes of the fused passes); a kill counts
+``worker.kills`` and records ``worker.kill``.
 """
 from __future__ import annotations
 
@@ -21,8 +26,10 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch import resolve_device, torch_dtype
+from repro_torch.core import telemetry, tracing
 from repro_torch.core.dejavulib import (HostLinkTransport, HostMemoryStore, LocalTransport,
                                         NetworkTransport, StreamEngine)
+from repro_torch.core.dejavulib.transport import DEFAULT_HW, HardwareModel
 from repro_torch.kernels import ops as kops
 from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.kvcache.paged import BlockPool, PagedKVCache, PoolExhausted, blocks_for
@@ -38,8 +45,8 @@ class CacheManager:
     """Per-worker KV movement: microbatch swapping (paper §4.2.2) over the
     host link, the paged path's block-granular swap, and ring replication
     over the network into the successor's replica store (§4.2.3).  The
-    transports count their bytes; the reference's modeled transfer time is
-    not ported.
+    transports count their bytes and charge modeled time (`hw`); each
+    replication task carries the modeled time of its bytes to the streamer.
 
     Replication runs on the cluster's `StreamEngine`: the window or block is
     produced on the compute stream, handed to the streamer's side stream
@@ -53,14 +60,14 @@ class CacheManager:
     window or block to int8 with one scale before it crosses the network
     and dequantises it into the peer's replica store."""
 
-    def __init__(self, wid: int, streamer: StreamEngine, token_block: int = 8,
-                 compress_replicas: bool = False):
+    def __init__(self, wid: int, streamer: StreamEngine, hw: HardwareModel = DEFAULT_HW,
+                 token_block: int = 8, compress_replicas: bool = False):
         self.wid = wid
         self.host = HostMemoryStore(f"w{wid}-host")
         self.replica = HostMemoryStore(f"w{wid}-replica")   # the predecessor's KV
-        self.hostlink = HostLinkTransport()
-        self.net = NetworkTransport()
-        self.local = LocalTransport()
+        self.hostlink = HostLinkTransport(hw)
+        self.net = NetworkTransport(hw)
+        self.local = LocalTransport(hw)
         self.streamer = streamer
         self.token_block = token_block
         self.compress_replicas = compress_replicas
@@ -74,20 +81,21 @@ class CacheManager:
         for leaf, arr in kv.items():
             key = f"swap/mb{mb}/{leaf}"
             if token_range is None:
-                self.host.put(key, self.hostlink.transfer(arr))
+                self.host.put(key, self.hostlink.transfer(arr, tag=key))
                 continue
             t0, t1 = token_range
             tb = self.token_block
             t0a = (t0 // tb) * tb
             w = min(-(-(t1 - t0a) // tb) * tb, arr.shape[2] - t0a)
-            packed = self.hostlink.transfer(kops.kv_pack_auto(arr, t0a, w, token_block=tb))
+            packed = self.hostlink.transfer(kops.kv_pack_auto(arr, t0a, w, token_block=tb),
+                                            tag=key)
             self.host.get(key)[:, :, t0a:t0a + w] = packed
 
     def swap_in(self, mb: int, device) -> Dict[str, torch.Tensor]:
         out = {}
         for leaf in ("k", "v"):
             key = f"swap/mb{mb}/{leaf}"
-            out[leaf] = self.hostlink.transfer(self.host.get(key), device=device)
+            out[leaf] = self.hostlink.transfer(self.host.get(key), device=device, tag=key)
         return out
 
     def host_has(self, mb: int) -> bool:
@@ -100,7 +108,7 @@ class CacheManager:
         for j, arrays in blocks.items():
             for leaf, arr in arrays.items():
                 key = f"pagedswap/seq{seq}/blk{j}/{leaf}"
-                self.host.put(key, self.hostlink.transfer(arr))
+                self.host.put(key, self.hostlink.transfer(arr, tag=key))
                 nbytes += arr.numel() * arr.element_size()
         return nbytes
 
@@ -111,7 +119,7 @@ class CacheManager:
             if key.startswith(prefix):
                 j, leaf = key[len(prefix):].split("/")
                 out.setdefault(int(j), {})[leaf] = self.hostlink.transfer(
-                    self.host.get(key), device=device)
+                    self.host.get(key), device=device, tag=key)
         return out
 
     def drop_seq_swap(self, seq: int) -> None:
@@ -132,6 +140,12 @@ class CacheManager:
         for t in tensors:
             t.record_stream(side)
         return ev
+
+    def _model_seconds(self, tensors) -> float:
+        """The modeled network time of replicating `tensors` (half the bytes
+        with int8 replicas)."""
+        raw = sum(t.numel() * t.element_size() for t in tensors)
+        return self.net.model_time(raw // 2 if self.compress_replicas else raw)
 
     def _send(self, buf: torch.Tensor, key: str) -> torch.Tensor:
         """One replica copy over the network into the peer's pageable host
@@ -169,7 +183,9 @@ class CacheManager:
                 peer.replica.get(key)[:, :, t0a:t0a + recv.shape[2]] = recv
             ack_cb(self.wid, mb, step)       # only once the copies have landed
 
-        self.streamer.submit(send, tag=f"rep-w{self.wid}-mb{mb}-s{step}")
+        self.streamer.submit(send, model_seconds=self._model_seconds(
+                                 [b for b, _, _ in packed.values()]),
+                             tag=f"rep-w{self.wid}-mb{mb}-s{step}")
 
     def replicate_block_to(self, peer: "CacheManager", seq: int, j: int,
                            arrays: Dict[str, torch.Tensor], step: int, ack_cb) -> None:
@@ -185,7 +201,8 @@ class CacheManager:
                 peer.replica.put(key, self._send(arr, key))
             ack_cb(self.wid, seq, step)
 
-        self.streamer.submit(send, tag=f"rep-w{self.wid}-seq{seq}-blk{j}-s{step}")
+        self.streamer.submit(send, model_seconds=self._model_seconds(arrays.values()),
+                             tag=f"rep-w{self.wid}-seq{seq}-blk{j}-s{step}")
 
     def replica_blocks(self, wid: int, seq: int) -> Dict[int, Dict[str, torch.Tensor]]:
         """Every replica block this store holds for (failed worker, seq)."""
@@ -209,7 +226,7 @@ class StageWorker:
     previous stage's activations; the last stage returns logits."""
 
     def __init__(self, wid: int, model, full_params, lo: int, hi: int, *,
-                 first: bool, last: bool, device="cuda",
+                 first: bool, last: bool, hw: HardwareModel = DEFAULT_HW, device="cuda",
                  streamer: Optional[StreamEngine] = None, compress_replicas: bool = False):
         self.wid = wid
         self.model = model
@@ -221,7 +238,8 @@ class StageWorker:
         # views of the full params where those already lie on the device
         self.sp = _to_device(model.slice_params(full_params, lo, hi, first=first,
                                                 last=last), self.device)
-        self.cache = CacheManager(wid, streamer or StreamEngine(f"w{wid}", self.device),
+        self.hw = hw
+        self.cache = CacheManager(wid, streamer or StreamEngine(f"w{wid}", self.device), hw,
                                   compress_replicas=compress_replicas)
         self.kv: Dict[int, Dict[str, torch.Tensor]] = {}   # microbatch -> stage KV
         self.pool: BlockPool = None
@@ -237,14 +255,22 @@ class StageWorker:
     def kill(self) -> None:
         """Machine failure: the device KV, the host store and the hosted
         replica all die."""
+        telemetry.count("worker.kills", 1, wid=self.wid)
+        tracing.event("worker.kill", wid=self.wid)
         self.alive = False
         self.kv.clear()
         self.cache.host.clear()
         self.cache.replica.clear()
 
-    def _check(self) -> None:
+    def _check(self, op: Optional[str] = None, **ids: int) -> None:
         if not self.alive:
             raise WorkerDead(f"worker {self.wid} is dead")
+        # every stage op passes through here
+        telemetry.count("worker.stage_calls", 1, wid=self.wid)
+        if op is not None and tracing.active():
+            # one track per worker: instants at the modeled clock of the
+            # enclosing pass span
+            tracing.event(f"stage.{op}", track=f"w{self.wid}", **ids)
 
     def _stage(self, fn, x_or_tokens, *args, tok_kw: str):
         if self.first:
@@ -258,7 +284,7 @@ class StageWorker:
     def prefill(self, mb: int, x_or_tokens, max_len: int):
         """Whole-prompt prefill of a microbatch; its K/V lands at the head of
         a zero cache of `max_len` slots, [Lstage,B,max_len,H,D]."""
-        self._check()
+        self._check("prefill", mb=mb)
         x, ks, vs = self._stage(self.model.stage_prefill, x_or_tokens, tok_kw="tokens")
         slot = init_decode_state(self.model.cfg, ks.shape[1], max_len, device=self.device,
                                  layers=self.hi - self.lo)["kv"]
@@ -269,7 +295,7 @@ class StageWorker:
 
     def decode(self, mb: int, x_or_token, pos: int):
         """One decode step of a microbatch at the shared position `pos`."""
-        self._check()
+        self._check("decode", mb=mb)
         slot = self.kv[mb]
         x, _, _ = self._stage(self.model.stage_decode, x_or_token, slot["k"], slot["v"],
                               pos, tok_kw="token")
@@ -304,7 +330,7 @@ class StageWorker:
         """Whole-prompt prefill of one request (batch 1) into pool blocks;
         with `token_ids`, full prompt blocks whose prefix is live are
         shared.  Returns (x, fresh blocks)."""
-        self._check()
+        self._check("prefill_paged", rid=seq)
         x, ks, vs = self._stage(self.model.stage_prefill, x_or_tokens, tok_kw="tokens")
         _, fresh = self.pool.allocate(seq, ks.shape[2], token_ids=token_ids)
         # shared blocks already hold these values (same prefix, same
@@ -338,7 +364,7 @@ class StageWorker:
         """One chunk [pos0, pos0+C) of a paged prefill: gather the pages,
         run the chunk stage function, and write the chunk's K/V window back
         through kv_pack.  Requires `ensure_prefill_table` first."""
-        self._check()
+        self._check("prefill_chunk", rid=seq)
         c = int(x_or_tokens.shape[1])
         pad_to = len(self.pool.tables[seq]) * self.pool.block_size
         dense = self.pages.gather_dense(seq, pad_to)
@@ -376,7 +402,7 @@ class StageWorker:
         """One decode step of one sequence (the per-sequence path): append a
         slot (copy-on-write if the tail block is shared), gather, run the
         stage, write the new token's K/V back into its block."""
-        self._check()
+        self._check("decode_paged", rid=seq)
         self.pages.apply_cow(self.pool.append(seq))
         pad_to = len(self.pool.tables[seq]) * self.pool.block_size
         dense = self.pages.gather_dense(seq, pad_to)
@@ -405,7 +431,7 @@ class StageWorker:
         in place; otherwise the pages are gathered dense and the new-token
         K/V windows go back through one ragged buffered copy per leaf.  The
         cluster pre-flights pool capacity for the whole batch first."""
-        self._check()
+        self._check("decode_batch", n=len(seqs))
         for seq in seqs:
             self.pages.apply_cow(self.pool.append(seq))
         pos = torch.tensor(list(poses), dtype=torch.int32, device=self.device)
@@ -448,7 +474,7 @@ class StageWorker:
         stage reads and writes its pages in place; otherwise the pages are
         gathered dense and each window goes back into its own pages.
         Requires `ensure_prefill_table` first."""
-        self._check()
+        self._check("chunkset", n=len(seqs))
         pos = torch.tensor(pos0s, dtype=torch.int32, device=self.device)
         ql = torch.tensor(q_lens, dtype=torch.int32, device=self.device)
         if self.reads_pages():

@@ -25,8 +25,20 @@ loops (``replication=True``): ``fail_at={step: wid}``, or a `FaultPlan` /
 last replicated step and regenerates the same tokens.  Only `WorkerDead`
 starts a recovery; any other error propagates.  `run` also takes
 ``migrate_at`` (straggler migration) and ``repartition_at`` (elastic
-re-split of the token pipeline).  Telemetry and tracing with the modeled
-clock are a later slice.
+re-split of the token pipeline).
+
+Telemetry and tracing: each run records into the process-wide registry
+(`core.telemetry`), an ambient one if installed (it is reused and left
+installed, so runs aggregate into it), else a fresh one for the run.
+Rounds and passes are spans on the modeled clock, which the cluster
+advances by the cost model's time for each pass (`hw`, by default the
+H100's datasheet figures); at each emitted token the
+engine observes ``engine.ttft_s``, ``engine.inter_token_s`` and, at the
+first token after a kill, ``cluster.recovery_s``.  A tracer installed
+around the run (`core.tracing`) records the same events per request.
+`EngineReport.telemetry` holds the registry's snapshot
+(``repro.telemetry/v1``) and `prefill_stall_trace` the modeled prefill
+seconds of each round that decoded.
 """
 from __future__ import annotations
 
@@ -37,8 +49,10 @@ from typing import Callable, Dict, List, Optional, Tuple
 import numpy as np
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.core import telemetry, tracing
 from repro_torch.core.cluster import DejaVuCluster
 from repro_torch.core.dejavulib import faults
+from repro_torch.core.dejavulib.transport import DEFAULT_HW, HardwareModel
 from repro_torch.core.worker import WorkerDead
 from repro_torch.kvcache.paged import PoolExhausted
 from repro_torch.serving.request import Microbatch, Request, form_microbatches
@@ -68,6 +82,15 @@ class EngineReport:
     # recovery step (DejaVuCluster.recovery_log) and, under
     # "first_token_ms", from the kill to the first token emitted after it
     recovery_log: List[dict] = field(default_factory=list)
+    # one entry per continuous-batching round that ran a decode step: the
+    # modeled prefill seconds co-scheduled in that round (the stall a long
+    # prompt inflicts on the decodes; chunking bounds it to one chunk pass)
+    prefill_stall_trace: List[float] = field(default_factory=list)
+    # the telemetry snapshot (schema `repro.telemetry/v1`): counters,
+    # gauges, the SLO histograms (TTFT, inter-token gap, queue wait,
+    # recovery time) and span aggregates on the modeled clock; cumulative
+    # across runs when an ambient registry is installed
+    telemetry: Dict[str, object] = field(default_factory=dict)
 
 
 class ServingEngine:
@@ -80,7 +103,7 @@ class ServingEngine:
                  host_cache_blocks: Optional[int] = None,
                  ssd_cache_blocks: Optional[int] = None,
                  prefill_chunk_tokens: Optional[int] = None,
-                 fused_rounds: Optional[bool] = None,
+                 fused_rounds: Optional[bool] = None, hw: HardwareModel = DEFAULT_HW,
                  sampler: Callable = greedy, device="cuda"):
         self.cfg = cfg
         self.microbatch = microbatch
@@ -92,10 +115,62 @@ class ServingEngine:
             kv_block_size=kv_block_size, kv_pool_blocks=kv_pool_blocks,
             tiered=tiered, host_cache_blocks=host_cache_blocks,
             ssd_cache_blocks=ssd_cache_blocks,
-            prefill_chunk_tokens=prefill_chunk_tokens, fused_rounds=fused_rounds,
+            prefill_chunk_tokens=prefill_chunk_tokens, fused_rounds=fused_rounds, hw=hw,
             device=device)
         self._log0 = 0
         self._open_recoveries: List[dict] = []
+        # rid -> the modeled clock at its last emitted token (inter-token gap)
+        self._emit_clock: Dict[int, float] = {}
+        self._round_passes = 0
+        self._round_decodes = 0
+
+    # ------------------------------------------------------------------
+    # telemetry (shared by both serving loops)
+    # ------------------------------------------------------------------
+    @staticmethod
+    def _install_telemetry() -> Tuple[telemetry.Telemetry, bool]:
+        """The ambient registry if one is installed (it aggregates across
+        runs), else a fresh one for this run.  Returns (registry, created)."""
+        t = telemetry.current()
+        if t is not None:
+            return t, False
+        t = telemetry.Telemetry()
+        telemetry.install(t)
+        return t, True
+
+    @staticmethod
+    def _teardown_telemetry(t: telemetry.Telemetry, created: bool,
+                            report: EngineReport) -> None:
+        report.telemetry = t.snapshot()
+        if created:
+            telemetry.uninstall()
+
+    def _tele_emit(self, requests: List[Request], i: int) -> None:
+        """The per-token SLO observations at emit time, on the modeled clock:
+        time to first token (arrival to token 0), the inter-token gap, and,
+        at the first token after a kill, the recovery time."""
+        t = telemetry.current()
+        if t is None:
+            return
+        now = t.clock_s
+        trc = tracing.active()
+        for r in requests:
+            if i == 0:
+                ttft = max(now - r.arrival, 0.0)
+                t.observe("engine.ttft_s", ttft)
+                if trc:
+                    tracing.event("emit.first_token", rid=r.rid, ttft_ns=int(round(ttft * 1e9)))
+            else:
+                prev = self._emit_clock.get(r.rid)
+                if prev is not None:
+                    t.observe("engine.inter_token_s", max(now - prev, 0.0))
+            self._emit_clock[r.rid] = now
+        for mark in self.cluster.take_recovery_marks():
+            rec = max(now - mark, 0.0)
+            t.observe("cluster.recovery_s", rec)
+            if trc:
+                # kill -> the first token after the restore, on the modeled clock
+                tracing.event("recovery.first_token", recovery_ns=int(round(rec * 1e9)))
 
     # ------------------------------------------------------------------
     # fault injection (shared by both serving loops)
@@ -137,11 +212,18 @@ class ServingEngine:
         report = EngineReport(tokens={r.rid: r.tokens for r in requests})
         inj, prev = self._install_faults(fail_at, fault_plan, fault_injector, report)
         self._log0 = len(self.cluster.recovery_log)     # this run's first failure
-        return report, inj, prev, dict(self.cluster.pass_counts)
+        self._emit_clock = {}
+        tele = self._install_telemetry()
+        return report, (inj, prev, dict(self.cluster.pass_counts), tele)
 
-    def _finish(self, report: EngineReport, inj, prev, counts0: dict) -> None:
+    def _finish(self, report: EngineReport, ctx, bubble_frac: float) -> None:
+        """Tear down what `_start` installed: `ctx` is its second result.
+        `bubble_frac` goes to the ``engine.bubble_frac`` gauge."""
         cl = self.cluster
+        inj, prev, counts0, (tele, tele_created) = ctx
+        tele.gauge("engine.bubble_frac", bubble_frac)
         self._teardown_faults(inj, prev, report)
+        self._teardown_telemetry(tele, tele_created, report)
         report.peak_kv_bytes = cl.kv_bytes_peak
         report.pass_counts = {k: v - counts0.get(k, 0) for k, v in cl.pass_counts.items()}
         report.recovery_log = [{k: v for k, v in r.items() if k != "t_fail"}
@@ -175,9 +257,9 @@ class ServingEngine:
         cl = self.cluster
         queue = form_microbatches(requests, self.microbatch)
         slots: List[Optional[Microbatch]] = [None] * len(cl.token_group)
-        report, inj, prev, counts0 = self._start(requests, fail_at, fault_plan,
-                                                 fault_injector)
+        report, ctx = self._start(requests, fail_at, fault_plan, fault_injector)
         gstep = 0
+        slot_rounds = slot_busy = 0      # microbatch-slot occupancy: the bubbles
 
         def active_ids() -> List[int]:
             return [s.mb for s in slots if s is not None]
@@ -187,31 +269,36 @@ class ServingEngine:
                 for q, mb in enumerate(slots):
                     if mb is None and queue:
                         slots[q] = queue.pop(0)
-                for q, mb in enumerate(slots):
-                    if mb is None:
-                        continue
-                    gstep += 1
-                    # scheduled control events
-                    faults.fire("engine.step", tag=f"mb{mb.mb}")
-                    if gstep in migrate_at:
-                        res = cl.migrate_worker(migrate_at.pop(gstep), active_ids())
-                        self._recovered(report)
-                        self._apply_resume(res, slots, report)
-                    if gstep in repartition_at:
-                        cl.repartition(repartition_at.pop(gstep), active_ids())
-                    try:
-                        self._advance(mb, report)
-                    except WorkerDead:
-                        # a dead worker hit mid-pipeline: detect, recover and
-                        # run the step again
-                        self._apply_resume(cl.detect_and_recover(active_ids()), slots,
-                                           report)
-                        self._recovered(report)
-                        self._advance(mb, report)
-                    if mb.done:
-                        slots[q] = None
+                slot_rounds += len(slots)
+                slot_busy += sum(s is not None for s in slots)
+                with telemetry.span("round"), tracing.span("round"):
+                    for q, mb in enumerate(slots):
+                        if mb is None:
+                            continue
+                        gstep += 1
+                        # scheduled control events
+                        faults.fire("engine.step", tag=f"mb{mb.mb}")
+                        if gstep in migrate_at:
+                            res = cl.migrate_worker(migrate_at.pop(gstep), active_ids())
+                            self._recovered(report)
+                            self._apply_resume(res, slots, report)
+                        if gstep in repartition_at:
+                            cl.repartition(repartition_at.pop(gstep), active_ids())
+                        try:
+                            self._advance(mb, report)
+                        except WorkerDead:
+                            # a dead worker hit mid-pipeline: detect, recover
+                            # and run the step again
+                            self._apply_resume(cl.detect_and_recover(active_ids()), slots,
+                                               report)
+                            self._recovered(report)
+                            self._advance(mb, report)
+                        if mb.done:
+                            slots[q] = None
         finally:
-            self._finish(report, inj, prev, counts0)
+            # empty microbatch slots are the pipeline bubbles of the paper's
+            # setting (a slot drains at the pace of its slowest member)
+            self._finish(report, ctx, 1.0 - slot_busy / slot_rounds if slot_rounds else 0.0)
         return report
 
     def _apply_resume(self, resume: Dict[int, int], slots: List[Optional[Microbatch]],
@@ -267,22 +354,34 @@ class ServingEngine:
         if not cl.paged:
             raise ValueError("run_continuous needs ServingEngine(..., paged=True)")
         sched = RoundScheduler(cl, requests, max_active=max_active)
-        report, inj, prev, counts0 = self._start(requests, fail_at, fault_plan,
-                                                 fault_injector)
+        report, ctx = self._start(requests, fail_at, fault_plan, fault_injector)
+        clock0 = telemetry.clock()
         fused = cl.fused_ok
         try:
             while sched.pending():
+                cl.round_prefill_model_s = 0.0
                 self._round_passes = 0
-                plan = sched.plan_round(lambda r: self._advance_seq(r, sched, report))
-                report.batch_trace.append(plan.n_active)
-                if fused:
-                    self._execute_round_fused(plan, sched, report)
-                else:
-                    self._execute_round(plan, sched, report)
-                sched.retire()
+                self._round_decodes = 0
+                with telemetry.span("round"), tracing.span("round"):
+                    plan = sched.plan_round(lambda r: self._advance_seq(r, sched, report))
+                    report.batch_trace.append(plan.n_active)
+                    if tracing.active():
+                        tracing.event("sched.plan", round=plan.round_idx,
+                                      n_active=plan.n_active, rids=[r.rid for r in plan.work])
+                    if fused:
+                        self._execute_round_fused(plan, sched, report)
+                    else:
+                        self._execute_round(plan, sched, report)
+                    sched.retire()
+                if self._round_decodes:
+                    report.prefill_stall_trace.append(cl.round_prefill_model_s)
                 report.pass_trace.append(self._round_passes)
         finally:
-            self._finish(report, inj, prev, counts0)
+            # the bubble fraction: the share of the run's modeled time that
+            # decodes spent stalled behind co-scheduled prefill passes
+            busy = telemetry.clock() - clock0
+            stall = sum(report.prefill_stall_trace)
+            self._finish(report, ctx, stall / busy if busy > 0.0 else 0.0)
         return report
 
     # ------------------------------------------------------------------
@@ -414,6 +513,7 @@ class ServingEngine:
         for i, (r, s) in enumerate(zip(dec, steps)):
             self._emit([r], self.sampler(logits[i:i + 1], s), s)
             sched.next_step[r.rid] = s + 1
+            self._round_decodes += 1
             report.steps_executed += 1
 
     def _recover_fused(self, sched: RoundScheduler, report: EngineReport) -> None:
@@ -484,13 +584,15 @@ class ServingEngine:
                 return                   # prefill still in flight
         else:
             logits = cl.decode_seq(r.rid, np.asarray([r.tokens[i - 1]], np.int32), i)
+            self._round_decodes += 1
             report.steps_executed += 1
         self._emit([r], self.sampler(logits, i), i)
         next_step[r.rid] = i + 1
 
     def _emit(self, requests: List[Request], tok: np.ndarray, i: int) -> None:
         """Token i of each request from the sampled row of the same index;
-        the first token after a recovery closes its clock."""
+        the first token after a recovery closes its wall clock and the
+        modeled one (`_tele_emit`)."""
         for b, r in enumerate(requests):
             if len(r.tokens) == i:
                 r.tokens.append(int(tok[b]))
@@ -503,3 +605,4 @@ class ServingEngine:
             for rec in self._open_recoveries:
                 rec["first_token_ms"] = (now - rec["t_fail"]) * 1e3
             self._open_recoveries = []
+        self._tele_emit(requests, i)

@@ -1,8 +1,11 @@
 """RoundScheduler / StepPlan: the continuous-batching policy (the port's
-copy of `repro.serving.scheduler`, without the telemetry and tracing calls).
+copy of `repro.serving.scheduler`).
 
 The scheduler owns the request lifecycle (queue -> active -> preempted /
-retired) and emits one `StepPlan` per round; the engine executes it.
+retired) and emits one `StepPlan` per round; the engine executes it.  It
+counts admissions, resumptions and preemptions, observes each admitted
+request's queue wait on the modeled clock (``engine.queue_wait_s``), and
+records the ``sched.*`` trace events.
 """
 from __future__ import annotations
 
@@ -10,6 +13,7 @@ from collections import deque
 from dataclasses import dataclass, field
 from typing import Callable, Deque, Dict, Iterable, List, Optional
 
+from repro_torch.core import telemetry, tracing
 from repro_torch.serving.request import Request
 
 
@@ -79,10 +83,19 @@ class RoundScheduler:
                 cl.can_resume(self.preempted[0].rid, len(self.active)):
             r = self.preempted.popleft()
             cl.resume_seq(r.rid)
+            telemetry.count("engine.resumed")
+            tracing.event("sched.resume", rid=r.rid)
             self._activate(r)
         while self.queue and len(self.active) < self.max_active and \
                 cl.can_admit(self.queue[0].prompt_len, len(self.active)):
             r = self.queue.popleft()
+            # the queue wait: arrival to admission, on the modeled clock
+            wait_s = max(telemetry.clock() - r.arrival, 0.0)
+            telemetry.observe("engine.queue_wait_s", wait_s)
+            telemetry.count("engine.admitted")
+            if tracing.active():
+                tracing.event("sched.admit", rid=r.rid, wait_ns=int(round(wait_s * 1e9)),
+                              prompt_len=r.prompt_len)
             first_step(r)
             self._activate(r)
         if not self.active:
@@ -110,6 +123,8 @@ class RoundScheduler:
         self.active = [a for a in self.active if a.rid != victim.rid]
         self._active_ids.discard(victim.rid)
         self.preempted.append(victim)
+        telemetry.count("engine.preemptions")
+        tracing.event("sched.preempt", rid=victim.rid)
 
     def retire(self) -> List[Request]:
         """End of round: finished sequences return their blocks immediately
@@ -121,6 +136,7 @@ class RoundScheduler:
             for r in done:
                 r.done = True
                 self.cl.free_seq(r.rid)
+                tracing.event("sched.retire", rid=r.rid, tokens=len(r.tokens))
                 gone.add(r.rid)
             self.active = [a for a in self.active if a.rid not in gone]
             self._active_ids -= gone

@@ -4,9 +4,10 @@
   package's on scripted `fire` sequences (same counts, same `fired`
   records, the same raise or return per kind), and the sweep helpers;
 - `StreamEngine`: background errors at `drain()`, one retry of a
-  transient fault, no `submit` after `close`;
+  transient fault, no `submit` after `close`, and its modeled time
+  (`overlap_report`, the ``stream.*`` counters) against the JAX streamer's;
 - transports: `drop`, `corrupt` and `delay` give exact bytes and count
-  their retransmits;
+  their retransmits, and charge the JAX transports' modeled time;
 - `Controller`: acks and `resume_point` against the JAX controller;
 - `TopKSampler`: (seed, step) decides the draw, so a recovered run samples
   the failure-free run's tokens;
@@ -26,11 +27,14 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro.core import controller as jax_controller  # noqa: E402
+from repro.core import telemetry as jax_telemetry  # noqa: E402
 from repro.core.dejavulib import faults as jax_faults  # noqa: E402
+from repro.core.dejavulib import streamer as jax_streamer  # noqa: E402
+from repro.core.dejavulib import transport as jax_transport  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.core import controller  # noqa: E402
-from repro_torch.core.dejavulib import (HostLinkTransport, NetworkTransport,  # noqa: E402
-                                        StreamEngine, faults)
+from repro_torch.core import controller, telemetry  # noqa: E402
+from repro_torch.core.dejavulib import (HardwareModel, HostLinkTransport,  # noqa: E402
+                                        NetworkTransport, StreamEngine, faults)
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serving import Request, ServingEngine, TopKSampler  # noqa: E402
 
@@ -160,6 +164,36 @@ def test_stream_tasks_run_in_order_on_one_thread():
     eng.close()
 
 
+def _stream_modeled_time(engine_cls, fmod, tmod):
+    """Five tasks with modeled seconds, each beside 1.5 ms of registered
+    compute; the 2nd submit and the 4th task are delayed.  Returns the
+    overlap report and the registry's JSON."""
+    reg = tmod.Telemetry()
+    tmod.install(reg)
+    inj = fmod.FaultInjector(fmod.FaultPlan([
+        fmod.FaultSpec("stream.submit", nth=2, kind="delay", delay_s=2.5e-4),
+        fmod.FaultSpec("stream.task", nth=4, kind="delay", delay_s=5e-4)]))
+    eng = engine_cls("t")
+    try:
+        with fmod.active(inj):
+            for i, sec in enumerate((1e-3, 2.5e-3, 0.0, 7e-4, 3e-3)):
+                eng.submit(lambda: None, model_seconds=sec, tag=f"x{i}")
+                eng.compute_span(1.5e-3)
+            eng.drain(timeout=30)
+        report = eng.overlap_report()
+    finally:
+        eng.close()
+        tmod.uninstall()
+    return report, reg.to_json()
+
+
+def test_stream_overlap_report_matches_jax():
+    port = _stream_modeled_time(StreamEngine, faults, telemetry)
+    ref = _stream_modeled_time(jax_streamer.StreamEngine, jax_faults, jax_telemetry)
+    assert port == ref
+    assert port[0]["exposed_s"] > 0 and port[0]["hidden_s"] == port[0]["compute_s"]
+
+
 # ---------------------------------------------------------------------------
 # transports
 # ---------------------------------------------------------------------------
@@ -179,6 +213,36 @@ def test_transport_faults_keep_bytes_exact(cls, kind, retransmits):
     assert t.bytes_total() == 3 * src.numel() * 4       # bytes count once per transfer
     assert [(f.point, f.n, f.kind, f.tag) for f in inj.fired] == \
         [(f"transport.transfer.{t.kind}", 2, kind, "x1")]
+
+
+@pytest.mark.parametrize("kind", ["drop", "corrupt", "delay"])
+@pytest.mark.parametrize("cls,jax_cls", [(NetworkTransport, jax_transport.NetworkTransport),
+                                         (HostLinkTransport, jax_transport.HostLinkTransport)])
+def test_transport_modeled_time_matches_jax(cls, jax_cls, kind):
+    """Three transfers, the 2nd faulted, with the reference's
+    `HardwareModel`: the same modeled total, bytes and ``transport.*``
+    counters as the JAX transport (the total to a relative 1e-12: the
+    reference sums its log with `sum`, compensated on Python 3.12, and the
+    port keeps a running sum)."""
+    jax_hw = jax_transport.DEFAULT_HW
+    src = np.random.default_rng(0).standard_normal((3, 5, 7)).astype(np.float32)
+    out = []
+    for t, fmod, tmod, arr in ((cls(HardwareModel(**dataclasses.asdict(jax_hw))), faults,
+                                telemetry, torch.from_numpy(src)),
+                               (jax_cls(jax_hw), jax_faults, jax_telemetry, src)):
+        reg = tmod.Telemetry()
+        tmod.install(reg)
+        inj = fmod.FaultInjector(fmod.FaultPlan(
+            [fmod.FaultSpec(f"transport.transfer.{t.kind}", nth=2, kind=kind, delay_s=1e-3)]))
+        try:
+            with fmod.active(inj):
+                for i in range(3):
+                    t.transfer(arr, tag=f"x{i}")
+        finally:
+            tmod.uninstall()
+        out.append((t.modeled_total(), t.bytes_total(), reg.to_json()))
+    assert out[0][0] == pytest.approx(out[1][0], rel=1e-12, abs=0)
+    assert out[0][1:] == out[1][1:]
 
 
 def test_transport_without_injector_is_one_copy():

@@ -274,3 +274,33 @@ def test_mb_recover_phase_counts(smoke, mode):
     # a token worker dies before a decode step: the stages before it ran
     dead_lo = {"colocated": 2, "swapping": 1, "disaggregated": 0}[mode]
     assert want["decode_attention"] == 4 * pc["mb_decode"] + dead_lo
+
+
+def test_telemetry_phase_rehearsed(smoke):
+    """The telemetry phase at a tiny width on serve's trace: every
+    instrumented run gives the same snapshot and dump (checked inside), all
+    modes the same tokens, each pass kind a modeled time (an 8-GPU stage,
+    and one card: 8 times the compute-bound prefill passes) and a measured
+    time, the counted instrument calls a cost, and the run that loses worker 1 a
+    modeled recovery time."""
+    import numpy as np
+    cfg = _cfg(num_layers=2, dtype="float32")
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]
+    out = smoke.run_telemetry(cfg, "cpu", lens, torch.Generator().manual_seed(0),
+                              lambda: None, pool_blocks=512)
+    assert out["identical_snapshots_and_dumps"]
+    assert sorted(out["tokens_per_s_in_turns"]) == sorted(smoke.TELEMETRY_MODES)
+    assert all(len(v) == smoke.TELEMETRY_ROUNDS for v in out["tokens_per_s_in_turns"].values())
+    rows = out["pass_times_modeled_vs_measured"]
+    assert sorted(rows) == sorted(smoke.PASS_METHODS)
+    assert all(r["passes"] > 0 and r["modeled_ms_one_h100"] > r["modeled_ms"] > 0
+               for r in rows.values())
+    for kind in ("chunkset", "prefill_chunk"):
+        assert rows[kind]["modeled_ms_one_h100"] == pytest.approx(8 * rows[kind]["modeled_ms"],
+                                                                  rel=1e-9)
+    cost = out["instrument_cost"]
+    assert cost["calls_per_run"]["Tracer.span"] == cost["calls_per_run"]["Telemetry.span"] > 0
+    assert 0 < cost["estimated_s_per_run"] < cost["run_wall_s"]
+    slo = out["recover_run"]["modeled_h100_datasheet_slo"]
+    assert slo["cluster.recovery_s"]["count"] == 1
+    assert slo["engine.ttft_s"]["count"] == len(lens)
