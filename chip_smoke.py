@@ -71,6 +71,18 @@ Phases, each printing one JSON line with its seconds:
                token gap and recovery time, p50 and p99, of a run whose
                worker 1 dies; and the host copy and host-link rates that
                `HardwareModel`'s host figures assume.
+12. ``paged_modes`` paged swapping and disaggregation and the KV tiers on
+               `run_continuous`: ``serve``'s model; (a) swapping and (b)
+               disaggregated (1, 1) on its trace, in turns with colocated;
+               (c) a shared-system-prompt trace through the tiers (pool 120
+               blocks, host tier 96: it must preempt, spill, and adopt from
+               the host tier and from SSD), in turns without them; (d) (c)
+               with replication, worker 1 lost while a sequence is swapped
+               out.  Launches exact in every run; bf16 differing tokens
+               beside a control; then the same four at 4 layers in fp32,
+               card tokens = CPU tokens = the plain run's.  Prints tokens/s
+               by mode, prefill tokens saved, the tier counters, bytes by
+               transport, the tier copies' rates and the time to recover.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
@@ -94,7 +106,7 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
 PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
-          "ssm_serve", "recover", "mb_recover", "telemetry")
+          "ssm_serve", "recover", "mb_recover", "telemetry", "paged_modes")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -1358,7 +1370,8 @@ def _recovery_times(rep) -> dict:
     after the recovery, split into its parts.  `recompute_ms` is what is
     left: the first re-executed pass (the rolled-back steps run from it)."""
     rec = rep.recovery_log[0]
-    parts = ("detect_ms", "rebuild_ms", "replica_ms", "rereplicate_ms", "rollback_ms")
+    parts = ("detect_ms", "rebuild_ms", "reattach_ms", "replica_ms", "rereplicate_ms",
+             "rollback_ms")
     out = {k: rec.get(k, 0.0) for k in parts}
     out["first_token_ms"] = rec["first_token_ms"]
     out["recompute_ms"] = rec["first_token_ms"] - sum(out[k] for k in parts)
@@ -1376,24 +1389,31 @@ def differing_tokens(a: dict, b: dict) -> int:
         sum(abs(len(a[rid]) - len(b[rid])) for rid in a)
 
 
-def run_recover(cfg, model, params, trace, *, replication: bool, fail_at=None,
-                record: bool = False, max_active: int = 8, pool_blocks: int = 1024,
-                dev: str = "cuda") -> dict:
-    """One fused continuous run of `trace` through 2 stage workers on
-    `dev`, with `fail_at` and, with `record`, a recording fault injector.
-    Checks the tokens' count, the leaks and the kernels' launches: those of
-    the passes the engine reports (as `serve`) plus, for a decode pass that a
-    failure cut short, one launch per layer of the stages before the dead
-    worker."""
+def run_fused(cfg, model, params, trace, *, dev: str = "cuda", max_active: int = 8,
+              pool_blocks: int = 1024, fail_at=None, record: bool = False, **ekw) -> dict:
+    """One fused continuous run of `trace` through 2 stage workers on `dev`
+    with the engine options `ekw` (replication, swapping, the split, the
+    tiers) and `fail_at`; with `record`, a recording fault injector and the
+    engine.step count at each preemption and resumption.  Checks the
+    tokens' count, the leaks and the kernels' launches: those of the passes
+    the engine reports (as `serve`) plus, for a decode pass that a failure
+    cut short, one launch per layer of the stages before the dead worker.
+    The streamer is closed and the tiers' disks are removed after the
+    run."""
+    import shutil
+
     import torch
 
     from repro_torch.core.dejavulib import FaultInjector, assert_no_leaks
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.serving import ServingEngine
 
-    eng = ServingEngine(cfg, model, params, 2, paged=True, kv_pool_blocks=pool_blocks,
-                        replication=replication, device=dev)
+    ekw = {"kv_pool_blocks": pool_blocks, **ekw}
+    eng = ServingEngine(cfg, model, params, 2, paged=True, device=dev, **ekw)
+    cl = eng.cluster
+    adoptions = _count_adoptions(eng)
     inj = FaultInjector(record=True) if record else None
+    marks = _mark_swaps(eng, inj) if record else None
     reqs = trace()
     sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
     reset_launches()
@@ -1403,30 +1423,75 @@ def run_recover(cfg, model, params, trace, *, replication: bool, fail_at=None,
     sync()
     wall = time.perf_counter() - t
     launches = dict(LAUNCHES)
-    check(all(len(r.tokens) == r.max_new for r in reqs), "a request fell short")
-    assert_no_leaks(eng.cluster)
-    want = serve_expected_launches(eng, rep.pass_counts)
-    for f in rep.fault_trace:
-        dead = next(w for w in eng.cluster.workers() if w.wid == f["wid"])
-        if f["tag"].startswith("decode-"):
-            want["paged_decode_attention"] += dead.lo
-        else:                    # a prefill: stage 0 is the dead one
-            check(dead.lo == 0, f"no launch count for a failure at {f}")
-    if dev != "cpu":
-        check(launches == want, f"launches {launches}, the passes and failures say {want}")
+    cl.streamer.drain()              # the last write-behinds land before the counts
+    cl.streamer.close()
+    try:
+        check(all(len(r.tokens) == r.max_new for r in reqs), "a request fell short")
+        assert_no_leaks(cl)
+        want = serve_expected_launches(eng, rep.pass_counts)
+        for f in rep.fault_trace:
+            dead = next(w for w in cl.workers() if w.wid == f["wid"])
+            if f["tag"].startswith("decode-"):
+                want["paged_decode_attention"] += dead.lo
+            else:                    # a prefill: stage 0 is the dead one
+                check(dead.lo == 0, f"no launch count for a failure at {f}")
+        if dev != "cpu":
+            check(launches == want, f"launches {launches}, the passes and failures say {want}")
+    finally:
+        for w in cl.workers():
+            if w.tier is not None:
+                shutil.rmtree(w.tier.ssd.root, ignore_errors=True)
     gen = sum(len(r.tokens) for r in reqs)
     out = {"wall_s": wall, "tokens_per_s": gen / wall, "tokens": rep.tokens,
-           "failures": rep.failures, "recoveries": rep.recoveries,
-           "steps_redone": rep.steps_redone, "fault_trace": rep.fault_trace,
-           "pass_counts": rep.pass_counts, "launches": launches, "expected_launches": want,
-           "transfer_bytes": eng.transfer_summary(),
-           "replication_s": eng.cluster.replication_s,
-           "stream_busy_s": eng.cluster.streamer.busy_s}
+           "preemptions": rep.preemptions, "failures": rep.failures,
+           "recoveries": rep.recoveries, "steps_redone": rep.steps_redone,
+           "fault_trace": rep.fault_trace, "pass_counts": rep.pass_counts,
+           "launches": launches, "expected_launches": want,
+           "transfer_bytes": eng.transfer_summary(), "replication_s": cl.replication_s,
+           "stream_busy_s": cl.streamer.busy_s,
+           "prefill_tokens_saved": rep.prefill_tokens_saved,
+           "prefill_tokens_total": rep.prefill_tokens_total}
+    if cl.tiered:
+        out["tier_stats"] = rep.tier_stats
+        out["adoptions_from"] = adoptions
+        out["stream_overlap_modeled"] = cl.streamer.overlap_report()
     if rep.recovery_log:
         out["recovery"] = _recovery_times(rep)
-    if inj is not None:
+    if record:
         out["steps"] = [(n, tag) for p, n, tag in inj.trace if p == "engine.step"]
+        out["swap_marks"] = marks
     return out
+
+
+def _count_adoptions(eng) -> dict:
+    """Count the tier hits of prefix adoptions, by tier, from now on (swap
+    restores are counted apart, in `tier_stats`)."""
+    n = {"host_blocks": 0, "ssd_blocks": 0, "chains": 0}
+    for w in eng.cluster.workers():
+        if w.tier is None:
+            continue
+        def counted(hashes, _t=w.tier, _f=w.tier.fetch_prefix_chain):
+            h0, s0 = _t.stats().get("host_hits", 0), _t.stats().get("ssd_hits", 0)
+            out = _f(hashes)
+            n["host_blocks"] += _t.stats().get("host_hits", 0) - h0
+            n["ssd_blocks"] += _t.stats().get("ssd_hits", 0) - s0
+            n["chains"] += 1
+            return out
+        w.tier.fetch_prefix_chain = counted
+    return n
+
+
+def _mark_swaps(eng, inj) -> list:
+    """Record ("out" | "in", rid, engine.step occurrences so far) at each
+    preemption and resumption from now on."""
+    marks = []
+    cl = eng.cluster
+    for kind, name in (("out", "preempt_seq"), ("in", "resume_seq")):
+        def marked(rid, _f=getattr(cl, name), _k=kind):
+            marks.append((_k, rid, inj.counts.get("engine.step", 0)))
+            return _f(rid)
+        setattr(cl, name, marked)
+    return marks
 
 
 def fail_points(steps) -> dict:
@@ -1488,31 +1553,31 @@ def phase_recover(state: dict) -> dict:
         return _requests(lens, 32, cfg.vocab_size, seed=3)
 
     # warm-up: library handles and the first launch of every path
-    run_recover(cfg, model, params, lambda: _requests([70, 9], 3, cfg.vocab_size, seed=7),
+    run_fused(cfg, model, params, lambda: _requests([70, 9], 3, cfg.vocab_size, seed=7),
                 replication=True, max_active=2)
     torch.cuda.reset_peak_memory_stats()
     # without and with replication in turns, as the host's noise moves a
     # run's rate by tens of percent
-    plain = run_recover(cfg, model, params, trace, replication=False)
-    clean = run_recover(cfg, model, params, trace, replication=True, record=True)
+    plain = run_fused(cfg, model, params, trace, replication=False)
+    clean = run_fused(cfg, model, params, trace, replication=True, record=True)
     check(clean["tokens"] == plain["tokens"], "replication changed the tokens")
     points = fail_points(clean.pop("steps"))
     out["no_replication"] = {k: v for k, v in plain.items() if k != "tokens"}
     out["replication"] = {k: v for k, v in clean.items() if k != "tokens"}
-    again = [run_recover(cfg, model, params, trace, replication=r) for r in (True, False)]
+    again = [run_fused(cfg, model, params, trace, replication=r) for r in (True, False)]
     out["tokens_per_s_in_turns"] = {
         "no_replication": [plain["tokens_per_s"], again[1]["tokens_per_s"]],
         "replication": [clean["tokens_per_s"], again[0]["tokens_per_s"]]}
     control = None
     for name, fail_at in points.items():
-        res = run_recover(cfg, model, params, trace, replication=True, fail_at=fail_at)
+        res = run_fused(cfg, model, params, trace, replication=True, fail_at=fail_at)
         check(res["failures"] == 1 and res["recoveries"] == 1, f"{name}: {res['failures']} "
               f"failures, {res['recoveries']} recoveries")
         diff = differing_tokens(res.pop("tokens"), clean["tokens"])
         res.update(fail_at=fail_at, differing_tokens=diff)
         if diff or name == "fail_inflight_w1":
             if control is None:
-                ctl = run_recover(cfg, model, params, trace, replication=True, max_active=7)
+                ctl = run_fused(cfg, model, params, trace, replication=True, max_active=7)
                 control = differing_tokens(ctl["tokens"], clean["tokens"])
             res["control_differing_tokens"] = control
         if name != "fail_inflight_w1":
@@ -1527,10 +1592,10 @@ def phase_recover(state: dict) -> dict:
     cfg32 = dataclasses.replace(cfg, dtype="float32", num_layers=4)
     model = DecoderLM(cfg32, device="cuda")
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    ref = run_recover(cfg32, model, params, trace, replication=True)
+    ref = run_fused(cfg32, model, params, trace, replication=True)
     out["fp32_4_layers"] = {"tokens_per_s": ref["tokens_per_s"]}
     for name, fail_at in points.items():
-        res = run_recover(cfg32, model, params, trace, replication=True, fail_at=fail_at)
+        res = run_fused(cfg32, model, params, trace, replication=True, fail_at=fail_at)
         check(res["failures"] == 1 and res["recoveries"] == 1, f"fp32 {name}: no recovery")
         check(res["tokens"] == ref["tokens"], f"fp32 {name}: tokens differ from the "
               "failure-free run")
@@ -1967,6 +2032,281 @@ def phase_telemetry(state: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 12: paged swapping, disaggregation and the KV tiers
+# ---------------------------------------------------------------------------
+
+# the serve trace's modes (2 stage workers): (a) swapping, (b) the
+# prompt/token split, and the colocated run both are held against
+PAGED_MODES = {"colocated": {}, "swapping": {"swapping": True},
+               "disaggregated": {"mode": "disaggregated", "dp_split": (1, 1)}}
+# (c) the shared-prefix trace through the tiers: a pool of 120 blocks a
+# stage holds three or four of its requests, so decodes preempt through
+# the tiers, and a host tier of 96 blocks spills to SSD, so an adopted
+# system prompt comes from the host tier one time and from SSD another
+# (sized by running the trace's geometry through the port on the CPU)
+TIERED = {"kv_pool_blocks": 120, "tiered": True, "host_cache_blocks": 96,
+          "ssd_cache_blocks": 4096}
+NOT_TIERED = {"kv_pool_blocks": 120}
+# the pool holds at most four of the trace's requests at once, so the bf16
+# control of (c) and (d), the tiered run at another max_active, takes 3 (7,
+# as for serve's trace, would change no batch)
+TIERED_CONTROL_ACTIVE = 3
+SYSTEM_PROMPT_TOKENS = 256
+
+
+def shared_prefix_trace(vocab: int, seed: int = 4, max_new: int = 32):
+    """16 requests: one 256-token system prompt (32 blocks of 8), then a
+    64-256-token suffix each, drawn from `seed`: chat and agent serving,
+    where every request opens with the same instructions."""
+    import numpy as np
+
+    from repro_torch.serving import Request
+    rng = np.random.default_rng(seed)
+    system = rng.integers(0, vocab, SYSTEM_PROMPT_TOKENS).astype(np.int32)
+    return [Request(rid=i, prompt=np.concatenate(
+                [system, rng.integers(0, vocab, int(n)).astype(np.int32)]), max_new=max_new)
+            for i, n in enumerate(rng.integers(64, 257, 16))]
+
+
+def swapped_out_fail_point(steps, marks) -> dict:
+    """Worker 1 dies before a fused decode pass while a sequence is swapped
+    out through the tiers: the middle such step of a recorded run."""
+    def out_at(n):
+        state = {}
+        for kind, rid, c in marks:
+            if c < n:
+                state[rid] = kind
+        return any(k == "out" for k in state.values())
+
+    cands = [n for n, tag in steps if tag.startswith("decode-") and out_at(n)]
+    check(bool(cands), "no decode pass ran while a sequence was swapped out")
+    return {cands[len(cands) // 2]: 1}
+
+
+def tier_link_rates(shape, dtype, n: int = 128) -> dict:
+    """Measured GB/s of the tiers' copies at the run's block shape: pinned
+    copies over the host link each way (queued, then synchronised), and
+    `SSDStore` puts (fsync'd) and gets of whole blocks."""
+    import shutil
+    import tempfile
+
+    import torch
+
+    from repro_torch.core.dejavulib import SSDStore
+    dev = torch.randn((n,) + tuple(shape), device="cuda").to(dtype)
+    host = torch.empty(dev.shape, dtype=dtype, pin_memory=True)
+    nbytes = dev.numel() * dev.element_size()
+
+    def rate(fn, reps=3):
+        fn()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+        return reps * nbytes / (time.perf_counter() - t) / 1e9
+
+    def per_block(dst, src):
+        for i in range(n):
+            dst[i].copy_(src[i], non_blocking=True)
+
+    root = tempfile.mkdtemp(prefix="chip-smoke-ssd-")
+    try:
+        store = SSDStore(root)
+        t = time.perf_counter()
+        for i in range(n):
+            store.put(f"b{i}", host[i])
+        put_s = time.perf_counter() - t
+        t = time.perf_counter()
+        for i in range(n):
+            store.get(f"b{i}", dtype=dtype)
+        get_s = time.perf_counter() - t
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    return {"block_bytes": nbytes // n, "blocks": n,
+            "device_to_pinned_gb_s": rate(lambda: per_block(host, dev)),
+            "pinned_to_device_gb_s": rate(lambda: per_block(dev, host)),
+            "ssd_put_fsync_gb_s": nbytes / put_s / 1e9, "ssd_get_gb_s": nbytes / get_s / 1e9}
+
+
+def _without(res: dict, *keys) -> dict:
+    return {k: v for k, v in res.items() if k not in keys}
+
+
+def paged_modes_exact(cfg, dev: str, params, serve_trace, tiered_trace,
+                      fail_at=None) -> dict:
+    """The phase's four runs on `dev` with the weights `params` (made on
+    the CPU): (a) swapping and (b) disaggregated on the serve trace, (c)
+    tiered on the shared-prefix trace, (d) tiered with replication and
+    worker 1 lost while a sequence is swapped out (at `fail_at`, else at the
+    point a recorded run picks, and then the plain run of each trace, the
+    colocated run without tiers or swapping, too).  Returns the tokens of
+    each and the failure point."""
+    from repro_torch.models.transformer import DecoderLM
+    model = DecoderLM(cfg, device=dev)
+
+    def tokens(trace, **kw):
+        return run_fused(cfg, model, params, trace, dev=dev, **kw)["tokens"]
+
+    out = {mode: tokens(serve_trace, **PAGED_MODES[mode])
+           for mode in ("swapping", "disaggregated")}
+    out["tiered"] = tokens(tiered_trace, **TIERED)
+    if fail_at is None:
+        out["plain"] = tokens(serve_trace)
+        out["plain_shared_prefix"] = tokens(tiered_trace, **NOT_TIERED)
+        clean = run_fused(cfg, model, params, tiered_trace, dev=dev, replication=True,
+                               record=True, **TIERED)
+        fail_at = swapped_out_fail_point(clean["steps"], clean["swap_marks"])
+    res = run_fused(cfg, model, params, tiered_trace, dev=dev, replication=True,
+                         fail_at=fail_at, **TIERED)
+    check(res["failures"] == 1 and res["recoveries"] == 1, f"{dev}: no recovery")
+    out["tiered_failure"] = res["tokens"]
+    out["fail_at"] = fail_at
+    return out
+
+
+def paged_modes_runs(cfg, model, params, dev: str, serve_trace, tiered_trace) -> dict:
+    """(a)-(d) of the `paged_modes` phase on `dev`: the serve trace's modes
+    in turns, the shared-prefix trace with and without the tiers in turns,
+    and the failure under the tiers; every run's launches checked, each
+    mode's differing tokens beside a control's (another max_active)."""
+    out = {}
+    runs = {m: [] for m in PAGED_MODES}
+    for mode in list(PAGED_MODES) + list(PAGED_MODES)[::-1]:
+        runs[mode].append(run_fused(cfg, model, params, serve_trace, dev=dev,
+                                         **PAGED_MODES[mode]))
+    base = runs["colocated"][0]["tokens"]
+    control = differing_tokens(run_fused(cfg, model, params, serve_trace, dev=dev,
+                                              max_active=7)["tokens"], base)
+    for mode, rs in runs.items():
+        out[mode] = {"tokens_per_s_in_turns": [r["tokens_per_s"] for r in rs],
+                     "differing_tokens": differing_tokens(rs[0]["tokens"], base),
+                     "control_differing_tokens": control, **_without(rs[0], "tokens")}
+    # (c): the shared-prefix trace with and without the tiers, in turns
+    tiered, plain = [], []
+    for tiers in (True, False, False, True):
+        r = run_fused(cfg, model, params, tiered_trace, dev=dev,
+                           **(TIERED if tiers else NOT_TIERED))
+        (tiered if tiers else plain).append(r)
+    t0 = tiered[0]
+    st, ad = t0["tier_stats"], t0["adoptions_from"]
+    check(t0["preemptions"] >= 1, "no preemption through the tiers")
+    check(st.get("spills", 0) >= 1, "no spill to SSD")
+    check(ad["host_blocks"] >= 1 and ad["ssd_blocks"] >= 1,
+          f"adoptions not served from both tiers: {ad}")
+    check(all(r["tokens"] == t0["tokens"] for r in tiered[1:]), "tiered runs disagree")
+    ctl = run_fused(cfg, model, params, tiered_trace, dev=dev,
+                         max_active=TIERED_CONTROL_ACTIVE, **TIERED)
+    out["tiered_vs_not"] = {
+        "tokens_per_s_in_turns": {"tiered": [r["tokens_per_s"] for r in tiered],
+                                  "not_tiered": [r["tokens_per_s"] for r in plain]},
+        "prefill_saved_share": t0["prefill_tokens_saved"] / t0["prefill_tokens_total"],
+        "differing_tokens": differing_tokens(t0["tokens"], plain[0]["tokens"]),
+        "control_differing_tokens": differing_tokens(ctl["tokens"], t0["tokens"]),
+        "tiered": _without(t0, "tokens"), "not_tiered": _without(plain[0], "tokens")}
+    # (d): a failure under the tiers while a sequence is swapped out
+    clean = run_fused(cfg, model, params, tiered_trace, dev=dev, replication=True,
+                           record=True, **TIERED)
+    fail_at = swapped_out_fail_point(clean.pop("steps"), clean.pop("swap_marks"))
+    res = run_fused(cfg, model, params, tiered_trace, dev=dev, replication=True,
+                         fail_at=fail_at, **TIERED)
+    check(res["failures"] == 1 and res["recoveries"] == 1, "(d): no recovery")
+    ctl = run_fused(cfg, model, params, tiered_trace, dev=dev, replication=True,
+                         max_active=TIERED_CONTROL_ACTIVE, **TIERED)
+    out["tiered_failure"] = {
+        "fail_at": fail_at, "differing_tokens": differing_tokens(res["tokens"], clean["tokens"]),
+        "control_differing_tokens": differing_tokens(ctl["tokens"], clean["tokens"]),
+        "replication": _without(clean, "tokens"), "failure": _without(res, "tokens")}
+    return out
+
+
+def exact_paged_modes(cfg, serve_trace, tiered_trace, devs=("cuda", "cpu")) -> dict:
+    """`paged_modes_exact` on each of `devs` with one set of weights (made
+    on the CPU), the plain runs and the failure point on the first: every
+    run's tokens equal across the devices and equal to the plain run of its
+    trace."""
+    import torch
+
+    from repro_torch.models.transformer import DecoderLM
+    params = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    exact, seconds = {}, {}
+    for dev in devs:
+        t = time.perf_counter()
+        first = exact.get(devs[0], {})
+        exact[dev] = paged_modes_exact(cfg, dev, params, serve_trace, tiered_trace,
+                                       fail_at=first.get("fail_at"))
+        seconds[dev] = time.perf_counter() - t
+    first = exact[devs[0]]
+    for k in ("swapping", "disaggregated", "tiered", "tiered_failure"):
+        for dev in devs[1:]:
+            check(exact[dev][k] == first[k], f"{cfg.dtype} {k}: {dev} tokens differ from "
+                  f"{devs[0]}'s")
+        plain = first["plain" if k in PAGED_MODES else "plain_shared_prefix"]
+        check(first[k] == plain, f"{cfg.dtype} {k}: tokens differ from the plain run")
+    return {"tokens_identical": True, "fail_at": first["fail_at"], "seconds": seconds}
+
+
+def phase_paged_modes(state: dict) -> dict:
+    """gpt2-1.5b at full width, 48 layers, bf16, 2 workers, fused rounds:
+    (a) swapping and (b) disaggregated (1, 1) on serve's trace, in turns
+    with the colocated run; (c) the shared-prefix trace through the KV
+    tiers, in turns with the same trace without them; (d) (c) with
+    replication, worker 1 lost while a sequence is swapped out.  Every run's
+    launches exact; the bf16 differing tokens of each beside a control (the
+    run with another max_active); then the same four at 4 layers in fp32,
+    whose tokens must equal the port's on the CPU and the plain run's.  Prints
+    tokens/s by mode, the prefill tokens saved, the tier counters, bytes by
+    transport, the tier copies' rates and the time to recover by step.  The
+    tiers' disks lie under `--out` and are removed after each run."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import DecoderLM
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]   # serve's
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), dtype="bfloat16")
+
+    def serve_trace():
+        return _requests(lens, 32, cfg.vocab_size, seed=3)
+
+    def tiered_trace():
+        return shared_prefix_trace(cfg.vocab_size)
+
+    prev_tmp = tempfile.tempdir
+    ssd = Path(state["out"]) / "ssd"
+    ssd.mkdir(parents=True, exist_ok=True)
+    tempfile.tempdir = str(ssd)
+    try:
+        t = time.perf_counter()
+        model = DecoderLM(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        out = {"config": "gpt2-1.5b, 48 layers, bf16, 2 workers, fused rounds",
+               "init_s": time.perf_counter() - t, "tiers": dict(TIERED)}
+        # warm-up: library handles and the first launch of every path
+        run_fused(cfg, model, params,
+                  lambda: _requests([70, 9], 3, cfg.vocab_size, seed=7), max_active=2,
+                  **TIERED)
+        torch.cuda.reset_peak_memory_stats()
+        out.update(paged_modes_runs(cfg, model, params, "cuda", serve_trace, tiered_trace))
+        out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+        out["tier_link_rates"] = tier_link_rates(
+            (2, cfg.num_layers // 2, cfg.kv_block_size, cfg.num_kv_heads,
+             cfg.resolved_head_dim), torch.bfloat16)
+        del model, params
+        # the exact gate: fp32, 4 layers, the card against the port on the CPU
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        out["fp32_4_layers"] = exact_paged_modes(
+            dataclasses.replace(cfg, dtype="float32", num_layers=4), serve_trace,
+            tiered_trace)
+    finally:
+        tempfile.tempdir = prev_tmp
+    return out
+
 KERNEL_META = {
     "batched_decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
                                  "src/repro/kernels/decode_attention.py:179"),
@@ -2020,7 +2360,7 @@ def main() -> int:
            "serve": phase_serve, "mb_parity": phase_mb_parity, "mb_serve": phase_mb_serve,
            "ssm_parity": phase_ssm_parity, "ssm_serve": phase_ssm_serve,
            "recover": phase_recover, "mb_recover": phase_mb_recover,
-           "telemetry": phase_telemetry}
+           "telemetry": phase_telemetry, "paged_modes": phase_paged_modes}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     if "env" not in phases:
         phases.insert(0, "env")

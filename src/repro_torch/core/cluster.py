@@ -9,7 +9,13 @@ Two serving paths share the stage workers:
   memory between its steps, paper §4.2.2);
 - the paged path of `run_continuous`: whole-prompt or chunked prefill into
   the block pool, fused decode and chunk-set passes, the per-sequence path,
-  and preemption by block-granular swap to host memory.
+  and preemption by block-granular swap to host memory; disaggregated, the
+  prompt pipeline streams each prompt's blocks to the token pipeline, and
+  with swapping every sequence lives in host memory between its steps.
+  With ``tiered=True`` every stage's pool is backed by host memory and SSD
+  (`kvcache.tiers`): preemption swaps through the tiers, retired prompt
+  blocks enter a prefix cache, and a new prompt that shares a cached prefix
+  adopts it and runs only its suffix through compute.
 
 On both paths ring replication copies each stage's KV, after every pass, to
 its ring successor's host memory (`replication=True`), and a failed worker
@@ -26,11 +32,11 @@ clock by the cost model's time for it (`costmodel`, with `hw`, one stage
 on an 8-GPU node), at the reference's call sites with its arguments; a
 kill marks the clock for the engine's ``cluster.recovery_s``.
 
-Tiers, swapping and disaggregation on the paged path are later slices and
-raise NotImplementedError where asked for.
+The other model families raise NotImplementedError (a later slice).
 """
 from __future__ import annotations
 
+import dataclasses
 import time
 from collections import Counter
 from typing import Dict, List, Optional, Tuple
@@ -50,6 +56,7 @@ from repro_torch.core.dejavulib.transport import DEFAULT_HW, HardwareModel
 from repro_torch.core.worker import StageWorker
 from repro_torch.kvcache.cache import decode_state_shapes, state_bytes
 from repro_torch.kvcache.paged import BlockPool, PoolExhausted, blocks_for
+from repro_torch.kvcache.tiers import TierConfig
 
 
 # the chips one pipeline stage's modeled pass runs on: an 8-GPU node
@@ -87,14 +94,11 @@ class DejaVuCluster:
         if mode == "disaggregated" and (dp_split is None or sum(dp_split) != n_workers):
             raise ValueError(f"disaggregated mode needs dp_split summing to {n_workers}, "
                              f"got {dp_split}")
+        if tiered and not paged:
+            raise ValueError("tiered=True needs paged=True")
         # the stage API (slice_params, stage_prefill, ...) exists for the dense
         # family only; MambaLM and HybridLM serve through prefill/decode_step
-        not_ported(**{f"family={cfg.family} in the cluster (A.12)": cfg.family != "dense",
-                      "tiered (A.10)": tiered, "host_cache_blocks (A.10)": host_cache_blocks,
-                      "ssd_cache_blocks (A.10)": ssd_cache_blocks,
-                      "swapping with paged=True (A.9)": swapping and paged,
-                      "mode=disaggregated with paged=True (A.9)":
-                          paged and mode != "colocated"})
+        not_ported(**{f"family={cfg.family} in the cluster (A.12)": cfg.family != "dense"})
         self.cfg = cfg
         self.model = model
         self.params = params             # full weights (the checkpoint store)
@@ -105,6 +109,9 @@ class DejaVuCluster:
         self.compress_replicas = compress_replicas
         self.hw = hw
         self.paged = paged
+        self.tiered = tiered
+        self.tier_cfg = TierConfig(host_capacity_blocks=host_cache_blocks,
+                                   ssd_capacity_blocks=ssd_cache_blocks)
         self.kv_block_size = kv_block_size or cfg.kv_block_size
         self.kv_pool_blocks = kv_pool_blocks or cfg.kv_pool_blocks or 512
         self.prefill_chunk_tokens = (cfg.prefill_chunk_tokens
@@ -122,9 +129,8 @@ class DejaVuCluster:
             self.token_group = self._build_group(dt, wid0=dp)
         for w in self.workers():
             self.controller.register(w)
-        if paged:
-            for w in self.token_group:
-                w.enable_paging(self.kv_pool_blocks, self.kv_block_size)
+            if paged:
+                self._enable_paging(w)
         # microbatch (run() path) bookkeeping: KV length, prompt length,
         # cache length, batch
         self.mb_pos: Dict[int, int] = {}
@@ -134,9 +140,16 @@ class DejaVuCluster:
         # paged (per-sequence) bookkeeping
         self.seq_len: Dict[int, int] = {}       # live tokens per sequence
         self.seq_prompt_len: Dict[int, int] = {}
-        self.seq_hashes: Dict[int, List[int]] = {}
+        self.seq_hashes: Dict[int, List[int]] = {}   # prompt prefix chain
         self.kv_bytes_peak = 0
+        # cross-request prefix reuse (tiered)
+        self.prefill_tokens_total = 0
+        self.prefill_tokens_saved = 0
+        self.prefix_hit_blocks = 0
         self._pending_prefill: Dict[int, dict] = {}
+        self.prefill_passes: Dict[int, int] = {}      # rid -> passes of its last prefill
+        # (suffix tokens, passes) of each prefill that adopted a prefix
+        self.adoption_suffix_log: List[Tuple[int, int]] = []
         # pipeline passes run, by kind; "one_token" counts the passes whose
         # attention ran with one query per sequence (every decode pass, and
         # any prefill pass whose longest chunk is a single token)
@@ -183,6 +196,13 @@ class DejaVuCluster:
         return StageWorker(wid, self.model, self.params, lo, hi, first=first, last=last,
                            hw=self.hw, device=self.device, streamer=self.streamer,
                            compress_replicas=self.compress_replicas)
+
+    def _enable_paging(self, w: StageWorker, ssd_root: Optional[str] = None) -> None:
+        """Give a worker its block pool and, tiered, its host and SSD tiers
+        (on the disk at `ssd_root`, else a private temp dir)."""
+        w.enable_paging(self.kv_pool_blocks, self.kv_block_size)
+        if self.tiered:
+            w.enable_tiering(dataclasses.replace(self.tier_cfg, ssd_root=ssd_root))
 
     def _build_group(self, depth: int, wid0: int) -> List[StageWorker]:
         ranges = _stage_ranges(self.cfg.num_layers, depth)
@@ -302,18 +322,44 @@ class DejaVuCluster:
         return self.fused_rounds and self.paged and fused_supported(self.cfg)
 
     def can_admit(self, prompt_len: int, n_active: int, token_ids=None) -> bool:
-        """Admission control: every pool must fit the prompt plus one
-        headroom block per already-running sequence."""
-        need = blocks_for(prompt_len + 1, self.kv_block_size) + n_active
-        return all(w.pool.num_free() >= need for w in self.token_group)
+        """Admission control: every token-side pool must fit the prompt plus
+        one headroom block per running sequence.  Tiered, `token_ids` lets
+        admission count the prompt's full blocks whose prefix hash is live
+        in a pool: they will be shared, not allocated (in both modes: the
+        prompt side adopts them, the token side shares them again as the
+        streamed blocks land).  The chain stops one block short of the
+        prompt (a suffix token must run through compute), and blocks the
+        tiers hold still take free blocks.  Disaggregated, the prompt-side
+        pools must fit the prompt too (no headroom: they hold it only until
+        it streams out)."""
+        bs = self.kv_block_size
+        need = blocks_for(prompt_len + 1, bs) + n_active
+        hashes: List[int] = []
+        if token_ids is not None and self.tiered:
+            hashes = BlockPool.chain_hashes([int(t) for t in token_ids],
+                                            bs)[:(prompt_len - 1) // bs]
+
+        def fits(w: StageWorker, want: int) -> bool:
+            hits = w.pool_prefix_hits(hashes) if hashes else 0
+            return w.pool.num_free() >= want - hits
+
+        if not all(fits(w, need) for w in self.token_group):
+            return False
+        if self.mode == "disaggregated":
+            return all(fits(w, blocks_for(prompt_len, bs)) for w in self.prompt_group)
+        return True
 
     def prefill_seq_begin(self, rid: int, prompt: np.ndarray, max_new: int) -> None:
-        """Stage a prefill for `prefill_seq_step` to advance pass by pass:
-        in chunks of `prefill_chunk_tokens` prompt tokens ("chunk" mode) when
-        the prompt is longer than a chunk or fused rounds are on (so every
-        in-flight prefill packs into the round's chunk-set pass), else the
-        whole prompt in one pass ("batch" mode, through `flash_attention`).
-        `prefill_chunk_tokens=0` always runs the whole prompt."""
+        """Stage a prefill for `prefill_seq_step` to advance pass by pass.
+        Tiered, the prompt's prefix chain is first matched against the live
+        pool blocks and the tiers of every prompt-side stage; a matching
+        prefix is adopted and only the suffix runs through compute, in
+        chunks of `prefill_chunk_tokens` ("chunk" mode) or, with chunking
+        off, one token per pass through the decode path ("token" mode).  A
+        cold prompt runs in chunks when it is longer than a chunk or fused
+        rounds are on (so every in-flight prefill packs into the round's
+        chunk-set pass), else whole ("batch" mode, through
+        `flash_attention`)."""
         plen = int(prompt.shape[0])
         self.seq_len[rid] = plen
         self.seq_prompt_len[rid] = plen
@@ -322,18 +368,42 @@ class DejaVuCluster:
         for w in self.prompt_group:      # re-prefill after rollback-to-0
             if rid in w.pool.tables:
                 w.free_paged_seq(rid)
+        self.prefill_tokens_total += plen
         ck = self.prefill_chunk_tokens
-        mode = "chunk" if ck > 0 and (plen > ck or self.fused_ok) else "batch"
-        if mode == "chunk":
+        khashes = self._adoptable_prefix(token_ids)
+        if self.tiered:
+            telemetry.count("tier.prefix_hit_blocks", len(khashes))
+            telemetry.count("tier.prefix_miss_blocks",
+                            (plen - 1) // self.kv_block_size - len(khashes))
+        st = {"prompt": np.asarray(prompt, np.int32), "plen": plen, "start": 0, "pos": 0,
+              "passes": 0, "x": None}
+        if khashes:
+            start = len(khashes) * self.kv_block_size
+            for w in self.prompt_group:
+                w.adopt_prefix(rid, khashes, start)
+            self.prefix_hit_blocks += len(khashes)
+            self.prefill_tokens_saved += start
+            st["start"] = st["pos"] = start
+            if ck > 0:
+                st["mode"] = "chunk"
+                for w in self.prompt_group:
+                    w.ensure_prefill_table(rid, plen)
+            else:
+                st["mode"] = "token"
+        elif ck > 0 and (plen > ck or self.fused_ok):
+            st["mode"] = "chunk"
             for w in self.prompt_group:
                 w.ensure_prefill_table(rid, plen, token_ids=token_ids)
-        self._pending_prefill[rid] = {"prompt": np.asarray(prompt, np.int32),
-                                      "plen": plen, "pos": 0, "x": None, "mode": mode}
+        else:
+            st["mode"] = "batch"
+        self._pending_prefill[rid] = st
 
     def prefill_seq_step(self, rid: int) -> Optional[torch.Tensor]:
         """Run one pipeline pass of a staged prefill: the whole prompt
-        ("batch" mode) or one chunk attending over the pool-resident prefix.
-        Returns the prefill logits once the prompt is done, else None."""
+        ("batch"), one chunk attending over the pool-resident prefix
+        ("chunk") or one suffix token through the decode path ("token").
+        Returns the prefill logits once the prompt is done (and its blocks
+        have streamed, replicated and swapped out), else None."""
         st = self._pending_prefill[rid]
         plen, pos = st["plen"], st["pos"]
         with telemetry.span("pass", kind=f"prefill_{st['mode']}"), \
@@ -345,13 +415,17 @@ class DejaVuCluster:
                 for w in self.prompt_group:
                     x, _ = w.prefill_paged(rid, x, token_ids=token_ids)
                 c = plen
-                self._count_pass("prefill_batch", c)
-            else:
+            elif st["mode"] == "chunk":
                 c = min(self.prefill_chunk_tokens, plen - pos)
                 x = self._tokens(st["prompt"][pos:pos + c])[None]
                 for w in self.prompt_group:
                     x = w.prefill_chunk_paged(rid, x, pos)
-                self._count_pass("prefill_chunk", c)
+            else:                        # one suffix token through the decode path
+                c = 1
+                x = self._tokens(st["prompt"][pos:pos + 1])
+                for w in self.prompt_group:
+                    x = w.decode_paged(rid, x, pos)
+            self._count_pass(f"prefill_{st['mode']}", c)
             st["x"] = x
             self._after_prefill_pass(rid, st, c)
         if st["pos"] < plen:
@@ -359,11 +433,13 @@ class DejaVuCluster:
         return self._finish_prefill(rid)
 
     def _after_prefill_pass(self, rid: int, st: dict, n_q: int) -> None:
-        """Advance the cursor, in chunk mode publish the prefix hashes of the
-        blocks whose pages the cursor just completed (a whole-prompt pass
-        publishes them as it allocates), and charge the modeled pass time."""
+        """Advance the cursor; for a cold chunked prefill publish the prefix
+        hashes of the blocks whose pages the cursor just completed (a
+        whole-prompt pass publishes them as it allocates, an adopted prefix
+        is published already); charge the modeled pass time."""
         st["pos"] += n_q
-        if st["mode"] == "chunk":
+        st["passes"] += 1
+        if st["mode"] == "chunk" and st["start"] == 0:
             for w in self.prompt_group:
                 w.publish_prefix_hashes(rid, self.seq_hashes[rid], st["pos"])
         t = cm.chunked_prefill_pass_time(self.cfg, n_q, st["pos"], self.cfg.num_layers,
@@ -372,11 +448,66 @@ class DejaVuCluster:
         telemetry.advance(t)
 
     def _finish_prefill(self, rid: int) -> torch.Tensor:
+        """After the last prefill pass: disaggregated, stream the prompt's
+        blocks to the token pipeline; replicate them; with swapping, move
+        them to host memory."""
         st = self._pending_prefill.pop(rid)
+        plen, start = st["plen"], st["start"]
+        self.prefill_passes[rid] = st["passes"]
+        if start > 0:
+            self.adoption_suffix_log.append((plen - start, st["passes"]))
+            self._register_compute(plen - start, plen)
+        if self.mode == "disaggregated":
+            self._stream_prompt_blocks(rid, plen)
         if self.replication:
             self._replicate_paged(rid, step=0)
+        if self.swapping:
+            for w in self.token_group:
+                w.paged_offload(rid)
         self._track_kv_peak()
         return st["x"]
+
+    def _adoptable_prefix(self, token_ids: List[int]) -> List[int]:
+        """The prefix-chain hashes (full blocks) every prompt-side stage can
+        serve from cache, stopping one block short of the prompt (the
+        prefill logits need a suffix token)."""
+        if not self.tiered:
+            return []
+        bs = self.kv_block_size
+        hashes = BlockPool.chain_hashes(token_ids, bs)[:(len(token_ids) - 1) // bs]
+        if not hashes:
+            return []
+        k = min(w.adoptable_prefix_len(hashes) for w in self.prompt_group)
+        return hashes[:k]
+
+    def _register_compute(self, n_tokens: int, ctx: int) -> None:
+        """Report modeled compute time to the streamer, whose overlap report
+        says how much of the tiers' write-behind it hid."""
+        if not self.tiered or n_tokens <= 0:
+            return
+        wl = cm.WorkloadSpec(prompt_len=max(ctx, 1), new_tokens=1, microbatch=1)
+        t = cm.stage_token_time(self.cfg, wl, self.cfg.num_layers, _STAGE_CHIPS, max(ctx, 1),
+                                self.hw)
+        self.streamer.compute_span(t * n_tokens)
+
+    def _stream_prompt_blocks(self, rid: int, plen: int) -> None:
+        """Move a prefilled prompt's blocks from the prompt stages to the
+        token stages, split and merged by layer range over the network
+        (`stream_out_blocks` / `stream_in_blocks`), and free them on the
+        prompt side.  The token side shares again the full prompt blocks
+        already live in its pool (the discount `can_admit` counts on)."""
+        topo_p = PipelineTopo(len(self.prompt_group), self.cfg.num_layers, 1)
+        topo_t = PipelineTopo(len(self.token_group), self.cfg.num_layers, 1)
+        dst_stores = {i: w.cache.host for i, w in enumerate(self.token_group)}
+        for si, w in enumerate(self.prompt_group):
+            stream_out_blocks(w.live_blocks(rid), si, topo_p, topo_t, dst_stores, self.net,
+                              seq=rid)
+            w.free_paged_seq(rid)
+        for di, w in enumerate(self.token_group):
+            blocks = stream_in_blocks(w.cache.host, di, topo_t, topo_p, self.net, seq=rid,
+                                      device=w.device)
+            w.install_blocks(rid, plen, blocks,
+                             hashes=self.seq_hashes.get(rid, [])[:(plen - 1) // self.kv_block_size])
 
     def abort_prefill(self, rid: int) -> None:
         """Drop an in-flight prefill (a worker died mid-chunk and took the
@@ -390,17 +521,21 @@ class DejaVuCluster:
         return rid in self._pending_prefill
 
     def prefill_mode(self, rid: int) -> Optional[str]:
-        """'chunk' or 'batch' for a staged prefill, else None: the engine
-        packs only chunk-mode prefills into a fused pass."""
+        """'chunk', 'batch' or 'token' for a staged prefill, else None: the
+        engine packs only chunk-mode prefills into a fused pass."""
         st = self._pending_prefill.get(rid)
         return None if st is None else st["mode"]
 
     def decode_seq(self, rid: int, token, step: int) -> torch.Tensor:
-        """One decode step for one sequence.  Raises PoolExhausted before
-        mutating any pool, so the engine can preempt a victim and retry."""
+        """One decode step for one sequence (with swapping, in from host
+        memory and out again).  Raises PoolExhausted before mutating any
+        pool, so the engine can preempt a victim and retry."""
         pos = self.seq_len[rid]
         with telemetry.span("pass", kind="perseq_decode"), \
                 tracing.span("pass", rid=rid, seq=step, kind="perseq_decode"):
+            if self.swapping:
+                for w in self.token_group:
+                    w.paged_restore(rid)
             for w in self.token_group:
                 if w.pool.append_needs_block(rid) and w.pool.num_free() == 0:
                     raise PoolExhausted(f"worker {w.wid} pool full (seq {rid})")
@@ -408,23 +543,33 @@ class DejaVuCluster:
             for w in self.token_group:
                 x = w.decode_paged(rid, x, pos)
             self.seq_len[rid] = pos + 1
+            self._register_compute(1, pos + 1)
             self._count_pass("perseq_decode", 1)
             telemetry.advance(cm.stage_token_time(
                 self.cfg, cm.WorkloadSpec(prompt_len=max(pos, 1), new_tokens=1, microbatch=1),
                 self.cfg.num_layers, _STAGE_CHIPS, pos + 1, self.hw))
         if self.replication:
             self._replicate_paged(rid, step=step, pos=pos)
+        if self.swapping:
+            for w in self.token_group:
+                w.paged_offload(rid)
         self._heartbeats()
         self._track_kv_peak()
         return x
 
     def decode_batch(self, rids: List[int], tokens, steps: List[int]) -> torch.Tensor:
-        """One pipeline pass that decodes every sequence in `rids` one step.
-        Capacity is pre-flighted across the whole batch, so PoolExhausted
-        raises before any pool mutates.  Returns logits [B,V]."""
+        """One pipeline pass that decodes every sequence in `rids` one step
+        (with swapping, each comes in from host memory before and goes out
+        after).  Capacity is pre-flighted across the whole batch, so
+        PoolExhausted raises before any pool mutates.  Returns logits
+        [B,V]."""
         poses = [self.seq_len[rid] for rid in rids]
         with telemetry.span("pass", kind="fused_decode"), \
                 tracing.span("pass", kind="fused_decode", rids=list(rids)):
+            if self.swapping:
+                for w in self.token_group:
+                    for rid in rids:
+                        w.paged_restore(rid)
             for w in self.token_group:
                 need = sum(1 for rid in rids if w.pool.append_needs_block(rid))
                 if need > w.pool.num_free():
@@ -436,6 +581,7 @@ class DejaVuCluster:
                 x = w.decode_paged_batch(rids, x, poses)
             for rid, pos in zip(rids, poses):
                 self.seq_len[rid] = pos + 1
+                self._register_compute(1, pos + 1)
             self._count_pass("fused_decode", 1)
             # the mean context of the batch, as the reference rounds it
             ctx = max(1, (sum(poses) + len(poses)) // max(len(poses), 1))
@@ -445,6 +591,10 @@ class DejaVuCluster:
         if self.replication:
             for rid, step, pos in zip(rids, steps, poses):
                 self._replicate_paged(rid, step=step, pos=pos)
+        if self.swapping:
+            for w in self.token_group:
+                for rid in rids:
+                    w.paged_offload(rid)
         self._heartbeats()
         self._track_kv_peak()
         return x
@@ -529,6 +679,26 @@ class DejaVuCluster:
         self.seq_hashes.pop(rid, None)
         self._pending_prefill.pop(rid, None)
 
+    def pool_stats(self) -> Dict[str, int]:
+        used = max((w.pool.num_used() for w in self.token_group), default=0)
+        peak = max((w.pool.peak_used_blocks for w in self.token_group), default=0)
+        return {"used_blocks": used, "peak_blocks": peak, "peak_kv_bytes": self.kv_bytes_peak}
+
+    def tier_stats(self) -> Dict[str, float]:
+        """The stages' tier counters summed, with the cluster's prefix-reuse
+        tallies (empty unless tiered)."""
+        agg: Dict[str, float] = {}
+        for w in self.workers():
+            if w.tier is None:
+                continue
+            for k, v in w.tier.stats().items():
+                agg[k] = agg.get(k, 0) + v
+        if agg or self.tiered:
+            agg["prefill_tokens_total"] = self.prefill_tokens_total
+            agg["prefill_tokens_saved"] = self.prefill_tokens_saved
+            agg["prefix_hit_blocks"] = self.prefix_hit_blocks
+        return agg
+
     # ------------------------------------------------------------------
     # failure handling (paper §4.2.3) and straggler migration
     # ------------------------------------------------------------------
@@ -593,22 +763,24 @@ class DejaVuCluster:
             self.recovery_log.append(rec)
         t = self._lap(rec, "detect_ms", rec["t_fail"])
         if self.mode == "disaggregated" and any(w.wid == wid for w in self.prompt_group):
-            # prompt workers hold no state across microbatches: rebuild in place
-            self._replace(self.prompt_group,
-                          next(i for i, w in enumerate(self.prompt_group) if w.wid == wid))
+            # prompt workers hold no state across requests: rebuild in place
+            neww = self._replace(self.prompt_group,
+                                 next(i for i, w in enumerate(self.prompt_group)
+                                      if w.wid == wid))
+            if self.paged:
+                self._enable_paging(neww)
             self._lap(rec, "rebuild_ms", t)
             self.controller.log_event("recovery", wid=wid, resume={})
             return {}
         group = self.token_group
         idx = next(i for i, w in enumerate(group) if w.wid == wid)
         n = len(group)
+        old = group[idx]
         neww = self._replace(group, idx)
-        if self.paged:
-            neww.enable_paging(self.kv_pool_blocks, self.kv_block_size)
-        t = self._lap(rec, "rebuild_ms", t)
         succ, pred = group[(idx + 1) % n], group[(idx - 1) % n]
         if self.paged:
-            return self._recover_worker_paged(wid, neww, succ, pred, active, rec, t)
+            return self._recover_worker_paged(wid, old, neww, succ, pred, active, rec, t)
+        t = self._lap(rec, "rebuild_ms", t)
         # step 1: the successor returns the failed worker's replica
         for mb in active:
             arrays = {leaf: succ.cache.replica.get(f"w{wid}/mb{mb}/{leaf}")
@@ -640,44 +812,67 @@ class DejaVuCluster:
         self.controller.log_event("recovery", wid=wid, resume=dict(resume))
         return resume
 
-    def _recover_worker_paged(self, wid: int, neww: StageWorker, succ: StageWorker,
-                              pred: StageWorker, active: List[int], rec: dict,
-                              t: float) -> Dict[int, int]:
+    def _recover_worker_paged(self, wid: int, old: StageWorker, neww: StageWorker,
+                              succ: StageWorker, pred: StageWorker, active: List[int],
+                              rec: dict, t: float) -> Dict[int, int]:
         """Paged 4-step recovery: only live blocks move.  Each sequence is
-        restored from the successor's replica blocks, the predecessor
-        re-streams its own blocks, and every sequence rolls back to its last
-        fully replicated step."""
+        restored from the lowest tier holding a replica: the dead worker's
+        SSD tier (disk outlives the machine), else the successor's replica
+        blocks; the predecessor re-streams its own blocks, and every
+        sequence rolls back to its last fully replicated step.  Tiered, the
+        rebuild reattaches the dead worker's disk and rebuilds the tier
+        index from its keys (``reattach_ms``)."""
+        # the dead machine's disk outlives it: the new worker's tiers take the
+        # same root, after the write-behinds in flight have landed
+        self._enable_paging(neww, ssd_root=old.tier.ssd.root if old.tier is not None else None)
+        t = self._lap(rec, "rebuild_ms", t)
+        if self.tiered:
+            self.streamer.drain()
+            neww.tier.reattach()
+            t = self._lap(rec, "reattach_ms", t)
         bs = self.kv_block_size
-        # step 1: restore each sequence from the successor's replica blocks
+        # step 1: restore each sequence from the lowest tier holding it
         for rid in active:
             rep = self.controller.replicated_step(wid, rid)
             if rep < 0:
                 continue                 # nothing replicated: the engine re-prefills
             avail = self.seq_prompt_len[rid] + rep
             keep = blocks_for(avail, bs)
-            blocks = {j: a for j, a in succ.cache.replica_blocks(wid, rid).items() if j < keep}
-            # full prompt blocks shared with co-resident sequences are shared
-            # again, so a pool that fit its load by sharing still fits it
-            neww.install_blocks(rid, avail, blocks,
-                                hashes=self.seq_hashes.get(rid, [])[:avail // bs])
-            # a preempted sequence goes back to host memory on the new worker
-            # too: recovery leaves residency as it found it
-            if rid in pred.paged_swapped:
-                neww.paged_offload(rid)
+            blocks = None
+            # the SSD copy is authoritative only if the sequence was swapped
+            # out at (at least) the resume length: the peers' symmetric swap
+            # state witnesses the dead worker's
+            if self.tiered and pred.paged_swapped.get(rid, -1) >= avail:
+                blocks = neww.tier.restore_swap_from_ssd(rid, keep)
+            if blocks is None:
+                blocks = {j: a for j, a in succ.cache.replica_blocks(wid, rid).items()
+                          if j < keep}
+            if self.swapping or rid in pred.paged_swapped:
+                # a swapped or preempted sequence goes back to host memory on
+                # the new worker: recovery leaves residency as it found it,
+                # and takes no pool block for it (a full pool is why it was
+                # preempted)
+                neww.hold_swapped(rid, avail, blocks)
+            else:
+                # full prompt blocks shared with co-resident sequences are
+                # shared again, so a pool that fit its load by sharing still
+                # fits it
+                neww.install_blocks(rid, avail, blocks,
+                                    hashes=self.seq_hashes.get(rid, [])[:avail // bs])
         t = self._lap(rec, "replica_ms", t)
-        # step 2: the predecessor re-replicates its own live blocks; a
-        # preempted sequence comes back for the send and goes out again
+        # step 2: the predecessor re-replicates its own blocks, a swapped or
+        # preempted sequence's from its held copy (no pool block taken)
         for rid in active:
-            was_swapped = rid in pred.paged_swapped
-            pred.paged_restore(rid)
-            if rid not in pred.pool.tables:
+            if rid in pred.paged_swapped:
+                blocks = pred.held_blocks(rid, pred.paged_swapped[rid])
+            elif rid in pred.pool.tables:
+                blocks = pred.live_blocks(rid)
+            else:
                 continue
             step = self.controller.replicated_step(pred.wid, rid)
-            for j, arrays in pred.live_blocks(rid).items():
+            for j, arrays in blocks.items():
                 pred.cache.replicate_block_to(neww.cache, rid, j, arrays, step,
                                               self.controller.ack_replication)
-            if was_swapped:
-                pred.paged_offload(rid)
         self.streamer.drain()
         t = self._lap(rec, "rereplicate_ms", t)
         # steps 3 and 4: the resume point per sequence; every pool rolls back
@@ -722,9 +917,12 @@ class DejaVuCluster:
         dst_stores = {i: w.cache.host for i, w in enumerate(new_group)}
         if self.paged:
             for w in new_group:
-                w.enable_paging(self.kv_pool_blocks, self.kv_block_size)
+                # tiered: fresh (cold) tiers, as the stages' layer slices changed
+                self._enable_paging(w)
             for rid in active:
                 for si, w in enumerate(old_group):
+                    if self.swapping:
+                        w.paged_restore(rid)
                     stream_out_blocks(w.live_blocks(rid), si, topo_old, topo_new, dst_stores,
                                       self.net, seq=rid)
                 for di, w in enumerate(new_group):

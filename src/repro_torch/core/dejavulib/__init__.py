@@ -1,5 +1,5 @@
 from repro_torch.core.dejavulib import faults
-from repro_torch.core.dejavulib.buffers import HostMemoryStore
+from repro_torch.core.dejavulib.buffers import HostMemoryStore, SSDStore
 from repro_torch.core.dejavulib.faults import (FaultInjected, FaultInjector, FaultPlan,
                                                FaultSpec, FiredFault, StreamTaskError,
                                                assert_no_leaks)
@@ -10,11 +10,12 @@ from repro_torch.core.dejavulib.primitives import (CacheChunk, PipelineTopo, fet
 from repro_torch.core.dejavulib.streamer import StreamEngine
 from repro_torch.core.dejavulib.transport import (DEFAULT_HW, HardwareModel,
                                                   HostLinkTransport, LocalTransport,
-                                                  NetworkTransport, Transport)
+                                                  NetworkTransport, SSDTransport,
+                                                  Transport)
 
-__all__ = ["DEFAULT_HW", "HardwareModel", "HostMemoryStore", "CacheChunk", "PipelineTopo",
-           "fetch", "flush", "plan_repartition", "scatter", "stream_in", "stream_out",
-           "stream_in_blocks", "stream_out_blocks", "HostLinkTransport", "LocalTransport",
-           "NetworkTransport", "Transport", "StreamEngine", "faults", "FaultInjected",
-           "FaultInjector", "FaultPlan", "FaultSpec", "FiredFault", "StreamTaskError",
-           "assert_no_leaks"]
+__all__ = ["DEFAULT_HW", "HardwareModel", "HostMemoryStore", "SSDStore", "CacheChunk",
+           "PipelineTopo", "fetch", "flush", "plan_repartition", "scatter", "stream_in",
+           "stream_out", "stream_in_blocks", "stream_out_blocks", "HostLinkTransport",
+           "LocalTransport", "NetworkTransport", "SSDTransport", "Transport", "StreamEngine",
+           "faults", "FaultInjected", "FaultInjector", "FaultPlan", "FaultSpec", "FiredFault",
+           "StreamTaskError", "assert_no_leaks"]

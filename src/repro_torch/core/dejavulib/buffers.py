@@ -1,5 +1,11 @@
-"""Host-side buffer store for KV-cache swapping (the port's copy of the
-reference's `HostMemoryStore`, holding CPU tensors instead of numpy arrays).
+"""Host-side buffer stores for KV-cache streaming (the port's copies of the
+reference's `HostMemoryStore` and `SSDStore`, holding CPU tensors instead of
+numpy arrays).
+
+`HostMemoryStore` is a node's host memory: the swap and replication target
+and tier 1 of the KV hierarchy (`repro_torch.kvcache.tiers`).  `SSDStore`
+persists to disk (tier 2) with atomic, fsync'd writes, so a crashed writer
+never leaves a torn block.
 
 Capacity is enforced on every `put`: the store either raises
 (``on_full="raise"``, the default) or evicts least-recently-used entries
@@ -9,11 +15,15 @@ however many entries it holds (a replica store holds thousands of blocks).
 """
 from __future__ import annotations
 
+import os
 import threading
 from collections import OrderedDict
 from typing import Callable, List, Optional, Tuple
 
+import numpy as np
 import torch
+
+from repro_torch.core.dejavulib import faults
 
 
 def _nbytes(t: torch.Tensor) -> int:
@@ -102,3 +112,93 @@ class HostMemoryStore:
         with self._lock:
             self._data.clear()
             self._used = 0
+
+
+def _as_numpy(t: torch.Tensor) -> np.ndarray:
+    """A CPU tensor's bytes as a numpy array of its shape: bfloat16, which
+    numpy lacks, as its 2-byte integer view."""
+    t = t.detach().to("cpu").contiguous()
+    return (t.view(torch.int16) if t.dtype == torch.bfloat16 else t).numpy()
+
+
+class SSDStore:
+    """Disk-backed store (one ``.npy`` file per key, published by atomic
+    rename).  Survives process death: the tier-2 spill of the KV hierarchy,
+    which failure recovery restores from.
+
+    Writes are crash-safe: the bytes land in a temp file that is flushed and
+    fsync'd before ``os.replace`` publishes it, so a reader never sees a torn
+    block; a writer's crash leaves at worst an orphaned ``*.tmp.*`` file,
+    which `keys()` ignores.  A bfloat16 tensor is stored as its int16 view,
+    and `get` takes the dtype to view it back as; any other dtype is stored
+    as numpy stores it (an fp32 file has the reference store's size)."""
+
+    def __init__(self, root: str, name: str = "ssd"):
+        self.name = name
+        self.root = root
+        os.makedirs(root, exist_ok=True)
+        self._lock = threading.Lock()
+
+    def _path(self, key: str) -> str:
+        return os.path.join(self.root, key.replace("/", "__") + ".npy")
+
+    def put(self, key: str, array: torch.Tensor) -> None:
+        path = self._path(key)
+        tmp = path + f".tmp.{os.getpid()}.{threading.get_ident()}"
+        arr = _as_numpy(array)
+        with self._lock:
+            try:
+                with open(tmp, "wb") as f:   # np.save(str) would append .npy
+                    np.save(f, arr)
+                    f.flush()
+                    os.fsync(f.fileno())     # durable before the rename publishes
+                # the crash window: the bytes are durable in the temp file but
+                # not published; a fault here must leave a reader the old
+                # block (or none), never a torn one
+                faults.fire("ssd.put", tag=key)
+                os.replace(tmp, path)        # atomic
+            except BaseException:
+                try:
+                    os.remove(tmp)           # never leak a partial temp file
+                except FileNotFoundError:
+                    pass
+                raise
+
+    def get(self, key: str, dtype: Optional[torch.dtype] = None) -> torch.Tensor:
+        """The stored tensor, viewed as `dtype` where one is given (a stored
+        int16 view as bfloat16)."""
+        t = torch.from_numpy(np.load(self._path(key)))
+        if dtype is not None and t.dtype != dtype:
+            if t.element_size() != torch.empty((), dtype=dtype).element_size():
+                raise TypeError(f"store {self.name!r}: {key!r} holds {t.dtype}, "
+                                f"not a view of {dtype}")
+            t = t.view(dtype)
+        return t
+
+    def delete(self, key: str) -> None:
+        try:
+            os.remove(self._path(key))
+        except FileNotFoundError:
+            pass
+
+    def __contains__(self, key: str) -> bool:
+        return os.path.exists(self._path(key))
+
+    def size(self, key: str) -> int:
+        """On-disk bytes of one entry (0 if absent)."""
+        try:
+            return os.path.getsize(self._path(key))
+        except FileNotFoundError:
+            return 0
+
+    def keys(self):
+        return [f[:-4].replace("__", "/") for f in os.listdir(self.root) if f.endswith(".npy")]
+
+    def used_bytes(self) -> int:
+        return sum(os.path.getsize(os.path.join(self.root, f))
+                   for f in os.listdir(self.root) if f.endswith(".npy"))
+
+    def clear(self) -> None:
+        for f in list(os.listdir(self.root)):
+            if f.endswith(".npy"):
+                os.remove(os.path.join(self.root, f))

@@ -15,9 +15,9 @@ point                       fired from
 ``stream.wait``             StreamEngine.wait (caller thread)
 ``stream.drain``            StreamEngine.drain, before the barrier
 ``transport.transfer.<k>``  Transport.transfer, ``<k>`` the link kind
-``tier.demote``             the KV tiers (not ported yet: never fired)
-``tier.promote``            the KV tiers (not ported yet: never fired)
-``ssd.put``                 the SSD store (not ported yet: never fired)
+``tier.demote``             KVTierManager, before each demotion or spill
+``tier.promote``            KVTierManager, before each up-tier read
+``ssd.put``                 SSDStore.put, between the fsync and the rename
 ==========================  =====================================================
 
 Fault kinds and how each site realises them:
@@ -55,6 +55,12 @@ RETRYABLE_KINDS = frozenset({"task_error", "ssd_write"})
 
 #: kinds that raise FaultInjected out of fire()
 _RAISE_KINDS = frozenset({"error", "task_error", "ssd_write"})
+
+
+class WorkerDead(RuntimeError):
+    """A stage op, or a read of a worker's host tier, reached a dead
+    worker: the one error the serving engine recovers from.  Any other
+    error, a failed kernel launch included, propagates."""
 
 
 class FaultInjected(Exception):
@@ -284,7 +290,9 @@ def coverage_summary(reference: FaultInjector, exercised: Dict[str, dict]) -> di
 def assert_no_leaks(cluster) -> None:
     """Post-run invariant: every retired sequence released everything.
     Per live worker: the block pool is fully free and holds no page tables;
-    no ``pagedswap/`` residue in the host store; no ``/seq`` replica keys."""
+    no ``pagedswap/`` residue in the host store; no ``/seq`` replica keys;
+    no ``swap``-kind entry in the KV tiers (prefix entries are a cache, not
+    ownership)."""
     workers = list(dict.fromkeys(list(getattr(cluster, "prompt_group", []))
                                  + list(getattr(cluster, "token_group", []))))
     for w in workers:
@@ -304,9 +312,14 @@ def assert_no_leaks(cluster) -> None:
             stale = [k for k in cache.replica.keys() if "/seq" in k]
             if stale:
                 raise AssertionError(f"worker {w.wid}: replica residue: {stale[:4]}...")
+        tier = getattr(w, "tier", None)
+        if tier is not None:
+            swaps = [e.key for e in tier._entries.values() if e.kind == "swap"]
+            if swaps:
+                raise AssertionError(f"worker {w.wid}: tier swap entries leaked: {swaps[:4]}")
 
 
-__all__ = ["FAULT_KINDS", "RETRYABLE_KINDS", "FaultInjected", "StreamTaskError",
+__all__ = ["FAULT_KINDS", "RETRYABLE_KINDS", "FaultInjected", "StreamTaskError", "WorkerDead",
            "FaultSpec", "FaultPlan", "FiredFault", "FaultInjector", "install",
            "uninstall", "current", "active", "fire", "survivable_kinds",
            "spec_for_point", "coverage_summary", "assert_no_leaks"]

@@ -166,6 +166,30 @@ class StreamEngine:
                 f"first: {first.tag!r} ({type(first.error).__name__}: {first.error})"
             ) from first.error
 
+    def hand_off(self, tensors: List[torch.Tensor]) -> Optional[torch.cuda.Event]:
+        """Make device tensors made on the caller's stream safe for a task:
+        an event recorded after them, which the task waits on (`Event.wait`
+        on the side stream), and each tensor marked as used by the side
+        stream, so its memory is not reused before the task's copy has run.
+        None on the CPU."""
+        if self.stream is None or not tensors or not tensors[0].is_cuda:
+            return None
+        ev = torch.cuda.Event()
+        ev.record()
+        for t in tensors:
+            t.record_stream(self.stream)
+        return ev
+
+    def on_worker_thread(self) -> bool:
+        """Whether the caller is the streamer's own thread (a task)."""
+        return threading.current_thread() is self._thread
+
+    def sync_copies(self) -> None:
+        """Wait until every copy queued on the side stream has landed, so
+        the host may read host memory that a non-blocking copy wrote."""
+        if self.stream is not None:
+            self.stream.synchronize()
+
     def compute_span(self, model_seconds: float) -> None:
         """Register modeled compute time that streaming can hide behind."""
         with self._lock:

@@ -92,12 +92,13 @@ class Transport:
     def model_time(self, nbytes: int, n_messages: int = 1) -> float:
         return self.latency * n_messages + nbytes / self.bandwidth
 
-    def _copy(self, t: torch.Tensor, dst: torch.device, pin: bool) -> torch.Tensor:
+    def _copy(self, t: torch.Tensor, dst: torch.device, pin: bool,
+              non_blocking: bool = False) -> torch.Tensor:
         if dst.type != "cpu":
-            return t.to(dst, copy=True)
+            return t.to(dst, copy=True, non_blocking=non_blocking)
         if not (t.is_cuda and not pin):
             out = torch.empty(t.shape, dtype=t.dtype, pin_memory=pin and t.is_cuda)
-            out.copy_(t)
+            out.copy_(t, non_blocking=non_blocking)
             return out
         # device to pageable memory through a pinned staging buffer that is
         # kept and reused: a direct copy into pageable memory runs at a
@@ -113,14 +114,17 @@ class Transport:
         return out
 
     def transfer(self, t: torch.Tensor, device="cpu", *, tag: str = "",
-                 pin: bool = True) -> torch.Tensor:
+                 pin: bool = True, non_blocking: bool = False) -> torch.Tensor:
         """A copy of `t` on `device`.  A host copy of a device tensor lands
         in pinned memory, or, with ``pin=False``, in pageable memory (for a
         copy that is kept: every pinned allocation that is not freed again
         costs a page-locking call).  Synchronous: the copy is complete on
-        return."""
+        return, unless ``non_blocking``: then a copy between pinned host
+        memory and the device is only queued on the current CUDA stream, and
+        the caller synchronises that stream before the host reads or frees
+        its side."""
         dst = torch.device(device)
-        out = self._copy(t, dst, pin)
+        out = self._copy(t, dst, pin, non_blocking)
         attempts, spec = 1, None
         # the fault point, and the byte-wise integrity check standing in for
         # a checksum, run only with an injector installed: otherwise a
@@ -128,6 +132,8 @@ class Transport:
         if faults.current() is not None:
             spec = faults.fire(f"transport.transfer.{self.kind}", tag=tag)
             if spec is not None and spec.kind in ("drop", "corrupt"):
+                if non_blocking and (t.is_cuda or out.is_cuda):
+                    torch.cuda.current_stream().synchronize()   # the copy has landed
                 out, attempts = self._realize_loss(spec, t, out, dst, pin)
         nbytes = _nbytes(out)
         model = self.model_time(nbytes) * attempts
@@ -195,3 +201,13 @@ class NetworkTransport(Transport):
     @staticmethod
     def _link(hw: HardwareModel):
         return hw.dcn_stream_bw, hw.net_latency
+
+
+class SSDTransport(Transport):
+    """Host memory <-> local NVMe (the tier-2 spill and promotion of the KV
+    hierarchy)."""
+    kind = "ssd"
+
+    @staticmethod
+    def _link(hw: HardwareModel):
+        return hw.ssd_bw, hw.transfer_latency

@@ -10,7 +10,8 @@ its ring predecessor's KV copies (paper §4.2.3: worker x streams to worker
 
 Failure semantics (paper): killing a worker loses its device KV, its host
 store and the replica it hosts; a dead worker's stage ops raise
-`WorkerDead`.  The KV tiers of the reference are a later slice.
+`WorkerDead`.  With the KV tiers (`enable_tiering`) its host tier dies too;
+its SSD tier is disk and survives, and recovery reattaches it.
 
 Each stage op counts ``worker.stage_calls{wid}`` and, with a tracer
 installed, records a ``stage.<op>`` event on the worker's own track (the
@@ -29,16 +30,12 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.core import telemetry, tracing
 from repro_torch.core.dejavulib import (HostLinkTransport, HostMemoryStore, LocalTransport,
                                         NetworkTransport, StreamEngine)
+from repro_torch.core.dejavulib.faults import WorkerDead
 from repro_torch.core.dejavulib.transport import DEFAULT_HW, HardwareModel
 from repro_torch.kernels import ops as kops
 from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.kvcache.paged import BlockPool, PagedKVCache, PoolExhausted, blocks_for
-
-
-class WorkerDead(RuntimeError):
-    """A stage op reached a dead worker: the one error the serving engine
-    recovers from.  Any other error, a failed kernel launch included,
-    propagates."""
+from repro_torch.kvcache.tiers import KVTierManager, TierConfig
 
 
 class CacheManager:
@@ -127,20 +124,6 @@ class CacheManager:
             self.host.delete(key)
 
     # --- replication (ring, paper §4.2.3) ---------------------------------
-    def _hand_off(self, tensors: List[torch.Tensor]):
-        """Make device tensors made on the compute stream safe for the
-        streamer's side stream: an event recorded after them, which the
-        task waits on, and each tensor marked as used by the side stream,
-        so its memory is not reused before the copy has run."""
-        side = self.streamer.stream
-        if side is None or not tensors[0].is_cuda:
-            return None
-        ev = torch.cuda.Event()
-        ev.record()
-        for t in tensors:
-            t.record_stream(side)
-        return ev
-
     def _model_seconds(self, tensors) -> float:
         """The modeled network time of replicating `tensors` (half the bytes
         with int8 replicas)."""
@@ -170,7 +153,7 @@ class CacheManager:
             w = min(-(-(t1 - t0a) // tb) * tb, arr.shape[2] - t0a)
             packed[leaf] = (kops.kv_pack_auto(arr, t0a, w, token_block=tb), arr.shape,
                             arr.dtype)
-        ev = self._hand_off([b for b, _, _ in packed.values()])
+        ev = self.streamer.hand_off([b for b, _, _ in packed.values()])
 
         def send():
             if ev is not None:
@@ -191,7 +174,7 @@ class CacheManager:
                            arrays: Dict[str, torch.Tensor], step: int, ack_cb) -> None:
         """Stream one live KV block of a sequence to the ring successor's
         replica store (a decode step sends only the block it touched)."""
-        ev = self._hand_off(list(arrays.values()))
+        ev = self.streamer.hand_off(list(arrays.values()))
 
         def send():
             if ev is not None:
@@ -244,6 +227,7 @@ class StageWorker:
         self.kv: Dict[int, Dict[str, torch.Tensor]] = {}   # microbatch -> stage KV
         self.pool: BlockPool = None
         self.pages: PagedKVCache = None
+        self.tier: Optional[KVTierManager] = None     # enable_tiering
         self.paged_dirty: Dict[int, set] = {}       # seq -> dirty logical blocks
         self.paged_swapped: Dict[int, int] = {}     # seq -> offloaded length
 
@@ -254,13 +238,22 @@ class StageWorker:
 
     def kill(self) -> None:
         """Machine failure: the device KV, the host store and the hosted
-        replica all die."""
+        replica all die, and the tier manager's host tier with them; its
+        SSD tier is disk and survives (recovery reattaches it on the new
+        worker).  The write-behinds already queued land first (issued copies
+        and disk writes complete as the host dies; a copy lost in flight is
+        the transport's ``drop`` fault), unless the streamer's own thread is
+        the caller; a write-behind that fails raises here."""
         telemetry.count("worker.kills", 1, wid=self.wid)
         tracing.event("worker.kill", wid=self.wid)
         self.alive = False
         self.kv.clear()
+        if self.tier is not None and not self.tier.streamer.on_worker_thread():
+            self.tier.streamer.drain()
         self.cache.host.clear()
         self.cache.replica.clear()
+        if self.tier is not None:
+            self.tier.on_host_failure()
 
     def _check(self, op: Optional[str] = None, **ids: int) -> None:
         if not self.alive:
@@ -325,6 +318,16 @@ class StageWorker:
                                   num_kv_heads=cfg.num_kv_heads,
                                   head_dim=cfg.resolved_head_dim,
                                   dtype=torch_dtype(cfg.dtype), device=self.device)
+
+    def enable_tiering(self, tier_cfg: TierConfig = TierConfig()) -> None:
+        """Back this stage's pool with host-memory and SSD tiers
+        (`repro_torch.kvcache.tiers`): preemption swaps through the
+        hierarchy, retired prompt blocks are demoted instead of dropped, and
+        `adopt_prefix` promotes matching prefixes back for new requests."""
+        if self.pool is None:
+            raise RuntimeError("enable_tiering needs enable_paging first")
+        self.tier = KVTierManager(self.pool, self.pages, self.cache.streamer, hw=self.hw,
+                                  cfg=tier_cfg, name=f"w{self.wid}")
 
     def prefill_paged(self, seq: int, x_or_tokens, token_ids=None):
         """Whole-prompt prefill of one request (batch 1) into pool blocks;
@@ -521,13 +524,17 @@ class StageWorker:
         self.paged_dirty[seq] = set(blocks) | (set(range(len(table))) - fresh_set)
 
     def paged_offload(self, seq: int) -> None:
-        """Swap a sequence out: only dirty blocks cross to host memory, then
-        its pool blocks are freed."""
+        """Swap a sequence out: only dirty blocks cross to host memory (with
+        tiering, into the hierarchy as write-behinds), then its pool blocks
+        are freed."""
         if seq not in self.pool.tables:
             return
         dirty = self.paged_dirty.get(seq, set())
-        self.cache.swap_out_blocks(seq, {j: a for j, a in self.live_blocks(seq).items()
-                                         if j in dirty})
+        blocks = {j: a for j, a in self.live_blocks(seq).items() if j in dirty}
+        if self.tier is not None:
+            self.tier.swap_out_blocks(seq, blocks)
+        else:
+            self.cache.swap_out_blocks(seq, blocks)
         self.paged_swapped[seq] = self.pool.seq_lens[seq]
         self.pool.free_seq(seq)
         self.paged_dirty[seq] = set()
@@ -543,14 +550,94 @@ class StageWorker:
             raise PoolExhausted(f"worker {self.wid}: cannot restore seq {seq} "
                                 f"({need} blocks needed, {self.pool.num_free()} free)")
         del self.paged_swapped[seq]
-        blocks = self.cache.swap_in_blocks(seq, self.device)
-        self.install_blocks(seq, length, {j: a for j, a in blocks.items() if j < need})
+        self.install_blocks(seq, length, self.held_blocks(seq, length))
         self.paged_dirty[seq] = set()
 
+    def held_blocks(self, seq: int, length: int) -> Dict[int, Dict[str, torch.Tensor]]:
+        """The held copy of a swapped-out sequence's blocks on the device, cut
+        to its first `length` tokens (the copy may reach past a rolled-back
+        length), read without taking a pool block."""
+        blocks = (self.tier.swap_in_blocks(seq) if self.tier is not None
+                  else self.cache.swap_in_blocks(seq, self.device))
+        return self._clip(blocks, length)
+
+    def hold_swapped(self, seq: int, length: int,
+                     blocks: Dict[int, Dict[str, torch.Tensor]]) -> None:
+        """Hold `seq`'s first `length` tokens of `blocks` swapped out (in
+        host memory, or the tiers), as `install_blocks` then `paged_offload`
+        would, without taking a pool block."""
+        blocks = self._clip(blocks, length)
+        if self.tier is not None:
+            self.tier.swap_out_blocks(seq, blocks)
+        else:
+            self.cache.swap_out_blocks(seq, blocks)
+        self.paged_swapped[seq] = length
+        self.paged_dirty[seq] = set()
+
+    def _clip(self, blocks, length: int) -> Dict[int, Dict[str, torch.Tensor]]:
+        """`blocks` cut to the token slots of a `length`-token sequence."""
+        bs = self.pool.block_size
+        return {j: {leaf: a[:, :min(bs, length - j * bs)] for leaf, a in arrs.items()}
+                for j, arrs in blocks.items() if j * bs < length}
+
     def free_paged_seq(self, seq: int) -> None:
-        """Retire a sequence: its blocks return to the pool."""
+        """Retire a sequence: its blocks return to the pool.  With tiering,
+        its hashed full prompt blocks are demoted into the prefix cache
+        (write-behind) before the pool frees them."""
         if self.pool is not None and seq in self.pool.tables:
+            if self.tier is not None:
+                self._demote_prefix_blocks(seq)
             self.pool.free_seq(seq)
         self.paged_swapped.pop(seq, None)
         self.paged_dirty.pop(seq, None)
+        if self.tier is not None:
+            self.tier.drop_seq(seq)
         self.cache.drop_seq_swap(seq)
+
+    def _demote_prefix_blocks(self, seq: int) -> None:
+        for _, bid, _, _ in self.pool.block_span(seq):
+            h = self.pool.blocks[bid].hash
+            if h is not None and not self.tier.has_prefix(h):
+                # a device copy on the compute stream, taken before the pool
+                # can hand the block out again
+                self.tier.cache_prefix_block(h, self.pages.block_arrays(bid))
+
+    # --- cross-request prefix reuse -----------------------------------------
+    def adoptable_prefix_len(self, hashes) -> int:
+        """Longest leading run of prefix-chain hashes this stage can serve
+        without prefill compute: live shared pool blocks or any tier."""
+        n = 0
+        for h in hashes:
+            if not (self.pool.has_hash(h) or (self.tier is not None and self.tier.has_prefix(h))):
+                break
+            n += 1
+        return n
+
+    def pool_prefix_hits(self, hashes) -> int:
+        """Leading run servable by sharing live pool blocks alone (these cost
+        no free block: admission control's discount)."""
+        n = 0
+        for h in hashes:
+            if not self.pool.has_hash(h):
+                break
+            n += 1
+        return n
+
+    def adopt_prefix(self, seq: int, hashes, length: int) -> int:
+        """Build `seq`'s prompt prefix from cached blocks: live pool blocks
+        are shared, the rest promoted out of the tiers.  Raises PoolExhausted
+        before mutating.  Returns the number of promoted blocks."""
+        self._check("adopt_prefix", rid=seq)
+        missing = [h for h in hashes if not self.pool.has_hash(h)]
+        if len(missing) > self.pool.num_free():
+            raise PoolExhausted(f"worker {self.wid}: adopting prefix for seq {seq} needs "
+                                f"{len(missing)} blocks, {self.pool.num_free()} free")
+        fetched = (self.tier.fetch_prefix_chain(missing)
+                   if missing and self.tier is not None else {})
+        _, fills = self.pool.adopt_prefix(seq, hashes, length)
+        for h, bid in fills:
+            self.pages.install_block(bid, fetched[h])
+        # adopted blocks count as dirty: the first offload must keep them for
+        # this sequence (the tiers key their copies by hash, not by sequence)
+        self.paged_dirty[seq] = set(range(len(hashes)))
+        return len(fills)

@@ -15,7 +15,14 @@ finished sequences retire and release their blocks at once, and a full pool
 preempts the youngest sequence (block-granular swap to host memory).  With
 fused rounds on (the default) a round runs one batched decode pass plus one
 chunk-set pass for the prefills in flight; ``fused_rounds=False`` runs one
-pass per sequence, the path the fused one is tested against.
+pass per sequence, the path the fused one is tested against.  It serves
+colocated or disaggregated (the prompt pipeline streams each prompt's blocks
+to the token pipeline), with or without swapping.  ``tiered=True`` backs
+every stage's pool with host memory and SSD (`repro_torch.kvcache.tiers`,
+capacities ``host_cache_blocks`` and ``ssd_cache_blocks``): preemption swaps
+through the tiers, retired prompt blocks enter a prefix cache, and a prompt
+that shares a cached prefix adopts it instead of prefilling it
+(`EngineReport.prefill_tokens_saved`, `tier_stats`).
 
 With greedy sampling every path gives the same tokens.
 
@@ -86,6 +93,12 @@ class EngineReport:
     # modeled prefill seconds co-scheduled in that round (the stall a long
     # prompt inflicts on the decodes; chunking bounds it to one chunk pass)
     prefill_stall_trace: List[float] = field(default_factory=list)
+    # cross-request prefix reuse through the KV tiers (tiered=True): prompt
+    # tokens prefilled or adopted, those served from cache, and the summed
+    # tier counters (DejaVuCluster.tier_stats)
+    prefill_tokens_total: int = 0
+    prefill_tokens_saved: int = 0
+    tier_stats: Dict[str, float] = field(default_factory=dict)
     # the telemetry snapshot (schema `repro.telemetry/v1`): counters,
     # gauges, the SLO histograms (TTFT, inter-token gap, queue wait,
     # recovery time) and span aggregates on the modeled clock; cumulative
@@ -330,11 +343,14 @@ class ServingEngine:
             mb.done = True
 
     def transfer_summary(self) -> Dict[str, int]:
-        """Bytes moved so far, by transport kind (hostlink, net, local)."""
+        """Bytes moved so far, by transport kind (hostlink, net, local, and
+        ssd with the tiers)."""
         out: Dict[str, int] = {}
         transports = [self.cluster.net]
         for w in self.cluster.workers():
             transports += [w.cache.net, w.cache.hostlink, w.cache.local]
+            if w.tier is not None:
+                transports += [w.tier.hostlink, w.tier.ssdlink]
         for t in transports:
             out[t.kind] = out.get(t.kind, 0) + t.bytes_total()
         return out
@@ -382,6 +398,10 @@ class ServingEngine:
             busy = telemetry.clock() - clock0
             stall = sum(report.prefill_stall_trace)
             self._finish(report, ctx, stall / busy if busy > 0.0 else 0.0)
+        report.prefill_tokens_total = cl.prefill_tokens_total
+        report.prefill_tokens_saved = cl.prefill_tokens_saved
+        if cl.tiered:
+            report.tier_stats = cl.tier_stats()
         return report
 
     # ------------------------------------------------------------------

@@ -87,7 +87,8 @@ class RoundScheduler:
             tracing.event("sched.resume", rid=r.rid)
             self._activate(r)
         while self.queue and len(self.active) < self.max_active and \
-                cl.can_admit(self.queue[0].prompt_len, len(self.active)):
+                cl.can_admit(self.queue[0].prompt_len, len(self.active),
+                             token_ids=self.queue[0].prompt if cl.tiered else None):
             r = self.queue.popleft()
             # the queue wait: arrival to admission, on the modeled clock
             wait_s = max(telemetry.clock() - r.arrival, 0.0)
@@ -110,7 +111,8 @@ class RoundScheduler:
         """Preemption victim for a full pool: the YOUNGEST active sequence
         that has device-resident blocks to free.  A mid-prefill sequence
         (next_step 0) is never a victim — its chunk cursor assumes the
-        partial table stays put."""
+        partial table stays put; under swapping, sequences are offloaded
+        between steps and free nothing, which the residency check covers."""
         ex = set(exclude)
         return next(
             (v for v in reversed(self.active) if v.rid not in ex

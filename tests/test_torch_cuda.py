@@ -759,3 +759,88 @@ def test_recovery_on_the_card_gives_the_failure_free_tokens(cuda, fused):
             assert rep.failures == 1 and rep.recoveries == 1
             assert rep.tokens == clean.tokens, (paged, fail_at)
             assert_no_leaks(eng.cluster)
+
+
+# ---------------------------------------------------------------------------
+# the KV tiers on the card
+# ---------------------------------------------------------------------------
+
+def _tier_pages(cuda, dtype=torch.bfloat16):
+    from repro_torch.kvcache import BlockPool, PagedKVCache
+    pool = BlockPool(16, 8)
+    pages = PagedKVCache(pool, layers=3, num_kv_heads=2, head_dim=64, dtype=dtype, device=cuda)
+    g = torch.Generator(device=cuda).manual_seed(3)
+    pages.k.copy_(torch.randn(pages.k.shape, generator=g, device=cuda).to(dtype))
+    pages.v.copy_(torch.randn(pages.v.shape, generator=g, device=cuda).to(dtype))
+    return pool, pages
+
+
+def _bits(t):
+    return t.view(torch.int16) if t.dtype == torch.bfloat16 else t
+
+
+def test_bf16_blocks_through_every_tier_come_back_bit_exact(cuda, tmp_path):
+    """bf16 prefix blocks demoted from the pages (a host tier of 1 block, so
+    they spill to SSD), the host lost, the disk reattached by a new manager,
+    promoted back to the card, then served again from the host tier: bit for
+    bit the pages' bytes at every step."""
+    from repro_torch.core.dejavulib import StreamEngine
+    from repro_torch.kvcache import KVTierManager, TierConfig
+
+    pool, pages = _tier_pages(cuda)
+    cfg = TierConfig(host_capacity_blocks=1, ssd_root=str(tmp_path))
+    want = {bid: {leaf: _sync_copy(a) for leaf, a in pages.block_arrays(bid).items()}
+            for bid in range(4)}
+    eng = StreamEngine("tier", device=cuda)
+    mgr = KVTierManager(pool, pages, eng, cfg=cfg)
+    for bid in range(4):
+        mgr.cache_prefix_block(100 + bid, pages.block_arrays(bid))
+    eng.drain(timeout=60)
+    assert mgr.stats()["spills"] == 3
+    mgr.on_host_failure()
+    fresh = KVTierManager(pool, pages, eng, cfg=cfg)
+    assert fresh.reattach() == 3               # the host-only block died with the host
+    # the three that spilled, from SSD (the head earns the host slot), then
+    # the head again, from the host tier
+    for hashes in ([100, 101, 102], [100]):
+        got = fresh.fetch_prefix_chain(hashes)
+        torch.cuda.synchronize()
+        for h in hashes:
+            for leaf in ("k", "v"):
+                assert got[h][leaf].device == pages.k.device
+                assert got[h][leaf].dtype == torch.bfloat16
+                assert torch.equal(_bits(got[h][leaf].cpu()), _bits(want[h - 100][leaf]))
+    st = fresh.stats()
+    assert st["ssd_hits"] == 3 and st["host_hits"] == 1
+    eng.close()
+
+
+@pytest.mark.parametrize("path", ["prefix", "swap"])
+def test_a_block_demoted_before_its_page_is_reused_keeps_its_bytes(cuda, tmp_path, path):
+    """The compute stream is held back, the block is demoted (its device
+    copy is queued behind the hold), then the page is written over and the
+    caching allocator's memory churned: the side stream's copy waits on the
+    demotion's event, and `record_stream` keeps the copy's memory, so the
+    tier holds the old bytes."""
+    from repro_torch.core.dejavulib import StreamEngine
+    from repro_torch.kvcache import KVTierManager, TierConfig
+
+    pool, pages = _tier_pages(cuda)
+    eng = StreamEngine("tier", device=cuda)
+    mgr = KVTierManager(pool, pages, eng, cfg=TierConfig(ssd_root=str(tmp_path)))
+    want = {leaf: _sync_copy(a) for leaf, a in pages.block_arrays(0).items()}
+    torch.cuda._sleep(200_000_000)              # hold the compute stream back
+    if path == "prefix":
+        mgr.cache_prefix_block(7, pages.block_arrays(0))
+    else:
+        mgr.swap_out_blocks(3, {0: pages.block_arrays(0)})
+    pages.k[0].fill_(9.0)                       # the pool hands the page out again
+    pages.v[0].fill_(9.0)
+    junk = [torch.full((2, 3, 8, 2, 64), 5.0, device=cuda, dtype=torch.bfloat16)
+            for _ in range(16)]
+    got = mgr.fetch_prefix_chain([7])[7] if path == "prefix" else mgr.swap_in_blocks(3)[0]
+    torch.cuda.synchronize()
+    for leaf in ("k", "v"):
+        assert torch.equal(_bits(got[leaf].cpu()), _bits(want[leaf]))
+    assert junk[0].float().sum().item() != 0
+    eng.close()

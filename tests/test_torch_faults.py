@@ -12,11 +12,13 @@
 - `TopKSampler`: (seed, step) decides the draw, so a recovered run samples
   the failure-free run's tokens;
 - a reduced crash-consistency sweep (`tests/test_crash_consistency.py`) of
-  `run_continuous` with fused rounds and on the per-sequence path: every
-  injection point of a fault-free run, faulted at its middle occurrence with
-  its first survivable kind, gives the same tokens and leaks nothing.
+  `run_continuous` in the reference's five modes (per-sequence, fused,
+  disaggregated, swapping, tiered with SSD): every injection point of a
+  fault-free run, faulted at its middle occurrence with its first
+  survivable kind, gives the same tokens and leaks nothing.
 """
 import dataclasses
+import tempfile
 import threading
 
 import numpy as np
@@ -334,19 +336,35 @@ _P3 = _R.integers(0, 256, 9).astype(np.int32)
 SWEEP_PROMPTS = [_P0, _P1, _P0.copy(), _P3]
 
 
+# the reference's modes, options and victims (tests/test_crash_consistency.py)
+SWEEP_MODES = {
+    "perseq": dict(fused_rounds=False),
+    "fused": dict(),
+    "disagg": dict(mode="disaggregated", dp_split=(2, 2), n_workers=4),
+    "swap": dict(swapping=True),
+    "tiered": dict(tiered=True, kv_pool_blocks=10, host_cache_blocks=4, ssd_cache_blocks=64),
+}
+# the victim's ring successor must live: the last token worker (the
+# disaggregated token group is wids 2-3)
+SWEEP_KILL_WID = {"disagg": 3}
+
+
 def _sweep_run(mode: str, inj):
     m, p = model()
-    eng = ServingEngine(CFG, m, p, 2, paged=True, replication=True, kv_block_size=8,
-                        fused_rounds=(mode == "fused"), device="cpu")
+    opts = dict(SWEEP_MODES[mode])
+    eng = ServingEngine(CFG, m, p, opts.pop("n_workers", 2), paged=True, replication=True,
+                        kv_block_size=8, device="cpu", **opts)
     reqs = [Request(rid=i, prompt=q.copy(), max_new=4) for i, q in enumerate(SWEEP_PROMPTS)]
     return eng, eng.run_continuous(reqs, max_active=3, fault_injector=inj)
 
 
-@pytest.mark.parametrize("mode", ["perseq", "fused"])
-def test_crash_consistency_sweep(mode):
+@pytest.mark.parametrize("mode", list(SWEEP_MODES))
+def test_crash_consistency_sweep(mode, tmp_path, monkeypatch):
     """Every injection point of the fault-free run, faulted at its middle
-    occurrence with its first survivable kind (worker 1 for a death),
-    recovers to the same tokens and leaks no block or replica."""
+    occurrence with its first survivable kind (worker 1 for a death, worker
+    3 disaggregated), recovers to the same tokens and leaks no block,
+    replica or tier swap entry."""
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))      # the SSD tiers' roots
     ref = faults.FaultInjector(record=True)
     eng, rep = _sweep_run(mode, ref)
     faults.assert_no_leaks(eng.cluster)
@@ -359,7 +377,8 @@ def test_crash_consistency_sweep(mode):
         kinds = faults.survivable_kinds(point)
         if not kinds:
             continue                                # cluster.fail itself
-        spec = faults.spec_for_point(point, counts[point], kinds[0], wid=1)
+        spec = faults.spec_for_point(point, counts[point], kinds[0],
+                                     wid=SWEEP_KILL_WID.get(mode, 1))
         inj = faults.FaultInjector(faults.FaultPlan([spec]))
         eng, got = _sweep_run(mode, inj)
         assert inj.fired, f"{point}: the planned fault never fired"
@@ -375,3 +394,7 @@ def test_crash_consistency_sweep(mode):
     assert summary["unexercised"] == []
     assert set(exercised) >= {"engine.step", "stream.submit", "stream.task", "stream.wait",
                               "stream.drain", "transport.transfer.net"}
+    if mode == "tiered":
+        assert set(exercised) >= {"tier.demote", "ssd.put", "transport.transfer.ssd"}
+    if mode in ("swap", "tiered"):
+        assert "transport.transfer.hostlink" in exercised

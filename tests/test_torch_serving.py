@@ -250,10 +250,10 @@ def test_entry_points_need_a_card_unless_asked_for_the_cpu(name, models, monkeyp
         ENTRY_POINTS[name](tm, tp)
 
 
-# the test's base is paged=True: swapping and disaggregation are served on
-# the microbatch run() path (tests/test_torch_microbatch.py) but not yet on
-# the paged path; that path and whole-prompt prefill are left without tiers
-# (replication is served on both paths: tests/test_torch_recovery*.py)
+# the knobs the paged path once left out: swapping and disaggregation
+# (A.9), the KV tiers and whole-prompt prefill under them (A.10).  All are
+# served now (tests/test_torch_paged_modes.py, tests/test_torch_tiers.py);
+# what the guard still leaves out is a family the cluster does not serve
 LEFT_OUT = {
     "swapping": dict(swapping=True),
     "tiered": dict(tiered=True),
@@ -263,12 +263,20 @@ LEFT_OUT = {
 
 
 @pytest.mark.parametrize("knob", list(LEFT_OUT))
-def test_knobs_left_out_of_this_slice_raise(knob, models):
+def test_knobs_left_out_of_this_slice_raise(knob, models, tmp_path, monkeypatch):
+    """Each knob now builds a paged engine; with the moe family the guard
+    raises and names the family alone."""
+    import tempfile
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))     # the SSD tiers' roots
     _, _, tm, tp = models
     kw = dict(paged=True, device="cpu")
     kw.update(LEFT_OUT[knob])
-    with pytest.raises(NotImplementedError, match="does not port"):
-        ServingEngine(TCFG, tm, tp, 2, **kw)
+    cl = ServingEngine(TCFG, tm, tp, 2, **kw).cluster
+    assert cl.paged and all(w.pool is not None for w in cl.workers())
+    assert all((w.tier is not None) == bool(kw.get("tiered")) for w in cl.workers())
+    with pytest.raises(NotImplementedError, match="does not port") as e:
+        DejaVuCluster(dataclasses.replace(TCFG, family="moe"), tm, tp, 2, **kw)
+    assert "family=moe" in str(e.value) and knob.split("_")[0] not in str(e.value)
 
 
 def test_run_and_fault_injection_raise():

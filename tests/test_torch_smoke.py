@@ -225,15 +225,15 @@ def test_recover_phase_points_and_counts(smoke):
     def trace():
         return smoke._requests(lens, 32, cfg.vocab_size, seed=3)
 
-    clean = smoke.run_recover(cfg, model, params, trace, replication=True, record=True,
-                              dev="cpu")
+    clean = smoke.run_fused(cfg, model, params, trace, replication=True, record=True,
+                            dev="cpu")
     points = smoke.fail_points(clean.pop("steps"))
     assert list(points) == ["fail_decode_w1", "fail_prefill_w0", "fail_inflight_w1"]
     assert [w for p in points.values() for w in p.values()] == [1, 0, 1]
     assert clean["transfer_bytes"]["net"] > 0 and clean["failures"] == 0
     for name, fail_at in points.items():
-        res = smoke.run_recover(cfg, model, params, trace, replication=True,
-                                fail_at=fail_at, dev="cpu")
+        res = smoke.run_fused(cfg, model, params, trace, replication=True,
+                              fail_at=fail_at, dev="cpu")
         assert (res["failures"], res["recoveries"]) == (1, 1), name
         assert smoke.differing_tokens(res["tokens"], clean["tokens"]) == 0, name
         tag = res["fault_trace"][0]["tag"]
@@ -304,3 +304,44 @@ def test_telemetry_phase_rehearsed(smoke):
     slo = out["recover_run"]["modeled_h100_datasheet_slo"]
     assert slo["cluster.recovery_s"]["count"] == 1
     assert slo["engine.ttft_s"]["count"] == len(lens)
+
+
+def test_paged_modes_phase_rehearsed(smoke, tmp_path, monkeypatch):
+    """(a)-(d) of the paged_modes phase at a tiny width: the serve trace
+    swapped and disaggregated, the shared-prefix trace at the script's pool
+    and host tier (a preemption through the tiers, a spill, adoptions from
+    both tiers: the trace's geometry, not the width, decides them), and a
+    failure while a sequence is swapped out; then the exact gate's runs,
+    every one giving the plain run's tokens."""
+    import tempfile
+
+    import numpy as np
+    monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
+    cfg = _cfg(num_layers=2, dtype="float32")
+    model = DecoderLM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]
+
+    def serve_trace():
+        return smoke._requests(lens, 32, cfg.vocab_size, seed=3)
+
+    def tiered_trace():
+        return smoke.shared_prefix_trace(cfg.vocab_size)
+
+    out = smoke.paged_modes_runs(cfg, model, params, "cpu", serve_trace, tiered_trace)
+    for mode in ("swapping", "disaggregated"):
+        assert out[mode]["differing_tokens"] == 0       # fp32: the colocated tokens
+    assert out["swapping"]["transfer_bytes"]["hostlink"] > 0
+    assert out["disaggregated"]["transfer_bytes"]["net"] > 0
+    tv = out["tiered_vs_not"]
+    assert tv["differing_tokens"] == 0 and tv["prefill_saved_share"] > 0.3
+    ad = tv["tiered"]["adoptions_from"]
+    assert ad["host_blocks"] > 0 and ad["ssd_blocks"] > 0
+    assert tv["tiered"]["transfer_bytes"]["ssd"] > 0
+    fail = out["tiered_failure"]
+    assert fail["differing_tokens"] == 0
+    rec = fail["failure"]["recovery"]
+    assert rec["reattach_ms"] >= 0.0 and rec["first_token_ms"] > 0.0
+    assert not list(tmp_path.iterdir())          # every tier's disk was removed
+    exact = smoke.exact_paged_modes(cfg, serve_trace, tiered_trace, devs=("cpu",))
+    assert exact["tokens_identical"] and exact["fail_at"]

@@ -16,7 +16,7 @@ replication, swapping and disaggregated (1, 1).  Under ``fail_at`` the port
 deviates from the reference on the fused path (see `CHANGES.md`): the key
 sets must be equal, and so must the failure, kill and fault counters and
 the count of recovery times.  The tiered cases of `tests/test_telemetry.py`
-wait for the port's KV tiers (ROADMAP A.10).
+and `tests/test_tracing.py` are held in `tests/test_torch_tiers.py`.
 """
 import dataclasses
 import json
