@@ -10,7 +10,8 @@ Phases, each printing one JSON line with its seconds:
 1. ``env``     the card (nvidia-smi name and power limit) and the build of
                every CUDA kernel of the serving path from ``csrc/``.
 2. ``kernels`` each hand-written kernel against its plain PyTorch version on
-               the card (TF32 off), with CUDA-event times beside the bound,
+               the card (TF32 off), rows 4-7 also at head dims 96 and 192,
+               with CUDA-event times beside the bound,
                the plain version and one library call of the same function,
                and the profiler's device time of the kernel and the library
                call; a decode or paged row must show its body's name in the
@@ -72,17 +73,31 @@ Phases, each printing one JSON line with its seconds:
                worker 1 dies; and the host copy and host-link rates that
                `HardwareModel`'s host figures assume.
 12. ``paged_modes`` paged swapping and disaggregation and the KV tiers on
-               `run_continuous`: ``serve``'s model; (a) swapping and (b)
+               `run_continuous`: ``serve``'s model at 24 layers; (a)
+               swapping and (b)
                disaggregated (1, 1) on its trace, in turns with colocated;
                (c) a shared-system-prompt trace through the tiers (pool 120
                blocks, host tier 96: it must preempt, spill, and adopt from
                the host tier and from SSD), in turns without them; (d) (c)
                with replication, worker 1 lost while a sequence is swapped
                out.  Launches exact in every run; bf16 differing tokens
-               beside a control; then the same four at 4 layers in fp32,
+               beside a control; then the same four at 2 layers in fp32,
                card tokens = CPU tokens = the plain run's.  Prints tokens/s
                by mode, prefill tokens saved, the tier counters, bytes by
                transport, the tier copies' rates and the time to recover.
+13. ``moe``    qwen3-moe-30b-a3b at full width (128 experts, top 8), 8
+               layers, bf16, on ``serve``'s trace through fused rounds:
+               tokens/s, pass medians and launches exact, as ``serve``; then
+               2 layers in fp32, the card against the CPU, fused, per
+               sequence and with replication losing worker 1.
+14. ``wide_heads`` nemotron-4-340b at full width (96:8 heads of 192), 2
+               layers, bf16: `run_continuous` (the paged kernels at head
+               dim 192) and `run()` (flash and decode at 192), launches
+               exact; then the card against the CPU in fp32 at nemotron's
+               attention widths with the MLP and vocabulary cut.
+
+Each phase's line carries the peak device memory it allocated; the models
+of a phase are freed before the next begins.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
@@ -93,6 +108,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import gc
 import json
 import re
 import statistics
@@ -106,7 +122,8 @@ SRC = ROOT / "src"
 HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
 PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
-          "ssm_serve", "recover", "mb_recover", "telemetry", "paged_modes")
+          "ssm_serve", "recover", "mb_recover", "telemetry", "paged_modes", "moe",
+          "wide_heads")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -545,10 +562,10 @@ def phase_kernels(state: dict) -> dict:
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
 
-    def paged_decode_case(name, lengths, hq, hkv, dtype, time_it=False):
+    def paged_decode_case(name, lengths, hq, hkv, dtype, time_it=False, d=64):
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
-        kp, vp, tables = paged_inputs(g, lengths, hkv, 64, dtype)
-        q = torch.randn(len(lengths), hq, 64, generator=g, device=dev).to(dtype)
+        kp, vp, tables = paged_inputs(g, lengths, hkv, d, dtype)
+        q = torch.randn(len(lengths), hq, d, generator=g, device=dev).to(dtype)
         tname = str(dtype).replace("torch.", "")
         err = held("paged_decode_attention", name,
                    paged_decode_attention(q, kp, vp, tables, lens),
@@ -556,11 +573,11 @@ def phase_kernels(state: dict) -> dict:
         if time_it:
             es = q.element_size()
             live = int(sum(lengths))
-            nbytes = 2 * q.numel() * es + 2 * live * hkv * 64 * es + 4 * (tables.numel()
+            nbytes = 2 * q.numel() * es + 2 * live * hkv * d * es + 4 * (tables.numel()
                                                                           + len(lengths))
-            bms, by = bound_ms(nbytes, 4.0 * live * hq * 64, tname)
+            bms, by = bound_ms(nbytes, 4.0 * live * hq * d, tname)
             splits, stages, _ = split_plan(dtype, len(lengths), tables.shape[1] * kp.shape[1],
-                                           hq, hkv, 64)
+                                           hq, hkv, d)
             rows["paged_decode_attention"] = {
                 # no one PyTorch call reads pages through a table
                 **times(lambda: paged_decode_attention(q, kp, vp, tables, lens),
@@ -568,14 +585,16 @@ def phase_kernels(state: dict) -> dict:
                         body="paged_decode_split_kernel"),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                 "cluster": splits, "stages": stages,
-                "shape": f"q[{len(lengths)},{hq},64] pages {list(kp.shape)} of a 24-layer "
+                "shape": f"q[{len(lengths)},{hq},{d}] pages {list(kp.shape)} of a 24-layer "
                          f"pool, {tname}, lengths {list(lengths)}"}
         del kp, vp
 
-    def paged_prefill_case(name, starts, qlens, c, hq, hkv, dtype, time_it=False):
+    def paged_prefill_case(name, starts, qlens, c, hq, hkv, dtype, time_it=None, d=64):
+        """Checks the kernel on one shape; `time_it` names the row its times
+        go to."""
         ends = [s_ + n for s_, n in zip(starts, qlens)]
-        kp, vp, tables = paged_inputs(g, ends, hkv, 64, dtype)
-        q = torch.randn(len(starts), c, hq, 64, generator=g, device=dev).to(dtype)
+        kp, vp, tables = paged_inputs(g, ends, hkv, d, dtype)
+        q = torch.randn(len(starts), c, hq, d, generator=g, device=dev).to(dtype)
         qs = torch.tensor(starts, dtype=torch.int32, device=dev)
         ql = torch.tensor(qlens, dtype=torch.int32, device=dev)
         out = paged_prefill_attention(q, kp, vp, tables, qs, ql)
@@ -588,16 +607,16 @@ def phase_kernels(state: dict) -> dict:
             es = q.element_size()
             pairs = sum(s_ * n + n * (n + 1) // 2 for s_, n in zip(starts, qlens))
             nvalid = int(sum(qlens))
-            nbytes = (2 * nvalid * hq * 64 * es + 2 * int(sum(ends)) * hkv * 64 * es
+            nbytes = (2 * nvalid * hq * d * es + 2 * int(sum(ends)) * hkv * d * es
                       + 4 * (tables.numel() + 2 * len(starts)))
-            bms, by = bound_ms(nbytes, 4.0 * pairs * hq * 64, tname)
-            rows["paged_prefill_attention"] = {
+            bms, by = bound_ms(nbytes, 4.0 * pairs * hq * d, tname)
+            rows[time_it] = {
                 # no one PyTorch call reads pages through a table
                 **times(lambda: paged_prefill_attention(q, kp, vp, tables, qs, ql),
                         lambda: ref.paged_prefill_attention_ref(q, kp, vp, tables, qs, ql),
                         body="paged_prefill_wgmma_kernel"),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-                "shape": f"q[{len(starts)},{c},{hq},64] pages {list(kp.shape)} of a 24-layer "
+                "shape": f"q[{len(starts)},{c},{hq},{d}] pages {list(kp.shape)} of a 24-layer "
                          f"pool, {tname}, q_starts {list(starts)} q_lens {list(qlens)}"}
         del kp, vp
 
@@ -613,8 +632,22 @@ def phase_kernels(state: dict) -> dict:
     starts, qlens = [0, 64, 448, 128, 320, 192, 384, 256], [64] * 7 + [5]
     for dt_ in (torch.float32, torch.bfloat16):
         paged_prefill_case("gpt2_chunkset", starts, qlens, 64, 25, 25, dt_,
-                           time_it=dt_ == torch.bfloat16)
+                           time_it="paged_prefill_attention" if dt_ == torch.bfloat16 else None)
         paged_prefill_case("gqa_25_5", [0, 40, 197], [64, 17, 64], 64, 25, 5, dt_)
+
+    # head dims 192 (nemotron-4-340b, 96:8 heads) and 96 (phi-3-vision-4.2b,
+    # 32:32 heads): the chunk-set pass of 8 chunks of 64, a whole 512-token
+    # prompt through flash, and the decode entries beside them
+    for d, hq, hkv in ((192, 96, 8), (96, 32, 32)):
+        for dt_ in (torch.float32, torch.bfloat16):
+            bf16 = dt_ == torch.bfloat16
+            paged_prefill_case(f"d{d}_chunkset", starts, qlens, 64, hq, hkv, dt_, d=d,
+                               time_it=f"paged_prefill_attention d{d}" if bf16 else None)
+            flash_case(f"d{d}_prefill", 1, 512, 512, hq, hkv, d, dt_,
+                       time_it=f"flash_attention d{d}" if bf16 else None)
+            flash_case(f"d{d}_sq_lt_skv_full", 1, 70, 150, hq, hkv, d, dt_, causal=False)
+            paged_decode_case(f"d{d}", lengths, hq, hkv, dt_, d=d)
+            decode_case(f"d{d}", 2, 544, hq, hkv, d, slots <= 527, dt_)
     state["kernel_rows"] = rows
     return {"checks": checks, "timed": rows}
 
@@ -822,19 +855,22 @@ def serve_expected_launches(eng, pc: dict) -> dict:
 
 
 def run_serve(cfg, dev: str, lens, max_new: int, max_active: int, pool_blocks: int,
-              generator, sync):
+              generator, sync, weights=None):
     """Serve `lens`-long prompts through fused continuous batching on `dev`
     and check tokens, logits and the kernels' launch counts against the
-    passes the engine ran.  Returns (results, the engine)."""
-    import torch
-
+    passes the engine ran.  The model's weights are drawn from `generator`,
+    or given as `weights` = (model, params).  Returns (results, the
+    engine)."""
     from repro_torch.kernels import LAUNCHES, reset_launches
     from repro_torch.models.transformer import DecoderLM
     from repro_torch.serving import ServingEngine
 
     t = time.perf_counter()
-    model = DecoderLM(cfg, device=dev)
-    params = model.init(generator)
+    if weights is None:
+        model = DecoderLM(cfg, device=dev)
+        params = model.init(generator)
+    else:
+        model, params = weights
     sync()
     init_s = time.perf_counter() - t
     sampler = RecordingSampler(keep=False)
@@ -2053,6 +2089,11 @@ NOT_TIERED = {"kv_pool_blocks": 120}
 # as for serve's trace, would change no batch)
 TIERED_CONTROL_ACTIVE = 3
 SYSTEM_PROMPT_TOKENS = 256
+# the phase runs some fifteen serving runs and an exact gate on the CPU:
+# half of serve's depth, and 2 layers for the gate, keep the whole script
+# near half its time limit (the schedule, and so every count but the bytes,
+# does not depend on the depth)
+PAGED_MODES_LAYERS = 24
 
 
 def shared_prefix_trace(vocab: int, seed: int = 4, max_new: int = 32):
@@ -2248,13 +2289,13 @@ def exact_paged_modes(cfg, serve_trace, tiered_trace, devs=("cuda", "cpu")) -> d
 
 
 def phase_paged_modes(state: dict) -> dict:
-    """gpt2-1.5b at full width, 48 layers, bf16, 2 workers, fused rounds:
+    """gpt2-1.5b at full width, 24 layers, bf16, 2 workers, fused rounds:
     (a) swapping and (b) disaggregated (1, 1) on serve's trace, in turns
     with the colocated run; (c) the shared-prefix trace through the KV
     tiers, in turns with the same trace without them; (d) (c) with
     replication, worker 1 lost while a sequence is swapped out.  Every run's
     launches exact; the bf16 differing tokens of each beside a control (the
-    run with another max_active); then the same four at 4 layers in fp32,
+    run with another max_active); then the same four at 2 layers in fp32,
     whose tokens must equal the port's on the CPU and the plain run's.  Prints
     tokens/s by mode, the prefill tokens saved, the tier counters, bytes by
     transport, the tier copies' rates and the time to recover by step.  The
@@ -2267,7 +2308,8 @@ def phase_paged_modes(state: dict) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.models.transformer import DecoderLM
     lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]   # serve's
-    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), dtype="bfloat16")
+    cfg = dataclasses.replace(get_arch("gpt2-1.5b"), num_layers=PAGED_MODES_LAYERS,
+                              dtype="bfloat16")
 
     def serve_trace():
         return _requests(lens, 32, cfg.vocab_size, seed=3)
@@ -2284,7 +2326,8 @@ def phase_paged_modes(state: dict) -> dict:
         model = DecoderLM(cfg, device="cuda")
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         torch.cuda.synchronize()
-        out = {"config": "gpt2-1.5b, 48 layers, bf16, 2 workers, fused rounds",
+        out = {"config": f"gpt2-1.5b, {PAGED_MODES_LAYERS} layers, bf16, 2 workers, "
+                         "fused rounds",
                "init_s": time.perf_counter() - t, "tiers": dict(TIERED)}
         # warm-up: library handles and the first launch of every path
         run_fused(cfg, model, params,
@@ -2297,15 +2340,195 @@ def phase_paged_modes(state: dict) -> dict:
             (2, cfg.num_layers // 2, cfg.kv_block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim), torch.bfloat16)
         del model, params
-        # the exact gate: fp32, 4 layers, the card against the port on the CPU
+        # the exact gate: fp32, 2 layers, the card against the port on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        out["fp32_4_layers"] = exact_paged_modes(
-            dataclasses.replace(cfg, dtype="float32", num_layers=4), serve_trace,
+        out["fp32_2_layers"] = exact_paged_modes(
+            dataclasses.replace(cfg, dtype="float32", num_layers=2), serve_trace,
             tiered_trace)
     finally:
         tempfile.tempdir = prev_tmp
     return out
+
+# ---------------------------------------------------------------------------
+# phases 13 and 14: the moe family, and nemotron's head dim of 192
+# ---------------------------------------------------------------------------
+
+MOE_SERVE_LAYERS = 8      # 4 a worker: about 11.2 GB of bf16 weights at full width
+
+
+def run_tokens(cfg, model, params, trace, dev: str, **ekw) -> dict:
+    """The greedy tokens of one `run_continuous` of `trace` through 2 stage
+    workers on `dev`, with the engine options `ekw` (the per-sequence path:
+    ``fused_rounds=False``), on a pool of 64 blocks."""
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(cfg, model, params, 2, paged=True, kv_pool_blocks=64, device=dev,
+                        **ekw)
+    reqs = trace()
+    rep = eng.run_continuous(reqs, max_active=4)
+    eng.cluster.streamer.close()
+    check(all(len(r.tokens) == r.max_new for r in reqs), "a request fell short")
+    return rep.tokens
+
+
+def moe_exact(cfg, trace, devs=("cuda", "cpu")) -> dict:
+    """`trace` through `run_continuous` on each of `devs`, with one set of
+    weights (drawn on the first device and copied): fused rounds, the
+    per-sequence path, a replicated run, and the replicated run losing
+    worker 1 at the middle fused decode step of the first device's recorded
+    run.  Every run's tokens must equal the first device's fused run's."""
+    import torch
+
+    from repro_torch.models.transformer import DecoderLM
+    params0 = DecoderLM(cfg, device=devs[0]).init(
+        torch.Generator(device=devs[0]).manual_seed(0))
+    tokens, seconds, fail_at = {}, {}, None
+    for dev in devs:
+        t = time.perf_counter()
+        model, params = DecoderLM(cfg, device=dev), _to(params0, dev)
+        fused = dict(dev=dev, max_active=4, pool_blocks=64)
+        run = {"fused": run_fused(cfg, model, params, trace, **fused)["tokens"],
+               "per_sequence": run_tokens(cfg, model, params, trace, dev,
+                                          fused_rounds=False)}
+        clean = run_fused(cfg, model, params, trace, replication=True, record=fail_at is None,
+                          **fused)
+        if fail_at is None:
+            dec = [n for n, tag in clean["steps"] if tag.startswith("decode-")]
+            fail_at = {dec[len(dec) // 2]: 1}
+        res = run_fused(cfg, model, params, trace, replication=True, fail_at=fail_at, **fused)
+        check(res["failures"] == 1 and res["recoveries"] == 1, f"{dev}: no recovery")
+        run.update(replicated=clean["tokens"], failure=res["tokens"])
+        tokens[dev], seconds[dev] = run, time.perf_counter() - t
+        del model, params
+    first = tokens[devs[0]]
+    for dev in devs:
+        for k, toks in tokens[dev].items():
+            check(toks == first["fused"], f"{cfg.name} fp32 {k} on {dev}: tokens differ from "
+                  f"the fused run on {devs[0]}")
+    return {"tokens_identical": True, "runs": list(first), "fail_at": fail_at,
+            "seconds": seconds}
+
+
+def phase_moe(state: dict) -> dict:
+    """qwen3-moe-30b-a3b at full width (d 2048, 32:4 heads of 128, 128
+    experts top-8 of d_ff 768, vocab 151,936), cut to 8 layers, bf16, 2
+    workers, on serve's trace (16 prompts of 64-512 tokens, 32 new, 8
+    active): tokens/s, the pass medians, launches exact.  Then at 2 layers
+    in fp32 on 4 requests of 16-40 tokens: the card's tokens equal the
+    CPU's, fused, per sequence and with replication losing worker 1."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 16)]   # serve's
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), num_layers=MOE_SERVE_LAYERS,
+                              dtype="bfloat16")
+    res, eng = run_serve(cfg, "cuda", lens, max_new=32, max_active=8, pool_blocks=1024,
+                         generator=torch.Generator(device="cuda").manual_seed(0),
+                         sync=torch.cuda.synchronize)
+    out = {"config": f"qwen3-moe-30b-a3b full width, {MOE_SERVE_LAYERS} layers, bf16, "
+                     "2 workers", **res,
+           "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+    del eng
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, num_layers=2, dtype="float32")
+    out["fp32_2_layers"] = moe_exact(
+        cfg32, lambda: _requests([16, 40, 23, 31], 8, cfg32.vocab_size, seed=6))
+    return out
+
+
+def wide_heads_runs(cfg, model, params, dev: str, lens, sync) -> dict:
+    """(a) `run_continuous` of `lens`-long prompts, 16 new tokens each, and
+    (b) `run()` of 4 prompts of 256 tokens in microbatches of 2, colocated;
+    launches exact in both."""
+    a, eng = run_serve(cfg, dev, lens, max_new=16, max_active=8, pool_blocks=512,
+                       generator=None, sync=sync, weights=(model, params))
+    del eng
+    b, eng = run_mb_serve(cfg, dev, model, params, 4, 256, 16, 2, MB_MODES["colocated"], sync)
+    return {"run_continuous": a, "run": b}
+
+
+def wide_heads_exact(cfg, lens, devs=("cuda", "cpu")) -> dict:
+    """The tokens of `run_continuous` on `lens`-long prompts and of `run()`
+    (microbatches of 2) on each of `devs`, with one set of weights (drawn
+    on the first device and copied): equal across the devices."""
+    import torch
+
+    from repro_torch.models.transformer import DecoderLM
+    from repro_torch.serving import ServingEngine
+    params0 = DecoderLM(cfg, device=devs[0]).init(
+        torch.Generator(device=devs[0]).manual_seed(0))
+    tokens, seconds = {}, {}
+    for dev in devs:
+        t = time.perf_counter()
+        model, params = DecoderLM(cfg, device=dev), _to(params0, dev)
+        mb = ServingEngine(cfg, model, params, 2, microbatch=2, device=dev)
+        tokens[dev] = {
+            "run_continuous": run_fused(cfg, model, params,
+                                        lambda: _requests(lens, 8, cfg.vocab_size, seed=8),
+                                        dev=dev, max_active=4, pool_blocks=64)["tokens"],
+            "run": mb.run(_requests(lens, 8, cfg.vocab_size, seed=8)).tokens}
+        seconds[dev] = time.perf_counter() - t
+        del model, params, mb
+    for dev in devs[1:]:
+        for k, toks in tokens[dev].items():
+            check(toks == tokens[devs[0]][k], f"{cfg.name} fp32 {k}: {dev} tokens differ "
+                  f"from {devs[0]}'s")
+    return {"tokens_identical": True, "seconds": seconds}
+
+
+def phase_wide_heads(state: dict) -> dict:
+    """nemotron-4-340b at full width (d 18,432, 96:8 heads of 192, relu2
+    d_ff 73,728, layernorm, vocab 256,000), cut to 2 layers, bf16, 2
+    workers: (a) `run_continuous` on 8 prompts of 64-256 tokens, 16 new,
+    which runs rows 5 and 6 at head dim 192; (b) `run()` in microbatches
+    of 2, colocated, which runs rows 4 and 7 there.  Then the card against
+    the CPU in fp32 at nemotron's attention widths (96:8 heads of 192, d
+    18,432), cut to d_ff 1,024, vocab 4,096 and 2 layers: tokens equal on
+    both paths."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models.transformer import DecoderLM
+    cfg = dataclasses.replace(get_arch("nemotron-4-340b"), num_layers=2, dtype="bfloat16")
+    t = time.perf_counter()
+    model = DecoderLM(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    torch.cuda.synchronize()
+    out = {"config": "nemotron-4-340b full width, 2 layers, bf16, 2 workers",
+           "init_s": time.perf_counter() - t,
+           "init_peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
+           "weights_gib": sum(p.numel() * p.element_size()
+                              for p in _leaves(params)) / 2**30}
+    lens = [int(n) for n in np.random.default_rng(9).integers(64, 257, 8)]
+    torch.cuda.reset_peak_memory_stats()
+    out.update(wide_heads_runs(cfg, model, params, "cuda", lens, torch.cuda.synchronize))
+    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
+    for path, kernels in (("run_continuous", PAGED_KERNELS),
+                          ("run", ("flash_attention", "decode_attention"))):
+        check(all(out[path]["launches"][k] > 0 for k in kernels),
+              f"{path} did not launch {kernels} at head dim 192")
+    del model, params
+    torch.cuda.empty_cache()
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    cfg32 = dataclasses.replace(cfg, dtype="float32", d_ff=1024, vocab_size=4096)
+    out["fp32_attention_widths"] = {
+        "cuts": "d_ff 73,728 -> 1,024, vocab 256,000 -> 4,096, 96 -> 2 layers",
+        **wide_heads_exact(cfg32, [16, 40, 23, 31])}
+    return out
+
+
+def _leaves(tree):
+    if isinstance(tree, dict):
+        for v in tree.values():
+            yield from _leaves(v)
+    else:
+        yield tree
+
 
 KERNEL_META = {
     "batched_decode_attention": ("src/repro_torch/kernels/csrc/decode_attention.cu",
@@ -2360,11 +2583,13 @@ def main() -> int:
            "serve": phase_serve, "mb_parity": phase_mb_parity, "mb_serve": phase_mb_serve,
            "ssm_parity": phase_ssm_parity, "ssm_serve": phase_ssm_serve,
            "recover": phase_recover, "mb_recover": phase_mb_recover,
-           "telemetry": phase_telemetry, "paged_modes": phase_paged_modes}
+           "telemetry": phase_telemetry, "paged_modes": phase_paged_modes,
+           "moe": phase_moe, "wide_heads": phase_wide_heads}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     if "env" not in phases:
         phases.insert(0, "env")
     for p in phases:
+        torch.cuda.reset_peak_memory_stats()
         t = time.perf_counter()
         try:
             res = fns[p](state)
@@ -2372,7 +2597,11 @@ def main() -> int:
             emit({"phase": p, "ok": False, "error": f"{type(e).__name__}: {e}",
                   "seconds": time.perf_counter() - t})
             raise
-        emit({"phase": p, "ok": True, "seconds": time.perf_counter() - t, **res})
+        # the phase's models are gone with its frame: free their memory
+        gc.collect()
+        torch.cuda.empty_cache()
+        emit({"phase": p, "ok": True, "seconds": time.perf_counter() - t,
+              "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, **res})
     rows = state.get("kernel_rows", {})
     launches = state.get("launches", {})
     kernels = []

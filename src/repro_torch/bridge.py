@@ -34,7 +34,8 @@ def _convert(tree, device):
 
 
 # per family, the stacked leaves whose first axis must be the layer count
-_STACKED = {"ssm": (("ssm", "w_in"),), "hybrid": (("attn", "wq"), ("ssm", "w_in"))}
+_STACKED = {"ssm": (("ssm", "w_in"),), "hybrid": (("attn", "wq"), ("ssm", "w_in")),
+            "moe": (("attn", "wq"), ("moe", "w_gate"))}
 
 
 def params_from_jax(cfg: ArchConfig, params_np: Dict, device="cuda") -> Dict:

@@ -96,9 +96,10 @@ class DejaVuCluster:
                              f"got {dp_split}")
         if tiered and not paged:
             raise ValueError("tiered=True needs paged=True")
-        # the stage API (slice_params, stage_prefill, ...) exists for the dense
-        # family only; MambaLM and HybridLM serve through prefill/decode_step
-        not_ported(**{f"family={cfg.family} in the cluster (A.12)": cfg.family != "dense"})
+        # the stage API (slice_params, stage_prefill, ...) exists for the
+        # DecoderLM families only; MambaLM and HybridLM serve through
+        # prefill/decode_step
+        not_ported(**{f"family={cfg.family} in the cluster": cfg.family not in ("dense", "moe")})
         self.cfg = cfg
         self.model = model
         self.params = params             # full weights (the checkpoint store)

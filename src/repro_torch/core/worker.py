@@ -243,13 +243,18 @@ class StageWorker:
         worker).  The write-behinds already queued land first (issued copies
         and disk writes complete as the host dies; a copy lost in flight is
         the transport's ``drop`` fault), unless the streamer's own thread is
-        the caller; a write-behind that fails raises here."""
+        the caller.  A write-behind that fails dies with the worker: its
+        error is dropped, and ``on_host_failure`` re-checks every ``on_ssd``
+        claim against the disk, so recovery trusts none of its bytes."""
         telemetry.count("worker.kills", 1, wid=self.wid)
         tracing.event("worker.kill", wid=self.wid)
         self.alive = False
         self.kv.clear()
         if self.tier is not None and not self.tier.streamer.on_worker_thread():
-            self.tier.streamer.drain()
+            try:
+                self.tier.streamer.drain()
+            except Exception:    # noqa: BLE001 -- the worker is dying; see the docstring
+                pass
         self.cache.host.clear()
         self.cache.replica.clear()
         if self.tier is not None:

@@ -26,10 +26,15 @@
 //   * Loads: one thread issues TMA copies through 4-D tensor maps over
 //     [B, S, H, D] (encoded on the host for each call), Q once and K/V tiles
 //     of 64 keys into a ring of two stages, each with its mbarrier, so the
-//     next tile's copy overlaps this tile's products.  A box past Skv (or
-//     past Sq) reads TMA's zero fill, never the next batch row.  A box is 64
-//     rows by 64 bf16 columns (128 bytes) under the 128-byte swizzle; D = 16
-//     and 32 read zeros past D, D = 128 takes two boxes.
+//     next tile's copy overlaps this tile's products (at D = 192 one stage,
+//     and three blocks to an SM overlap one another's copies instead: 23%
+//     less device time than two stages at nemotron's [1,512,96:8,192] on
+//     an H100 80GB HBM3 at 700 W, chip_smoke.py's kernels phase).  A box
+//     past Skv (or past Sq) reads TMA's zero fill, never the next batch
+//     row.  A box is 64 rows by 64 bf16 columns (128 bytes) under the
+//     128-byte swizzle; D = 16 and 32 read zeros past D, D = 128 takes two
+//     boxes, D = 96 two with the second half zeros, D = 192 three.  Q.K^T
+//     walks D / 16 steps, so the zero columns cost no product there.
 //   * S = Q.K^T: wgmma m64n64k16, Q and K K-major from shared memory, f32
 //     accumulators in registers.
 //   * Softmax on the accumulator fragment: each thread holds two rows, whose
@@ -39,7 +44,9 @@
 //     ex2.approx on the special-function unit.
 //   * O += P.V: wgmma with P converted to bf16 in registers (the score
 //     fragment is the A fragment's layout) and V read MN-major from the same
-//     swizzled tile through the descriptor's transpose bit.
+//     swizzled tile through the descriptor's transpose bit.  N is the padded
+//     head dim: 64, 128 (D = 96 computes its 32 zero columns and stores
+//     none) or 192, whose O accumulator is 96 f32 registers a thread.
 // f32 (flash_kernel) keeps the CUDA-core body: TF32 or bf16 products
 // cannot hold the f32 parity band of 2e-5.  Each of its 128 threads holds a
 // 4 x 8 patch of the 64 x 64 score tile and a 4 x (D/8) patch of the output
@@ -236,12 +243,16 @@ constexpr size_t smem_bytes(int D) {
 // bf16: one warpgroup on wgmma, K/V by TMA
 // ---------------------------------------------------------------------------
 
-constexpr int kStages = 2;                 // K/V tiles in flight
+// K/V tiles in flight: two, the next tile's copy under this tile's
+// products; one at D = 192, whose two stages would hold a block to one per
+// SM (121 KB), where one stage (73 KB) lets three blocks overlap one
+// another's loads instead.
+__host__ __device__ constexpr int kv_stages(int D) { return D > 128 ? 1 : 2; }
 
-// Q, kStages K and V tiles, their mbarriers, and 1 KB to align the boxes to
-// the 1024 bytes the 128-byte swizzle repeats over.
+// Q, the K and V tiles, their mbarriers, and 1 KB to align the boxes to the
+// 1024 bytes the 128-byte swizzle repeats over.
 constexpr size_t wgmma_smem_bytes(int D) {
-  return 1024 + (size_t)(1 + 2 * kStages) * tile_bytes(D) + 8 * (1 + kStages);
+  return 1024 + (size_t)(1 + 2 * kv_stages(D)) * tile_bytes(D) + 8 * (1 + kv_stages(D));
 }
 
 __device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
@@ -287,9 +298,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
                    int Sq, int Skv, int Hq, int Hkv, int causal, float scale_log2) {
-  constexpr int kBoxes = D > 64 ? 2 : 1;   // 64-column boxes across the head dim
+  constexpr int kBoxes = boxes(D);         // 64-column boxes across the head dim
   constexpr int kDP = 64 * kBoxes;         // head dim padded to the boxes
   constexpr int kTile = tile_bytes(D);
+  constexpr int kStages = kv_stages(D);
   const int q0 = blockIdx.x * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
@@ -342,7 +354,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
   for (int j = 0; j < ntiles; ++j) {
     const int st = j % kStages;
-    if (tid == 0 && j + 1 < ntiles) load_kv(j + 1);   // its stage was freed by tile j - 1
+    if constexpr (kStages > 1) {         // its stage was freed by tile j - 1
+      if (tid == 0 && j + 1 < ntiles) load_kv(j + 1);
+    }
     mbar_wait(&bars[1 + st], (j / kStages) & 1);
 
     // S = Q.K^T: K-major boxes; a k16 step is 32 bytes along a 128-byte row
@@ -352,7 +366,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     const uint32_t k_addr = smem_u32(k_s + st * kTile);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDP / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {    // the zero columns past D add nothing
       const uint32_t step = (kk / 4) * kAtom + (kk % 4) * 32;
       wgmma_ss_n64(s, gmma_desc(q_addr + step, 16, 1024), gmma_desc(k_addr + step, 16, 1024),
                    kk > 0);
@@ -415,6 +429,9 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     wgmma_wait_all();
     fence_regs(o);
     __syncthreads();                       // every warp is done with stage st
+    if constexpr (kStages == 1) {
+      if (tid == 0 && j + 1 < ntiles) load_kv(j + 1);
+    }
   }
 
 #pragma unroll
@@ -532,8 +549,8 @@ extern "C" long long repro_flash_attention_smem(int dtype, int D) {
 
 // dtype: 0 = float32 (flash_kernel), 1 = bfloat16 (flash_wgmma_kernel).
 // q/out [B,Sq,Hq,D], k/v [B,Skv,Hkv,D], contiguous and 16-byte aligned; D in
-// {16, 32, 64, 128}; Hq % Hkv == 0; a causal call needs Sq <= Skv (every
-// query row sees a key).  Returns cudaGetLastError() after the launch.
+// {16, 32, 64, 96, 128, 192}; Hq % Hkv == 0; a causal call needs Sq <= Skv
+// (every query row sees a key).  Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
                                      void* out, int B, int Sq, int Skv, int Hq, int Hkv,
                                      int D, int causal, float scale, void* stream) {
@@ -542,8 +559,11 @@ extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, co
     case 16: return launch_dtype<16>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
     case 32: return launch_dtype<32>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
     case 64: return launch_dtype<64>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+    case 96: return launch_dtype<96>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
     case 128:
       return launch_dtype<128>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+    case 192:
+      return launch_dtype<192>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
 }

@@ -48,6 +48,7 @@
 //     at or past the loop's limit, a row past the tile's rows and a column
 //     past D are written as zeros (cp.async with a source size of 0), never
 //     left stale: P = 0 times a NaN in shared memory is NaN inside wgmma.
+//     D = 96 fills two boxes, its last 32 columns zeros; D = 192 three.
 //     No table entry or page past that limit is read.  Each thread fences
 //     its copies to the async proxy after they land, before the barrier that
 //     hands the tile to wgmma.
@@ -55,7 +56,8 @@
 //     accumulator fragment (mask only on the tiles that cross a row's causal
 //     limit or the chunk's end, ex2.approx with the scale folded in); O +=
 //     P.V with P converted to bf16 in registers as the A fragment and V read
-//     MN-major from its swizzled tile.
+//     MN-major from its swizzled tile, N the padded head dim (64, 128 or
+//     192; D = 96 computes its 32 zero columns and stores none).
 // f32 (paged_prefill_kernel) keeps the CUDA-core body: TF32 or bf16 products
 // cannot hold the f32 parity band of 2e-5.  Each of its 128 threads holds a
 // 4 x 8 patch of the score tile and a 4 x D/8 patch of the output, over f32
@@ -282,7 +284,7 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
                            const int* __restrict__ q_starts, const int* __restrict__ q_lens,
                            __nv_bfloat16* __restrict__ out, int C, int max_blocks, int bs,
                            long long page_stride, int Hq, int Hkv, float scale_log2) {
-  constexpr int kBoxes = D > 64 ? 2 : 1;   // 64-column boxes across the head dim
+  constexpr int kBoxes = boxes(D);         // 64-column boxes across the head dim
   constexpr int kDP = 64 * kBoxes;         // head dim padded to the boxes
   constexpr int kTile = tile_bytes(D);
   constexpr int kCopyRows = kBK / (kThreads / 8);   // rows a thread copies per tile: 4
@@ -393,7 +395,7 @@ paged_prefill_wgmma_kernel(const __nv_bfloat16* __restrict__ q,
     const uint32_t k_addr = smem_u32(ks);
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < kDP / 16; ++kk) {
+    for (int kk = 0; kk < D / 16; ++kk) {    // the zero columns past D add nothing
       const uint32_t step = (kk / 4) * kAtom + (kk % 4) * 32;
       wgmma_ss_n64(s, gmma_desc(q_addr + step, 16, 1024), gmma_desc(k_addr + step, 16, 1024),
                    kk > 0);
@@ -547,8 +549,8 @@ extern "C" long long repro_paged_prefill_smem(int dtype, int D) {
 // [B,max_blocks] contiguous, every entry of a sequence's first
 // ceil(min(q_starts[b] + q_lens[b], max_blocks * bs) / bs) a valid page id
 // (the kernels read no other entry); q_starts, q_lens device int32 [B],
-// non-negative.  D in {16, 32, 64, 128}; Hq % Hkv == 0; base pointers and
-// strides 16-byte aligned.  Returns cudaGetLastError() after the launch.
+// non-negative.  D in {16, 32, 64, 96, 128, 192}; Hq % Hkv == 0; base
+// pointers and strides 16-byte aligned.  Returns cudaGetLastError() after the launch.
 extern "C" int repro_paged_prefill_attention(int dtype, const void* q, const void* k_pages,
                                              const void* v_pages, const int* block_tables,
                                              const int* q_starts, const int* q_lens, void* out,
@@ -563,7 +565,9 @@ extern "C" int repro_paged_prefill_attention(int dtype, const void* q, const voi
     case 16: return REPRO_LAUNCH(16);
     case 32: return REPRO_LAUNCH(32);
     case 64: return REPRO_LAUNCH(64);
+    case 96: return REPRO_LAUNCH(96);
     case 128: return REPRO_LAUNCH(128);
+    case 192: return REPRO_LAUNCH(192);
 #undef REPRO_LAUNCH
     default: return static_cast<int>(cudaErrorInvalidValue);
   }

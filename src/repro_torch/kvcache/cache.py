@@ -3,7 +3,7 @@
 The decode state is a nested dict of tensors so that DéjàVuLib streaming can
 address leaves by path.  Layouts:
 
-dense              {"kv": {"k": [L,B,S,Hkv,Dh], "v": ...}}
+dense, moe         {"kv": {"k": [L,B,S,Hkv,Dh], "v": ...}}
 ssm (mamba2)       {"conv": [L,B,K-1,conv_dim], "ssd": [L,B,nh,hd,N] f32}
 hybrid (hymba)     {"kv_swa":  {"k": [Lswa,B,M+W,Hkv,Dh], "v": ...},
                     "kv_full": {"k": [Lfull,B,M+S,Hkv,Dh], "v": ...},
@@ -34,13 +34,13 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int,
     """Nested dict of (shape, torch dtype) describing the decode state of
     `layers` layers (default: the whole model; a pipeline stage of a dense
     model passes its own layer count)."""
-    not_ported(**{f"family={cfg.family}": cfg.family not in ("dense", "ssm", "hybrid")})
+    not_ported(**{f"family={cfg.family}": cfg.family not in ("dense", "moe", "ssm", "hybrid")})
     if layers is not None and cfg.family == "hybrid":
         raise ValueError("a hybrid decode state covers the whole model (no stage layout)")
     L = cfg.num_layers if layers is None else layers
     dt = torch_dtype(cfg.dtype)
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    if cfg.family == "dense":
+    if cfg.family in ("dense", "moe"):
         shape = (L, batch, seq_len, hkv, dh)
         return {"kv": {"k": (shape, dt), "v": (shape, dt)}}
     ssm = {"conv": ((L, batch, cfg.ssm_conv - 1, _conv_dim(cfg)), dt),

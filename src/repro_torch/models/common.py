@@ -87,21 +87,22 @@ def alibi_slopes(num_heads: int):
 
 def _truncated_normal(shape, generator: torch.Generator, lo=-2.0, hi=2.0):
     """Standard normal truncated to [lo, hi] by inverse-CDF sampling on the
-    generator's device."""
+    generator's device, in place in one f32 buffer: a full-width embedding
+    (nemotron's 256,000 x 18,432) is 18.9 GB of it."""
     cdf = lambda x: 0.5 * (1.0 + math.erf(x / math.sqrt(2.0)))   # noqa: E731
     u = torch.rand(shape, generator=generator, device=generator.device)
-    u = u * (cdf(hi) - cdf(lo)) + cdf(lo)
-    return (torch.erfinv(2.0 * u - 1.0) * math.sqrt(2.0)).clamp_(lo, hi)
+    u.mul_(cdf(hi) - cdf(lo)).add_(cdf(lo))
+    return u.mul_(2.0).sub_(1.0).erfinv_().mul_(math.sqrt(2.0)).clamp_(lo, hi)
 
 
 def dense_init(generator, shape, dtype, device, scale: Optional[float] = None):
     fan_in = shape[-2] if len(shape) >= 2 else shape[-1]
     std = scale if scale is not None else 1.0 / math.sqrt(fan_in)
-    return (std * _truncated_normal(shape, generator)).to(device=device, dtype=dtype)
+    return _truncated_normal(shape, generator).mul_(std).to(device=device, dtype=dtype)
 
 
 def embed_init(generator, shape, dtype, device):
-    return (0.02 * _truncated_normal(shape, generator)).to(device=device, dtype=dtype)
+    return _truncated_normal(shape, generator).mul_(0.02).to(device=device, dtype=dtype)
 
 
 def head_init(generator, cfg, dtype, device) -> dict:

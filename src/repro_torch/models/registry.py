@@ -3,7 +3,7 @@
 
 Every model exposes ``init(generator)``, ``prefill(params, batch, max_len)``
 and ``decode_step(params, state, token, pos)``; training (``loss``) and the
-moe, encdec and vlm families are later slices.
+encdec and vlm families are later slices.
 """
 from __future__ import annotations
 
@@ -13,11 +13,11 @@ from repro_torch.models.hybrid import HybridLM
 from repro_torch.models.mamba_lm import MambaLM
 from repro_torch.models.transformer import DecoderLM
 
-_FAMILIES = {"dense": DecoderLM, "ssm": MambaLM, "hybrid": HybridLM}
+_FAMILIES = {"dense": DecoderLM, "moe": DecoderLM, "ssm": MambaLM, "hybrid": HybridLM}
 
 
 def build_model(cfg: ArchConfig, device="cuda"):
     if cfg.family not in _FAMILIES:
-        not_ported(**{f"family={cfg.family}": cfg.family in ("moe", "encdec", "vlm")})
+        not_ported(**{f"family={cfg.family}": cfg.family in ("encdec", "vlm")})
         raise ValueError(f"unknown family {cfg.family!r}")
     return _FAMILIES[cfg.family](cfg, device=device)

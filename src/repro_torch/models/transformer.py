@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense family (counterpart of
+"""Decoder-only transformer LM, dense and moe families (counterpart of
 `repro.models.transformer.DecoderLM`).
 
 Parameters are a nested dict of tensors with the layers stacked ``[L, ...]``,
@@ -23,13 +23,14 @@ from repro_torch.models import attention as attn
 from repro_torch.models.common import (alibi_slopes, embed_init, head_init, layer_params,
                                        norm_apply, norm_init, stack_layers, unembed)
 from repro_torch.models.mlp import mlp_apply, mlp_init
+from repro_torch.models.moe import moe_apply, moe_init
 
 
 class DecoderLM:
-    """Dense decoder (the families moe / vlm are later slices)."""
+    """Dense and moe decoder (the vlm family is a later slice)."""
 
     def __init__(self, cfg: ArchConfig, device="cuda"):
-        not_ported(**{f"family={cfg.family}": cfg.family != "dense",
+        not_ported(**{f"family={cfg.family}": cfg.family not in ("dense", "moe"),
                       "num_patches": cfg.num_patches})
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -52,10 +53,14 @@ class DecoderLM:
             p["pos_table"] = embed_init(g, (cfg.max_seq_len, cfg.d_model), dtype, dev)
 
         def one_layer():
-            return {"ln1": norm_init(cfg.norm, cfg.d_model, dtype, dev),
-                    "attn": attn.attn_init(g, cfg, dtype, dev),
-                    "ln2": norm_init(cfg.norm, cfg.d_model, dtype, dev),
-                    "mlp": mlp_init(g, cfg, dtype, dev)}
+            lp = {"ln1": norm_init(cfg.norm, cfg.d_model, dtype, dev),
+                  "attn": attn.attn_init(g, cfg, dtype, dev),
+                  "ln2": norm_init(cfg.norm, cfg.d_model, dtype, dev)}
+            if cfg.is_moe:
+                lp["moe"] = moe_init(g, cfg, dtype, dev)
+            else:
+                lp["mlp"] = mlp_init(g, cfg, dtype, dev)
+            return lp
 
         p["layers"] = stack_layers([one_layer() for _ in range(cfg.num_layers)])
         p.update(head_init(g, cfg, dtype, dev))
@@ -64,6 +69,15 @@ class DecoderLM:
     # ------------------------------------------------------------------
     def _final(self, sp, x):
         return unembed(self.cfg, sp, x)
+
+    def _ffn(self, h, lp):
+        """The MLP, or the experts over the flattened tokens with the
+        lossless dispatch: a token's output must not depend on how the
+        scheduler packed its pass."""
+        if not self.cfg.is_moe:
+            return mlp_apply(h, lp["mlp"], self.cfg)
+        b, s, d = h.shape
+        return moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg, drop=False).view(b, s, d)
 
     def _layer(self, x, lp, *, mode, kc=None, vc=None, kv_positions=None, pos=None,
                q_lens=None, positions=None, window=0):
@@ -84,7 +98,7 @@ class DecoderLM:
                                               kv_positions, pos, **kw)
         x = x + a
         h = norm_apply(cfg.norm, x, lp["ln2"])
-        return x + mlp_apply(h, lp["mlp"], cfg), kc, vc
+        return x + self._ffn(h, lp), kc, vc
 
     def _layers(self, sp, x, kc, vc, **kw):
         for i, w in enumerate(sp["layer_window"]):
@@ -241,7 +255,7 @@ class DecoderLM:
                 h, lp["attn"], cfg, k_pages[:, i], v_pages[:, i], tables, write_idx, pos,
                 lengths=lengths, q_lens=q_lens, rope=cfg.pos_emb == "rope")
             h = norm_apply(cfg.norm, x, lp["ln2"])
-            x = x + mlp_apply(h, lp["mlp"], cfg)
+            x = x + self._ffn(h, lp)
         return x
 
     def stage_decode_paged(self, sp, x, k_pages, v_pages, tables, write_idx, pos, *,

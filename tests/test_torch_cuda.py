@@ -89,6 +89,10 @@ def test_kv_pack_kernels_match_plain_bit_for_bit(cuda, dtype):
     (2, 1228, 1228, 25, 5, 64, True),            # Hymba's GQA, Skv not a multiple of 64
     (2, 100, 300, 8, 2, 64, True),               # Sq < Skv: the tile past a batch row's
     (2, 70, 200, 4, 2, 128, True),               # end reads zeros, not the next row
+    (1, 130, 130, 32, 32, 96, True),             # phi-3-vision's heads: two boxes, half zeros
+    (2, 50, 70, 4, 4, 96, False),                # D 96, full attention
+    (1, 200, 200, 96, 8, 192, True),             # nemotron's heads: three boxes
+    (1, 70, 150, 4, 2, 192, True),               # D 192, Sq < Skv, keys end mid-tile
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -113,7 +117,8 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, caus
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["prefix", "window_meta", "scattered", "one_slot"])
 @pytest.mark.parametrize("b,s,hq,hkv,d", [(2, 96, 4, 2, 16), (3, 200, 25, 25, 64),
-                                          (1, 130, 32, 1, 128)])
+                                          (1, 130, 32, 1, 128), (2, 150, 32, 32, 96),
+                                          (1, 300, 96, 8, 192)])
 def test_decode_attention_kernel_matches_plain(cuda, b, s, hq, hkv, d, kind, dtype):
     g = torch.Generator(device=cuda).manual_seed(2)
     q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
@@ -142,7 +147,7 @@ def _split_edges(dtype, b, s, hq, hkv, d):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 192, 256])
 @pytest.mark.parametrize("kind", ["split_edge", "mid_split", "one_tile", "uneven",
                                   "scattered_empty_splits"])
 def test_decode_attention_split_matches_plain(cuda, kind, d, dtype):
@@ -322,6 +327,8 @@ def _paged(g, ends, hkv, d, dtype, layers=4, bs=8):
     (25, 25, 64, 8, (1, 300, 64)),               # gpt2 heads, a one-token sequence
     (32, 1, 128, 16, (129, 64)),                 # G = 32: dynamic shared memory
     (6, 2, 64, 4, (13,)),                        # tiny pages
+    (32, 32, 96, 8, (90, 33)),                   # phi-3-vision's heads
+    (96, 8, 192, 8, (129, 64, 7)),               # nemotron's heads
 ])
 def test_paged_decode_attention_kernel_matches_plain(cuda, hq, hkv, d, bs, lengths, dtype):
     g = torch.Generator(device=cuda).manual_seed(5)
@@ -344,6 +351,8 @@ def test_paged_decode_attention_kernel_matches_plain(cuda, hq, hkv, d, bs, lengt
     (64, 25, 25, 64, (0, 448, 130), (64, 64, 5)),   # gpt2 heads, a short final chunk
     (40, 8, 2, 128, (3, 70), (40, 33)),          # head dim 128, C*G of 160 rows
     (3, 4, 4, 32, (4, 7, 1), (3, 1, 2)),         # chunks shorter than a page
+    (40, 32, 32, 96, (3, 70), (40, 33)),         # phi-3-vision's heads
+    (64, 96, 8, 192, (0, 130, 7), (64, 17, 64)),  # nemotron's heads, a short chunk
 ])
 def test_paged_prefill_attention_kernel_matches_plain(cuda, c, hq, hkv, d, prefixes, qlens,
                                                       dtype):
@@ -378,7 +387,7 @@ def _poisoned_tables(tables, ends, bs):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
+@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 192])
 @pytest.mark.parametrize("group", [1, 5])
 @pytest.mark.parametrize("bs", [4, 8, 16, 12])
 def test_paged_prefill_attention_kernel_matches_plain_over_page_sizes(cuda, bs, group, d,

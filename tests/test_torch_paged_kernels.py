@@ -81,6 +81,9 @@ DECODE_CASES = {        # b, hq, hkv, d, bs, lengths, pool layers (0 = a bare pa
     "length_zero": (3, 4, 2, 16, 8, (12, 0, 5), 0),
     # pages of 12 slots: a 64-key tile of the CUDA bodies ends mid-page
     "bs12": (2, 4, 2, 16, 12, (13, 70), 0),
+    # phi-3-vision's and nemotron's head dims
+    "d96": (2, 4, 4, 96, 8, (13, 70), 0),
+    "d192": (2, 8, 2, 192, 8, (21, 6), 0),
 }
 
 
@@ -130,6 +133,10 @@ PREFILL_CASES = {       # b, c, hq, hkv, d, bs, prefixes, q_lens (None = full), 
     "ragged_pool_layer_view": (3, 8, 4, 2, 16, 8, (0, 13, 40), (8, 3, 5), 3),
     # pages of 12 slots; one chunk ends mid-page past the first 64-key tile
     "bs12": (2, 8, 4, 2, 16, 12, (58, 9), (8, 5), 0),
+    # phi-3-vision's and nemotron's head dims, chunks ending mid-page and
+    # mid-tile
+    "d96": (2, 8, 4, 4, 96, 8, (13, 0), (8, 5), 0),
+    "d192": (2, 8, 8, 2, 192, 8, (58, 9), (8, 5), 3),
 }
 
 

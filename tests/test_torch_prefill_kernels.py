@@ -56,6 +56,10 @@ FLASH_CASES = {          # b, sq, skv, hq, hkv, d, causal, block_q, block_k
     "ragged_tail": (1, 40, 40, 4, 2, 16, True, 32, 32),
     "sq_lt_skv": (2, 24, 56, 4, 2, 16, True, 16, 32),
     "non_causal": (1, 48, 40, 4, 2, 16, False, 32, 32),
+    # phi-3-vision's and nemotron's head dims, keys ending mid-tile
+    "d96_ragged_tail": (1, 40, 40, 4, 2, 96, True, 32, 32),
+    "d192_sq_lt_skv": (1, 24, 56, 8, 2, 192, True, 16, 32),
+    "d192_non_causal": (1, 20, 44, 4, 1, 192, False, 16, 32),
 }
 
 

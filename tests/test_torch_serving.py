@@ -262,10 +262,19 @@ LEFT_OUT = {
 }
 
 
+def _moe():
+    """Reduced qwen3-moe at fp32, the port's model and its own seeded
+    weights: the moe family builds a DecoderLM and a cluster."""
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b").reduced(), dtype="float32")
+    model = DecoderLM(cfg, device="cpu")
+    return cfg, model, model.init(torch.Generator().manual_seed(0))
+
+
 @pytest.mark.parametrize("knob", list(LEFT_OUT))
 def test_knobs_left_out_of_this_slice_raise(knob, models, tmp_path, monkeypatch):
-    """Each knob now builds a paged engine; with the moe family the guard
-    raises and names the family alone."""
+    """Each knob now builds a paged engine, for the dense and the moe
+    family; with the encdec family the guard raises and names the family
+    alone."""
     import tempfile
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))     # the SSD tiers' roots
     _, _, tm, tp = models
@@ -274,13 +283,17 @@ def test_knobs_left_out_of_this_slice_raise(knob, models, tmp_path, monkeypatch)
     cl = ServingEngine(TCFG, tm, tp, 2, **kw).cluster
     assert cl.paged and all(w.pool is not None for w in cl.workers())
     assert all((w.tier is not None) == bool(kw.get("tiered")) for w in cl.workers())
+    mcl = DejaVuCluster(*_moe(), 2, **kw)
+    assert mcl.paged and all(w.pool is not None for w in mcl.workers())
     with pytest.raises(NotImplementedError, match="does not port") as e:
-        DejaVuCluster(dataclasses.replace(TCFG, family="moe"), tm, tp, 2, **kw)
-    assert "family=moe" in str(e.value) and knob.split("_")[0] not in str(e.value)
+        DejaVuCluster(dataclasses.replace(TCFG, family="encdec"), tm, tp, 2, **kw)
+    assert "family=encdec" in str(e.value) and knob.split("_")[0] not in str(e.value)
 
 
 def test_run_and_fault_injection_raise():
     """The families the port does not serve yet raise (fault injection,
     migration and repartition are served: tests/test_torch_recovery*.py)."""
     with pytest.raises(NotImplementedError, match="family"):
-        DecoderLM(dataclasses.replace(TCFG, family="moe"), device="cpu")
+        DecoderLM(dataclasses.replace(TCFG, family="encdec"), device="cpu")
+    cfg, model, params = _moe()
+    assert isinstance(DejaVuCluster(cfg, model, params, 2, device="cpu"), DejaVuCluster)

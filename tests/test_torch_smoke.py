@@ -345,3 +345,40 @@ def test_paged_modes_phase_rehearsed(smoke, tmp_path, monkeypatch):
     assert not list(tmp_path.iterdir())          # every tier's disk was removed
     exact = smoke.exact_paged_modes(cfg, serve_trace, tiered_trace, devs=("cpu",))
     assert exact["tokens_identical"] and exact["fail_at"]
+
+
+def test_moe_phase_rehearsed(smoke):
+    """The moe phase at a tiny width (reduced qwen3-moe, 4 experts top 2):
+    serve's trace through fused rounds with the launches the passes imply,
+    then the exact runs (fused, per sequence, replicated, a worker lost),
+    every one giving the fused run's tokens."""
+    import numpy as np
+    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b").reduced(), max_seq_len=2048,
+                              dtype="float32")
+    lens = [int(n) for n in np.random.default_rng(2).integers(64, 513, 6)]
+    res, eng = smoke.run_serve(cfg, "cpu", lens, max_new=6, max_active=3, pool_blocks=256,
+                               generator=torch.Generator().manual_seed(0),
+                               sync=lambda: None)
+    assert res["tokens_generated"] == 6 * 6 and res["chunk_passes"] > 0
+    assert "moe" in eng.cluster.workers()[0].sp["layers"]
+    exact = smoke.moe_exact(cfg, lambda: smoke._requests([16, 40, 23, 31], 8, cfg.vocab_size,
+                                                         seed=6), devs=("cpu",))
+    assert exact["tokens_identical"] and exact["fail_at"]
+    assert exact["runs"] == ["fused", "per_sequence", "replicated", "failure"]
+
+
+def test_wide_heads_phase_rehearsed(smoke):
+    """The wide_heads phase at a tiny width with nemotron's head dim of 192
+    (reduced nemotron-4-340b: relu2, layernorm): both serving paths with
+    their launch counts, then the exact runs on both paths."""
+    cfg = dataclasses.replace(get_arch("nemotron-4-340b").reduced(), max_seq_len=2048,
+                              head_dim=192, dtype="float32")
+    model = DecoderLM(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    out = smoke.wide_heads_runs(cfg, model, params, "cpu", [64, 200, 77, 129],
+                                sync=lambda: None)
+    a, b = out["run_continuous"], out["run"]
+    assert a["tokens_generated"] == 4 * 16 and a["chunk_passes"] > 0
+    assert b["tokens_generated"] == 4 * 16 and b["prefill_passes"] == 2
+    exact = smoke.wide_heads_exact(cfg, [16, 40, 23, 31], devs=("cpu",))
+    assert exact["tokens_identical"]

@@ -297,7 +297,9 @@ def test_build_model_dispatches_by_family():
     assert isinstance(build_model(base, device="cpu"), DecoderLM)
     assert isinstance(build_model(get_arch(NAME).reduced(), device="cpu"), MambaLM)
     assert isinstance(build_model(get_arch("hymba-1.5b").reduced(), device="cpu"), HybridLM)
-    for fam in ("moe", "encdec", "vlm"):
+    assert isinstance(build_model(get_arch("qwen3-moe-30b-a3b").reduced(), device="cpu"),
+                      DecoderLM)
+    for fam in ("encdec", "vlm"):
         with pytest.raises(NotImplementedError, match=f"family={fam}"):
             build_model(dataclasses.replace(base, family=fam), device="cpu")
     with pytest.raises(ValueError, match="unknown family"):

@@ -228,14 +228,37 @@ def test_write_behind_errors_surface_on_the_next_read(tmp_path):
     """A failed demotion (a full disk) raises at the next read, with the
     tier's context, instead of leaving an entry whose bytes never landed."""
     _, tm = _mgrs(tmp_path, host_cap=0, name="err")
-    tm.cache_prefix_block(1, _t(_block(np.random.default_rng(9))))
 
     def full_disk(key, arr):
         raise OSError("disk full")
 
+    # the disk is full before the demotion is queued: its write-behind may
+    # run on the streamer's thread at once
     tm.ssd.put = full_disk
+    tm.cache_prefix_block(1, _t(_block(np.random.default_rng(9))))
     with pytest.raises(RuntimeError, match="write-behind"):
         tm.fetch_prefix_chain([1])
+
+
+def test_kill_after_a_failed_tier_task_returns_and_fails_the_host_tier():
+    """ROADMAP C.3, as `src/repro/core/worker.py:283-291`: a write-behind
+    that failed before the worker died dies with it.  `kill` returns, the
+    host store and the tier's host tier are cleared, `on_host_failure` ran,
+    and the error is not raised again at the next barrier."""
+    _, _, _, tcfg, tm, tp = models()
+    eng = ServingEngine(tcfg, tm, tp, 2, paged=True, hw=HW, device="cpu", **TIERS)
+    w = _workers(eng.cluster)[0]
+    ran = []
+    on_host_failure = w.tier.on_host_failure
+    w.tier.on_host_failure = lambda: (ran.append(True), on_host_failure())
+    w.tier.cache_prefix_block(3, _t(_block(np.random.default_rng(4))))
+    w.tier.streamer.drain()
+    assert w.tier.stats()["host_blocks"] == 1
+    w.tier.streamer.submit(_spill_fails, tag="tier.spill")
+    w.kill()
+    assert ran == [True] and not w.alive
+    assert w.tier.stats()["host_blocks"] == 0 and not w.cache.host.keys()
+    w.tier.streamer.drain()
 
 
 def test_ssd_store_writes_the_jax_stores_files(tmp_path):
@@ -388,6 +411,10 @@ CASES = {
                            {9: 1}),
     "failure_while_preempted": (dict(tiered=True, replication=True, kv_pool_blocks=7,
                                      host_cache_blocks=0), SHARED, 10, 2, {12: 1}),
+    # a write-behind that failed on the streamer before the death dies with
+    # the worker; the run recovers (ROADMAP C.3)
+    "failure_after_a_failed_write_behind": (dict(TIERS, replication=True, host_cache_blocks=8),
+                                            SHARED, 5, 2, {9: 1}),
     "fused_adoption_in_chunks_of_4": (dict(TIERS, prefill_chunk_tokens=4), FUSED_SHARED, 3,
                                       2, None),
     "perseq_adoption_in_chunks_of_4": (dict(TIERS, prefill_chunk_tokens=4,
@@ -400,10 +427,31 @@ CASES = {
 }
 
 
-def _run(port: bool, ekw, prompts, max_new, max_active, fail_at=None, specs=()):
+# the cases whose failure finds a failed task on the streamer
+FAILED_TASK_CASES = {"failure_after_a_failed_write_behind"}
+
+
+def _spill_fails():
+    raise OSError("no space left on the device")
+
+
+def _fail_a_task_before_each_death(cluster):
+    """Submit a task that raises OSError to the cluster's streamer just
+    before each `inject_failure`: the dying worker's `kill` drains it."""
+    inject = cluster.inject_failure
+
+    def inject_after_a_failed_task(wid):
+        cluster.streamer.submit(_spill_fails, tag="tier.spill")
+        inject(wid)
+    cluster.inject_failure = inject_after_a_failed_task
+
+
+def _run(port: bool, ekw, prompts, max_new, max_active, fail_at=None, specs=(),
+         failed_task=False):
     """One run with a fresh registry and tracer installed around it, and a
-    fault plan of `specs` (FaultSpec keyword dicts): (engine, report,
-    registry JSON, tracer JSON)."""
+    fault plan of `specs` (FaultSpec keyword dicts); with `failed_task`, a
+    failed streamer task before each death: (engine, report, registry JSON,
+    tracer JSON)."""
     jcfg, jm, jp, tcfg, tm, tp = models()
     tele, trc = (telemetry, tracing) if port else (jax_telemetry, jax_tracing)
     fmod = faults if port else jax_faults
@@ -415,6 +463,8 @@ def _run(port: bool, ekw, prompts, max_new, max_active, fail_at=None, specs=()):
         eng = JaxEngine(jcfg, jm, jp, 2, paged=True, **ekw)
         reqs = [JaxRequest(rid=i, prompt=p.copy(), max_new=max_new)
                 for i, p in enumerate(prompts)]
+    if failed_task:
+        _fail_a_task_before_each_death(eng.cluster)
     reg, tracer = tele.Telemetry(), trc.Tracer()
     prev_t, prev_r = tele.install(reg), trc.install(tracer)
     try:
@@ -432,9 +482,11 @@ def _workers(cluster):
     return list(dict.fromkeys(cluster.prompt_group + cluster.token_group))
 
 
-def _held_to_jax(ekw, prompts, max_new, max_active, fail_at=None, specs=()):
-    je, jrep, jtele, jtrace = _run(False, ekw, prompts, max_new, max_active, fail_at, specs)
-    te, trep, ttele, ttrace = _run(True, ekw, prompts, max_new, max_active, fail_at, specs)
+def _held_to_jax(ekw, prompts, max_new, max_active, fail_at=None, specs=(), failed_task=False):
+    je, jrep, jtele, jtrace = _run(False, ekw, prompts, max_new, max_active, fail_at, specs,
+                                   failed_task)
+    te, trep, ttele, ttrace = _run(True, ekw, prompts, max_new, max_active, fail_at, specs,
+                                   failed_task)
     assert trep.tokens == jrep.tokens
     assert (trep.preemptions, trep.failures, trep.recoveries, trep.steps_redone) == \
         (jrep.preemptions, jrep.failures, jrep.recoveries, jrep.steps_redone)
@@ -462,7 +514,8 @@ def _held_to_jax(ekw, prompts, max_new, max_active, fail_at=None, specs=()):
 @pytest.mark.parametrize("case", list(CASES))
 def test_run_continuous_over_the_tiers_as_jax_does(case):
     ekw, prompts, max_new, max_active, fail_at = CASES[case]
-    te, rep = _held_to_jax(ekw, prompts, max_new, max_active, fail_at)
+    te, rep = _held_to_jax(ekw, prompts, max_new, max_active, fail_at,
+                           failed_task=case in FAILED_TASK_CASES)
     st = rep.tier_stats
     assert all(len(t) == max_new for t in rep.tokens.values())
     # what each reference case is about happened here too
