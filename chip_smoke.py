@@ -81,7 +81,7 @@ Phases, each printing one JSON line with its seconds:
                the host tier and from SSD), in turns without them; (d) (c)
                with replication, worker 1 lost while a sequence is swapped
                out.  Launches exact in every run; bf16 differing tokens
-               beside a control; then the same four at 2 layers in fp32,
+               beside a control; then the same four at 4 layers in fp32,
                card tokens = CPU tokens = the plain run's.  Prints tokens/s
                by mode, prefill tokens saved, the tier counters, bytes by
                transport, the tier copies' rates and the time to recover.
@@ -98,6 +98,10 @@ Phases, each printing one JSON line with its seconds:
 
 Each phase's line carries the peak device memory it allocated; the models
 of a phase are freed before the next begins.
+
+The whole script, the kernels' build included, must finish within 1200 s
+on one H100 and aims at half of that: a phase that grows the script past
+it cuts the depth of a bf16 serving run, never a width or a check.
 
 Then one ``{"kernels": [...]}`` line and, last, ``{"ok": true, "device":
 {...}}``.  Any failed check exits non-zero.  Without a CUDA device, or
@@ -648,6 +652,10 @@ def phase_kernels(state: dict) -> dict:
             flash_case(f"d{d}_sq_lt_skv_full", 1, 70, 150, hq, hkv, d, dt_, causal=False)
             paged_decode_case(f"d{d}", lengths, hq, hkv, dt_, d=d)
             decode_case(f"d{d}", 2, 544, hq, hkv, d, slots <= 527, dt_)
+    # flash at head dim 128 (qwen3-moe's 32:4 heads), beside 64 and 192 above:
+    # the K/V stages of the bf16 body are chosen by head dim
+    flash_case("d128_prefill", 1, 512, 512, 32, 4, 128, torch.bfloat16,
+               time_it="flash_attention d128")
     state["kernel_rows"] = rows
     return {"checks": checks, "timed": rows}
 
@@ -833,24 +841,30 @@ def count_gathers(eng) -> dict:
 
 
 def serve_expected_launches(eng, pc: dict) -> dict:
-    """The launches a fused continuous run implies where every stage reads
-    the pages in place: one paged_decode_attention per layer per fused
-    decode pass and one paged_prefill_attention per layer per chunk-set
-    pass.  Each admitted request's first chunk runs on the per-sequence path
-    (the engine's admission step), which gathers its pages, attends with the
-    plain `attend` (a chunk of more than one token: every prompt here has
-    64 or more) and packs its window back with one kv_pack per leaf per
-    stage.  No other kernel runs."""
+    """The launches a continuous run implies where every stage reads the
+    pages in place: one paged_decode_attention per layer per fused decode
+    pass and one paged_prefill_attention per layer per chunk-set pass.  A
+    prefill chunk on the per-sequence path (each admitted request's first,
+    the engine's admission step, and every chunk without fused rounds)
+    gathers its pages, attends with the plain `attend` (a chunk of more than
+    one token: every prompt here has 16 or more) and packs its window back
+    with one kv_pack per leaf per stage.  Without fused rounds a prompt no
+    longer than a chunk prefills whole, one flash_attention per layer, and
+    a decode pass gathers its pages and runs one decode_attention per layer.
+    No other kernel runs."""
     from repro_torch.kernels import KERNELS
     cl = eng.cluster
     check(all(w.reads_pages() for w in cl.workers()), "a stage gathers its pages")
     other = {k: n for k, n in pc.items()
-             if k not in ("fused_decode", "chunkset", "prefill_chunk", "one_token")}
-    check(not any(other.values()), f"passes off the fused paged path: {other}")
+             if k not in ("fused_decode", "chunkset", "prefill_chunk", "prefill_batch",
+                          "perseq_decode", "one_token")}
+    check(not any(other.values()), f"passes off the paged path: {other}")
     want = dict.fromkeys(KERNELS, 0)
     want["paged_decode_attention"] = cl.cfg.num_layers * pc.get("fused_decode", 0)
     want["paged_prefill_attention"] = cl.cfg.num_layers * pc.get("chunkset", 0)
     want["kv_pack"] = 2 * len(cl.prompt_group) * pc.get("prefill_chunk", 0)
+    want["flash_attention"] = cl.cfg.num_layers * pc.get("prefill_batch", 0)
+    want["decode_attention"] = cl.cfg.num_layers * pc.get("perseq_decode", 0)
     return want
 
 
@@ -1427,9 +1441,9 @@ def differing_tokens(a: dict, b: dict) -> int:
 
 def run_fused(cfg, model, params, trace, *, dev: str = "cuda", max_active: int = 8,
               pool_blocks: int = 1024, fail_at=None, record: bool = False, **ekw) -> dict:
-    """One fused continuous run of `trace` through 2 stage workers on `dev`
-    with the engine options `ekw` (replication, swapping, the split, the
-    tiers) and `fail_at`; with `record`, a recording fault injector and the
+    """One continuous run of `trace` through 2 stage workers on `dev` with
+    the engine options `ekw` (replication, swapping, the split, the tiers;
+    fused rounds unless ``fused_rounds=False``) and `fail_at`; with `record`, a recording fault injector and the
     engine.step count at each preemption and resumption.  Checks the
     tokens' count, the leaks and the kernels' launches: those of the passes
     the engine reports (as `serve`) plus, for a decode pass that a failure
@@ -2089,11 +2103,13 @@ NOT_TIERED = {"kv_pool_blocks": 120}
 # as for serve's trace, would change no batch)
 TIERED_CONTROL_ACTIVE = 3
 SYSTEM_PROMPT_TOKENS = 256
-# the phase runs some fifteen serving runs and an exact gate on the CPU:
-# half of serve's depth, and 2 layers for the gate, keep the whole script
-# near half its time limit (the schedule, and so every count but the bytes,
-# does not depend on the depth)
+# the phase runs some fifteen bf16 serving runs and an exact gate on the
+# CPU: half of serve's depth keeps the whole script near half its 1200 s
+# (the schedule, and so every count but the bytes, does not depend on the
+# depth); the gate keeps 4 layers, 2 a stage, so the layer axis of the
+# packed blocks is held exactly
 PAGED_MODES_LAYERS = 24
+PAGED_MODES_EXACT_LAYERS = 4
 
 
 def shared_prefix_trace(vocab: int, seed: int = 4, max_new: int = 32):
@@ -2175,36 +2191,33 @@ def _without(res: dict, *keys) -> dict:
     return {k: v for k, v in res.items() if k not in keys}
 
 
-def paged_modes_exact(cfg, dev: str, params, serve_trace, tiered_trace,
+def paged_modes_exact(cfg, model, params, dev: str, serve_trace, tiered_trace,
                       fail_at=None) -> dict:
-    """The phase's four runs on `dev` with the weights `params` (made on
-    the CPU): (a) swapping and (b) disaggregated on the serve trace, (c)
-    tiered on the shared-prefix trace, (d) tiered with replication and
-    worker 1 lost while a sequence is swapped out (at `fail_at`, else at the
-    point a recorded run picks, and then the plain run of each trace, the
-    colocated run without tiers or swapping, too).  Returns the tokens of
-    each and the failure point."""
-    from repro_torch.models.transformer import DecoderLM
-    model = DecoderLM(cfg, device=dev)
-
+    """The phase's four runs on `dev`: (a) swapping and (b) disaggregated
+    on the serve trace, (c) tiered on the shared-prefix trace, (d) tiered
+    with replication and worker 1 lost while a sequence is swapped out (at
+    `fail_at`, else at the point a recorded run picks, and then the plain
+    run of each trace, the colocated run without tiers or swapping, too).
+    Returns the tokens of each, the plain runs' and the failure point."""
     def tokens(trace, **kw):
         return run_fused(cfg, model, params, trace, dev=dev, **kw)["tokens"]
 
     out = {mode: tokens(serve_trace, **PAGED_MODES[mode])
            for mode in ("swapping", "disaggregated")}
     out["tiered"] = tokens(tiered_trace, **TIERED)
+    plain = None
     if fail_at is None:
-        out["plain"] = tokens(serve_trace)
-        out["plain_shared_prefix"] = tokens(tiered_trace, **NOT_TIERED)
+        plain = {"swapping": tokens(serve_trace)}
+        plain["disaggregated"] = plain["swapping"]
+        plain["tiered"] = plain["tiered_failure"] = tokens(tiered_trace, **NOT_TIERED)
         clean = run_fused(cfg, model, params, tiered_trace, dev=dev, replication=True,
-                               record=True, **TIERED)
+                          record=True, **TIERED)
         fail_at = swapped_out_fail_point(clean["steps"], clean["swap_marks"])
     res = run_fused(cfg, model, params, tiered_trace, dev=dev, replication=True,
-                         fail_at=fail_at, **TIERED)
+                    fail_at=fail_at, **TIERED)
     check(res["failures"] == 1 and res["recoveries"] == 1, f"{dev}: no recovery")
     out["tiered_failure"] = res["tokens"]
-    out["fail_at"] = fail_at
-    return out
+    return {"tokens": out, "plain": plain, "fail_at": fail_at}
 
 
 def paged_modes_runs(cfg, model, params, dev: str, serve_trace, tiered_trace) -> dict:
@@ -2262,29 +2275,42 @@ def paged_modes_runs(cfg, model, params, dev: str, serve_trace, tiered_trace) ->
     return out
 
 
-def exact_paged_modes(cfg, serve_trace, tiered_trace, devs=("cuda", "cpu")) -> dict:
-    """`paged_modes_exact` on each of `devs` with one set of weights (made
-    on the CPU), the plain runs and the failure point on the first: every
-    run's tokens equal across the devices and equal to the plain run of its
-    trace."""
+def tokens_across_devices(cfg, runs, devs=("cuda", "cpu")) -> tuple:
+    """One set of weights, drawn on the first of `devs` and copied to each,
+    through ``runs(model, params, dev, first)`` on each device, `first`
+    being what the call on the first device returned (None there): a dict
+    whose "tokens" maps each run's name to its tokens.  Every run's tokens
+    must equal those of the first device's run of that name.  Returns the
+    first device's result and the seconds on each device."""
     import torch
 
     from repro_torch.models.transformer import DecoderLM
-    params = DecoderLM(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    exact, seconds = {}, {}
+    params0 = DecoderLM(cfg, device=devs[0]).init(
+        torch.Generator(device=devs[0]).manual_seed(0))
+    res, seconds = {}, {}
     for dev in devs:
         t = time.perf_counter()
-        first = exact.get(devs[0], {})
-        exact[dev] = paged_modes_exact(cfg, dev, params, serve_trace, tiered_trace,
-                                       fail_at=first.get("fail_at"))
+        res[dev] = runs(DecoderLM(cfg, device=dev), _to(params0, dev), dev, res.get(devs[0]))
         seconds[dev] = time.perf_counter() - t
-    first = exact[devs[0]]
-    for k in ("swapping", "disaggregated", "tiered", "tiered_failure"):
-        for dev in devs[1:]:
-            check(exact[dev][k] == first[k], f"{cfg.dtype} {k}: {dev} tokens differ from "
-                  f"{devs[0]}'s")
-        plain = first["plain" if k in PAGED_MODES else "plain_shared_prefix"]
-        check(first[k] == plain, f"{cfg.dtype} {k}: tokens differ from the plain run")
+    first = res[devs[0]]
+    for dev in devs[1:]:
+        for k, toks in res[dev]["tokens"].items():
+            check(toks == first["tokens"][k], f"{cfg.name} {cfg.dtype} {k}: {dev} tokens "
+                  f"differ from {devs[0]}'s")
+    return first, seconds
+
+
+def exact_paged_modes(cfg, serve_trace, tiered_trace, devs=("cuda", "cpu")) -> dict:
+    """`paged_modes_exact` on each of `devs` with one set of weights, the
+    plain runs and the failure point on the first: every run's tokens equal
+    across the devices and equal to the plain run of its trace."""
+    def runs(model, params, dev, first):
+        return paged_modes_exact(cfg, model, params, dev, serve_trace, tiered_trace,
+                                 fail_at=None if first is None else first["fail_at"])
+
+    first, seconds = tokens_across_devices(cfg, runs, devs)
+    for k, toks in first["tokens"].items():
+        check(toks == first["plain"][k], f"{cfg.dtype} {k}: tokens differ from the plain run")
     return {"tokens_identical": True, "fail_at": first["fail_at"], "seconds": seconds}
 
 
@@ -2295,7 +2321,7 @@ def phase_paged_modes(state: dict) -> dict:
     tiers, in turns with the same trace without them; (d) (c) with
     replication, worker 1 lost while a sequence is swapped out.  Every run's
     launches exact; the bf16 differing tokens of each beside a control (the
-    run with another max_active); then the same four at 2 layers in fp32,
+    run with another max_active); then the same four at 4 layers in fp32,
     whose tokens must equal the port's on the CPU and the plain run's.  Prints
     tokens/s by mode, the prefill tokens saved, the tier counters, bytes by
     transport, the tier copies' rates and the time to recover by step.  The
@@ -2340,12 +2366,12 @@ def phase_paged_modes(state: dict) -> dict:
             (2, cfg.num_layers // 2, cfg.kv_block_size, cfg.num_kv_heads,
              cfg.resolved_head_dim), torch.bfloat16)
         del model, params
-        # the exact gate: fp32, 2 layers, the card against the port on the CPU
+        # the exact gate: fp32, the card against the port on the CPU
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.allow_tf32 = False
-        out["fp32_2_layers"] = exact_paged_modes(
-            dataclasses.replace(cfg, dtype="float32", num_layers=2), serve_trace,
-            tiered_trace)
+        out[f"fp32_{PAGED_MODES_EXACT_LAYERS}_layers"] = exact_paged_modes(
+            dataclasses.replace(cfg, dtype="float32", num_layers=PAGED_MODES_EXACT_LAYERS),
+            serve_trace, tiered_trace)
     finally:
         tempfile.tempdir = prev_tmp
     return out
@@ -2357,56 +2383,34 @@ def phase_paged_modes(state: dict) -> dict:
 MOE_SERVE_LAYERS = 8      # 4 a worker: about 11.2 GB of bf16 weights at full width
 
 
-def run_tokens(cfg, model, params, trace, dev: str, **ekw) -> dict:
-    """The greedy tokens of one `run_continuous` of `trace` through 2 stage
-    workers on `dev`, with the engine options `ekw` (the per-sequence path:
-    ``fused_rounds=False``), on a pool of 64 blocks."""
-    from repro_torch.serving import ServingEngine
-    eng = ServingEngine(cfg, model, params, 2, paged=True, kv_pool_blocks=64, device=dev,
-                        **ekw)
-    reqs = trace()
-    rep = eng.run_continuous(reqs, max_active=4)
-    eng.cluster.streamer.close()
-    check(all(len(r.tokens) == r.max_new for r in reqs), "a request fell short")
-    return rep.tokens
-
-
 def moe_exact(cfg, trace, devs=("cuda", "cpu")) -> dict:
-    """`trace` through `run_continuous` on each of `devs`, with one set of
-    weights (drawn on the first device and copied): fused rounds, the
-    per-sequence path, a replicated run, and the replicated run losing
-    worker 1 at the middle fused decode step of the first device's recorded
-    run.  Every run's tokens must equal the first device's fused run's."""
-    import torch
-
-    from repro_torch.models.transformer import DecoderLM
-    params0 = DecoderLM(cfg, device=devs[0]).init(
-        torch.Generator(device=devs[0]).manual_seed(0))
-    tokens, seconds, fail_at = {}, {}, None
-    for dev in devs:
-        t = time.perf_counter()
-        model, params = DecoderLM(cfg, device=dev), _to(params0, dev)
-        fused = dict(dev=dev, max_active=4, pool_blocks=64)
-        run = {"fused": run_fused(cfg, model, params, trace, **fused)["tokens"],
-               "per_sequence": run_tokens(cfg, model, params, trace, dev,
-                                          fused_rounds=False)}
+    """`trace` through `run_continuous` on each of `devs` with one set of
+    weights: fused rounds, the per-sequence path, a replicated run, and the
+    replicated run losing worker 1 at the middle fused decode step of the
+    first device's recorded run; launches exact on the card.  Every run's
+    tokens must equal the first device's fused run's."""
+    def runs(model, params, dev, first):
+        kw = dict(dev=dev, max_active=4, pool_blocks=64)
+        out = {"fused": run_fused(cfg, model, params, trace, **kw)["tokens"],
+               "per_sequence": run_fused(cfg, model, params, trace, fused_rounds=False,
+                                         **kw)["tokens"]}
+        fail_at = None if first is None else first["fail_at"]
         clean = run_fused(cfg, model, params, trace, replication=True, record=fail_at is None,
-                          **fused)
+                          **kw)
         if fail_at is None:
             dec = [n for n, tag in clean["steps"] if tag.startswith("decode-")]
             fail_at = {dec[len(dec) // 2]: 1}
-        res = run_fused(cfg, model, params, trace, replication=True, fail_at=fail_at, **fused)
+        res = run_fused(cfg, model, params, trace, replication=True, fail_at=fail_at, **kw)
         check(res["failures"] == 1 and res["recoveries"] == 1, f"{dev}: no recovery")
-        run.update(replicated=clean["tokens"], failure=res["tokens"])
-        tokens[dev], seconds[dev] = run, time.perf_counter() - t
-        del model, params
-    first = tokens[devs[0]]
-    for dev in devs:
-        for k, toks in tokens[dev].items():
-            check(toks == first["fused"], f"{cfg.name} fp32 {k} on {dev}: tokens differ from "
-                  f"the fused run on {devs[0]}")
-    return {"tokens_identical": True, "runs": list(first), "fail_at": fail_at,
-            "seconds": seconds}
+        out.update(replicated=clean["tokens"], failure=res["tokens"])
+        return {"tokens": out, "fail_at": fail_at}
+
+    first, seconds = tokens_across_devices(cfg, runs, devs)
+    for k, toks in first["tokens"].items():
+        check(toks == first["tokens"]["fused"], f"{cfg.name} fp32 {k}: tokens differ from "
+              "the fused run")
+    return {"tokens_identical": True, "runs": list(first["tokens"]),
+            "fail_at": first["fail_at"], "seconds": seconds}
 
 
 def phase_moe(state: dict) -> dict:
@@ -2452,30 +2456,20 @@ def wide_heads_runs(cfg, model, params, dev: str, lens, sync) -> dict:
 
 def wide_heads_exact(cfg, lens, devs=("cuda", "cpu")) -> dict:
     """The tokens of `run_continuous` on `lens`-long prompts and of `run()`
-    (microbatches of 2) on each of `devs`, with one set of weights (drawn
-    on the first device and copied): equal across the devices."""
-    import torch
-
-    from repro_torch.models.transformer import DecoderLM
+    (microbatches of 2) on each of `devs`, with one set of weights: equal
+    across the devices."""
     from repro_torch.serving import ServingEngine
-    params0 = DecoderLM(cfg, device=devs[0]).init(
-        torch.Generator(device=devs[0]).manual_seed(0))
-    tokens, seconds = {}, {}
-    for dev in devs:
-        t = time.perf_counter()
-        model, params = DecoderLM(cfg, device=dev), _to(params0, dev)
+
+    def runs(model, params, dev, first):
+        def trace():
+            return _requests(lens, 8, cfg.vocab_size, seed=8)
         mb = ServingEngine(cfg, model, params, 2, microbatch=2, device=dev)
-        tokens[dev] = {
-            "run_continuous": run_fused(cfg, model, params,
-                                        lambda: _requests(lens, 8, cfg.vocab_size, seed=8),
-                                        dev=dev, max_active=4, pool_blocks=64)["tokens"],
-            "run": mb.run(_requests(lens, 8, cfg.vocab_size, seed=8)).tokens}
-        seconds[dev] = time.perf_counter() - t
-        del model, params, mb
-    for dev in devs[1:]:
-        for k, toks in tokens[dev].items():
-            check(toks == tokens[devs[0]][k], f"{cfg.name} fp32 {k}: {dev} tokens differ "
-                  f"from {devs[0]}'s")
+        return {"tokens": {
+            "run_continuous": run_fused(cfg, model, params, trace, dev=dev, max_active=4,
+                                        pool_blocks=64)["tokens"],
+            "run": mb.run(trace()).tokens}}
+
+    _, seconds = tokens_across_devices(cfg, runs, devs)
     return {"tokens_identical": True, "seconds": seconds}
 
 
@@ -2504,9 +2498,7 @@ def phase_wide_heads(state: dict) -> dict:
            "weights_gib": sum(p.numel() * p.element_size()
                               for p in _leaves(params)) / 2**30}
     lens = [int(n) for n in np.random.default_rng(9).integers(64, 257, 8)]
-    torch.cuda.reset_peak_memory_stats()
     out.update(wide_heads_runs(cfg, model, params, "cuda", lens, torch.cuda.synchronize))
-    out["peak_mem_gib"] = torch.cuda.max_memory_allocated() / 2**30
     for path, kernels in (("run_continuous", PAGED_KERNELS),
                           ("run", ("flash_attention", "decode_attention"))):
         check(all(out[path]["launches"][k] > 0 for k in kernels),
