@@ -21,7 +21,8 @@ from typing import Dict, List
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
-SOURCES = ("kv_pack", "decode_attention", "flash_attention", "ssd_scan", "paged_prefill")
+SOURCES = ("kv_pack", "decode_attention", "flash_attention", "ssd_scan", "paged_prefill",
+           "flash_attention_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -49,8 +50,13 @@ _SIGNATURES = {
     },
     "flash_attention": {
         "repro_flash_attention": (
-            _i, [_i, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _vp]),
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _vp]),
         "repro_flash_attention_smem": (_ll, [_i, _i]),
+    },
+    "flash_attention_bwd": {
+        "repro_flash_attention_bwd": (
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i,
+                 _i, _f, _vp]),
     },
     "ssd_scan": {
         "repro_ssd_scan": (

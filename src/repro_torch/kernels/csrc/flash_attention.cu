@@ -7,6 +7,9 @@
 // causal = 0, every key.  Online softmax with f32 m / l / acc, scale D^-0.5,
 // the finite NEG_INF = -0.7 * FLT_MAX of the reference, division by l at the
 // end, output in q's type.  Query head h reads KV head h / G (G = Hq / Hkv).
+// Where the caller asks for it (training), each query row's log-sum-exp
+// m + log l goes to an f32 [B, Hq, Sq] buffer for the backward
+// (flash_attention_bwd.cu); serving passes no buffer and writes none.
 //
 // The Pallas grid walks (B, Hq, query block, key block) in order and carries
 // m / l / acc across the key blocks in VMEM scratch.  Hopper blocks run in no
@@ -65,6 +68,7 @@
 namespace {
 
 constexpr float kNegInf = -0.7f * FLT_MAX;
+constexpr float kLn2 = 0.6931471805599453f;
 constexpr int kThreads = 128;
 constexpr int kBQ = 64;                    // query rows per block
 constexpr int kBK = 64;                    // keys per tile
@@ -115,7 +119,8 @@ __device__ __forceinline__ float group_sum(float x) {
 template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
-             T* __restrict__ out, int Sq, int Skv, int Hq, int Hkv, int causal, float scale) {
+             T* __restrict__ out, float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv,
+             int causal, float scale) {
   constexpr int kDCols = D / kLanes;       // output dims per thread
   constexpr int ld = D + 1;
   const int q0 = blockIdx.x * kBQ;
@@ -230,6 +235,8 @@ flash_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restri
     T* o = out + ((long long)b * Sq + q0 + row) * qrow + (long long)h * D;
 #pragma unroll
     for (int c = 0; c < kDCols; ++c) o[tc + kLanes * c] = from_float<T>(acc[i][c] / l[i]);
+    if (lse != nullptr && tc == 0)
+      lse[((long long)b * Hq + h) * Sq + q0 + row] = m[i] + logf(l[i]);
   }
 }
 
@@ -299,7 +306,8 @@ __global__ void __launch_bounds__(kThreads)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
                    const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
-                   int Sq, int Skv, int Hq, int Hkv, int causal, float scale_log2) {
+                   float* __restrict__ lse, int Sq, int Skv, int Hq, int Hkv, int causal,
+                   float scale_log2) {
   constexpr int kBoxes = boxes(D);         // 64-column boxes across the head dim
   constexpr int kDP = 64 * kBoxes;         // head dim padded to the boxes
   constexpr int kTile = tile_bytes(D);
@@ -440,6 +448,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+    // m is in log2 units of the scaled scores: LSE = (m + log2 l) ln 2
+    const int row = r0 + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && row < nq)
+      lse[((long long)b * Hq + h) * Sq + q0 + row] = (m[r] + log2f(l[r])) * kLn2;
     l[r] = 1.f / l[r];
   }
   const long long qrow = (long long)Hq * D;
@@ -496,8 +508,8 @@ bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S
 }
 
 template <int D>
-cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                         int Skv, int Hq, int Hkv, int causal, float scale,
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
+                         int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
                          cudaStream_t stream) {
   const EncodeTiled enc = encode_tiled();
   if (!enc) return cudaErrorNotSupported;
@@ -511,14 +523,15 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   if (e != cudaSuccess) return e;
   dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
   flash_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), Sq, Skv, Hq, Hkv, causal,
+      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, Hq, Hkv, causal,
       scale * kLog2e);
   return cudaGetLastError();
 }
 
 template <int D>
-cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B, int Sq,
-                   int Skv, int Hq, int Hkv, int causal, float scale, cudaStream_t stream) {
+cudaError_t launch(const void* q, const void* k, const void* v, void* out, float* lse, int B,
+                   int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
+                   cudaStream_t stream) {
   const size_t smem = smem_bytes(D);
   if (smem > 48 * 1024) {
     cudaError_t e = cudaFuncSetAttribute(flash_kernel<float, D>,
@@ -529,16 +542,17 @@ cudaError_t launch(const void* q, const void* k, const void* v, void* out, int B
   dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
   flash_kernel<float, D><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(q), static_cast<const float*>(k), static_cast<const float*>(v),
-      static_cast<float*>(out), Sq, Skv, Hq, Hkv, causal, scale);
+      static_cast<float*>(out), lse, Sq, Skv, Hq, Hkv, causal, scale);
   return cudaGetLastError();
 }
 
 template <int D>
 cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v, void* out,
-                         int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
-                         cudaStream_t s) {
-  if (dtype == 0) return launch<D>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-  if (dtype == 1) return launch_wgmma<D>(q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+                         float* lse, int B, int Sq, int Skv, int Hq, int Hkv, int causal,
+                         float scale, cudaStream_t s) {
+  if (dtype == 0) return launch<D>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+  if (dtype == 1)
+    return launch_wgmma<D>(q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, scale, s);
   return cudaErrorInvalidValue;
 }
 
@@ -552,20 +566,24 @@ extern "C" long long repro_flash_attention_smem(int dtype, int D) {
 // dtype: 0 = float32 (flash_kernel), 1 = bfloat16 (flash_wgmma_kernel).
 // q/out [B,Sq,Hq,D], k/v [B,Skv,Hkv,D], contiguous and 16-byte aligned; D in
 // {16, 32, 64, 96, 128, 192}; Hq % Hkv == 0; a causal call needs Sq <= Skv
-// (every query row sees a key).  Returns cudaGetLastError() after the launch.
+// (every query row sees a key).  lse, where not null, receives [B,Hq,Sq]
+// f32, each query row's m + log l in natural units (what the backward,
+// flash_attention_bwd.cu, recomputes P from); the serving path passes null.
+// Returns cudaGetLastError() after the launch.
 extern "C" int repro_flash_attention(int dtype, const void* q, const void* k, const void* v,
-                                     void* out, int B, int Sq, int Skv, int Hq, int Hkv,
-                                     int D, int causal, float scale, void* stream) {
+                                     void* out, float* lse, int B, int Sq, int Skv, int Hq,
+                                     int Hkv, int D, int causal, float scale, void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+#define REPRO_FWD_CASE(DD) \
+  case DD: return launch_dtype<DD>(dtype, q, k, v, out, lse, B, Sq, Skv, Hq, Hkv, causal, scale, s);
   switch (D) {
-    case 16: return launch_dtype<16>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-    case 32: return launch_dtype<32>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-    case 64: return launch_dtype<64>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-    case 96: return launch_dtype<96>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-    case 128:
-      return launch_dtype<128>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
-    case 192:
-      return launch_dtype<192>(dtype, q, k, v, out, B, Sq, Skv, Hq, Hkv, causal, scale, s);
+    REPRO_FWD_CASE(16)
+    REPRO_FWD_CASE(32)
+    REPRO_FWD_CASE(64)
+    REPRO_FWD_CASE(96)
+    REPRO_FWD_CASE(128)
+    REPRO_FWD_CASE(192)
     default: return static_cast<int>(cudaErrorInvalidValue);
   }
+#undef REPRO_FWD_CASE
 }

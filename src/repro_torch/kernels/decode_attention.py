@@ -23,7 +23,7 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.ref import no_key_divisor
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
@@ -40,6 +40,7 @@ def _check_qkv(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, what: str) -> 
     if not q.is_cuda:
         raise ValueError(f"{what} takes CUDA tensors; use repro_torch.kernels.ops "
                          "for the CPU")
+    refuse_grad(what, q, k, v)
     if q.dtype not in _DTYPE_CODE or k.dtype != q.dtype or v.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k.dtype}/{v.dtype}")
@@ -178,6 +179,7 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     if not q.is_cuda:
         raise ValueError(f"{what} takes CUDA tensors; use repro_torch.kernels.ops "
                          "for the CPU")
+    refuse_grad(what, q, k_pages, v_pages)
     if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")

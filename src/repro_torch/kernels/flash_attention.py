@@ -1,12 +1,16 @@
 """flash_attention as hand-written CUDA (``csrc/flash_attention.cu``),
-replacing the TPU kernel of `repro.kernels.flash_attention`.
+replacing the TPU kernel of `repro.kernels.flash_attention`, and its
+backward (``csrc/flash_attention_bwd.cu``), which has no TPU counterpart:
+the reference trains through XLA's attention.
 
 Whole-prompt attention: q [B,Sq,Hq,D] over k/v [B,Skv,Hkv,D], causal with
-the offset of a query block at the end of the keys, or full.  The wrapper
-takes CUDA tensors only (the CPU goes to the plain version through
-`repro_torch.kernels.ops`), checks what the kernel needs, allocates the
-output and counts its launches.  The C function picks the body by dtype:
-bf16 runs on wgmma with TMA loads, float32 on the CUDA cores.
+the offset of a query block at the end of the keys, or full.  The wrappers
+take CUDA tensors only (the CPU goes to the plain version through
+`repro_torch.kernels.ops`), check what the kernels need, allocate the
+outputs and count their launches.  The forward's C function picks the body
+by dtype: bf16 runs on wgmma with TMA loads, float32 on the CUDA cores; the
+backward's bf16 body runs on mma.sync, its float32 one on the CUDA cores.
+`FlashAttentionFn` ties the two together for autograd.
 """
 from __future__ import annotations
 
@@ -20,10 +24,7 @@ _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (16, 32, 64, 96, 128, 192)
 
 
-def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                    causal: bool = True) -> torch.Tensor:
-    """q [B,Sq,Hq,D]; k/v [B,Skv,Hkv,D] -> [B,Sq,Hq,D] in q.dtype.  Causal:
-    query i sees keys j <= i + (Skv - Sq), so a causal call needs Sq <= Skv."""
+def _check(q, k, v, causal: bool):
     if not q.is_cuda:
         raise ValueError("flash_attention takes CUDA tensors; use "
                          "repro_torch.kernels.ops for the CPU")
@@ -45,12 +46,80 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     for t, name in ((q, "q"), (k, "k"), (v, "v")):
         if t.device != q.device or not t.is_contiguous() or t.data_ptr() % 16:
             raise ValueError(f"{name} must be contiguous, 16-byte aligned and on {q.device}")
+
+
+def _stream(t: torch.Tensor) -> ctypes.c_void_p:
+    return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
+                    causal: bool = True, with_lse: bool = False):
+    """q [B,Sq,Hq,D]; k/v [B,Skv,Hkv,D] -> [B,Sq,Hq,D] in q.dtype.  Causal:
+    query i sees keys j <= i + (Skv - Sq), so a causal call needs Sq <= Skv.
+    With `with_lse`, returns (out, lse) where lse [B,Hq,Sq] f32 is each
+    query row's log-sum-exp of its scaled scores, which the backward
+    needs; serving leaves it off and the kernel writes none."""
+    _check(q, k, v, causal)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
     lib = _build.lib("flash_attention")
     out = torch.empty_like(q)
+    lse = (torch.empty(b, hq, sq, dtype=torch.float32, device=q.device) if with_lse
+           else None)
     err = lib.repro_flash_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
-        b, sq, skv, hq, hkv, d, int(causal), float(d) ** -0.5,
-        ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
+        None if lse is None else lse.data_ptr(), b, sq, skv, hq, hkv, d, int(causal),
+        float(d) ** -0.5, _stream(q))
     _build.check(err, "flash_attention")
     LAUNCHES["flash_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
+
+
+def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
+                        v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, *,
+                        causal: bool = True):
+    """The gradient of `flash_attention` (FlashAttention-2's backward): dout
+    and out [B,Sq,Hq,D] like q, lse [B,Hq,Sq] f32 from the forward ->
+    (dq, dk, dv) in q.dtype, each accumulated in f32.  Deterministic: no
+    atomics, a KV head's G query heads summed inside one block."""
+    _check(q, k, v, causal)
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    for t, name in ((dout, "dout"), (out, "out")):
+        if (t.shape != q.shape or t.dtype != q.dtype or t.device != q.device
+                or not t.is_contiguous() or t.data_ptr() % 16):
+            raise ValueError(f"{name} must be contiguous, 16-byte aligned and shaped as q "
+                             f"{tuple(q.shape)} {q.dtype}; got {tuple(t.shape)} {t.dtype}")
+    if (lse.dtype != torch.float32 or tuple(lse.shape) != (b, hq, sq)
+            or lse.device != q.device or not lse.is_contiguous()):
+        raise ValueError(f"lse must be contiguous float32 [{b},{hq},{sq}] on {q.device}")
+    lib = _build.lib("flash_attention_bwd")
+    dq, dk, dv = torch.empty_like(q), torch.empty_like(k), torch.empty_like(v)
+    delta = torch.empty(b, hq, sq, dtype=torch.float32, device=q.device)
+    err = lib.repro_flash_attention_bwd(
+        _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(),
+        dout.data_ptr(), lse.data_ptr(), delta.data_ptr(), dq.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, sq, skv, hq, hkv, d, int(causal), float(d) ** -0.5, _stream(q))
+    _build.check(err, "flash_attention_bwd")
+    LAUNCHES["flash_attention_bwd"] += 1
+    return dq, dk, dv
+
+
+class FlashAttentionFn(torch.autograd.Function):
+    """`flash_attention` with its backward kernel: the forward launches with
+    the LSE output and saves q, k, v, out and lse; the backward launches
+    `flash_attention_bwd`."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, causal: bool):
+        out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.causal = causal
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse = ctx.saved_tensors
+        dq, dk, dv = flash_attention_bwd(dout.contiguous(), q, k, v, out, lse,
+                                         causal=ctx.causal)
+        return dq, dk, dv, None

@@ -16,7 +16,7 @@ from typing import Optional, Sequence
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 
 _DTYPES = (torch.float32, torch.bfloat16)
 
@@ -98,6 +98,7 @@ def kv_pack(cache: torch.Tensor, t0: int, *, width: int,
             token_block: int = 8) -> torch.Tensor:
     """cache[:, :, t0:t0+width] as a new dense [L,B,width,H,D] (CUDA).
     t0 is a host int, a multiple of min(token_block, width)."""
+    refuse_grad("kv_pack", cache)
     t0 = int(t0)
     check_pack_args(cache, [t0], width, token_block)
     out = _launch(cache, None, t0, width)
@@ -110,6 +111,7 @@ def kv_pack_ragged(cache: torch.Tensor, starts: Sequence[int], *, width: int,
     """Row b of the result is cache[:, b, starts[b]:starts[b]+width] (CUDA).
     `starts` are host ints (the scheduler's positions), checked here and
     passed to the kernel by value."""
+    refuse_grad("kv_pack_ragged", cache)
     starts = [int(s) for s in starts]
     check_ragged_args(cache, starts, width, token_block)
     out = _launch(cache, starts, 0, width)
@@ -132,6 +134,7 @@ def kv_unpack(cache: torch.Tensor, buf: torch.Tensor, t0: int, *,
     """Write buf [L,B,W,H,D] into cache[:, :, t0:t0+W] in place (CUDA) and
     return the cache.  t0 and W are multiples of min(token_block, W); the
     cache may be a view whose [S,H,D] dims are contiguous."""
+    refuse_grad("kv_unpack", cache, buf)
     t0 = int(t0)
     check_unpack_args(cache, buf, t0, token_block)
     lib, row_bytes, sl, sb = _cache_layout(cache)

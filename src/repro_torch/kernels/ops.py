@@ -10,15 +10,15 @@ from typing import Optional
 
 import torch
 
-from repro_torch.kernels import ref
+from repro_torch.kernels import ref, wants_grad
 from repro_torch.kernels.decode_attention import (batched_decode_attention, decode_attention,
                                                   paged_decode_attention)
-from repro_torch.kernels.flash_attention import flash_attention
+from repro_torch.kernels.flash_attention import FlashAttentionFn, flash_attention
 from repro_torch.kernels.kv_pack import (check_pack_args, check_ragged_args,
                                          check_unpack_args, kv_pack, kv_pack_ragged,
                                          kv_unpack)
 from repro_torch.kernels.paged_prefill import paged_prefill_attention
-from repro_torch.kernels.ssd_scan import ssd_scan
+from repro_torch.kernels.ssd_scan import SSDScanFn, ssd_scan
 
 
 def _route(t: torch.Tensor) -> str:
@@ -50,9 +50,14 @@ def attention_auto(q, k, v, mask=None, bias=None, *, window: int = 0):
 
 
 def _flash(q, k, v, *, causal: bool):
+    """On the card, a call that autograd records goes through the forward
+    with its LSE and the backward kernel; any other keeps the plain launch."""
     if _route(q) == "cpu":
         return ref.flash_attention_ref(q, k, v, causal=causal)
-    return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=causal)
+    q, k, v = q.contiguous(), k.contiguous(), v.contiguous()
+    if wants_grad(q, k, v):
+        return FlashAttentionFn.apply(q, k, v, causal)
+    return flash_attention(q, k, v, causal=causal)
 
 
 def decode_attention_auto(q, k_cache, v_cache, mask):
@@ -138,5 +143,8 @@ def ssd_auto(x, dt, a_neg, bmat, cmat, chunk: int = 128, h0=None):
     q = min(int(chunk), x.shape[1])
     if _route(x) == "cpu":
         return ref.ssd_scan_ref(x, dt, a_neg, bmat, cmat, h0=h0, chunk=q)
-    return ssd_scan(x.contiguous(), dt.contiguous(), a_neg.contiguous(), bmat.contiguous(),
-                    cmat.contiguous(), None if h0 is None else h0.contiguous(), chunk=q)
+    args = (x.contiguous(), dt.contiguous(), a_neg.contiguous(), bmat.contiguous(),
+            cmat.contiguous(), None if h0 is None else h0.contiguous())
+    if wants_grad(*args):              # its backward raises: see SSDScanFn
+        return SSDScanFn.apply(*args, q)
+    return ssd_scan(*args, chunk=q)

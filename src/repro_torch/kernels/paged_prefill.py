@@ -15,7 +15,7 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import LAUNCHES, _build
+from repro_torch.kernels import LAUNCHES, _build, refuse_grad
 from repro_torch.kernels.decode_attention import (MAX_SMEM, _DTYPE_CODE, _int_vec,
                                                   check_pages, check_tables)
 from repro_torch.kernels.flash_attention import HEAD_DIMS
@@ -35,6 +35,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
     if not q.is_cuda:
         raise ValueError(f"{what} takes CUDA tensors; use repro_torch.kernels.ops "
                          "for the CPU")
+    refuse_grad(what, q, k_pages, v_pages)
     if q.dtype not in _DTYPE_CODE or k_pages.dtype != q.dtype or v_pages.dtype != q.dtype:
         raise TypeError(f"q/k/v must share float32 or bfloat16, got "
                         f"{q.dtype}/{k_pages.dtype}/{v_pages.dtype}")

@@ -69,3 +69,21 @@ def ssd_scan(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor, bmat: torch
     _build.check(err, "ssd_scan")
     LAUNCHES["ssd_scan"] += 1
     return y, hout
+
+
+class SSDScanFn(torch.autograd.Function):
+    """`ssd_scan` under autograd: the forward launches the kernel, the
+    backward raises.  The scan's backward is not ported yet (ROADMAP.md,
+    queue A, A.17), and a loss through the kernel must not come back with a
+    gradient that silently misses the scan.  On the CPU the plain version
+    stays differentiable."""
+
+    @staticmethod
+    def forward(ctx, x, dt, a_neg, bmat, cmat, h0, chunk: int):
+        return ssd_scan(x, dt, a_neg, bmat, cmat, h0, chunk=chunk)
+
+    @staticmethod
+    def backward(ctx, dy, dh):
+        raise NotImplementedError(
+            "ssd_scan has no backward on the card yet (ROADMAP.md, queue A, A.17: the "
+            "ssd_scan backward); train Mamba-2 and Hymba on the CPU for now")

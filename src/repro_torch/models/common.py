@@ -13,6 +13,7 @@ from typing import Optional
 import numpy as np
 import torch
 import torch.nn.functional as F
+import torch.utils.checkpoint
 
 
 def activation_fn(name: str):
@@ -129,3 +130,22 @@ def stack_layers(items):
 def layer_params(layers, i: int):
     """Layer i's parameters from a stacked ``[L, ...]`` tree."""
     return {k: layer_params(v, i) if isinstance(v, dict) else v[i] for k, v in layers.items()}
+
+
+def unstack_layers(layers, n: int):
+    """Every layer's parameters from a stacked ``[L, ...]`` tree, by one
+    `unbind` a leaf: its backward stacks the L gradients once, where L
+    `layer_params` views would each add a zero-filled [L, ...] gradient."""
+    if isinstance(layers, dict):
+        per_key = {k: unstack_layers(v, n) for k, v in layers.items()}
+        return [{k: v[i] for k, v in per_key.items()} for i in range(n)]
+    return layers.unbind(0)
+
+
+def run_layer(fn, remat: bool, *args):
+    """fn(*args), or with `remat` under activation checkpointing: the
+    forward keeps only the layer's inputs and runs again in the backward,
+    as the reference's ``jax.checkpoint(body)``."""
+    if not remat:
+        return fn(*args)
+    return torch.utils.checkpoint.checkpoint(fn, *args, use_reentrant=False)

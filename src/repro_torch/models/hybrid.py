@@ -10,7 +10,9 @@ window.  Decode state (see `kvcache.cache`): kv_swa [Lswa,B,M+W,Hkv,Dh] ring,
 kv_full [Lfull,B,M+S,Hkv,Dh], swa_pos [M+W] absolute position per slot, and
 the conv and ssd states of every layer.  `decode_step` updates the state in
 place and returns it.  ``swa_pos`` is one vector for the whole batch, so a
-batch holds prompts of one length, as in the reference.
+batch holds prompts of one length, as in the reference.  `loss` drops the
+meta positions before the head; it trains on the CPU (on the card the SSD
+scan's backward raises until it is ported).
 
 The reference's ``backend="pallas"`` would send a windowed layer's prefill
 to `flash_attention` by the mask's shape and lose its window; the port
@@ -33,7 +35,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (embed_init, head_init, layer_params, norm_apply,
-                                       norm_init, rmsnorm, stack_layers, unembed)
+                                       norm_init, rmsnorm, run_layer, stack_layers, unembed,
+                                       unstack_layers)
+from repro_torch.models.losses import causal_lm_loss
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 
@@ -69,11 +73,12 @@ def _layer_slots(segs) -> List[tuple]:
 
 
 class HybridLM:
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", remat: bool = False):
         if cfg.family != "hybrid":
             raise ValueError(f"HybridLM serves the hybrid family, not {cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.remat = remat
         self.slots = _layer_slots(_segments(cfg))
 
     # ------------------------------------------------------------------
@@ -111,6 +116,29 @@ class HybridLM:
         s_out, hfin, conv = ssm.ssm_prefill(h, lp["ssm"], cfg)
         return self._fuse_mlp(x, lp, a_out, s_out), k, v, hfin, conv
 
+    def _embed_meta(self, params, tokens):
+        """The M meta tokens, then the prompt's embeddings: [B, M+S, d]."""
+        x = F.embedding(tokens, params["embed"])
+        meta = params["meta"][None].expand(tokens.shape[0], -1, -1).to(x.dtype)
+        return torch.cat([meta, x], dim=1)
+
+    def _train_layer(self, x, lp, positions, window: int):
+        return self._layer_parallel(x, lp, positions, window)[0]
+
+    def loss(self, params, batch):
+        """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} -> the
+        causal-LM loss over the prompt's positions (the meta tokens' are
+        dropped before the head), f32 scalar."""
+        cfg = self.cfg
+        x = self._embed_meta(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        for lp, (kind, _) in zip(unstack_layers(params["layers"], cfg.num_layers),
+                                 self.slots):
+            window = 0 if kind == "full" else cfg.sliding_window
+            x = run_layer(self._train_layer, self.remat, x, lp, positions, window)
+        x = x[:, cfg.num_meta_tokens:]
+        return causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
+
     # ------------------------------------------------------------------
     def prefill(self, params, batch, max_len=None):
         """batch {"tokens": [B,S]} -> (last-token logits [B,V], decode state,
@@ -118,11 +146,9 @@ class HybridLM:
         `max_len` slots (meta tokens included) when it is larger."""
         cfg = self.cfg
         tokens = batch["tokens"]
-        b, s = tokens.shape
+        s = tokens.shape[1]
         m, w = cfg.num_meta_tokens, cfg.sliding_window
-        x = F.embedding(tokens, params["embed"])
-        meta = params["meta"][None].expand(b, m, cfg.d_model).to(x.dtype)
-        x = torch.cat([meta, x], dim=1)
+        x = self._embed_meta(params, tokens)
         st = m + s
         positions = torch.arange(st, dtype=torch.int32, device=x.device)
 

@@ -4,8 +4,9 @@
 Decode state = {"conv": [L,B,K-1,conv_dim], "ssd": [L,B,nh,hd,N] f32}: the
 fixed-size generalisation of the KV cache for DéjàVu streaming.  Parameters
 are a nested dict with the layers stacked ``[L, ...]``, the reference's
-layout.  `decode_step` updates the state in place and returns it.
-Training (`loss`) is a later slice.
+layout.  `decode_step` updates the state in place and returns it.  `loss`
+trains through the plain SSD scan on the CPU; on the card the scan's
+backward raises until it is ported (`kernels.ssd_scan.SSDScanFn`).
 """
 from __future__ import annotations
 
@@ -18,15 +19,18 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
 from repro_torch.models.common import (embed_init, head_init, layer_params, norm_apply,
-                                       norm_init, stack_layers, unembed)
+                                       norm_init, run_layer, stack_layers, unembed,
+                                       unstack_layers)
+from repro_torch.models.losses import causal_lm_loss
 
 
 class MambaLM:
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", remat: bool = False):
         if cfg.family != "ssm":
             raise ValueError(f"MambaLM serves the ssm family, not {cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.remat = remat
 
     def init(self, generator: torch.Generator) -> Dict:
         """Random weights drawn from `generator` (on its own device), in the
@@ -39,6 +43,20 @@ class MambaLM:
                                     for _ in range(cfg.num_layers)])
         p.update(head_init(g, cfg, dtype, dev))
         return p
+
+    def _train_layer(self, x, lp):
+        out, _, _ = ssm.ssm_prefill(norm_apply(self.cfg.norm, x, lp["ln"]), lp["ssm"],
+                                    self.cfg)
+        return x + out
+
+    def loss(self, params, batch):
+        """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} -> the
+        causal-LM loss, f32 scalar."""
+        cfg = self.cfg
+        x = F.embedding(batch["tokens"], params["embed"])
+        for lp in unstack_layers(params["layers"], cfg.num_layers):
+            x = run_layer(self._train_layer, self.remat, x, lp)
+        return causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
 
     def prefill(self, params, batch, max_len=None):
         """batch {"tokens": [B,S]} -> (last-token logits [B,V], decode state,

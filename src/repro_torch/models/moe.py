@@ -9,7 +9,8 @@ a scatter into an [E*C + 1, d] buffer whose last row takes the entries past
 an expert's capacity C, the expert FFN batched over [E, C, d], then a gather
 back and a gate-weighted sum over the k slots in the model's dtype.
 
-Serving dispatches with ``drop=False``: capacity T, lossless, so a token's
+Training dispatches with capacity dropping and adds the load-balancing
+loss.  Serving dispatches with ``drop=False``: capacity T, lossless, so a token's
 output does not depend on how many tokens share its pass.  The batched FFN
 then runs E/k times the FLOPs the routed tokens need (16 for qwen3-moe's 128
 experts, top 8); a grouped GEMM over the routed entries would not.
@@ -36,10 +37,14 @@ def capacity(num_tokens: int, cfg) -> int:
     return max(c, 1)
 
 
-def moe_apply(x: torch.Tensor, p, cfg, drop: bool = True) -> torch.Tensor:
-    """x [T, d] flattened tokens -> [T, d].  ``drop=False`` dispatches with
-    capacity T: a token's k experts are distinct, so no expert receives more
-    than T entries and none is dropped."""
+def moe_apply(x: torch.Tensor, p, cfg, return_aux: bool = False, drop: bool = True):
+    """x [T, d] flattened tokens -> [T, d] (and, with `return_aux`, the
+    Switch-style load-balancing loss E * sum_e f_e p_e, f32).  ``drop=False``
+    dispatches with capacity T: a token's k experts are distinct, so no
+    expert receives more than T entries and none is dropped.  Training
+    drops: every entry past an expert's capacity lands in the spill row,
+    which nothing reads, so its token gets no output and no gradient from
+    that slot."""
     t, d = x.shape
     e, k = cfg.num_experts, cfg.experts_per_token
     c = capacity(t, cfg) if drop else t
@@ -72,4 +77,9 @@ def moe_apply(x: torch.Tensor, p, cfg, drop: bool = True) -> torch.Tensor:
     inv = torch.empty_like(order)
     inv[order] = ar
     out_entries = out_sorted.index_select(0, inv).view(t, k, d)
-    return torch.sum(out_entries * gate[..., None].to(out_entries.dtype), dim=1)
+    out = torch.sum(out_entries * gate[..., None].to(out_entries.dtype), dim=1)
+    if not return_aux:
+        return out
+    me = probs.mean(dim=0)                                           # mean router prob
+    ce = torch.bincount(fe, minlength=e).float() / (t * k)           # share of entries
+    return out, e * torch.sum(me * ce)

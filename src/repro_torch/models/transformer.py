@@ -3,7 +3,9 @@
 
 Parameters are a nested dict of tensors with the layers stacked ``[L, ...]``,
 the layout of the reference's params pytree, so `repro_torch.bridge` can hand
-the reference's weights over unchanged.  The stage functions run one
+the reference's weights over unchanged.  `loss` is the training forward
+(capacity-dropping experts with their load-balancing loss, each layer under
+activation checkpointing with ``remat``).  The stage functions run one
 pipeline stage's layer slice; their caches ``[Lstage,B,S,H,D]`` are updated
 in place and also returned, mirroring the reference's signatures.  The
 whole-model `prefill` and `decode_step` are the one-stage case, the oracle
@@ -21,7 +23,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (alibi_slopes, embed_init, head_init, layer_params,
-                                       norm_apply, norm_init, stack_layers, unembed)
+                                       norm_apply, norm_init, run_layer, stack_layers,
+                                       unembed, unstack_layers)
+from repro_torch.models.losses import causal_lm_loss
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_init
 
@@ -29,11 +33,12 @@ from repro_torch.models.moe import moe_apply, moe_init
 class DecoderLM:
     """Dense and moe decoder (the vlm family is a later slice)."""
 
-    def __init__(self, cfg: ArchConfig, device="cuda"):
+    def __init__(self, cfg: ArchConfig, device="cuda", remat: bool = False):
         not_ported(**{f"family={cfg.family}": cfg.family not in ("dense", "moe"),
                       "num_patches": cfg.num_patches})
         self.cfg = cfg
         self.device = resolve_device(device)
+        self.remat = remat
         self._alibi = (torch.as_tensor(alibi_slopes(cfg.num_heads), device=self.device)
                        if cfg.pos_emb == "alibi" else None)
         # per-layer sliding window (0 = full attention)
@@ -70,19 +75,25 @@ class DecoderLM:
     def _final(self, sp, x):
         return unembed(self.cfg, sp, x)
 
-    def _ffn(self, h, lp):
-        """The MLP, or the experts over the flattened tokens with the
-        lossless dispatch: a token's output must not depend on how the
-        scheduler packed its pass."""
+    def _ffn(self, h, lp, aux=None):
+        """The MLP, or the experts over the flattened tokens.  Inference
+        takes the lossless dispatch: a token's output must not depend on how
+        the scheduler packed its pass.  Training (`aux`, a list) takes the
+        capacity-bounded one and appends its load-balancing loss."""
         if not self.cfg.is_moe:
             return mlp_apply(h, lp["mlp"], self.cfg)
         b, s, d = h.shape
-        return moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg, drop=False).view(b, s, d)
+        if aux is None:
+            return moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg,
+                             drop=False).view(b, s, d)
+        out, a = moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg, return_aux=True)
+        aux.append(a)
+        return out.view(b, s, d)
 
     def _layer(self, x, lp, *, mode, kc=None, vc=None, kv_positions=None, pos=None,
-               q_lens=None, positions=None, window=0):
+               q_lens=None, positions=None, window=0, aux=None):
         """One layer.  Returns (x, kc, vc): the caches updated in place, or
-        in "prefill" mode the prompt's own K/V [B,S,H,D]."""
+        in "prefill" mode the prompt's own K/V [B,S,H,D].  `aux` as `_ffn`."""
         cfg = self.cfg
         h = norm_apply(cfg.norm, x, lp["ln1"])
         kw = dict(window=window, num_meta=cfg.num_meta_tokens,
@@ -98,7 +109,30 @@ class DecoderLM:
                                               kv_positions, pos, **kw)
         x = x + a
         h = norm_apply(cfg.norm, x, lp["ln2"])
-        return x + self._ffn(h, lp), kc, vc
+        return x + self._ffn(h, lp, aux), kc, vc
+
+    def _train_layer(self, x, lp, positions, window: int):
+        """One layer of the training forward -> (x, the moe aux loss or None)."""
+        aux = []
+        x, _, _ = self._layer(x, lp, mode="prefill", positions=positions, window=window,
+                              aux=aux)
+        return x, aux[0] if aux else None
+
+    def loss(self, params, batch):
+        """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} -> the
+        causal-LM loss, f32 scalar, plus 0.01 times the mean moe aux loss."""
+        cfg = self.cfg
+        x = self._embed(params, batch["tokens"])
+        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        auxs = []
+        for lp, w in zip(unstack_layers(params["layers"], cfg.num_layers),
+                         self._layer_window):
+            x, aux = run_layer(self._train_layer, self.remat, x, lp, positions, w)
+            auxs.append(aux)
+        loss = causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
+        if cfg.is_moe:
+            loss = loss + 0.01 * torch.stack(auxs).mean()
+        return loss
 
     def _layers(self, sp, x, kc, vc, **kw):
         for i, w in enumerate(sp["layer_window"]):

@@ -853,3 +853,165 @@ def test_a_block_demoted_before_its_page_is_reused_keeps_its_bytes(cuda, tmp_pat
         assert torch.equal(_bits(got[leaf].cpu()), _bits(want[leaf]))
     assert junk[0].float().sum().item() != 0
     eng.close()
+
+
+# ---------------------------------------------------------------------------
+# training: the flash backward, and the kernels that refuse to be differentiated
+# ---------------------------------------------------------------------------
+
+# the backward's band, relative to the largest |gradient| of the f32 plain
+# version (chip_smoke.py's BWD_TOL): its sums run over up to G * Sq rows in
+# another order (f32), and in bf16 P and dS enter their products, and
+# dq/dk/dv are stored, rounded to 8 bits of mantissa
+BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,d,causal", [
+    (1, 150, 150, 4, 2, 16, True),               # keys end mid-tile: 150 = 2 * 64 + 22
+    (1, 150, 150, 4, 2, 32, True),
+    (1, 150, 150, 4, 2, 64, True),
+    (1, 150, 150, 4, 2, 96, True),
+    (1, 150, 150, 4, 2, 128, True),
+    (1, 150, 150, 4, 2, 192, True),              # one block an SM: 231,424 bytes
+    (2, 70, 130, 4, 1, 64, False),               # full attention, Sq != Skv, G = 4
+    (1, 100, 260, 6, 2, 32, True),               # a query block at the end of the keys
+    (2, 256, 256, 15, 5, 64, True),              # smollm's heads
+    (1, 64, 64, 32, 4, 128, True),               # qwen3-moe's heads, one tile
+])
+def test_flash_attention_backward_matches_autograd_through_plain(cuda, b, sq, skv, hq, hkv,
+                                                                 d, causal, dtype):
+    g = torch.Generator(device=cuda).manual_seed(2)
+    q, k, v, dout = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+                     for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d),
+                                   (b, sq, hq, d)))
+    from repro_torch.kernels.flash_attention import FlashAttentionFn
+    qg, kg, vg = (t.clone().requires_grad_() for t in (q, k, v))
+    n0 = dict(LAUNCHES)
+    out = FlashAttentionFn.apply(qg, kg, vg, causal)
+    out.backward(dout)
+    assert LAUNCHES["flash_attention"] == n0["flash_attention"] + 1
+    assert LAUNCHES["flash_attention_bwd"] == n0["flash_attention_bwd"] + 1
+    q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
+    want = torch.autograd.grad(ref.flash_attention_ref(q32, k32, v32, causal=causal),
+                               (q32, k32, v32), dout.float())
+    torch.cuda.synchronize()
+    for got, exp in zip((qg.grad, kg.grad, vg.grad), want):
+        assert got.dtype == dtype and got.shape == exp.shape
+        bound = BWD_TOL[dtype] * max(1.0, exp.abs().max().item())
+        assert (got.float() - exp).abs().max().item() <= bound
+
+
+def test_flash_attention_backward_is_deterministic(cuda):
+    g = torch.Generator(device=cuda).manual_seed(3)
+    from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
+    q, dout = (torch.randn(2, 200, 15, 64, generator=g, device=cuda).to(torch.bfloat16)
+               for _ in range(2))
+    k, v = (torch.randn(2, 200, 5, 64, generator=g, device=cuda).to(torch.bfloat16)
+            for _ in range(2))
+    out, lse = flash_attention(q, k, v, causal=True, with_lse=True)
+    a = flash_attention_bwd(dout, q, k, v, out, lse, causal=True)
+    b = flash_attention_bwd(dout, q, k, v, out, lse, causal=True)
+    assert all(torch.equal(x, y) for x, y in zip(a, b))
+
+
+def test_flash_routes_through_the_backward_only_when_autograd_records(cuda):
+    g = torch.Generator(device=cuda).manual_seed(4)
+    q = torch.randn(1, 80, 4, 32, generator=g, device=cuda)
+    k, v = torch.randn(2, 1, 80, 2, 32, generator=g, device=cuda)
+    n0 = dict(LAUNCHES)
+    plain = ops.attention_auto(q, k, v, mask=torch.ones(80, 80, dtype=torch.bool,
+                                                        device=cuda).tril())
+    assert plain.grad_fn is None
+    qg = q.clone().requires_grad_()
+    with torch.no_grad():
+        assert ops.attention_auto(qg, k, v).grad_fn is None
+    out = ops.attention_auto(qg, k, v)            # full attention, under autograd
+    assert out.grad_fn is not None
+    out.sum().backward()
+    assert qg.grad is not None and qg.grad.abs().max().item() > 0
+    assert LAUNCHES["flash_attention"] == n0["flash_attention"] + 3
+    assert LAUNCHES["flash_attention_bwd"] == n0["flash_attention_bwd"] + 1
+
+
+def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
+    """decode, paged and kv_pack wrappers raise under grad mode on an input
+    that requires grad (and launch nothing); under no_grad they run."""
+    from repro_torch.kernels.decode_attention import (batched_decode_attention,
+                                                      decode_attention,
+                                                      paged_decode_attention)
+    from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged, kv_unpack
+    from repro_torch.kernels.paged_prefill import paged_prefill_attention
+    g = torch.Generator(device=cuda).manual_seed(5)
+    q = torch.randn(2, 4, 16, generator=g, device=cuda).requires_grad_()
+    k, v = torch.randn(2, 2, 32, 2, 16, generator=g, device=cuda)
+    lens = torch.tensor([32, 7], dtype=torch.int32, device=cuda)
+    valid = torch.ones(32, dtype=torch.bool, device=cuda)
+    pages = torch.randn(8, 8, 2, 16, generator=g, device=cuda)
+    tables = torch.tensor([[0, 1, 2, 3], [4, 5, 6, 7]], dtype=torch.int32, device=cuda)
+    cache = torch.randn(2, 2, 32, 2, 16, generator=g, device=cuda).requires_grad_()
+    zeros = torch.zeros(2, dtype=torch.int32, device=cuda)
+    calls = {
+        "batched_decode_attention": lambda: batched_decode_attention(q, k, v, lens),
+        "decode_attention": lambda: decode_attention(q, k, v, valid),
+        "paged_decode_attention": lambda: paged_decode_attention(q, pages, pages, tables,
+                                                                 lens),
+        "paged_prefill_attention": lambda: paged_prefill_attention(
+            q[:, None].expand(2, 8, 4, 16).contiguous(), pages, pages, tables, zeros,
+            torch.full((2,), 8, dtype=torch.int32, device=cuda)),
+        "kv_pack": lambda: kv_pack(cache, 8, width=8),
+        "kv_pack_ragged": lambda: kv_pack_ragged(cache, [0, 8], width=8),
+        "kv_unpack": lambda: kv_unpack(cache.detach().clone(), cache[:, :, :8].contiguous(),
+                                       0),
+    }
+    n0 = dict(LAUNCHES)
+    for name, call in calls.items():
+        with pytest.raises(RuntimeError, match=f"{name} has no backward"):
+            call()
+    assert LAUNCHES == n0, "a refused call must not launch"
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    torch.cuda.synchronize()
+    assert all(LAUNCHES[n] == n0[n] + 1 for n in calls)
+
+
+def test_ssd_scan_backward_raises(cuda):
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 1, 40, 4, 8, 1, 4, torch.float32, False)
+    x.requires_grad_()
+    n0 = LAUNCHES["ssd_scan"]
+    y, _ = ops.ssd_auto(x, dt, a, bm, cm, chunk=16)
+    assert LAUNCHES["ssd_scan"] == n0 + 1 and y.grad_fn is not None
+    with pytest.raises(NotImplementedError, match="A.17"):
+        y.sum().backward()
+    with torch.no_grad():
+        assert ops.ssd_auto(x, dt, a, bm, cm, chunk=16)[0].grad_fn is None
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-moe-30b-a3b"])
+def test_loss_and_gradients_on_the_card_give_the_cpus(cuda, name):
+    """Reduced model, fp32, remat on the card: the loss and every gradient
+    leaf equal the CPU's (1e-4 relative to max(1, max|g|)), the attention
+    through the flash forward (twice, remat) and backward kernels."""
+    from repro_torch.training import SyntheticDataPipeline
+    from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train import batch_to
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    batch = SyntheticDataPipeline(cfg.vocab_size, 48, 3, seed=1).batch_at(0)
+    res = {}
+    for dev in ("cpu", "cuda"):
+        live = tree_map(lambda p: p.to(dev).requires_grad_(), params)
+        n0 = dict(LAUNCHES)
+        loss = build_model(cfg, device=dev, remat=dev == "cuda").loss(live, batch_to(batch,
+                                                                                     dev))
+        grads = torch.autograd.grad(loss, tree_leaves(live))
+        res[dev] = (loss.item(), [gr.cpu() for gr in grads],
+                    {n: LAUNCHES[n] - n0[n] for n in ("flash_attention",
+                                                      "flash_attention_bwd")})
+    assert res["cpu"][2] == {"flash_attention": 0, "flash_attention_bwd": 0}
+    assert res["cuda"][2] == {"flash_attention": 2 * cfg.num_layers,
+                              "flash_attention_bwd": cfg.num_layers}
+    assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-5)
+    for a, b in zip(res["cuda"][1], res["cpu"][1]):
+        assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
