@@ -2963,7 +2963,7 @@ def main() -> int:
         line = {"phase": p, "ok": True, "seconds": time.perf_counter() - t,
                 "max_memory_allocated_gib": torch.cuda.max_memory_allocated() / 2**30, **res}
         emit(line)
-        # whole, where the chip tool keeps only the end of the output
+        # whole, for runners that keep only the end of the output
         with open(state["out"] / "phases.jsonl", "a") as f:
             f.write(json.dumps(line) + "\n")
     rows = state.get("kernel_rows", {})
