@@ -15,14 +15,17 @@ Phases, each printing one JSON line with its seconds:
                the plain version and one library call of the same function,
                and the profiler's device time of the kernel and the library
                call; a decode or paged row must show its body's name in the
-               profile, and the bf16 bodies of ``flash_attention`` and
-               ``paged_prefill_attention`` HGMMA in their libraries.
+               profile, and the bf16 bodies of ``flash_attention``,
+               ``paged_prefill_attention`` and ``flash_attention_bwd``
+               HGMMA in their libraries.
                ``flash_attention_bwd`` against autograd through the plain
                version (both dtypes, six head dims, causal and full, GQA,
                keys ending mid-tile), the forward's row LSE against the
                f32 log-sum-exp, the backward timed beside SDPA's backward
-               at smollm-360m's and qwen3-moe's training shapes, and the
-               forward with and without its LSE in turns.
+               at smollm-360m's and qwen3-moe's training shapes (the
+               profile must name its wgmma kernels), and the forward with
+               and without its LSE in turns, beside its bound and SDPA's
+               forward.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
                trace that chunks its prompts and preempts; once plain (both
@@ -243,9 +246,10 @@ def phase_env(state: dict) -> dict:
         "\n".join(f"== {k}\n{v}" for k, v in logs.items()))
     sass = sass_counts()
     emit({"sass": sass})
-    if isinstance(sass, dict):      # the bf16 bodies run on wgmma, the backward on mma.sync
-        for lib in ("flash_attention", "paged_prefill"):
+    if isinstance(sass, dict):      # the bf16 bodies run on wgmma
+        for lib in ("flash_attention", "paged_prefill", "flash_attention_bwd"):
             check(sass[lib]["HGMMA"] > 0, f"no HGMMA in the {lib} library")
+        # the backward keeps its mma.sync body at head dim 192
         check(sass["flash_attention_bwd"]["HMMA"] > 0, "no HMMA in the flash_attention_bwd "
               "library")
     return {"card": card, "device": torch.cuda.get_device_name(0),
@@ -705,8 +709,10 @@ def flash_backward_cases(g, rows: dict, checks: list) -> None:
     the card, at every head dim, both dtypes, causal and full, GQA and keys
     ending mid-tile; the forward's LSE against the f32 log-sum-exp.  Times
     the backward at smollm-360m's training shape [8,2048,15:5,64] and
-    qwen3-moe's [4,1024,32:4,128] beside SDPA's backward, and the forward
-    with and without its LSE in turns."""
+    qwen3-moe's [4,1024,32:4,128] beside SDPA's backward (its profile must
+    name the wgmma kernels, not the mma.sync ones), and the forward with
+    and without its LSE in turns, beside the forward's bound (2 products)
+    and SDPA's forward."""
     import torch
     import torch.nn.functional as F
 
@@ -766,7 +772,9 @@ def flash_backward_cases(g, rows: dict, checks: list) -> None:
             return torch.autograd.grad(o_sdpa, (qt, kt, vt), dout_t, retain_graph=True)
 
         dms, names = device_ms(mine, iters=20, warmup=2)
-        check(any("dkdv_mma_kernel" in n for n in names), f"the backward ran {names}")
+        check(any("dkdv_wgmma_kernel" in n for n in names)
+              and any("dq_wgmma_kernel" in n for n in names)
+              and not any("_mma_kernel" in n for n in names), f"the backward ran {names}")
         rows[time_it] = {
             "ms": cuda_ms(mine, iters=20, warmup=2),
             "plain_ms": cuda_ms(lambda: torch.autograd.grad(o_plain, (qp, kp, vp), dout,
@@ -785,6 +793,19 @@ def flash_backward_cases(g, rows: dict, checks: list) -> None:
                 lambda: flash_attention(q, k, v, causal=causal, with_lse=with_lse),
                 iters=20, warmup=2)[0]})
         rows[time_it]["forward_turns"] = turns
+        # the forward with its LSE: q, k, v read, out and lse written once;
+        # 2 products of 2 * pairs * D
+        fbms, fby = bound_ms(es * (2 * q.numel() + k.numel() + v.numel()) + 4 * lse.numel(),
+                             4.0 * b * hq * d * visible_pairs(sq, skv, causal), tname)
+
+        def sdpa_fwd():
+            return F.scaled_dot_product_attention(qt.detach(), kt.detach(), vt.detach(),
+                                                  is_causal=causal, enable_gqa=hq != hkv)
+
+        rows[time_it]["forward"] = {
+            "bound_ms": fbms, "bound_by": fby,
+            "library_ms": cuda_ms(sdpa_fwd, iters=20, warmup=2),
+            "library_device_ms": device_ms(sdpa_fwd, iters=20, warmup=2)[0]}
         del o_plain, o_sdpa
 
     for dtype in (torch.float32, torch.bfloat16):
@@ -2777,6 +2798,26 @@ def equal_trees(a, b) -> bool:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
+def profile_train(model, params, opt, data, out_dir: Path) -> dict:
+    """Device time by kernel over one train step of `train` (b), after its
+    20 steps (batch 20 of the pipeline).  The table goes to
+    `out_dir`/train_profile.txt."""
+    from repro_torch.training import TrainConfig, make_train_step
+    from repro_torch.training.train import batch_to
+    step = make_train_step(model, TrainConfig(lr=TRAIN_LR))
+    batch = batch_to(data.batch_at(20), "cuda")
+
+    def window():
+        step(params, opt, batch)
+        return 1
+
+    return _profile(window, out_dir / "train_profile.txt",
+                    {"flash_attention_bwd": ("dkdv_", "dq_wgmma", "dq_mma", "dq_kernel",
+                                             "delta_kernel"),
+                     "flash_attention": ("flash_wgmma", "flash_kernel"),
+                     "matmul": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")})
+
+
 def phase_train(state: dict) -> dict:
     """(a) train_exact on reduced smollm-360m and qwen3-moe-30b-a3b; (b)
     smollm-360m at its published width and depth (d 960, 32 layers, 15:5
@@ -2832,8 +2873,8 @@ def phase_train(state: dict) -> dict:
           and int(restored["opt"].step) == int(o10.step) == 10,
           "the restored step-10 state differs from the saved one")
     del p10, o10
-    _, _, resumed, _ = train_run(model, (restored["params"], restored["opt"]), data, 10,
-                                 start=10)
+    p_end, o_end, resumed, _ = train_run(model, (restored["params"], restored["opt"]), data,
+                                         10, start=10)
     diffs = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[10:])]
     check(max(diffs) <= 1e-2, f"resumed losses {resumed['losses']} vs {losses[10:]}")
     shutil.rmtree(ckpt, ignore_errors=True)
@@ -2849,7 +2890,9 @@ def phase_train(state: dict) -> dict:
                        "max_rel_diff_vs_uninterrupted": max(diffs),
                        "bit_identical_to_uninterrupted": resumed["losses"] == losses[10:],
                        "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}}
-    del model, params, restored, template
+    if state.get("profile"):
+        out["smollm_full"]["profile"] = profile_train(model, p_end, o_end, data, state["out"])
+    del model, params, restored, template, p_end, o_end
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -2916,8 +2959,8 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve, mb_serve and ssm_serve phases, profile a "
-                         "short window of each")
+                    help="after the serve, mb_serve, ssm_serve and train phases, profile "
+                         "a short window of each")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for the build log and the profile table")
     args = ap.parse_args()

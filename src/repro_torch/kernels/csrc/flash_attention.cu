@@ -56,7 +56,6 @@
 // in registers, over f32 shared rows padded to D + 1 floats; rows of 8
 // threads reduce the row max and sum with warp shuffles.
 
-#include <cuda.h>            // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -264,41 +263,6 @@ constexpr size_t wgmma_smem_bytes(int D) {
   return 1024 + (size_t)(1 + 2 * kv_stages(D)) * tile_bytes(D) + 8 * (1 + kv_stages(D));
 }
 
-__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
-               "r"(bytes)
-               : "memory");
-}
-
-// Spins until the barrier has completed the phase of parity `phase`.
-__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
-  asm volatile(
-      "{\n.reg .pred p;\n"
-      "WAIT:\n"
-      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
-      "@p bra DONE;\n"
-      "bra WAIT;\n"
-      "DONE:\n}\n" ::"r"(smem_u32(bar)),
-      "r"(phase)
-      : "memory");
-}
-
-// One TMA box of a 4-D tensor map into shared memory, completing on `bar`.
-__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
-                                         int c0, int c1, int c2, int c3) {
-  asm volatile(
-      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
-      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
-      "r"(c3)
-      : "memory");
-}
-
 // Fragment of a wgmma m64nN f32 accumulator: thread (warp w, lane l) holds
 // d[i] at row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) + (i & 1).
 template <int D>
@@ -345,7 +309,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   };
   if (tid == 0) {
     for (int i = 0; i < 1 + kStages; ++i) mbar_init(&bars[i], 1);
-    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+    mbar_init_fence();
     mbar_expect_tx(&bars[0], kTile);
 #pragma unroll
     for (int x = 0; x < kBoxes; ++x) tma_load(q_s + x * kAtom, &qmap, &bars[0], 64 * x, h, q0, b);
@@ -466,45 +430,6 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
           __floats2bfloat162_rn(o[i] * l[r], o[i + 1] * l[r]);
     }
   }
-}
-
-// cuTensorMapEncodeTiled is a driver function; the library links no libcuda,
-// so the runtime hands out its address once.
-using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
-                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
-                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
-                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
-
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = [] {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult found;
-#if CUDART_VERSION >= 12050
-    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
-                                                     cudaEnableDefault, &found);
-#else
-    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
-                                            &found);
-#endif
-    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
-               ? reinterpret_cast<EncodeTiled>(p)
-               : nullptr;
-  }();
-  return fn;
-}
-
-// A map over a contiguous bf16 [B, S, H, D] whose box is 64 columns by 1 head
-// by 64 rows by 1 batch row, 128-byte swizzled; reads past any edge are zeros.
-bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, int H,
-                int D) {
-  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
-  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
-  const cuuint32_t box[4] = {64, 1, (cuuint32_t)kBQ, 1};
-  const cuuint32_t unit[4] = {1, 1, 1, 1};
-  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
-             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
-             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 template <int D>

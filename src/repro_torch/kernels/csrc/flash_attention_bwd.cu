@@ -4,7 +4,7 @@
 // XLA's attention (`backend="xla"`, src/repro/models/registry.py:15), and
 // none of its Pallas kernels has a custom_vjp.  The port trains through its
 // forward kernel (flash_attention.cu), so that kernel's output needs a
-// gradient that is a kernel too.  This is FlashAttention-2's backward:
+// gradient that is a kernel too.  This is FlashAttention's backward:
 //
 //   P     = exp(S * scale - LSE)        S = Q.K^T, LSE from the forward
 //   Delta = rowsum(dO o O)
@@ -20,36 +20,73 @@
 // the inputs' type (float32 or bfloat16).
 //
 // Three launches on one stream, none with atomics, so the result is
-// deterministic:
-//   * delta_kernel: Delta [B, Hq, Sq] f32, one warp a row.
-//   * dkdv: one block of 256 threads owns (batch row, KV head, tile of 64
-//     keys), holds K and V in shared memory and dK, dV in registers, and
-//     walks the G = Hq / Hkv query heads of its KV head and every query
-//     tile that sees its keys (from the causal start on).  Summing the G
-//     heads inside the block is what lets GQA go without atomics.
-//   * dq: one block owns (batch row, query head, tile of 64 query rows) and
-//     walks the key tiles up to the tile's causal limit, recomputing S and
-//     dO.V^T (two products more than FA2 with atomic dQ).
+// deterministic (every sum runs in one fixed order):
+//   * delta_kernel: Delta [B, Hq, Sq] f32, a few lanes a row.
+//   * dkdv: a block owns (batch row, KV head, a tile of keys), holds K and
+//     V in shared memory and dK, dV in registers, and walks the G = Hq / Hkv
+//     query heads of its KV head and every query tile that sees its keys
+//     (from the causal start on).  Summing the G heads inside the block is
+//     what lets GQA go without atomics.
+//   * dq: a block owns (batch row, query head, a run of query rows) and
+//     walks the key tiles up to the run's causal limit, recomputing S and
+//     dO.V^T: seven products where the bound counts five, the price of a
+//     dQ without atomics.
 //
 // What bounds it on the H100: 5 products of 2 * pairs * D flops each over
 // q, k, v, o, dO read and dq, dk, dv written once; at smollm's [8, 2048,
 // 15:5, 64] causal that is some 150 flops a byte, so the tensor cores
-// (989 TFLOP/s) bound it.
+// (989 TFLOP/s, wgmma only) bound it.  What holds this body from it: the
+// seven products, wgmma m64n64 tiles fed from shared memory (A and B both
+// read there for S and dP), and the exp and mask work between products,
+// which the two compute warpgroups of a block overlap only with each
+// other.
 //
-// bf16 (dkdv_mma_kernel, dq_mma_kernel): eight warps run the products on
-// mma.sync m16n8k16 (bf16 in, f32 sums) with ldmatrix from bf16 tiles whose
-// rows are padded by 16 bytes, so that the eight rows of an ldmatrix hit
-// distinct banks; the transposed operands (P^T, dS^T, and dO, Q, K as the
-// reduced dimension's rows) come through ldmatrix.trans from the same
-// tiles.  P and dS are rounded to bf16 for their products, as FA2 does;
+// bf16 at D <= 128 (dkdv_wgmma_kernel, dq_wgmma_kernel), FlashAttention-3's
+// backward without its atomic dQ: a block is three warpgroups, two that
+// compute on wgmma and one that loads.
+//   * The producer warpgroup gives its registers to the other two
+//     (setmaxnreg 24 / 240; dK and dV at D = 128 take 128 of them).  One
+//     warp of it keeps a ring of Q/dO tiles (K/V tiles in dq) of 64 rows
+//     in flight by TMA, 3 to 6 stages with a full and an empty mbarrier
+//     each; in dkdv its lanes copy each query tile's LSE and Delta beside
+//     it by cp.async, which arrives on the same full barrier.  The compute
+//     warpgroups wait on barriers only: no __syncthreads in the loop, no
+//     cp.async wait.
+//   * dkdv: a block owns 64 keys and both compute warpgroups hold all of
+//     them; the block's (query head, query tile) items alternate between
+//     the two, each summing its own dK and dV, and at the end they add the
+//     other's half through shared memory (two sums in a fixed order).
+//     Splitting the items, not the keys, keeps a block's causal work
+//     spread over both warpgroups and gives qwen3-moe's short grid (16 key
+//     tiles x 4 heads x 4 rows) twice the blocks.  S^T = K.Q^T and
+//     dP^T = V.dO^T run with the keys on wgmma's M side (all four tiles
+//     K-major from the 128-byte swizzle), so that
+//     P^T = exp2(S^T scale log2e - LSE log2e) and dS^T = P^T o (dP^T - Delta)
+//     come out in the accumulator registers in the layout of wgmma's A
+//     fragment: they are packed to bf16 in registers (as FA2/FA3 round
+//     them) and dV += P^T.dO, dK += dS^T.Q run as register-A wgmma with dO
+//     and Q MN-major (the descriptor's transpose bit).  P and dS never
+//     touch shared memory.
+//   * dq: each compute warpgroup holds 64 query rows, so a block of 128
+//     reads each K/V tile once; S = Q.K^T and dP = dO.V^T from shared
+//     memory, dS in registers, dQ += dS.K as register-A wgmma with K
+//     MN-major; one scaled store at the end.
+//   * Heaviest tiles first: under causal masking key tile 0 sees every
+//     query tile and the last query run sees every key, so both grids
+//     launch those first and the light ones fill the tail.
+// bf16 at D = 192 (dkdv_mma_kernel, dq_mma_kernel) keeps the mma.sync
+// m16n8k16 body of eight warps: a wgmma warpgroup of 64 keys would hold
+// dK and dV in 96 + 96 f32 registers a thread beside S^T and dP^T, past the
+// 240 a compute thread gets.  No config trains at D = 192 (nemotron-4-340b
+// serves only).  P and dS go through padded bf16 tiles and ldmatrix.trans;
 // tiles arrive by cp.async with zero fill past Sq and Skv.
 // f32 (dkdv_kernel, dq_kernel) keeps the CUDA cores, which hold the f32
 // band: a 16 x 16 thread grid, each thread a 4 x 4 patch of a 64 x 64
 // score tile or 4 rows by D / 16 columns of an output tile, over f32
 // shared rows padded to D + 1 floats; at D = 192 its shared memory is
-// 231,424 bytes, one block an SM.  Neither body uses wgmma or TMA yet
-// (ROADMAP.md, queue B).
+// 231,424 bytes, one block an SM.
 
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -91,22 +128,36 @@ __device__ __forceinline__ void stage_rows(const float* __restrict__ src, long l
   }
 }
 
-// Delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d], one warp a row.
-template <typename T>
+// Delta[b, h, i] = sum_d dO[b, i, h, d] * O[b, i, h, d].  Rows [B, Sq, Hq]
+// lie D elements apart, so kL neighbouring lanes read one row in 16-byte
+// chunks, a warp 512 contiguous bytes, and sum it by a fixed shuffle tree.
+template <typename T, int D>
 __global__ void __launch_bounds__(kThreads)
 delta_kernel(const T* __restrict__ o, const T* __restrict__ dout, float* __restrict__ delta,
-             int B, int Sq, int Hq, int D) {
-  const long long r = (long long)blockIdx.x * (kThreads / 32) + threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  if (r >= (long long)B * Sq * Hq) return;
-  // r walks [B, Sq, Hq] as the tensors do
-  const T* a = o + r * D;
-  const T* g = dout + r * D;
+             int B, int Sq, int Hq) {
+  constexpr int kVec = 16 / sizeof(T);
+  constexpr int kC = D / kVec;             // 16-byte chunks a row
+  constexpr int kL = kC <= 2 ? 2 : kC <= 4 ? 4 : kC <= 8 ? 8 : kC <= 16 ? 16 : 32;
+  const long long r = (long long)blockIdx.x * (kThreads / kL) + threadIdx.x / kL;
+  const int lane = threadIdx.x % kL;
+  const bool in = r < (long long)B * Sq * Hq;
   float s = 0.f;
-  for (int d = lane; d < D; d += 32) s = fmaf(to_float(a[d]), to_float(g[d]), s);
+  if (in) {
+    const uint4* a = reinterpret_cast<const uint4*>(o + r * D);
+    const uint4* g = reinterpret_cast<const uint4*>(dout + r * D);
 #pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
-  if (lane == 0) {
+    for (int c = lane; c < kC; c += kL) {
+      const uint4 x = a[c], y = g[c];
+      const T* xe = reinterpret_cast<const T*>(&x);
+      const T* ye = reinterpret_cast<const T*>(&y);
+#pragma unroll
+      for (int e = 0; e < kVec; ++e) s = fmaf(to_float(xe[e]), to_float(ye[e]), s);
+    }
+  }
+#pragma unroll
+  for (int off = kL / 2; off > 0; off >>= 1) s += __shfl_xor_sync(0xffffffffu, s, off);
+  if (in && lane == 0) {
+    // r walks [B, Sq, Hq] as the tensors do
     const int h = (int)(r % Hq);
     const long long bi = r / Hq;           // b * Sq + i
     const int i = (int)(bi % Sq);
@@ -373,7 +424,7 @@ dq_kernel(const float* __restrict__ q, const float* __restrict__ k,
 }
 
 // ---------------------------------------------------------------------------
-// bf16: the five products on the tensor cores (mma.sync m16n8k16, f32 sums)
+// bf16 at D = 192: the five products on mma.sync m16n8k16 (f32 sums)
 // ---------------------------------------------------------------------------
 
 constexpr int kLdb = kBK + 8;              // P and dS rows: 64 bf16 + 16 bytes of pad
@@ -719,8 +770,456 @@ dq_mma_kernel(const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restri
   }
 }
 
-// The two tile kernels of one body: the f32 one on the CUDA cores, the
-// bf16 one on mma.sync.  Both take (q, k, v, dout, lse, delta, out...,
+// ---------------------------------------------------------------------------
+// bf16 at D <= 128: two wgmma warpgroups fed by a TMA ring
+// ---------------------------------------------------------------------------
+
+constexpr int kWG = 128;                   // threads of a warpgroup
+constexpr int kW = 2;                      // compute warpgroups, 64 rows each
+constexpr int kWThreads = (kW + 1) * kWG;  // and the producer warpgroup
+constexpr int kWRows = 64 * kW;            // query rows a dq block
+constexpr int kProducerRegs = 24;          // 128 * 24 + 256 * 240 <= 65,536
+constexpr int kConsumerRegs = 240;
+
+// Tiles of 64 rows in flight, beside the block's own: Q/dO tiles in dkdv
+// (6 at D <= 64, 4 at D = 96 and 128: 166 KB), K/V tiles in dq (4 and 3).
+__host__ __device__ constexpr int dkdv_stages(int D) { return D > 64 ? 4 : 6; }
+__host__ __device__ constexpr int dq_stages(int D) { return D > 64 ? 3 : 4; }
+
+constexpr size_t dkdv_wgmma_smem_bytes(int D) {
+  return 1024 + (size_t)(2 + 2 * dkdv_stages(D)) * tile_bytes(D) +
+         2 * 64 * sizeof(float) * dkdv_stages(D) + 8 * (1 + 2 * dkdv_stages(D));
+}
+constexpr size_t dq_wgmma_smem_bytes(int D) {
+  return 1024 + (size_t)(2 * kW + 2 * dq_stages(D)) * tile_bytes(D) +
+         8 * (1 + 2 * dq_stages(D));
+}
+
+// The fragment of a wgmma m64nN f32 accumulator: thread (warp w, lane l) of
+// a warpgroup holds d[i] at row 16 w + l / 4 + 8 ((i >> 1) & 1), column
+// 8 (i >> 2) + 2 (l & 3) + (i & 1).  Columns 16 kk .. 16 kk + 15 are
+// d[8 kk .. 8 kk + 8), the A fragment of k16 step kk.
+__device__ __forceinline__ void a_frag(uint32_t (&a)[4], const float (&x)[32], int kk) {
+  a[0] = pack_bf16(x[8 * kk], x[8 * kk + 1]);
+  a[1] = pack_bf16(x[8 * kk + 2], x[8 * kk + 3]);
+  a[2] = pack_bf16(x[8 * kk + 4], x[8 * kk + 5]);
+  a[3] = pack_bf16(x[8 * kk + 6], x[8 * kk + 7]);
+}
+
+// x (+)= A.B^T over the head dim, A and B K-major 64-row tiles (a k16 step
+// is 32 bytes along a 128-byte row; the zero columns past D add nothing).
+template <int D>
+__device__ __forceinline__ void gemm_ss(float (&x)[32], uint32_t a, uint32_t b) {
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {
+    const uint32_t step = (kk / 4) * kAtom + (kk % 4) * 32;
+    wgmma_ss_n64(x, gmma_desc(a + step, 16, 1024), gmma_desc(b + step, 16, 1024), kk > 0);
+  }
+}
+
+// acc += X.Y over 64 rows: X from registers (the accumulator fragment of a
+// 64 x 64 tile), Y a 64-row tile read MN-major; its k16 step is 16 rows,
+// two 1024-byte swizzle atoms.
+template <int DP>
+__device__ __forceinline__ void gemm_rs(float (&acc)[DP / 2], const float (&x)[32],
+                                        uint32_t y) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk) {
+    uint32_t a[4];
+    a_frag(a, x, kk);
+    wgmma_rs<DP>(acc, a, gmma_desc(y + kk * 2048, kAtom, 1024));
+  }
+}
+
+// Stores this thread's rows r0 and r0 + 8 (those below `rows`) of a
+// warpgroup's m64 accumulator, times s, as bf16 at columns below D into dst
+// (row 0 of the tile); `row` is the elements between consecutive rows.
+template <int D, int DP>
+__device__ __forceinline__ void store_frag(__nv_bfloat16* __restrict__ dst,
+                                           const float (&acc)[DP / 2], float s, int r0,
+                                           int rows, long long row, int lane) {
+#pragma unroll
+  for (int rr = 0; rr < 2; ++rr) {
+    if (r0 + 8 * rr >= rows) continue;
+    __nv_bfloat16* p = dst + (long long)(r0 + 8 * rr) * row;
+#pragma unroll
+    for (int nn = 0; nn < DP / 8; ++nn) {
+      const int col = 8 * nn + 2 * (lane & 3);
+      const int i = 4 * nn + 2 * rr;
+      if (col < D)
+        *reinterpret_cast<__nv_bfloat162*>(p + col) =
+            __floats2bfloat162_rn(acc[i] * s, acc[i + 1] * s);
+    }
+  }
+}
+
+// dK, dV for 64 keys of one KV head, over its G query heads.  The block's
+// items, (query head, query tile) pairs, alternate between the two compute
+// warpgroups, each summing its own dK and dV; at the end they swap halves
+// through shared memory and each stores one: a fixed order of two sums.
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1)
+dkdv_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                  const __grid_constant__ CUtensorMap kmap,
+                  const __grid_constant__ CUtensorMap vmap,
+                  const __grid_constant__ CUtensorMap gmap, const float* __restrict__ lse,
+                  const float* __restrict__ delta, __nv_bfloat16* __restrict__ dk,
+                  __nv_bfloat16* __restrict__ dv, int B, int Sq, int Skv, int Hq, int Hkv,
+                  int causal, float scale, float scale_log2) {
+  constexpr int kBoxes = boxes(D);
+  constexpr int kDP = 64 * kBoxes;         // head dim padded to the boxes
+  constexpr int kTile = tile_bytes(D);
+  constexpr int kS = dkdv_stages(D);
+  // key tile 0 first: under causal masking it sees every query tile
+  const int k0 = (blockIdx.x / (Hkv * B)) * 64;
+  const int hk = blockIdx.x % Hkv;
+  const int b = (blockIdx.x / Hkv) % B;
+  const int G = Hq / Hkv;
+  const int off = Skv - Sq;
+  // the query tiles that see key k0 (every earlier one is masked), per head
+  const int qt0 = causal ? max(0, k0 - off) / 64 : 0;
+  const int per_head = (Sq + 63) / 64 - qt0;
+  const int n = G * per_head;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* k_s = base;                                    // one tile
+  unsigned char* v_s = k_s + kTile;
+  unsigned char* q_s = v_s + kTile;                             // [kS] ring
+  unsigned char* g_s = q_s + kS * kTile;                        // [kS] ring, dO
+  float* lse_s = reinterpret_cast<float*>(g_s + kS * kTile);    // [kS][64]
+  float* dl_s = lse_s + kS * 64;                                // [kS][64]
+  uint64_t* bars = reinterpret_cast<uint64_t*>(dl_s + kS * 64); // K/V, full[kS], empty[kS]
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kS;
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 33);             // the loading warp's lanes' copies, and TMA
+      mbar_init(&empty[s], kWG);           // the threads of the warpgroup it went to
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // warp-uniform to the compiler (a shuffle from lane 0), so that each
+  // warpgroup's branch, and its setmaxnreg, is seen to be taken whole
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
+  const int lane = threadIdx.x % 32;
+  if (wg == kW) {
+    // the producer warpgroup: its first warp loads, the others leave
+    setmaxnreg_dec<kProducerRegs>();
+    if (__shfl_sync(0xffffffffu, threadIdx.x % kWG / 32, 0) != 0) return;
+    if (lane == 0) {
+      mbar_expect_tx(&bars[0], 2 * kTile);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(k_s + x * kAtom, &kmap, &bars[0], 64 * x, hk, k0, b);
+        tma_load(v_s + x * kAtom, &vmap, &bars[0], 64 * x, hk, k0, b);
+      }
+    }
+    for (int j = 0; j < n; ++j) {
+      const int st = j % kS;
+      if (j >= kS) mbar_wait(&empty[st], (j / kS - 1) & 1);
+      const int h = hk * G + j / per_head;
+      const int q0 = (qt0 + j % per_head) * 64;
+      const long long at = ((long long)b * Hq + h) * Sq;
+#pragma unroll
+      for (int r = lane; r < 64; r += 32) {   // rows past Sq: 0 (their P is masked)
+        const int src = min(q0 + r, Sq - 1);
+        const int bytes = q0 + r < Sq ? 4 : 0;
+        cp_async4_zfill(lse_s + st * 64 + r, lse + at + src, bytes);
+        cp_async4_zfill(dl_s + st * 64 + r, delta + at + src, bytes);
+      }
+      cp_async_mbar_arrive(&full[st]);
+      if (lane == 0) {
+        mbar_expect_tx(&full[st], 2 * kTile);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x) {
+          tma_load(q_s + st * kTile + x * kAtom, &qmap, &full[st], 64 * x, h, q0, b);
+          tma_load(g_s + st * kTile + x * kAtom, &gmap, &full[st], 64 * x, h, q0, b);
+        }
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int tid = threadIdx.x % kWG;
+    const int warp = tid / 32;
+    const int r0 = warp * 16 + lane / 4;   // key rows r0 and r0 + 8
+    const int c0 = 2 * (lane & 3);         // query columns c0 + 8 nn (+ 1)
+    const uint32_t k_addr = smem_u32(k_s), v_addr = smem_u32(v_s);
+    float dk_acc[kDP / 2], dv_acc[kDP / 2];
+#pragma unroll
+    for (int i = 0; i < kDP / 2; ++i) dk_acc[i] = dv_acc[i] = 0.f;
+    mbar_wait(&bars[0], 0);
+
+    for (int j = wg; j < n; j += kW) {
+      const int st = j % kS;
+      const int q0 = (qt0 + j % per_head) * 64;
+      mbar_wait(&full[st], (j / kS) & 1);
+      const uint32_t q_addr = smem_u32(q_s + st * kTile);
+      const uint32_t g_addr = smem_u32(g_s + st * kTile);
+      float s[32], dp[32];
+#pragma unroll
+      for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+      // S^T = K.Q^T and dP^T = V.dO^T: keys on M, the tile's queries on N
+      wgmma_fence();
+      gemm_ss<D>(s, k_addr, q_addr);
+      wgmma_commit();
+      gemm_ss<D>(dp, v_addr, g_addr);
+      wgmma_commit();
+      wgmma_wait<1>();
+      fence_regs(s);
+      const float* ls = lse_s + st * 64;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        const float2 l = *reinterpret_cast<const float2*>(ls + 8 * nn + c0);
+        const float lx = l.x * kLog2e, ly = l.y * kLog2e;
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = 4 * nn + 2 * rr;
+          s[i] = fast_exp2(fmaf(s[i], scale_log2, -lx));
+          s[i + 1] = fast_exp2(fmaf(s[i + 1], scale_log2, -ly));
+        }
+      }
+      if (q0 + 64 > Sq || k0 + 64 > Skv || (causal && q0 + off < k0 + 63)) {
+#pragma unroll
+        for (int i = 0; i < 32; ++i) {
+          const int key = k0 + r0 + 8 * ((i >> 1) & 1);
+          const int qr = q0 + 8 * (i >> 2) + c0 + (i & 1);
+          if (qr >= Sq || key >= Skv || (causal && key > qr + off)) s[i] = 0.f;
+        }
+      }
+      wgmma_wait_all();
+      fence_regs(dp);
+      const float* dl = dl_s + st * 64;
+#pragma unroll
+      for (int nn = 0; nn < 8; ++nn) {
+        const float2 e = *reinterpret_cast<const float2*>(dl + 8 * nn + c0);
+#pragma unroll
+        for (int rr = 0; rr < 2; ++rr) {
+          const int i = 4 * nn + 2 * rr;
+          dp[i] = s[i] * (dp[i] - e.x);
+          dp[i + 1] = s[i + 1] * (dp[i + 1] - e.y);
+        }
+      }
+      // dV += P^T.dO, dK += dS^T.Q: the tile's queries are the k dimension
+      wgmma_fence();
+      gemm_rs<kDP>(dv_acc, s, g_addr);
+      gemm_rs<kDP>(dk_acc, dp, q_addr);
+      wgmma_commit();
+      wgmma_wait_all();
+      fence_regs(dv_acc);
+      fence_regs(dk_acc);
+      mbar_arrive(&empty[st]);             // this thread is done with stage st
+    }
+
+    // Once both warpgroups are past their last item the ring is idle (every
+    // load into it has been waited for): warpgroup 0 hands over its dV,
+    // warpgroup 1 its dK, in the fragment's order, and each adds the other's
+    // half to its own and stores it.
+    float* x_s = reinterpret_cast<float*>(q_s);                 // [2][kDP / 2][kWG]
+    float* mine = x_s + wg * (kDP / 2 * kWG);
+    const float* theirs = x_s + (1 - wg) * (kDP / 2 * kWG);
+    asm volatile("bar.sync 1, %0;" ::"n"(kW * kWG) : "memory");   // the compute threads
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < kDP / 2; ++i) mine[i * kWG + tid] = dv_acc[i];
+    } else {
+#pragma unroll
+      for (int i = 0; i < kDP / 2; ++i) mine[i * kWG + tid] = dk_acc[i];
+    }
+    asm volatile("bar.sync 1, %0;" ::"n"(kW * kWG) : "memory");
+    const long long krow = (long long)Hkv * D;
+    const long long at = ((long long)b * Skv + k0) * krow + (long long)hk * D;
+    if (wg == 0) {
+#pragma unroll
+      for (int i = 0; i < kDP / 2; ++i) dk_acc[i] += theirs[i * kWG + tid];
+      store_frag<D, kDP>(dk + at, dk_acc, scale, r0, Skv - k0, krow, lane);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kDP / 2; ++i) dv_acc[i] += theirs[i * kWG + tid];
+      store_frag<D, kDP>(dv + at, dv_acc, 1.f, r0, Skv - k0, krow, lane);
+    }
+  }
+}
+
+// dQ for 64 kW query rows of one query head, over the keys they see.
+template <int D>
+__global__ void __launch_bounds__(kWThreads, 1)
+dq_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
+                const __grid_constant__ CUtensorMap kmap,
+                const __grid_constant__ CUtensorMap vmap,
+                const __grid_constant__ CUtensorMap gmap, const float* __restrict__ lse,
+                const float* __restrict__ delta, __nv_bfloat16* __restrict__ dq, int B, int Sq,
+                int Skv, int Hq, int Hkv, int causal, float scale, float scale_log2) {
+  constexpr int kBoxes = boxes(D);
+  constexpr int kDP = 64 * kBoxes;
+  constexpr int kTile = tile_bytes(D);
+  constexpr int kS = dq_stages(D);
+  // the last query run first: under causal masking it sees every key
+  const int nqt = (Sq + kWRows - 1) / kWRows;
+  const int q0 = (nqt - 1 - (int)(blockIdx.x / (Hq * B))) * kWRows;
+  const int h = blockIdx.x % Hq;
+  const int b = (blockIdx.x / Hq) % B;
+  const int hk = h / (Hq / Hkv);
+  const int off = Skv - Sq;
+  // keys past the causal limit of the run's last row are masked for all of it
+  const int kend = causal ? min(Skv, min(q0 + kWRows, Sq) + off) : Skv;
+  const int n = (kend + 63) / 64;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;                                    // [kW] tiles
+  unsigned char* g_s = q_s + kW * kTile;                        // [kW], dO
+  unsigned char* k_s = g_s + kW * kTile;                        // [kS] ring
+  unsigned char* v_s = k_s + kS * kTile;                        // [kS] ring
+  uint64_t* bars = reinterpret_cast<uint64_t*>(v_s + kS * kTile);   // Q/dO, full, empty
+  uint64_t* full = bars + 1;
+  uint64_t* empty = full + kS;
+  if (threadIdx.x == 0) {
+    mbar_init(&bars[0], 1);
+    for (int s = 0; s < kS; ++s) {
+      mbar_init(&full[s], 1);
+      mbar_init(&empty[s], kW * kWG);
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);   // as in dkdv
+  const int lane = threadIdx.x % 32;
+  if (wg == kW) {
+    // the producer warpgroup: one thread loads, the others leave
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % kWG != 0) return;
+    mbar_expect_tx(&bars[0], 2 * kW * kTile);
+#pragma unroll
+    for (int w = 0; w < kW; ++w)
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(q_s + w * kTile + x * kAtom, &qmap, &bars[0], 64 * x, h, q0 + 64 * w, b);
+        tma_load(g_s + w * kTile + x * kAtom, &gmap, &bars[0], 64 * x, h, q0 + 64 * w, b);
+      }
+    for (int j = 0; j < n; ++j) {
+      const int st = j % kS;
+      if (j >= kS) mbar_wait(&empty[st], (j / kS - 1) & 1);
+      mbar_expect_tx(&full[st], 2 * kTile);
+#pragma unroll
+      for (int x = 0; x < kBoxes; ++x) {
+        tma_load(k_s + st * kTile + x * kAtom, &kmap, &full[st], 64 * x, hk, 64 * j, b);
+        tma_load(v_s + st * kTile + x * kAtom, &vmap, &full[st], 64 * x, hk, 64 * j, b);
+      }
+    }
+  } else {
+    setmaxnreg_inc<kConsumerRegs>();
+    const int warp = (threadIdx.x % kWG) / 32;
+    const int q0w = q0 + 64 * wg;          // this warpgroup's query rows
+    const int r0 = warp * 16 + lane / 4;   // its rows r0 and r0 + 8
+    const int c0 = 2 * (lane & 3);         // its key columns c0 + 8 nn (+ 1)
+    const int kend_w = q0w >= Sq ? 0 : causal ? min(Skv, min(q0w + 64, Sq) + off) : Skv;
+    float lse2[2], dl[2];
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {       // rows past Sq: 0 (their P is masked)
+      const int row = q0w + r0 + 8 * rr;
+      const long long at = ((long long)b * Hq + h) * Sq + row;
+      lse2[rr] = row < Sq ? lse[at] * kLog2e : 0.f;
+      dl[rr] = row < Sq ? delta[at] : 0.f;
+    }
+    const uint32_t q_addr = smem_u32(q_s + wg * kTile);
+    const uint32_t g_addr = smem_u32(g_s + wg * kTile);
+    float dq_acc[kDP / 2];
+#pragma unroll
+    for (int i = 0; i < kDP / 2; ++i) dq_acc[i] = 0.f;
+    mbar_wait(&bars[0], 0);
+
+    for (int j = 0; j < n; ++j) {
+      const int st = j % kS;
+      const int t0 = 64 * j;
+      mbar_wait(&full[st], (j / kS) & 1);
+      if (t0 < kend_w) {
+        const uint32_t k_addr = smem_u32(k_s + st * kTile);
+        const uint32_t v_addr = smem_u32(v_s + st * kTile);
+        float s[32], dp[32];
+#pragma unroll
+        for (int i = 0; i < 32; ++i) s[i] = dp[i] = 0.f;
+        // S = Q.K^T and dP = dO.V^T: query rows on M, the tile's keys on N
+        wgmma_fence();
+        gemm_ss<D>(s, q_addr, k_addr);
+        wgmma_commit();
+        gemm_ss<D>(dp, g_addr, v_addr);
+        wgmma_commit();
+        wgmma_wait<1>();
+        fence_regs(s);
+#pragma unroll
+        for (int i = 0; i < 32; ++i)
+          s[i] = fast_exp2(fmaf(s[i], scale_log2, -lse2[(i >> 1) & 1]));
+        if (t0 + 64 > Skv || q0w + 64 > Sq || (causal && t0 + 63 > q0w + off)) {
+#pragma unroll
+          for (int i = 0; i < 32; ++i) {
+            const int key = t0 + 8 * (i >> 2) + c0 + (i & 1);
+            const int row = q0w + r0 + 8 * ((i >> 1) & 1);
+            if (key >= Skv || row >= Sq || (causal && key > row + off)) s[i] = 0.f;
+          }
+        }
+        wgmma_wait_all();
+        fence_regs(dp);
+#pragma unroll
+        for (int i = 0; i < 32; ++i) dp[i] = s[i] * (dp[i] - dl[(i >> 1) & 1]);
+        // dQ += dS.K: the tile's keys are the k dimension
+        wgmma_fence();
+        gemm_rs<kDP>(dq_acc, dp, k_addr);
+        wgmma_commit();
+        wgmma_wait_all();
+        fence_regs(dq_acc);
+      }
+      mbar_arrive(&empty[st]);
+    }
+
+    if (q0w < Sq) {
+      const long long qrow = (long long)Hq * D;
+      store_frag<D, kDP>(dq + ((long long)b * Sq + q0w) * qrow + (long long)h * D, dq_acc,
+                         scale, r0, Sq - q0w, qrow, lane);
+    }
+  }
+}
+
+template <int D>
+cudaError_t launch_wgmma(const void* q, const void* k, const void* v, const void* dout,
+                         const float* lse, const float* delta, void* dq, void* dk, void* dv,
+                         int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
+                         cudaStream_t stream) {
+  const EncodeTiled enc = encode_tiled();
+  if (!enc) return cudaErrorNotSupported;
+  CUtensorMap qmap, kmap, vmap, gmap;
+  if (!encode_map(enc, &qmap, q, B, Sq, Hq, D) || !encode_map(enc, &gmap, dout, B, Sq, Hq, D) ||
+      !encode_map(enc, &kmap, k, B, Skv, Hkv, D) || !encode_map(enc, &vmap, v, B, Skv, Hkv, D))
+    return cudaErrorInvalidValue;
+  const long long n1 = (long long)((Skv + 63) / 64) * Hkv * B;
+  const long long n2 = (long long)((Sq + kWRows - 1) / kWRows) * Hq * B;
+  if (n1 >= (1ll << 31) || n2 >= (1ll << 31)) return cudaErrorInvalidConfiguration;
+  auto* bq = static_cast<__nv_bfloat16*>(dq);
+  auto* bk = static_cast<__nv_bfloat16*>(dk);
+  auto* bv = static_cast<__nv_bfloat16*>(dv);
+  const float sl2 = scale * kLog2e;
+  cudaError_t e = cudaFuncSetAttribute(dkdv_wgmma_kernel<D>,
+                                       cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                       (int)dkdv_wgmma_smem_bytes(D));
+  if (e != cudaSuccess) return e;
+  dkdv_wgmma_kernel<D><<<(unsigned)n1, kWThreads, dkdv_wgmma_smem_bytes(D), stream>>>(
+      qmap, kmap, vmap, gmap, lse, delta, bk, bv, B, Sq, Skv, Hq, Hkv, causal, scale, sl2);
+  e = cudaGetLastError();
+  if (e != cudaSuccess) return e;
+  e = cudaFuncSetAttribute(dq_wgmma_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                           (int)dq_wgmma_smem_bytes(D));
+  if (e != cudaSuccess) return e;
+  dq_wgmma_kernel<D><<<(unsigned)n2, kWThreads, dq_wgmma_smem_bytes(D), stream>>>(
+      qmap, kmap, vmap, gmap, lse, delta, bq, B, Sq, Skv, Hq, Hkv, causal, scale, sl2);
+  return cudaGetLastError();
+}
+
+// The two tile kernels of the f32 body (CUDA cores) or of the bf16 one at
+// D = 192 (mma.sync).  Both take (q, k, v, dout, lse, delta, out...,
 // Sq, Skv, Hq, Hkv, causal, scale).
 template <typename T, typename DkDv, typename Dq>
 cudaError_t launch_tiles(DkDv dkdv, size_t s1, Dq dqk, size_t s2, const T* q, const T* k,
@@ -753,9 +1252,11 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
   const T* vt = static_cast<const T*>(v);
   const T* gt = static_cast<const T*>(dout);
   const long long rows = (long long)B * Sq * Hq;
-  const unsigned dblocks = (unsigned)((rows + kThreads / 32 - 1) / (kThreads / 32));
-  delta_kernel<T><<<dblocks, kThreads, 0, stream>>>(static_cast<const T*>(o), gt, delta, B,
-                                                      Sq, Hq, D);
+  constexpr int kC = D * (int)sizeof(T) / 16;
+  constexpr int kL = kC <= 2 ? 2 : kC <= 4 ? 4 : kC <= 8 ? 8 : kC <= 16 ? 16 : 32;
+  const unsigned dblocks = (unsigned)((rows + kThreads / kL - 1) / (kThreads / kL));
+  delta_kernel<T, D><<<dblocks, kThreads, 0, stream>>>(static_cast<const T*>(o), gt, delta, B,
+                                                         Sq, Hq);
   cudaError_t e = cudaGetLastError();
   if (e != cudaSuccess) return e;
   T* dqt = static_cast<T*>(dq);
@@ -765,6 +1266,9 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* o,
     return launch_tiles(dkdv_kernel<D>, dkdv_smem_bytes<D>(), dq_kernel<D>,
                         dq_smem_bytes<D>(), qt, kt, vt, gt, lse, delta, dqt, dkt, dvt, B, Sq,
                         Skv, Hq, Hkv, causal, scale, stream);
+  else if constexpr (D <= 128)
+    return launch_wgmma<D>(q, k, v, dout, lse, delta, dq, dk, dv, B, Sq, Skv, Hq, Hkv, causal,
+                           scale, stream);
   else
     return launch_tiles(dkdv_mma_kernel<D>, dkdv_mma_smem_bytes<D>(), dq_mma_kernel<D>,
                         dq_mma_smem_bytes<D>(), qt, kt, vt, gt, lse, delta, dqt, dkt, dvt, B,

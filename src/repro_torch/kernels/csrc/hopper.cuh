@@ -1,8 +1,10 @@
-// hopper.cuh — device helpers shared by the port's Hopper kernels
-// (flash_attention.cu, paged_prefill.cu, decode_attention.cu): 16-byte
-// cp.async with zero fill, the async-proxy fence, and wgmma m64n64k16,
-// m64n128k16 and m64n192k16 (bf16 in, f32 accumulators) over tiles in shared
-// memory under the 128-byte swizzle.
+// hopper.cuh — helpers shared by the port's Hopper kernels
+// (flash_attention.cu, flash_attention_bwd.cu, paged_prefill.cu,
+// decode_attention.cu): 16-byte cp.async with zero fill, the async-proxy
+// fence, mbarriers, TMA loads through 4-D tensor maps and their encoding on
+// the host, setmaxnreg, and wgmma m64n64k16, m64n128k16 and m64n192k16 (bf16
+// in, f32 accumulators) over tiles in shared memory under the 128-byte
+// swizzle.
 //
 // A tile is made of boxes of 64 rows by 64 bf16 columns (128 bytes a row,
 // 8 KB), 1024-byte aligned; 16-byte chunk c of row j sits at chunk
@@ -12,7 +14,9 @@
 
 #pragma once
 
+#include <cuda.h>            // CUtensorMap; cuTensorMapEncodeTiled is fetched at run time
 #include <cuda_bf16.h>
+#include <cuda_runtime.h>
 
 #include <cstdint>
 
@@ -41,6 +45,12 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src) {
 // with 0 it reads nothing and writes 16 zero bytes.
 __device__ __forceinline__ void cp_async16_zfill(void* dst, const void* src, int src_bytes) {
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(src_bytes)
+               : "memory");
+}
+// 4 bytes global -> shared, asynchronous, reading src_bytes (0 or 4) of src.
+__device__ __forceinline__ void cp_async4_zfill(void* dst, const void* src, int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(smem_u32(dst)),
                "l"(src), "r"(src_bytes)
                : "memory");
 }
@@ -74,6 +84,11 @@ __device__ __forceinline__ void wgmma_commit() {
 }
 __device__ __forceinline__ void wgmma_wait_all() {
   asm volatile("wgmma.wait_group.sync.aligned 0;" ::: "memory");
+}
+// waits until at most N committed wgmma groups of this warpgroup are pending
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
 }
 
 // Keeps the compiler from moving reads or writes of accumulator registers
@@ -197,6 +212,116 @@ __device__ __forceinline__ void wgmma_rs(float (&d)[N / 2], const uint32_t (&a)[
   if constexpr (N == 64) wgmma_rs_n64(d, a, b);
   else if constexpr (N == 128) wgmma_rs_n128(d, a, b);
   else wgmma_rs_n192(d, a, b);
+}
+
+// ---------------------------------------------------------------------------
+// mbarriers, TMA and register hand-over
+// ---------------------------------------------------------------------------
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(smem_u32(bar)), "r"(count)
+               : "memory");
+}
+
+// Makes the barriers' initialisation visible to the async proxy (TMA) and to
+// the other threads, before the __syncthreads that follows it.
+__device__ __forceinline__ void mbar_init_fence() {
+  asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+}
+
+// One arrival that also expects `bytes` of TMA transactions.
+__device__ __forceinline__ void mbar_expect_tx(uint64_t* bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(smem_u32(bar)),
+               "r"(bytes)
+               : "memory");
+}
+
+// One arrival; it releases this thread's earlier writes to shared memory to
+// the threads that wait on the barrier's phase.
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(smem_u32(bar)) : "memory");
+}
+
+// One arrival on the barrier, made once every cp.async this thread has
+// issued so far has landed (the arrival is one of those the barrier counts).
+__device__ __forceinline__ void cp_async_mbar_arrive(uint64_t* bar) {
+  asm volatile("cp.async.mbarrier.arrive.noinc.shared::cta.b64 [%0];" ::"r"(smem_u32(bar))
+               : "memory");
+}
+
+// Spins until the barrier has completed the phase of parity `phase`.
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, int phase) {
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "WAIT:\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      "@p bra DONE;\n"
+      "bra WAIT;\n"
+      "DONE:\n}\n" ::"r"(smem_u32(bar)),
+      "r"(phase)
+      : "memory");
+}
+
+// One TMA box of a 4-D tensor map into shared memory, completing on `bar`.
+__device__ __forceinline__ void tma_load(void* dst, const CUtensorMap* map, uint64_t* bar,
+                                         int c0, int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      " [%0], [%1, {%3, %4, %5, %6}], [%2];" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+// Hands registers between warpgroups: every thread of a warpgroup runs the
+// same one, in a branch that the warpgroup never leaves.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+// cuTensorMapEncodeTiled is a driver function; the libraries link no
+// libcuda, so the runtime hands out its address once.
+using EncodeTiled = CUresult (*)(CUtensorMap*, CUtensorMapDataType, cuuint32_t, void*,
+                                 const cuuint64_t*, const cuuint64_t*, const cuuint32_t*,
+                                 const cuuint32_t*, CUtensorMapInterleave, CUtensorMapSwizzle,
+                                 CUtensorMapL2promotion, CUtensorMapFloatOOBfill);
+
+inline EncodeTiled encode_tiled() {
+  static EncodeTiled fn = [] {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+#if CUDART_VERSION >= 12050
+    cudaError_t e = cudaGetDriverEntryPointByVersion("cuTensorMapEncodeTiled", &p, 12000,
+                                                     cudaEnableDefault, &found);
+#else
+    cudaError_t e = cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p, cudaEnableDefault,
+                                            &found);
+#endif
+    return e == cudaSuccess && found == cudaDriverEntryPointSuccess
+               ? reinterpret_cast<EncodeTiled>(p)
+               : nullptr;
+  }();
+  return fn;
+}
+
+// A map over a contiguous bf16 [B, S, H, D] whose box is 64 columns by 1 head
+// by 64 rows by 1 batch row, 128-byte swizzled (one kAtom box); reads past
+// any edge are zeros.
+inline bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B, int S, int H,
+                       int D) {
+  const cuuint64_t dims[4] = {(cuuint64_t)D, (cuuint64_t)H, (cuuint64_t)S, (cuuint64_t)B};
+  const cuuint64_t strides[3] = {2ull * D, 2ull * H * D, 2ull * S * H * D};
+  const cuuint32_t box[4] = {64, 1, 64, 1};
+  const cuuint32_t unit[4] = {1, 1, 1, 1};
+  return enc(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4, const_cast<void*>(ptr), dims, strides,
+             box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+             CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
+             CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 }  // namespace

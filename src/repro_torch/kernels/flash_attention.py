@@ -8,8 +8,9 @@ the offset of a query block at the end of the keys, or full.  The wrappers
 take CUDA tensors only (the CPU goes to the plain version through
 `repro_torch.kernels.ops`), check what the kernels need, allocate the
 outputs and count their launches.  The forward's C function picks the body
-by dtype: bf16 runs on wgmma with TMA loads, float32 on the CUDA cores; the
-backward's bf16 body runs on mma.sync, its float32 one on the CUDA cores.
+by dtype: bf16 runs on wgmma with TMA loads, float32 on the CUDA cores; so
+does the backward's, bf16 on warp-specialised wgmma over a TMA ring (on
+mma.sync at head dim 192), float32 on the CUDA cores.
 `FlashAttentionFn` ties the two together for autograd.
 """
 from __future__ import annotations
@@ -78,10 +79,12 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 def flash_attention_bwd(dout: torch.Tensor, q: torch.Tensor, k: torch.Tensor,
                         v: torch.Tensor, out: torch.Tensor, lse: torch.Tensor, *,
                         causal: bool = True):
-    """The gradient of `flash_attention` (FlashAttention-2's backward): dout
-    and out [B,Sq,Hq,D] like q, lse [B,Hq,Sq] f32 from the forward ->
-    (dq, dk, dv) in q.dtype, each accumulated in f32.  Deterministic: no
-    atomics, a KV head's G query heads summed inside one block."""
+    """The gradient of `flash_attention` (FlashAttention's backward, dQ in
+    a pass of its own): dout and out [B,Sq,Hq,D] like q, lse [B,Hq,Sq] f32
+    from the forward -> (dq, dk, dv) in q.dtype, each accumulated in f32.
+    Deterministic: no atomics, a KV head's G query heads summed inside one
+    block.  The bf16 body's TMA maps over q, dout, k and v are encoded for
+    each call, inside the C function."""
     _check(q, k, v, causal)
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]

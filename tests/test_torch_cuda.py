@@ -878,6 +878,16 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 100, 260, 6, 2, 32, True),               # a query block at the end of the keys
     (2, 256, 256, 15, 5, 64, True),              # smollm's heads
     (1, 64, 64, 32, 4, 128, True),               # qwen3-moe's heads, one tile
+    # lengths ending part-way through a 128-row run of the wgmma body, G = 1, 3, 8
+    (1, 150, 150, 1, 1, 16, True),
+    (1, 200, 200, 3, 1, 64, True),
+    (1, 300, 300, 8, 1, 128, True),
+    (1, 150, 300, 8, 1, 64, True),               # Sq < Skv, causal
+    (1, 100, 300, 3, 1, 128, True),
+    (1, 200, 300, 3, 1, 192, True),
+    (1, 150, 200, 1, 1, 128, False),             # full, Sq < Skv
+    (2, 200, 150, 6, 2, 192, False),             # full, Sq > Skv
+    (2, 300, 300, 8, 1, 16, False),
 ])
 def test_flash_attention_backward_matches_autograd_through_plain(cuda, b, sq, skv, hq, hkv,
                                                                  d, causal, dtype):
@@ -902,12 +912,17 @@ def test_flash_attention_backward_matches_autograd_through_plain(cuda, b, sq, sk
         assert (got.float() - exp).abs().max().item() <= bound
 
 
-def test_flash_attention_backward_is_deterministic(cuda):
+@pytest.mark.parametrize("s,hq,hkv,d", [
+    (200, 15, 5, 64),
+    (1000, 15, 5, 64),           # smollm's heads: the ring wraps, the last run ends mid-way
+    (300, 8, 2, 192),            # head dim 192, on the body that serves it
+])
+def test_flash_attention_backward_is_deterministic(cuda, s, hq, hkv, d):
     g = torch.Generator(device=cuda).manual_seed(3)
     from repro_torch.kernels.flash_attention import flash_attention, flash_attention_bwd
-    q, dout = (torch.randn(2, 200, 15, 64, generator=g, device=cuda).to(torch.bfloat16)
+    q, dout = (torch.randn(2, s, hq, d, generator=g, device=cuda).to(torch.bfloat16)
                for _ in range(2))
-    k, v = (torch.randn(2, 200, 5, 64, generator=g, device=cuda).to(torch.bfloat16)
+    k, v = (torch.randn(2, s, hkv, d, generator=g, device=cuda).to(torch.bfloat16)
             for _ in range(2))
     out, lse = flash_attention(q, k, v, causal=True, with_lse=True)
     a = flash_attention_bwd(dout, q, k, v, out, lse, causal=True)
