@@ -25,7 +25,12 @@ Phases, each printing one JSON line with its seconds:
                at smollm-360m's and qwen3-moe's training shapes (the
                profile must name its wgmma kernels), and the forward with
                and without its LSE in turns, beside its bound and SDPA's
-               forward.
+               forward.  ``ssd_scan_bwd`` against autograd through the
+               plain version (both dtypes, ragged S, two groups, h0 and
+               dh_final, mamba2's and Hymba's heads; a repeated call
+               bit-identical), timed at mamba2-780m's and hymba-1.5b's
+               training shapes, and the SSD forward with and without its
+               chunk states in turns.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
                trace that chunks its prompts and preempts; once plain (both
@@ -104,15 +109,23 @@ Phases, each printing one JSON line with its seconds:
                dim 192) and `run()` (flash and decode at 192), launches
                exact; then the card against the CPU in fp32 at nemotron's
                attention widths with the MLP and vocabulary cut.
-15. ``train``  training through the flash forward and backward kernels:
-               (a) reduced smollm-360m and qwen3-moe-30b-a3b, 4 layers,
-               fp32, card = CPU (loss, every gradient leaf, three steps
-               with grad_accum 1 and 2); (b) smollm-360m at full width and
-               depth, bf16, remat, batch 8 x 2048, 20 steps: the loss
-               falls by more than 0.1, launches exact, a checkpoint at
+15. ``train``  training through the flash and SSD forward and backward
+               kernels: (a) reduced smollm-360m, qwen3-moe-30b-a3b,
+               mamba2-780m and hymba-1.5b, 4 layers, fp32, card = CPU
+               (loss, every gradient leaf, three steps with grad_accum 1
+               and 2, launches exact per family); (b) smollm-360m at full
+               width and depth, bf16, remat, batch 8 x 2048, 20 steps: the
+               loss falls by more than 0.1, launches exact, a checkpoint at
                step 10 restored bit for bit and run on beside the
                uninterrupted run; (c) qwen3-moe-30b-a3b at full width, 4
-               layers, bf16, batch 4 x 1024, 5 steps.
+               layers, bf16, batch 4 x 1024, 5 steps; (d) mamba2-780m at
+               full width and depth (780,148,992 parameters), bf16, remat,
+               batch 8 x 2048, 10 steps, the loss falling by more than 0.1,
+               a checkpoint at step 5 restored and run on; (e) hymba-1.5b
+               at full width and depth (1,641,179,520 parameters), bf16,
+               remat, batch 4 x 2048, 5 steps.  ``--profile`` writes one
+               profiled step of each into <model>_profile.txt
+               (``train_profile.txt`` for smollm).
 
 Each phase's line carries the peak device memory it allocated; the models
 of a phase are freed before the next begins.
@@ -191,10 +204,11 @@ def device_ms(fn, iters: int = 50, warmup: int = 5):
     """Mean device time of one call: the kernels' own time under
     torch.profiler, without the gaps where the device waits for the host
     (which `cuda_ms` counts when a call's host work outlasts its kernels).
-    Returns (ms, the names of the device kernels the calls ran).  A
-    profile that recorded no device kernel at all (CUPTI has returned an
-    empty one mid-phase on this card) is taken again, up to PROFILE_TRIES
-    times; if none records one, the script fails."""
+    Returns (ms, {name: mean device ms per call} of the device kernels the
+    calls ran, by name).  A profile that recorded no device kernel at all
+    (CUPTI has returned an empty one mid-phase on this card) is taken
+    again, up to PROFILE_TRIES times; if none records one, the script
+    fails."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
@@ -210,8 +224,10 @@ def device_ms(fn, iters: int = 50, warmup: int = 5):
         ran = [e for e in prof.key_averages()
                if e.device_type == DeviceType.CUDA and e.self_device_time_total > 0]
         if ran:
-            return (sum(e.self_device_time_total for e in ran) / 1e3 / iters,
-                    sorted({e.key for e in ran}))
+            by = {}
+            for e in ran:
+                by[e.key] = by.get(e.key, 0.0) + e.self_device_time_total / 1e3 / iters
+            return sum(by.values()), dict(sorted(by.items()))
     raise SmokeFailure(f"the profiler recorded no device kernel in {PROFILE_TRIES} tries")
 
 
@@ -687,6 +703,7 @@ def phase_kernels(state: dict) -> dict:
     flash_case("d128_prefill", 1, 512, 512, 32, 4, 128, torch.bfloat16,
                time_it="flash_attention d128")
     flash_backward_cases(g, rows, checks)
+    ssd_backward_cases(g, rows, checks)
     state["kernel_rows"] = rows
     return {"checks": checks, "timed": rows}
 
@@ -845,6 +862,145 @@ def paged_inputs(g, lengths, hkv: int, d: int, dtype, layers: int = 24, bs: int 
 
 
 SSD_TOL = {"float32": 2e-4, "bfloat16": 2e-2}   # tests/test_kernels.py SSD band
+
+
+def ssd_bwd_flops(b: int, s: int, nh: int, hd: int, ng: int, n: int, q: int) -> float:
+    """Operations the chunked SSD's gradient needs: per chunk of m rows,
+    C.B^T over the m(m+1)/2 causal pairs once per group; per head dy.x^T,
+    the decayed scores' product with dy (dx), G.B (dC) and G^T.C (dB) over
+    those pairs, and four products of m * hd * N with the chunk's states
+    (B.dh_out^T, x.dh_out, dy.h_in and the reverse state pass's dy^T.C)."""
+    total = 0.0
+    for t0 in range(0, s, q):
+        m = min(q, s - t0)
+        pairs = m * (m + 1) / 2
+        total += b * (ng * 2 * pairs * n + nh * (4 * pairs * hd + 4 * pairs * n
+                                                 + 8 * m * hd * n))
+    return total
+
+
+def ssd_bwd_bytes(b: int, s: int, nh: int, hd: int, ng: int, n: int, es: int,
+                  h0: bool = False, dh_final: bool = False) -> int:
+    """Bytes the SSD's gradient must move, each of its operands read once
+    and each result written once: x, dy and dx, B, C, dB and dC in the
+    input type (`es` bytes); dt, ddt, a and da in f32; h0, dh0 and
+    dh_final where given.  The chunk states the backward reads are not
+    counted: they are intermediates a design may keep or recompute."""
+    states = b * nh * hd * n
+    return (es * (3 * b * s * nh * hd + 4 * b * s * ng * n)
+            + 4 * (2 * b * s * nh + 2 * nh + (2 * h0 + dh_final) * states))
+
+
+def ssd_backward_cases(g, rows: dict, checks: list) -> None:
+    """`ssd_scan_bwd` against autograd through the plain version on the
+    card, both dtypes: ragged S, two groups, h0 and dh_final given or not,
+    mamba2-780m's and hymba-1.5b's heads; a repeated call bit-identical.
+    Timed at mamba2-780m's training shape [8,2048,48,64] (N 128) and
+    hymba-1.5b's [4,2176,50,64] (N 16; 2,048 tokens and 128 meta tokens),
+    both bf16, Q 128, no h0 and no dh_final as the losses call it; and, at
+    mamba2's, the forward with and without its chunk states in turns.
+    At the timed shapes the plain version is `ssd_scan_bwd_ref` in f32
+    (held to that autograd and to JAX's in tests/test_torch_ssd_grad.py):
+    autograd's backward through the plain scan there asks for a 24 GiB
+    intermediate [B, nc, nh, Q, Q, hd] on top of its graph."""
+    import torch
+    import torch.nn.functional as F
+
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    dev = g.device
+
+    def case(name, b, s, nh, hd, ng, n, q, dtype, with_h0=False, with_dhf=False,
+             time_it=None):
+        tname = str(dtype).replace("torch.", "")
+        # the forward cases' scales (ssd_case)
+        x = (0.5 * torch.randn(b, s, nh, hd, generator=g, device=dev)).to(dtype)
+        dt = F.softplus(torch.randn(b, s, nh, generator=g, device=dev))
+        a_neg = -torch.exp(0.3 * torch.randn(nh, generator=g, device=dev))
+        bm = (0.25 * torch.randn(b, s, ng, n, generator=g, device=dev)).to(dtype)
+        cm = (0.25 * torch.randn(b, s, ng, n, generator=g, device=dev)).to(dtype)
+        h0 = (0.1 * torch.randn(b, nh, hd, n, generator=g, device=dev)) if with_h0 else None
+        dy = torch.randn(b, s, nh, hd, generator=g, device=dev).to(dtype)
+        dhf = torch.randn(b, nh, hd, n, generator=g, device=dev) if with_dhf else None
+        _, hf, states = ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q, with_states=True)
+        grads = ssd_scan_bwd(dy, dhf, x, dt, a_neg, bm, cm, h0, states, hf, chunk=q)
+        again = ssd_scan_bwd(dy, dhf, x, dt, a_neg, bm, cm, h0, states, hf, chunk=q)
+        check(all(torch.equal(p, r) for p, r in zip(grads, again) if p is not None),
+              f"ssd_scan_bwd {name} {tname}: two calls differ")
+        # the plain version in f32 on the same values: under autograd, or
+        # written out where autograd's backward does not fit the card
+        ins = [t.float().requires_grad_(not time_it) for t in (x, dt, a_neg, bm, cm)]
+        h0g = None if h0 is None else h0.clone().requires_grad_(not time_it)
+        dy32 = dy.float()
+
+        def plain():
+            if time_it:
+                return ref.ssd_scan_bwd_ref(dy32, dhf, *ins, h0=h0g, chunk=q)
+            y, hfin = ref.ssd_scan_ref(*ins, h0=h0g, chunk=q)
+            outs, cots = [y], [dy32]
+            if dhf is not None:
+                outs.append(hfin)
+                cots.append(dhf)
+            return torch.autograd.grad(outs, ins + ([h0g] if h0g is not None else []), cots)
+
+        exp = plain()
+        errs = {}
+        for gname, mine, want in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), grads, exp):
+            if mine is None:
+                continue
+            scale = max(1.0, want.abs().max().item())
+            err = (mine.float() - want).abs().max().item()
+            errs[gname] = err / scale
+            checks.append({"case": f"ssd_scan_bwd {name} {gname}", "dtype": tname,
+                           "max_abs_err": err, "tol": SSD_TOL[tname] * scale})
+            check(err <= SSD_TOL[tname] * scale, f"ssd_scan_bwd {name} {tname} {gname}: "
+                  f"max |err| {err} > {SSD_TOL[tname]} * {scale}")
+        del exp
+        if not time_it:
+            return
+        es = x.element_size()
+        nbytes = ssd_bwd_bytes(b, s, nh, hd, ng, n, es, h0 is not None, dhf is not None)
+        flops = ssd_bwd_flops(b, s, nh, hd, ng, n, q)
+        bms, by = bound_ms(nbytes, flops, tname)
+
+        def mine():
+            return ssd_scan_bwd(dy, dhf, x, dt, a_neg, bm, cm, h0, states, hf, chunk=q)
+
+        dms, names = device_ms(mine, iters=5, warmup=1)
+        check(any("ssd_bwd_chunk_kernel" in k for k in names), f"the backward ran {names}")
+        rows[time_it] = {
+            "ms": cuda_ms(mine, iters=5, warmup=1),
+            "plain_ms": cuda_ms(plain, iters=2, warmup=1),
+            # no one PyTorch call computes the SSD scan or its gradient
+            "library_ms": None, "device_ms": dms, "device_kernels": names,
+            "library_device_ms": None, "bound_ms": bms, "bound_by": by,
+            "max_abs_err": max(errs.values()), "max_rel_err": errs, "flops": flops,
+            "bytes": nbytes,
+            "shape": f"x[{b},{s},{nh},{hd}] B/C[{b},{s},{ng},{n}] {tname} chunk {q}, "
+                     "no h0, no dh_final; plain: ssd_scan_bwd_ref in f32"}
+        if time_it == "ssd_scan_bwd":
+            # the serving launch (no states) and the training one, in turns
+            turns = []
+            for with_states in (False, True, True, False):
+                turns.append({"with_states": with_states, "device_ms": device_ms(
+                    lambda: ssd_scan(x, dt, a_neg, bm, cm, h0, chunk=q,
+                                     with_states=with_states), iters=10, warmup=2)[0]})
+            rows[time_it]["forward_turns"] = turns
+            # the forward with its states: x, B, C, dt and a read once; y,
+            # h_final and the states written once
+            fbytes = (es * (2 * x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + nh)
+                      + 4 * (hf.numel() + states.numel()))
+            fbms, fby = bound_ms(fbytes, ssd_flops(b, s, nh, hd, ng, n, q), tname)
+            rows[time_it]["forward"] = {"bound_ms": fbms, "bound_by": fby, "bytes": fbytes}
+
+    for dtype in (torch.float32, torch.bfloat16):
+        case("ragged_s200_g2", 2, 200, 6, 16, 2, 16, 64, dtype, with_h0=True, with_dhf=True)
+        case("s50_q16", 2, 50, 4, 8, 2, 8, 16, dtype, with_dhf=True)
+        case("mamba2_heads", 2, 300, 48, 64, 1, 128, 128, dtype, with_dhf=True)
+        case("hymba_heads", 1, 300, 50, 64, 1, 16, 128, dtype, with_h0=True)
+    case("mamba2_train", 8, 2048, 48, 64, 1, 128, 128, torch.bfloat16, time_it="ssd_scan_bwd")
+    case("hymba_train", 4, 2176, 50, 64, 1, 16, 128, torch.bfloat16,
+         time_it="ssd_scan_bwd hymba")
 
 
 def ssd_flops(b: int, s: int, nh: int, hd: int, ng: int, n: int, q: int) -> float:
@@ -2678,6 +2834,11 @@ def phase_wide_heads(state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 TRAIN_LR = 1e-3              # launch/train.py's default
+# parameters of the reference's init at full width and depth (its analytic
+# ArchConfig.param_count() leaves some per-layer vectors out: 779,911,680
+# and 1,640,868,096)
+MAMBA2_PARAMS = 780_148_992
+HYMBA_PARAMS = 1_641_179_520
 TRAIN_GRAD_TOL = 1e-4        # a gradient leaf, relative to max(1, max|g_cpu|)
 
 
@@ -2695,14 +2856,15 @@ def train_exact(name: str, layers: int = 4) -> dict:
     """Reduced `name` at fp32 and `layers` layers, one set of weights on the
     card and on the CPU, one synthetic batch: the loss and every gradient
     leaf agree (the card's attention through the flash forward and
-    backward kernels); then three train steps with grad_accum 1 and 2, the
-    losses within 1e-4 relative and the parameters within 2 lr (a sign of
-    a near-zero gradient may flip between devices and move a parameter by
-    up to 2 lr in AdamW's first steps).  Launches exact on the card."""
+    backward kernels, its SSD scan through the scan and its backward);
+    then three train steps with grad_accum 1 and 2, the losses within 1e-4
+    relative and the parameters within 2 lr (a sign of a near-zero
+    gradient may flip between devices and move a parameter by up to 2 lr
+    in AdamW's first steps).  Launches exact on the card."""
     import torch
 
     from repro_torch.configs import get_arch
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES, TRAIN_KERNELS, reset_launches, train_launches
     from repro_torch.models import build_model
     from repro_torch.training import SyntheticDataPipeline, TrainConfig, adamw_init, make_train_step
     from repro_torch.training.optimizer import tree_leaves
@@ -2718,7 +2880,7 @@ def train_exact(name: str, layers: int = 4) -> dict:
         loss, grads = value_and_grad(model, params, batch_to(data.batch_at(0), dev))
         torch.cuda.synchronize()
         runs = {"loss": loss.item(), "grads": [g.cpu() for g in grads],
-                "launches": {k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}}
+                "launches": {k: LAUNCHES[k] for k in TRAIN_KERNELS}}
         for accum in (1, 2):
             step = make_train_step(model, TrainConfig(lr=TRAIN_LR, grad_accum=accum))
             p, o, losses = params, adamw_init(params), []
@@ -2727,17 +2889,16 @@ def train_exact(name: str, layers: int = 4) -> dict:
                 losses.append(m["loss"].item())
             runs[f"accum{accum}"] = {"losses": losses,
                                      "params": [t.cpu() for t in tree_leaves(p)]}
-        runs["launches_all"] = {k: LAUNCHES[k] for k in ("flash_attention",
-                                                         "flash_attention_bwd")}
+        runs["launches_all"] = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
         res[dev] = runs
     card, cpu = res["cuda"], res["cpu"]
     check(not any(cpu["launches_all"].values()), "a kernel launched on the CPU run")
-    # one loss: a launch per layer each way; then 3 steps of 1 and 3 of 2 micro
-    want = layers * (1 + 3 + 6)
-    check(card["launches"] == {"flash_attention": layers, "flash_attention_bwd": layers},
-          f"{name}: loss launches {card['launches']}")
-    check(card["launches_all"] == {"flash_attention": want, "flash_attention_bwd": want},
-          f"{name}: launches {card['launches_all']}, want {want} each")
+    # one loss; then 3 steps of 1 and 3 of 2 microbatches
+    check(card["launches"] == train_launches(cfg, 1), f"{name}: loss launches "
+          f"{card['launches']}, want {train_launches(cfg, 1)}")
+    want = train_launches(cfg, 1 + 3 + 6)
+    check(card["launches_all"] == want, f"{name}: launches {card['launches_all']}, "
+          f"want {want}")
     rel = abs(card["loss"] - cpu["loss"]) / abs(cpu["loss"])
     check(rel <= 1e-5, f"{name}: card loss {card['loss']} vs CPU {cpu['loss']}")
     worst = max((a - b).abs().max().item() / max(1.0, b.abs().max().item())
@@ -2798,126 +2959,156 @@ def equal_trees(a, b) -> bool:
                for x, y in zip(tree_leaves(a), tree_leaves(b)))
 
 
-def profile_train(model, params, opt, data, out_dir: Path) -> dict:
-    """Device time by kernel over one train step of `train` (b), after its
-    20 steps (batch 20 of the pipeline).  The table goes to
-    `out_dir`/train_profile.txt."""
+def profile_train(model, params, opt, data, at: int, table: Path) -> dict:
+    """Device time by kernel over one train step on batch `at` of the
+    pipeline (after a run of `at` steps), into `table`."""
     from repro_torch.training import TrainConfig, make_train_step
     from repro_torch.training.train import batch_to
     step = make_train_step(model, TrainConfig(lr=TRAIN_LR))
-    batch = batch_to(data.batch_at(20), "cuda")
+    batch = batch_to(data.batch_at(at), "cuda")
 
     def window():
         step(params, opt, batch)
         return 1
 
-    return _profile(window, out_dir / "train_profile.txt",
+    return _profile(window, table,
                     {"flash_attention_bwd": ("dkdv_", "dq_wgmma", "dq_mma", "dq_kernel",
                                              "delta_kernel"),
                      "flash_attention": ("flash_wgmma", "flash_kernel"),
+                     "ssd_scan_bwd": ("ssd_bwd_",),
+                     "ssd_scan": ("ssd_mma_kernel", "ssd_kernel"),
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")})
 
 
-def phase_train(state: dict) -> dict:
-    """(a) train_exact on reduced smollm-360m and qwen3-moe-30b-a3b; (b)
-    smollm-360m at its published width and depth (d 960, 32 layers, 15:5
-    heads of 64, vocab 49,152), bf16, remat, batch 8 x 2048, 20 steps on
-    the synthetic pipeline: the loss falls by more than 0.1, launches
-    exact, a checkpoint at step 10 restored bit for bit into fresh tensors
-    and run on to step 20 beside the uninterrupted run; (c) qwen3-moe at
-    full width with 4 of its 48 layers, bf16, remat, batch 4 x 1024, 5
-    steps (capacity-bounded dispatch and the aux loss)."""
+def train_full(state: dict, cfg, key: str, batch: int, seq: int, steps: int,
+               save_at=None, n_params=None, fall=None) -> dict:
+    """`cfg` (bf16) trained `steps` steps from seeded weights with remat on
+    the card, batch x seq of the synthetic pipeline: the losses and
+    gradient norms finite, launches exact (remat runs each forward kernel
+    twice), the parameter count `n_params` where given, and the loss
+    falling by more than `fall` where given.  With `save_at`, a checkpoint
+    after that step is restored bit for bit into fresh tensors and run on
+    to `steps` beside the uninterrupted run.  Step 1 builds and warms up,
+    so the step times are steps 2 on.  `--profile` adds one profiled step
+    after the run, into <out>/<key>_profile.txt."""
     import shutil
 
     import torch
 
-    from repro_torch.configs import get_arch
-    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.kernels import LAUNCHES, TRAIN_KERNELS, reset_launches, train_launches
     from repro_torch.models import build_model
     from repro_torch.training import SyntheticDataPipeline, adamw_init, restore_checkpoint
     from repro_torch.training.optimizer import tree_leaves, tree_map
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    out = {"exact": {n: train_exact(n) for n in ("smollm-360m", "qwen3-moe-30b-a3b")}}
-
-    # (b) smollm-360m at full width and depth
-    cfg = dataclasses.replace(get_arch("smollm-360m"), dtype="bfloat16")
     model = build_model(cfg, device="cuda", remat=True)
     params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    data = SyntheticDataPipeline(cfg.vocab_size, 2048, 8, seed=0)
-    ckpt = state["out"] / "train_ckpt"
+    count = sum(p.numel() for p in tree_leaves(params))
+    check(n_params is None or count == n_params, f"{key}: {count} parameters, not {n_params}")
+    data = SyntheticDataPipeline(cfg.vocab_size, seq, batch, seed=0)
+    ckpt = state["out"] / f"{key}_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    steps = 20
-    _, _, run, (p10, o10) = train_run(model, params, data, steps, ckpt=ckpt, save_at=10)
-    launches = {k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
+    p_end, o_end, run, saved = train_run(model, params, data, steps, ckpt=ckpt,
+                                         save_at=save_at)
+    launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2**30
-    want = {"flash_attention": 2 * cfg.num_layers * steps,      # remat: forward twice
-            "flash_attention_bwd": cfg.num_layers * steps}
-    check(launches == want, f"smollm launches {launches}, want {want}")
+    want = train_launches(cfg, steps, remat=True)
+    check(launches == want, f"{key} launches {launches}, want {want}")
     losses = run["losses"]
     check(all(map(lambda x: x == x and abs(x) < float("inf"), losses + run["grad_norms"])),
-          "a non-finite loss or gradient norm")
-    check(losses[0] - losses[-1] > 0.1, f"loss {losses[0]} -> {losses[-1]}: fell by <= 0.1")
-    ms = sorted(run["step_ms"][1:])                # step 1 builds and warms up
+          f"{key}: a non-finite loss or gradient norm")
+    check(fall is None or losses[0] - losses[-1] > fall,
+          f"{key}: loss {losses[0]} -> {losses[-1]}: fell by <= {fall}")
+    ms = sorted(run["step_ms"][1:])
     med = statistics.median(ms)
-    state["launches"]["flash_attention_bwd"] = launches["flash_attention_bwd"]
-    # the checkpoint: restore into fresh tensors, equal bit for bit, run on
-    template = {"params": tree_map(torch.zeros_like, params), "opt": adamw_init(params)}
-    restored, at = restore_checkpoint(str(ckpt), template)
-    check(at == 10, f"latest checkpoint at step {at}, not 10")
-    check(equal_trees(restored["params"], p10) and equal_trees(restored["opt"].m, o10.m)
-          and equal_trees(restored["opt"].v, o10.v)
-          and int(restored["opt"].step) == int(o10.step) == 10,
-          "the restored step-10 state differs from the saved one")
-    del p10, o10
-    p_end, o_end, resumed, _ = train_run(model, (restored["params"], restored["opt"]), data,
-                                         10, start=10)
-    diffs = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[10:])]
-    check(max(diffs) <= 1e-2, f"resumed losses {resumed['losses']} vs {losses[10:]}")
+    quart = statistics.quantiles(ms, n=4) if len(ms) > 1 else [ms[0]] * 3
+    out = {"params": count, "loss_first": losses[0], "loss_last": losses[-1],
+           "losses": losses, "grad_norms": run["grad_norms"],
+           "step_ms_median": med, "step_ms_min": ms[0], "step_ms_max": ms[-1],
+           "step_ms_iqr": quart[2] - quart[0], "tokens_per_s": batch * seq / (med / 1e3),
+           "peak_mem_gib": peak, "launches": launches}
+    if save_at is not None:
+        p_s, o_s = saved
+        template = {"params": tree_map(torch.zeros_like, params), "opt": adamw_init(params)}
+        restored, at = restore_checkpoint(str(ckpt), template)
+        check(at == save_at, f"{key}: latest checkpoint at step {at}, not {save_at}")
+        check(equal_trees(restored["params"], p_s) and equal_trees(restored["opt"].m, o_s.m)
+              and equal_trees(restored["opt"].v, o_s.v)
+              and int(restored["opt"].step) == int(o_s.step) == save_at,
+              f"{key}: the restored step-{save_at} state differs from the saved one")
+        del p_s, o_s, saved
+        p_end, o_end, resumed, _ = train_run(model, (restored["params"], restored["opt"]),
+                                             data, steps - save_at, start=save_at)
+        diffs = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[save_at:])]
+        check(max(diffs) <= 1e-2, f"{key}: resumed losses {resumed['losses']} vs "
+              f"{losses[save_at:]}")
+        out["checkpoint"] = {
+            "restored_bit_exact": True, "resumed_losses": resumed["losses"],
+            "max_rel_diff_vs_uninterrupted": max(diffs),
+            "bit_identical_to_uninterrupted": resumed["losses"] == losses[save_at:],
+            "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
+        del restored, template
     shutil.rmtree(ckpt, ignore_errors=True)
+    if state.get("profile"):
+        out["profile"] = profile_train(model, p_end, o_end, data, steps,
+                                       state["out"] / f"{key}_profile.txt")
+    return out
+
+
+def phase_train(state: dict) -> dict:
+    """(a) train_exact on reduced smollm-360m, qwen3-moe-30b-a3b,
+    mamba2-780m and hymba-1.5b; (b) smollm-360m at its published width and
+    depth (d 960, 32 layers, 15:5 heads of 64, vocab 49,152), bf16, remat,
+    batch 8 x 2048, 20 steps on the synthetic pipeline: the loss falls by
+    more than 0.1, launches exact, a checkpoint at step 10 restored bit for
+    bit into fresh tensors and run on to step 20 beside the uninterrupted
+    run; (c) qwen3-moe at full width with 4 of its 48 layers, bf16, remat,
+    batch 4 x 1024, 5 steps (capacity-bounded dispatch and the aux loss);
+    (d) mamba2-780m at its published width and depth (48 layers, d 1536, 48
+    SSD heads of 64, N 128, vocab 50,280), bf16, remat, batch 8 x 2048, 10
+    steps, checkpoint at step 5; (e) hymba-1.5b at full width and depth (32
+    layers, d 1600, 25:5 attention heads and 50 SSD heads of 64, N 16, 128
+    meta tokens), bf16, remat, batch 4 x 2048, 5 steps."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    out = {"exact": {n: train_exact(n) for n in ("smollm-360m", "qwen3-moe-30b-a3b",
+                                                 "mamba2-780m", "hymba-1.5b")}}
+
+    def bf16(name, **kw):
+        return dataclasses.replace(get_arch(name), dtype="bfloat16", **kw)
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
     out["smollm_full"] = {
         "config": "smollm-360m, 32 layers, d 960, 15:5 heads of 64, vocab 49,152, bf16, "
-                  "remat, batch 8 x 2048, lr 1e-3", "params": n_params,
-        "loss_first": losses[0], "loss_last": losses[-1], "losses": losses,
-        "grad_norm_last": run["grad_norms"][-1],
-        "step_ms_median": med, "step_ms_min": ms[0], "step_ms_max": ms[-1],
-        "step_ms_iqr": statistics.quantiles(ms, n=4)[2] - statistics.quantiles(ms, n=4)[0],
-        "tokens_per_s": 8 * 2048 / (med / 1e3), "peak_mem_gib": peak, "launches": launches,
-        "checkpoint": {"restored_bit_exact": True, "resumed_losses": resumed["losses"],
-                       "max_rel_diff_vs_uninterrupted": max(diffs),
-                       "bit_identical_to_uninterrupted": resumed["losses"] == losses[10:],
-                       "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}}
-    if state.get("profile"):
-        out["smollm_full"]["profile"] = profile_train(model, p_end, o_end, data, state["out"])
-    del model, params, restored, template, p_end, o_end
-    gc.collect()
-    torch.cuda.empty_cache()
-
-    # (c) qwen3-moe-30b-a3b at full width, 4 layers
-    cfg = dataclasses.replace(get_arch("qwen3-moe-30b-a3b"), num_layers=4, dtype="bfloat16")
-    model = build_model(cfg, device="cuda", remat=True)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    n_params = sum(p.numel() for p in tree_leaves(params))
-    data = SyntheticDataPipeline(cfg.vocab_size, 1024, 4, seed=0)
-    torch.cuda.reset_peak_memory_stats()
-    reset_launches()
-    steps = 5
-    _, _, run, _ = train_run(model, params, data, steps)
-    launches = {k: LAUNCHES[k] for k in ("flash_attention", "flash_attention_bwd")}
-    want = {"flash_attention": 2 * cfg.num_layers * steps,
-            "flash_attention_bwd": cfg.num_layers * steps}
-    check(launches == want, f"qwen3-moe launches {launches}, want {want}")
-    check(all(map(lambda x: x == x and abs(x) < float("inf"),
-                  run["losses"] + run["grad_norms"])), "a non-finite moe loss or norm")
+                  "remat, batch 8 x 2048, lr 1e-3",
+        **train_full(state, bf16("smollm-360m"), "train", 8, 2048, 20, save_at=10, fall=0.1)}
+    state["launches"]["flash_attention_bwd"] = out["smollm_full"]["launches"][
+        "flash_attention_bwd"]
+    free()
     out["moe_full"] = {
         "config": "qwen3-moe-30b-a3b, 4 of 48 layers, d 2048, 32:4 heads of 128, 128 "
                   "experts top-8 of d_ff 768, bf16, remat, batch 4 x 1024, lr 1e-3",
-        "params": n_params, "losses": run["losses"], "grad_norms": run["grad_norms"],
-        "step_ms": run["step_ms"], "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30,
-        "launches": launches}
+        **train_full(state, bf16("qwen3-moe-30b-a3b", num_layers=4), "moe_train", 4, 1024,
+                     5)}
+    free()
+    out["mamba2_full"] = {
+        "config": "mamba2-780m, 48 layers, d 1536, 48 SSD heads of 64, N 128, vocab 50,280, "
+                  "bf16, remat, batch 8 x 2048, lr 1e-3",
+        **train_full(state, bf16("mamba2-780m"), "mamba2_train", 8, 2048, 10, save_at=5,
+                     n_params=MAMBA2_PARAMS, fall=0.1)}
+    state["launches"]["ssd_scan_bwd"] = out["mamba2_full"]["launches"]["ssd_scan_bwd"]
+    free()
+    out["hymba_full"] = {
+        "config": "hymba-1.5b, 32 layers, d 1600, 25:5 attention heads and 50 SSD heads of "
+                  "64, N 16, 128 meta tokens, bf16, remat, batch 4 x 2048, lr 1e-3",
+        **train_full(state, bf16("hymba-1.5b"), "hymba_train", 4, 2048, 5,
+                     n_params=HYMBA_PARAMS)}
     return out
 
 
@@ -2951,6 +3142,10 @@ KERNEL_META = {
     # no TPU counterpart: the reference differentiates XLA's attention
     "flash_attention_bwd": ("src/repro_torch/kernels/csrc/flash_attention_bwd.cu",
                             "src/repro/kernels/flash_attention.py:60 (its backward)"),
+    # no TPU counterpart: the reference differentiates XLA's ssd_chunked
+    "ssd_scan_bwd": ("src/repro_torch/kernels/csrc/ssd_scan_bwd.cu",
+                     "src/repro/kernels/ssd_scan.py:65 (its backward; the reference "
+                     "differentiates ssd_chunked, src/repro/models/ssm.py:97)"),
 }
 
 
@@ -2960,7 +3155,7 @@ def main() -> int:
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
                     help="after the serve, mb_serve, ssm_serve and train phases, profile "
-                         "a short window of each")
+                         "a short window of each (one step of each train run)")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for the build log and the profile table")
     args = ap.parse_args()

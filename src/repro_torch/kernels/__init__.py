@@ -11,8 +11,25 @@ from typing import Dict
 
 KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack", "decode_attention",
            "flash_attention", "kv_unpack", "ssd_scan", "paged_decode_attention",
-           "paged_prefill_attention", "flash_attention_bwd")
+           "paged_prefill_attention", "flash_attention_bwd", "ssd_scan_bwd")
 LAUNCHES: Dict[str, int] = {name: 0 for name in KERNELS}
+
+
+# the kernels a training step launches, and how many times
+TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan_bwd")
+
+
+def train_launches(cfg, passes: int, remat: bool = False) -> Dict[str, int]:
+    """Each training kernel's launches on the card for `passes` forward and
+    backward passes of `cfg`: flash and its backward once per attention
+    layer (every layer of a dense or moe model, Hymba's global ones), the
+    SSD scan and its backward once per Mamba-2 or Hymba layer; with `remat`
+    each forward runs once more in the backward."""
+    attn = {"ssm": 0, "hybrid": len(cfg.full_attn_layers)}.get(cfg.family, cfg.num_layers)
+    ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
+    fwd = passes * (2 if remat else 1)
+    return {"flash_attention": attn * fwd, "flash_attention_bwd": attn * passes,
+            "ssd_scan": ssd * fwd, "ssd_scan_bwd": ssd * passes}
 
 
 def reset_launches() -> None:
@@ -30,8 +47,8 @@ def wants_grad(*tensors) -> bool:
 def refuse_grad(kernel: str, *tensors) -> None:
     """Raise if autograd would record a call of `kernel`, which has no
     backward: its output would silently cut the gradient.  (On the CPU the
-    plain versions stay differentiable; flash attention's kernel, which has
-    a backward, and the SSD scan's, whose backward raises, go through a
+    plain versions stay differentiable; flash attention's kernel and the SSD
+    scan's, which have backward kernels, go through a
     `torch.autograd.Function` instead.)"""
     if wants_grad(*tensors):
         raise RuntimeError(f"{kernel} has no backward on the card; call it under "

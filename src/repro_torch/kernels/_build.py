@@ -22,7 +22,7 @@ from typing import Dict, List
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch"
 SOURCES = ("kv_pack", "decode_attention", "flash_attention", "ssd_scan", "paged_prefill",
-           "flash_attention_bwd")
+           "flash_attention_bwd", "ssd_scan_bwd")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
@@ -60,8 +60,14 @@ _SIGNATURES = {
     },
     "ssd_scan": {
         "repro_ssd_scan": (
-            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _vp]),
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i,
+                 _vp]),
         "repro_ssd_scan_smem": (_ll, [_i, _i, _i, _i]),
+    },
+    "ssd_scan_bwd": {
+        "repro_ssd_scan_bwd": (_i, [_i] + [_vp] * 20 + [_i] * 8 + [_vp]),
+        "repro_ssd_scan_bwd_smem": (_ll, [_i, _i, _i, _i]),
+        "repro_ssd_scan_bwd_slices": (_i, [_i, _i, _i, _i, _i]),
     },
     "paged_prefill": {
         "repro_paged_prefill_attention": (

@@ -9,13 +9,18 @@
 //        + exp(cum_i) (C_i . h^T)                                    (incoming state)
 //   h   <- h exp(cum_last) + sum_j exp(cum_last - cum_j) dt_j x_j (x) B_j
 // and writes y [B, S, nh, hd] in x's type and the final state h [B, nh, hd, N]
-// in f32.  Head h reads group h / (nh / G), as jnp.repeat does.
+// in f32.  Head h reads group h / (nh / G), as jnp.repeat does.  Training
+// asks for one more output, the state entering each chunk [B, nc, nh, hd, N]
+// f32, which the backward (ssd_scan_bwd.cu) reads: both bodies take a STATES
+// flag, and serving launches the instantiation without the write, whose
+// code is the body's without the output (the write cost the one-head bf16
+// body a register spill).
 //
 // The Pallas grid is (B, chunks) with the chunks sequential and the state of
 // every head in VMEM scratch.  Hopper blocks run in no order, so here one
 // block walks the chunks of its (batch row, heads) itself, keeping the state
 // on chip from the first chunk to the last: no chunk state goes to device
-// memory.
+// memory unless training asks for them.
 //
 // Masking.  Scores with j > i are never used: the exponent there is
 // positive and would overflow (the Pallas kernel writes -1e30 before its exp
@@ -66,20 +71,15 @@
 
 #include <cstdint>
 
+#include "ssd_patch.cuh"
+
 namespace {
+
+using namespace ssd;
 
 constexpr int kThreads = 256;
 constexpr int kQT = 64;                    // chunk rows per tile of C and scores
-constexpr int kTR = 4;                     // output rows per thread patch
-constexpr int kTC = 4;                     // output columns per thread patch
 constexpr int kMaxChunk = 256;
-
-__device__ __forceinline__ float to_float(float x) { return x; }
-
-template <typename T>
-__device__ __forceinline__ T from_float(float x);
-template <>
-__device__ __forceinline__ float from_float<float>(float x) { return x; }
 
 // Offsets (in floats) of the shared arrays; each row padded by one float.
 struct Layout {
@@ -105,80 +105,15 @@ __host__ __device__ inline Layout make_layout(int hd, int N, int Q) {
   return L;
 }
 
-// One thread's patch of an R x C product: rows r0 + i*nrt, columns c0 + j*nct
-// (strided, so that neighbouring threads take neighbouring columns), clamped
-// into range so that every read stays inside its array; callers drop the
-// clamped rows and columns when they write.
-struct Patch {
-  int r[kTR], c[kTC];
-  bool rok[kTR], cok[kTC];
-};
-
-__device__ __forceinline__ Patch make_patch(int tile, int R, int C) {
-  const int nrt = (R + kTR - 1) / kTR, nct = (C + kTC - 1) / kTC;
-  const int rt = tile / nct, ct = tile - rt * nct;
-  Patch P;
-#pragma unroll
-  for (int i = 0; i < kTR; ++i) {
-    const int r = rt + i * nrt;
-    P.rok[i] = r < R;
-    P.r[i] = P.rok[i] ? r : R - 1;
-  }
-#pragma unroll
-  for (int j = 0; j < kTC; ++j) {
-    const int c = ct + j * nct;
-    P.cok[j] = c < C;
-    P.c[j] = P.cok[j] ? c : C - 1;
-  }
-  return P;
-}
-
-__device__ __forceinline__ int n_tiles(int R, int C) {
-  return ((R + kTR - 1) / kTR) * ((C + kTC - 1) / kTC);
-}
-
-// acc[i][j] += sum_{k < K} A(r_i, k) B(k, c_j), A(r, k) = a[r*ars + k*aks],
-// B(k, c) = bm[k*bks + c*bcs], all in shared memory.
-__device__ __forceinline__ void mma_patch(float (&acc)[kTR][kTC], const Patch& P,
-                                          const float* a, int ars, int aks,
-                                          const float* bm, int bks, int bcs, int K) {
-  for (int k = 0; k < K; ++k) {
-    float av[kTR], bv[kTC];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i) av[i] = a[P.r[i] * ars + k * aks];
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) bv[j] = bm[k * bks + P.c[j] * bcs];
-#pragma unroll
-    for (int i = 0; i < kTR; ++i)
-#pragma unroll
-      for (int j = 0; j < kTC; ++j) acc[i][j] = fmaf(av[i], bv[j], acc[i][j]);
-  }
-}
-
-__device__ __forceinline__ void zero(float (&acc)[kTR][kTC]) {
-#pragma unroll
-  for (int i = 0; i < kTR; ++i)
-#pragma unroll
-    for (int j = 0; j < kTC; ++j) acc[i][j] = 0.f;
-}
-
-// rows [0, n) of `width` elements, `stride` elements apart in global memory,
-// into f32 shared rows of stride ld
-template <typename T>
-__device__ __forceinline__ void load_rows(const T* __restrict__ src, long long stride, int n,
-                                          int width, float* dst, int ld) {
-  for (int e = threadIdx.x; e < n * width; e += kThreads) {
-    const int j = e / width, d = e - j * width;
-    dst[j * ld + d] = to_float(src[(long long)j * stride + d]);
-  }
-}
-
-template <typename T>
+// STATES: write the state entering each chunk to hstates (training); the
+// serving instantiation compiles without the write.
+template <typename T, bool STATES>
 __global__ void __launch_bounds__(kThreads)
 ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
            const float* __restrict__ a_neg, const T* __restrict__ bmat,
            const T* __restrict__ cmat, const float* __restrict__ h0, T* __restrict__ y,
-           float* __restrict__ hout, int S, int nh, int hd, int G, int N, int Q) {
+           float* __restrict__ hout, float* __restrict__ hstates, int S, int nh, int hd, int G,
+           int N, int Q) {
   const int h = blockIdx.x;
   const int bi = blockIdx.y;
   const int g = h / (nh / G);
@@ -206,27 +141,18 @@ ssd_kernel(const T* __restrict__ x, const float* __restrict__ dt,
     const int n = min(Q, S - t0);
     const long long tok = (long long)bi * S + t0;
     __syncthreads();                       // the last chunk's state update is done
+    if constexpr (STATES) {                // training: the state entering this chunk
+      float* hs = hstates + (((long long)bi * ((S + Q - 1) / Q) + t0 / Q) * nh + h) * hd * N;
+      for (int e = tid; e < hd * N; e += kThreads) {
+        const int d = e / N, k = e - d * N;
+        hs[e] = h_s[d * L.ldh + k];
+      }
+    }
     load_rows<T>(x + tok * xrow + (long long)h * hd, xrow, n, hd, x_s, L.ldx);
     load_rows<T>(bmat + tok * brow + (long long)g * N, brow, n, N, b_s, L.ldb);
     for (int j = tid; j < Q; j += kThreads) w_s[j] = j < n ? dt[(tok + j) * nh + h] : 0.f;
     __syncthreads();
-    if (tid < 32) {                        // inclusive cumsum of dt * a by one warp
-      const int per = (Q + 31) / 32, j0 = tid * per;
-      float tot = 0.f;
-      for (int k = 0; k < per; ++k)
-        if (j0 + k < Q) tot += w_s[j0 + k] * a;
-      float incl = tot;
-      for (int o = 1; o < 32; o <<= 1) {
-        const float v = __shfl_up_sync(0xffffffffu, incl, o);
-        if (tid >= o) incl += v;
-      }
-      float run = incl - tot;
-      for (int k = 0; k < per; ++k)
-        if (j0 + k < Q) {
-          run += w_s[j0 + k] * a;
-          cum_s[j0 + k] = run;
-        }
-    }
+    if (tid < 32) warp_cumsum(w_s, a, cum_s, Q, tid);   // inclusive cumsum of dt * a
     __syncthreads();
 
     for (int i0 = 0; i0 < n; i0 += kQT) {
@@ -453,13 +379,14 @@ __device__ __forceinline__ void cp_async_wait_but_newest() {
 // g + 8, columns 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3); B holds
 // rows 2t, 2t + 1 (b0) and 2t + 8, 2t + 9 (b1) of column g; C holds rows g
 // (c0, c1) and g + 8 (c2, c3), columns 2t, 2t + 1.
-template <int HPB, int WARPS>
+template <int HPB, int WARPS, bool STATES>
 __global__ void __launch_bounds__(WARPS * 32, 16 / WARPS)
 ssd_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt,
                const float* __restrict__ a_neg, const __nv_bfloat16* __restrict__ bmat,
                const __nv_bfloat16* __restrict__ cmat, const float* __restrict__ h0,
-               __nv_bfloat16* __restrict__ y, float* __restrict__ hout, int S, int nh, int hd,
-               int G, int N, int Q, int vec) {
+               __nv_bfloat16* __restrict__ y, float* __restrict__ hout,
+               float* __restrict__ hstates, int S, int nh, int hd, int G, int N, int Q,
+               int vec) {
   const int hb = blockIdx.x * HPB;         // the block's first head
   const int bi = blockIdx.y;
   const int g = hb / (nh / G);             // every head of the block is in group g
@@ -525,6 +452,14 @@ ssd_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt
     cp_async_wait_but_newest();              // this chunk's x, dt, B and C have landed
     __syncthreads();
     const float* dtc = dt_s + (c & 1) * HPB * qp;
+    if constexpr (STATES) {                  // training: the state entering this chunk
+      float* hs = hstates + (((long long)bi * nchunks + c) * nh + hb) * hd * N;
+      for (int e = tid; e < HPB * hd * N; e += kThreadsB) {
+        const int hh = e / (hd * N), r = e - hh * hd * N;
+        const int d = r / N, k = r - d * N;
+        hs[e] = sum_terms(h_s + (hh * L.hp + d) * ldb + k, term);
+      }
+    }
 
     if (warp < HPB) {                      // cum and the state weights: a warp a head
       const int hh = warp;
@@ -800,12 +735,12 @@ ssd_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ dt
 
 constexpr int kMaxSmem = 232448;           // bytes of shared memory one block may use (H100)
 
-template <int HPB, int WARPS>
+template <int HPB, int WARPS, bool STATES>
 cudaError_t launch_mma(const void* x, const float* dt, const float* a_neg, const void* bmat,
-                       const void* cmat, const float* h0, void* y, float* hout, int B, int S,
-                       int nh, int hd, int G, int N, int Q, cudaStream_t stream) {
+                       const void* cmat, const float* h0, void* y, float* hout, float* hstates,
+                       int B, int S, int nh, int hd, int G, int N, int Q, cudaStream_t stream) {
   const int smem = make_mma_layout(hd, N, Q, HPB).total;
-  cudaError_t e = cudaFuncSetAttribute(ssd_mma_kernel<HPB, WARPS>,
+  cudaError_t e = cudaFuncSetAttribute(ssd_mma_kernel<HPB, WARPS, STATES>,
                                        cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (e != cudaSuccess) return e;
   // 16-byte copies need every row of x, B and C to start on 16 bytes
@@ -813,42 +748,48 @@ cudaError_t launch_mma(const void* x, const float* dt, const float* a_neg, const
                   ((reinterpret_cast<uintptr_t>(x) | reinterpret_cast<uintptr_t>(bmat) |
                     reinterpret_cast<uintptr_t>(cmat)) & 15) == 0;
   dim3 grid((unsigned)(nh / HPB), (unsigned)B);
-  ssd_mma_kernel<HPB, WARPS><<<grid, WARPS * 32, smem, stream>>>(
+  ssd_mma_kernel<HPB, WARPS, STATES><<<grid, WARPS * 32, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(x), dt, a_neg, static_cast<const __nv_bfloat16*>(bmat),
-      static_cast<const __nv_bfloat16*>(cmat), h0, static_cast<__nv_bfloat16*>(y), hout, S, nh,
-      hd, G, N, Q, vec);
+      static_cast<const __nv_bfloat16*>(cmat), h0, static_cast<__nv_bfloat16*>(y), hout, hstates,
+      S, nh, hd, G, N, Q, vec);
   return cudaGetLastError();
 }
 
 // Two heads of a group a block where the group has an even number of heads,
 // the B * nh / 2 blocks still cover the SMs and their shared memory fits; else one.
+template <bool STATES>
 cudaError_t launch_bf16(const void* x, const float* dt, const float* a_neg, const void* bmat,
-                        const void* cmat, const float* h0, void* y, float* hout, int B, int S,
-                        int nh, int hd, int G, int N, int Q, cudaStream_t s) {
+                        const void* cmat, const float* h0, void* y, float* hout,
+                        float* hstates, int B, int S, int nh, int hd, int G, int N, int Q,
+                        cudaStream_t s) {
   int dev = 0, sms = 0;
   cudaError_t e = cudaGetDevice(&dev);
   if (e == cudaSuccess) e = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   if (e != cudaSuccess) return e;
   if ((nh / G) % 2 == 0 && (long long)B * nh / 2 >= sms &&
       make_mma_layout(hd, N, Q, 2).total <= kMaxSmem)
-    return launch_mma<2, 16>(x, dt, a_neg, bmat, cmat, h0, y, hout, B, S, nh, hd, G, N, Q, s);
-  return launch_mma<1, 8>(x, dt, a_neg, bmat, cmat, h0, y, hout, B, S, nh, hd, G, N, Q, s);
+    return launch_mma<2, 16, STATES>(x, dt, a_neg, bmat, cmat, h0, y, hout, hstates, B, S, nh,
+                                     hd, G, N, Q, s);
+  return launch_mma<1, 8, STATES>(x, dt, a_neg, bmat, cmat, h0, y, hout, hstates, B, S, nh, hd,
+                                  G, N, Q, s);
 }
 
+template <bool STATES>
 cudaError_t launch_f32(const void* x, const float* dt, const float* a_neg, const void* bmat,
-                       const void* cmat, const float* h0, void* y, float* hout, int B, int S,
-                       int nh, int hd, int G, int N, int Q, cudaStream_t stream) {
+                       const void* cmat, const float* h0, void* y, float* hout, float* hstates,
+                       int B, int S, int nh, int hd, int G, int N, int Q, cudaStream_t stream) {
   const size_t smem = sizeof(float) * (size_t)make_layout(hd, N, Q).total;
   if (smem > 48 * 1024) {
-    cudaError_t e = cudaFuncSetAttribute(ssd_kernel<float>,
+    cudaError_t e = cudaFuncSetAttribute(ssd_kernel<float, STATES>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
     if (e != cudaSuccess) return e;
   }
   dim3 grid((unsigned)nh, (unsigned)B);
-  ssd_kernel<float><<<grid, kThreads, smem, stream>>>(
+  ssd_kernel<float, STATES><<<grid, kThreads, smem, stream>>>(
       static_cast<const float*>(x), dt, a_neg, static_cast<const float*>(bmat),
-      static_cast<const float*>(cmat), h0, static_cast<float*>(y), hout, S, nh, hd, G, N, Q);
+      static_cast<const float*>(cmat), h0, static_cast<float*>(y), hout, hstates, S, nh, hd, G, N,
+      Q);
   return cudaGetLastError();
 }
 
@@ -863,12 +804,13 @@ extern "C" long long repro_ssd_scan_smem(int dtype, int hd, int N, int Q) {
 
 // dtype: 0 = float32 (ssd_kernel), 1 = bfloat16 (ssd_mma_kernel), of x, B, C
 // and y.  x/y [B,S,nh,hd], dt [B,S,nh] f32, a_neg [nh] f32, B/C [B,S,G,N],
-// h0 (or null) and hout [B,nh,hd,N] f32, all contiguous; nh % G == 0;
-// 1 <= Q <= 256.  Returns cudaGetLastError() after the launch.
+// h0 (or null) and hout [B,nh,hd,N] f32, hstates (or null) [B,ceil(S/Q),nh,hd,N]
+// f32, all contiguous; nh % G == 0; 1 <= Q <= 256.  Returns cudaGetLastError()
+// after the launch.
 extern "C" int repro_ssd_scan(int dtype, const void* x, const void* dt, const void* a_neg,
                               const void* bmat, const void* cmat, const void* h0, void* y,
-                              void* hout, int B, int S, int nh, int hd, int G, int N, int Q,
-                              void* stream) {
+                              void* hout, void* hstates, int B, int S, int nh, int hd, int G,
+                              int N, int Q, void* stream) {
   if (B <= 0 || S <= 0 || nh <= 0 || hd <= 0 || G <= 0 || N <= 0 || nh % G || Q <= 0 ||
       Q > kMaxChunk)
     return static_cast<int>(cudaErrorInvalidValue);
@@ -877,8 +819,15 @@ extern "C" int repro_ssd_scan(int dtype, const void* x, const void* dt, const vo
   const float* af = static_cast<const float*>(a_neg);
   const float* h0f = static_cast<const float*>(h0);
   float* ho = static_cast<float*>(hout);
-  if (dtype == 0) return launch_f32(x, dtf, af, bmat, cmat, h0f, y, ho, B, S, nh, hd, G, N, Q, s);
+  float* hs = static_cast<float*>(hstates);
+  if (dtype == 0)
+    return hs ? launch_f32<true>(x, dtf, af, bmat, cmat, h0f, y, ho, hs, B, S, nh, hd, G, N, Q, s)
+              : launch_f32<false>(x, dtf, af, bmat, cmat, h0f, y, ho, hs, B, S, nh, hd, G, N, Q,
+                                  s);
   if (dtype == 1)
-    return launch_bf16(x, dtf, af, bmat, cmat, h0f, y, ho, B, S, nh, hd, G, N, Q, s);
+    return hs ? launch_bf16<true>(x, dtf, af, bmat, cmat, h0f, y, ho, hs, B, S, nh, hd, G, N, Q,
+                                  s)
+              : launch_bf16<false>(x, dtf, af, bmat, cmat, h0f, y, ho, hs, B, S, nh, hd, G, N,
+                                   Q, s);
   return static_cast<int>(cudaErrorInvalidValue);
 }

@@ -145,6 +145,6 @@ def ssd_auto(x, dt, a_neg, bmat, cmat, chunk: int = 128, h0=None):
         return ref.ssd_scan_ref(x, dt, a_neg, bmat, cmat, h0=h0, chunk=q)
     args = (x.contiguous(), dt.contiguous(), a_neg.contiguous(), bmat.contiguous(),
             cmat.contiguous(), None if h0 is None else h0.contiguous())
-    if wants_grad(*args):              # its backward raises: see SSDScanFn
+    if wants_grad(*args):              # the forward with its chunk states, then ssd_scan_bwd
         return SSDScanFn.apply(*args, q)
     return ssd_scan(*args, chunk=q)

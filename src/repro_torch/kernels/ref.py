@@ -242,6 +242,92 @@ def ssd_scan_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
     return y.to(x.dtype), h
 
 
+def ssd_scan_bwd_ref(dy: torch.Tensor, dh_final: Optional[torch.Tensor], x: torch.Tensor,
+                     dt: torch.Tensor, a_neg: torch.Tensor, bmat: torch.Tensor,
+                     cmat: torch.Tensor, h0: Optional[torch.Tensor] = None,
+                     chunk: int = 128):
+    """The gradient of `ssd_scan_ref` written out as `ssd_scan_bwd` computes
+    it (autograd through `ssd_scan_ref` is its yardstick).  dy [B,S,nh,hd]
+    and dh_final [B,nh,hd,N] f32 or None -> (dx, ddt, da, dB, dC, dh0): dx,
+    dB and dC in x.dtype, the rest f32, dh0 None without h0.
+
+    Per chunk, with cum the inclusive cumsum of dt * a, L_ij = exp(cum_i -
+    cum_j) for i >= j, G_ij = L_ij dt_j (dy_i . x_j), the state entering
+    the chunk h_in and the gradient of the one leaving it dh_out:
+      dh_in = exp(cum_last) dh_out + sum_i exp(cum_i) dy_i (x) C_i   (reverse, serial)
+      dC_i  = sum_j G_ij B_j + exp(cum_i) dy_i . h_in                (per head)
+      dB_j  = sum_i G_ij C_i + exp(cum_last - cum_j) dt_j x_j . dh_out
+      dxn_j = sum_i (C_i . B_j) L_ij dy_i + exp(cum_last - cum_j) dh_out . B_j
+      dx_j  = dt_j dxn_j,   ddt_j = x_j . dxn_j + a dda_j,   da = sum_j dt_j dda_j
+    where dda is the reverse cumsum of dcum_i = C_i . dC_i - B_i . dB_i (per
+    head), plus <dh_out, h_out> at the chunk's last row: every exp term's
+    share of d/dcum collapses to those dot products."""
+    b, s, nh, hd = x.shape
+    g, n = bmat.shape[-2], bmat.shape[-1]
+    rep = nh // g
+    a32 = a_neg.float()
+    pad = (-s) % chunk
+    f32 = [t.float() for t in (dy, x, dt, bmat, cmat)]
+    if pad:   # zero rows: dt 0 keeps cum flat and the state unchanged
+        f32 = [F.pad(t, (0, 0) * (t.dim() - 2) + (0, pad)) for t in f32]
+    nc = (s + pad) // chunk
+    dys, xs, dts, bs, cs = (t.reshape(b, nc, chunk, *t.shape[2:]) for t in f32)
+    b_h = torch.repeat_interleave(bs, rep, dim=3)               # [b,nc,q,nh,n]
+    c_h = torch.repeat_interleave(cs, rep, dim=3)
+    cum = torch.cumsum(dts * a32, dim=2)                        # [b,nc,q,nh]
+    last = cum[:, :, -1]                                        # [b,nc,nh]
+    w = torch.exp(last[:, :, None] - cum)                       # exp(cum_last - cum_j) <= 1
+
+    # the states entering each chunk, as the forward walks them
+    states = torch.einsum("bcjhn,bcjh,bcjhd->bchdn", b_h, w * dts, xs)
+    h = (torch.zeros(b, nh, hd, n, dtype=torch.float32, device=x.device) if h0 is None
+         else h0.float())
+    h_in = []
+    for c in range(nc):
+        h_in.append(h)
+        h = h * torch.exp(last[:, c])[..., None, None] + states[:, c]
+    h_out = h_in[1:] + [h]
+
+    # (a) the reverse state pass: dh_out per chunk, <dh_out, h_out>, dh0
+    dh = (torch.zeros(b, nh, hd, n, dtype=torch.float32, device=x.device)
+          if dh_final is None else dh_final.float())
+    into = torch.einsum("bcihd,bcih,bcihn->bchdn", dys, torch.exp(cum), c_h)
+    dh_out, dlast = [None] * nc, [None] * nc
+    for c in reversed(range(nc)):
+        dh_out[c] = dh
+        dlast[c] = (dh * h_out[c]).sum((-2, -1))               # [b,nh]
+        dh = dh * torch.exp(last[:, c])[..., None, None] + into[:, c]
+    dh_out, h_in = torch.stack(dh_out, 1), torch.stack(h_in, 1)   # [b,nc,nh,hd,n]
+
+    # (b) every chunk at once, per head
+    tri = torch.ones(chunk, chunk, dtype=torch.bool, device=x.device).tril()
+    li = cum[:, :, :, None, :] - cum[:, :, None, :, :]          # [b,nc,i,j,nh]
+    lmat = torch.exp(torch.where(tri[None, None, :, :, None], li, -1e30))
+    gmat = lmat * dts[:, :, None] * torch.einsum("bcihd,bcjhd->bcijh", dys, xs)
+    cbl = lmat * torch.einsum("bcihn,bcjhn->bcijh", c_h, b_h)
+    dc_h = (torch.einsum("bcijh,bcjhn->bcihn", gmat, b_h)
+            + torch.exp(cum)[..., None] * torch.einsum("bcihd,bchdn->bcihn", dys, h_in))
+    db_h = (torch.einsum("bcijh,bcihn->bcjhn", gmat, c_h)
+            + (w * dts)[..., None] * torch.einsum("bcjhd,bchdn->bcjhn", xs, dh_out))
+    dxn = (torch.einsum("bcijh,bcihd->bcjhd", cbl, dys)
+           + w[..., None] * torch.einsum("bcjhn,bchdn->bcjhd", b_h, dh_out))
+    dcum = (c_h * dc_h).sum(-1) - (b_h * db_h).sum(-1)          # [b,nc,q,nh]
+    dcum[:, :, -1] += torch.stack(dlast, 1)
+    dda = dcum.flip(2).cumsum(2).flip(2)
+    ddt = (xs * dxn).sum(-1) + a32 * dda
+    da = (dts * dda).sum((0, 1, 2))
+
+    def tokens(t):                                              # [b,nc,q,...] -> [b,s,...]
+        return t.reshape(b, nc * chunk, *t.shape[3:])[:, :s]
+
+    def by_group(t):                                            # sum the heads of a group
+        return t.reshape(*t.shape[:3], g, rep, n).sum(4)
+
+    return (tokens(dts[..., None] * dxn).to(x.dtype), tokens(ddt), da,
+            tokens(by_group(db_h)).to(x.dtype), tokens(by_group(dc_h)).to(x.dtype),
+            None if h0 is None else dh)
+
+
 def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
                        bmat: torch.Tensor, cmat: torch.Tensor,
                        h0: Optional[torch.Tensor] = None):

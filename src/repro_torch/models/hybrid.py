@@ -11,8 +11,8 @@ kv_full [Lfull,B,M+S,Hkv,Dh], swa_pos [M+W] absolute position per slot, and
 the conv and ssd states of every layer.  `decode_step` updates the state in
 place and returns it.  ``swa_pos`` is one vector for the whole batch, so a
 batch holds prompts of one length, as in the reference.  `loss` drops the
-meta positions before the head; it trains on the CPU (on the card the SSD
-scan's backward raises until it is ported).
+meta positions before the head; on the card it trains through the SSD scan
+and flash attention kernels and their backward kernels.
 
 The reference's ``backend="pallas"`` would send a windowed layer's prefill
 to `flash_attention` by the mask's shape and lose its window; the port

@@ -5,8 +5,8 @@ Decode state = {"conv": [L,B,K-1,conv_dim], "ssd": [L,B,nh,hd,N] f32}: the
 fixed-size generalisation of the KV cache for DéjàVu streaming.  Parameters
 are a nested dict with the layers stacked ``[L, ...]``, the reference's
 layout.  `decode_step` updates the state in place and returns it.  `loss`
-trains through the plain SSD scan on the CPU; on the card the scan's
-backward raises until it is ported (`kernels.ssd_scan.SSDScanFn`).
+trains through the plain SSD scan on the CPU and, on the card, through the
+`ssd_scan` kernel and its backward kernel (`kernels.ssd_scan.SSDScanFn`).
 """
 from __future__ import annotations
 

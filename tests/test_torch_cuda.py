@@ -19,7 +19,7 @@ torch = pytest.importorskip("torch")
 torch.set_num_threads(1)
 
 from repro_torch.configs import get_arch  # noqa: E402
-from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
+from repro_torch.kernels import LAUNCHES, TRAIN_KERNELS, ops, ref, train_launches  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.serving import Request, ServingEngine  # noqa: E402
@@ -991,23 +991,139 @@ def test_kernels_without_a_backward_refuse_inputs_that_require_grad(cuda):
     assert all(LAUNCHES[n] == n0[n] + 1 for n in calls)
 
 
-def test_ssd_scan_backward_raises(cuda):
-    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 1, 40, 4, 8, 1, 4, torch.float32, False)
+def _ssd_grads_plain(x, dt, a, bm, cm, h0, dy, dhf, chunk):
+    """autograd through the plain version, in f32 on the same values."""
+    ins = [t.float().requires_grad_() for t in (x, dt, a, bm, cm)]
+    h0g = None if h0 is None else h0.clone().requires_grad_()
+    y, hf = ref.ssd_scan_ref(*ins, h0=h0g, chunk=chunk)
+    outs, cots = [y], [dy.float()]
+    if dhf is not None:
+        outs.append(hf)
+        cots.append(dhf)
+    return torch.autograd.grad(outs, ins + ([h0g] if h0 is not None else []), cots)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("b,s,nh,hd,g,n,ch,with_h0,with_dhf", [
+    (2, 96, 4, 16, 1, 8, 32, True, True),
+    (1, 200, 6, 16, 2, 16, 64, True, True),      # ragged, G = 2
+    (2, 50, 4, 8, 2, 8, 16, False, True),        # the last chunk of 2 rows
+    (1, 33, 2, 8, 1, 4, 16, True, False),
+    (2, 300, 48, 64, 1, 128, 128, False, False),  # mamba2-780m's heads: 3 slices of 16
+    (1, 200, 50, 64, 1, 16, 128, True, True),    # hymba-1.5b's 50 heads, N 16
+])
+def test_ssd_scan_backward_matches_autograd_through_plain(cuda, b, s, nh, hd, g, n, ch,
+                                                         with_h0, with_dhf, dtype):
+    from repro_torch.kernels.ssd_scan import SSDScanFn
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, b, s, nh, hd, g, n, dtype, with_h0, seed=1)
+    gen = torch.Generator(device=cuda).manual_seed(2)
+    dy = torch.randn(b, s, nh, hd, generator=gen, device=cuda).to(dtype)
+    dhf = torch.randn(b, nh, hd, n, generator=gen, device=cuda) if with_dhf else None
+    ins = [t.clone().requires_grad_() for t in (x, dt, a, bm, cm)]
+    h0g = None if h0 is None else h0.clone().requires_grad_()
+    n0 = dict(LAUNCHES)
+    y, hf = SSDScanFn.apply(*ins, h0g, min(ch, s))
+    outs, cots = [y], [dy]
+    if with_dhf:
+        outs.append(hf)
+        cots.append(dhf)
+    got = torch.autograd.grad(outs, ins + ([h0g] if with_h0 else []), cots)
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == n0["ssd_scan"] + 1
+    assert LAUNCHES["ssd_scan_bwd"] == n0["ssd_scan_bwd"] + 1
+    want = _ssd_grads_plain(x, dt, a, bm, cm, h0, dy, dhf, min(ch, s))
+    for name, mine, exp in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), got, want):
+        assert mine.dtype == (dtype if name in ("dx", "dB", "dC") else torch.float32), name
+        assert mine.shape == exp.shape, name
+        bound = SSD_TOL[dtype] * max(1.0, exp.abs().max().item())
+        err = (mine.float() - exp).abs().max().item()
+        assert err <= bound, f"{name}: max |err| {err} > {bound}"
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_ssd_scan_backward_is_deterministic(cuda, dtype):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 2, 300, 48, 64, 1, 128, dtype, True, seed=3)
+    dy = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(4),
+                     device=cuda).to(dtype)
+    _, hf, states = ssd_scan(x, dt, a, bm, cm, h0, chunk=128, with_states=True)
+    one = ssd_scan_bwd(dy, None, x, dt, a, bm, cm, h0, states, hf, chunk=128)
+    two = ssd_scan_bwd(dy, None, x, dt, a, bm, cm, h0, states, hf, chunk=128)
+    assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
+def test_ssd_scan_backward_refuses_what_it_does_not_take(cuda):
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 1, 40, 4, 8, 1, 4, torch.float32, True)
+    _, hf, states = ssd_scan(x, dt, a, bm, cm, h0, chunk=16, with_states=True)
+    dy = torch.ones_like(x)
+    n0 = LAUNCHES["ssd_scan_bwd"]
+
+    def call(**kw):
+        args = dict(dy=dy, dh_final=None, x=x, dt=dt, a_neg=a, bmat=bm, cmat=cm, h0=h0,
+                    states=states, h_final=hf)
+        args.update(kw)
+        return ssd_scan_bwd(**args, chunk=16)
+
+    with pytest.raises(ValueError, match="CUDA"):
+        call(x=x.cpu(), dt=dt.cpu(), a_neg=a.cpu(), bmat=bm.cpu(), cmat=cm.cpu())
+    with pytest.raises(ValueError, match="dy must be"):
+        call(dy=dy.to(torch.bfloat16))
+    with pytest.raises(ValueError, match="dy must be"):
+        call(dy=dy[:, :20])
+    with pytest.raises(ValueError, match="states must be"):
+        call(states=states[:, :2])
+    with pytest.raises(ValueError, match="dh_final must be"):
+        call(dh_final=torch.ones_like(hf).double())
+    with pytest.raises(ValueError, match="contiguous"):
+        call(dy=dy.transpose(2, 3).contiguous().transpose(2, 3))
+    big = _ssd_inputs(cuda, 1, 256, 2, 128, 1, 256, torch.float32, False)
+    with pytest.raises(ValueError, match="shared memory"):
+        ssd_scan_bwd(torch.ones_like(big[0]), None, *big[:5], None,
+                     torch.ones(1, 1, 2, 128, 256, device=cuda),
+                     torch.ones(1, 2, 128, 256, device=cuda), chunk=256)
+    assert LAUNCHES["ssd_scan_bwd"] == n0
+
+
+def test_ssd_under_grad_on_the_card_never_runs_the_plain_scan(cuda, monkeypatch):
+    """ssd_auto on CUDA tensors that require grad launches the forward with
+    its states and the backward kernel; the plain scan is not called, and
+    under no_grad the serving launch runs."""
+    def plain(*a, **kw):
+        raise AssertionError("the plain scan ran on the card")
+
+    monkeypatch.setattr(ref, "ssd_scan_ref", plain)
+    x, dt, a, bm, cm, _ = _ssd_inputs(cuda, 1, 40, 4, 8, 1, 4, torch.float32, False)
     x.requires_grad_()
-    n0 = LAUNCHES["ssd_scan"]
+    n0 = dict(LAUNCHES)
     y, _ = ops.ssd_auto(x, dt, a, bm, cm, chunk=16)
-    assert LAUNCHES["ssd_scan"] == n0 + 1 and y.grad_fn is not None
-    with pytest.raises(NotImplementedError, match="A.17"):
-        y.sum().backward()
+    assert y.grad_fn is not None
+    y.sum().backward()
+    assert x.grad is not None and x.grad.abs().max().item() > 0
     with torch.no_grad():
         assert ops.ssd_auto(x, dt, a, bm, cm, chunk=16)[0].grad_fn is None
+    torch.cuda.synchronize()
+    assert LAUNCHES["ssd_scan"] == n0["ssd_scan"] + 2
+    assert LAUNCHES["ssd_scan_bwd"] == n0["ssd_scan_bwd"] + 1
 
 
-@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-moe-30b-a3b"])
+def test_launch_train_runs_the_ssm_families_on_the_card(cuda, tmp_path):
+    from repro_torch.launch.train import main
+    for name in ("mamba2-780m", "hymba-1.5b"):
+        n0 = LAUNCHES["ssd_scan_bwd"]
+        main(["--arch", name, "--reduced", "--steps", "2", "--batch", "2", "--seq", "32",
+              "--log-every", "1", "--ckpt-dir", str(tmp_path / name)])
+        torch.cuda.synchronize()
+        assert LAUNCHES["ssd_scan_bwd"] == n0 + 2 * get_arch(name).reduced().num_layers
+
+
+@pytest.mark.parametrize("name", ["smollm-360m", "qwen3-moe-30b-a3b", "mamba2-780m",
+                                  "hymba-1.5b"])
 def test_loss_and_gradients_on_the_card_give_the_cpus(cuda, name):
     """Reduced model, fp32, remat on the card: the loss and every gradient
     leaf equal the CPU's (1e-4 relative to max(1, max|g|)), the attention
-    through the flash forward (twice, remat) and backward kernels."""
+    through the flash forward (twice, remat) and backward kernels, the SSD
+    scan through its forward (twice) and backward kernels."""
     from repro_torch.training import SyntheticDataPipeline
     from repro_torch.training.optimizer import tree_leaves, tree_map
     from repro_torch.training.train import batch_to
@@ -1022,11 +1138,9 @@ def test_loss_and_gradients_on_the_card_give_the_cpus(cuda, name):
                                                                                      dev))
         grads = torch.autograd.grad(loss, tree_leaves(live))
         res[dev] = (loss.item(), [gr.cpu() for gr in grads],
-                    {n: LAUNCHES[n] - n0[n] for n in ("flash_attention",
-                                                      "flash_attention_bwd")})
-    assert res["cpu"][2] == {"flash_attention": 0, "flash_attention_bwd": 0}
-    assert res["cuda"][2] == {"flash_attention": 2 * cfg.num_layers,
-                              "flash_attention_bwd": cfg.num_layers}
+                    {n: LAUNCHES[n] - n0[n] for n in TRAIN_KERNELS})
+    assert res["cpu"][2] == dict.fromkeys(TRAIN_KERNELS, 0)
+    assert res["cuda"][2] == train_launches(cfg, 1, remat=True)
     assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-5)
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())

@@ -211,6 +211,39 @@ def test_ssd_bound_at_the_serving_shape_is_bytes(smoke):
     assert smoke.ssd_flops(1, 200, 1, 1, 1, 1, 128) < smoke.ssd_flops(1, 256, 1, 1, 1, 1, 128)
 
 
+def test_ssd_backward_bound_at_the_training_shape_is_bytes(smoke):
+    """mamba2-780m's training scan, backward: about 90.8 GFLOP against the
+    325 MB of the gradient's operands and results (x, dy, dx; B, C, dB,
+    dC; dt, ddt; a, da) read and written once, so bytes bound it at bf16
+    rates; a ragged last chunk counts only its own rows."""
+    fl = smoke.ssd_bwd_flops(8, 2048, 48, 64, 1, 128, 128)
+    assert fl == pytest.approx(90.77e9, rel=1e-3)
+    nbytes = smoke.ssd_bwd_bytes(8, 2048, 48, 64, 1, 128, 2)
+    x, bc, dt = 8 * 2048 * 48 * 64, 8 * 2048 * 128, 8 * 2048 * 48
+    assert nbytes == 2 * (3 * x + 4 * bc) + 4 * (2 * dt + 2 * 48) == 325_058_944
+    # h0, dh0 and dh_final, when given, are f32 [B, nh, hd, N] each
+    assert (smoke.ssd_bwd_bytes(8, 2048, 48, 64, 1, 128, 2, True, True)
+            == nbytes + 3 * 4 * 8 * 48 * 64 * 128)
+    ms, by = smoke.bound_ms(nbytes, fl, "bfloat16")
+    assert by == "bytes" and ms == pytest.approx(0.0970, rel=1e-3)
+    assert (smoke.ssd_bwd_flops(1, 200, 2, 8, 1, 4, 128)
+            < smoke.ssd_bwd_flops(1, 256, 2, 8, 1, 4, 128))
+
+
+@pytest.mark.parametrize("name,attn,ssd", [
+    ("smollm-360m", 2, 0), ("qwen3-moe-30b-a3b", 2, 0), ("mamba2-780m", 0, 2),
+    ("hymba-1.5b", 1, 2)])                       # reduced Hymba: one global layer of two
+def test_train_launches_follow_the_family(name, attn, ssd):
+    from repro_torch.kernels import train_launches
+    cfg = get_arch(name).reduced()
+    assert train_launches(cfg, 3) == {
+        "flash_attention": 3 * attn, "flash_attention_bwd": 3 * attn,
+        "ssd_scan": 3 * ssd, "ssd_scan_bwd": 3 * ssd}
+    assert train_launches(cfg, 3, remat=True) == {
+        "flash_attention": 6 * attn, "flash_attention_bwd": 3 * attn,
+        "ssd_scan": 6 * ssd, "ssd_scan_bwd": 3 * ssd}
+
+
 def test_recover_phase_points_and_counts(smoke):
     """The recover phase at a tiny width: its three failure points exist in
     serve's trace, each run recovers once to the failure-free tokens, and a
