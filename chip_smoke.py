@@ -17,7 +17,8 @@ Phases, each printing one JSON line with its seconds:
                call; a decode or paged row must show its body's name in the
                profile, and the bf16 bodies of ``flash_attention``,
                ``paged_prefill_attention`` and ``flash_attention_bwd``
-               HGMMA in their libraries.
+               HGMMA in their libraries, and the bf16 body of
+               ``ssd_scan_bwd`` HMMA in its library.
                ``flash_attention_bwd`` against autograd through the plain
                version (both dtypes, six head dims, causal and full, GQA,
                keys ending mid-tile), the forward's row LSE against the
@@ -29,8 +30,9 @@ Phases, each printing one JSON line with its seconds:
                plain version (both dtypes, ragged S, two groups, h0 and
                dh_final, mamba2's and Hymba's heads; a repeated call
                bit-identical), timed at mamba2-780m's and hymba-1.5b's
-               training shapes, and the SSD forward with and without its
-               chunk states in turns.
+               training shapes (the profile must name its mma.sync chunk
+               kernels), and the SSD forward with and without its chunk
+               states in turns.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
                trace that chunks its prompts and preempts; once plain (both
@@ -265,9 +267,10 @@ def phase_env(state: dict) -> dict:
     if isinstance(sass, dict):      # the bf16 bodies run on wgmma
         for lib in ("flash_attention", "paged_prefill", "flash_attention_bwd"):
             check(sass[lib]["HGMMA"] > 0, f"no HGMMA in the {lib} library")
-        # the backward keeps its mma.sync body at head dim 192
-        check(sass["flash_attention_bwd"]["HMMA"] > 0, "no HMMA in the flash_attention_bwd "
-              "library")
+        # the backward keeps its mma.sync body at head dim 192; the SSD
+        # backward's bf16 body runs on mma.sync
+        for lib in ("flash_attention_bwd", "ssd_scan_bwd"):
+            check(sass[lib]["HMMA"] > 0, f"no HMMA in the {lib} library")
     return {"card": card, "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda,
             "build_s": build_s, "built": sorted(logs)}
@@ -967,7 +970,9 @@ def ssd_backward_cases(g, rows: dict, checks: list) -> None:
             return ssd_scan_bwd(dy, dhf, x, dt, a_neg, bm, cm, h0, states, hf, chunk=q)
 
         dms, names = device_ms(mine, iters=5, warmup=1)
-        check(any("ssd_bwd_chunk_kernel" in k for k in names), f"the backward ran {names}")
+        # the bf16 body: its two chunk passes on the tensor cores
+        for body in ("ssd_bwd_dc_mma_kernel", "ssd_bwd_dx_mma_kernel"):
+            check(any(body in k for k in names), f"the backward ran {names}")
         rows[time_it] = {
             "ms": cuda_ms(mine, iters=5, warmup=1),
             "plain_ms": cuda_ms(plain, iters=2, warmup=1),

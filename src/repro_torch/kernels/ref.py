@@ -332,19 +332,22 @@ def ssd_sequential_ref(x: torch.Tensor, dt: torch.Tensor, a_neg: torch.Tensor,
                        bmat: torch.Tensor, cmat: torch.Tensor,
                        h0: Optional[torch.Tensor] = None):
     """Token-by-token SSD recurrence, an oracle independent of the chunked
-    algorithm.  Shapes as `ssd_scan_ref`; returns (y, h_final)."""
+    algorithm.  Shapes as `ssd_scan_ref`; returns (y, h_final).  Computes
+    in f32, or in float64 where x is float64 (a yardstick for the f32
+    paths)."""
     b, s, nh, hd = x.shape
     g, n = bmat.shape[-2:]
     rep = nh // g
-    h = (torch.zeros(b, nh, hd, n, dtype=torch.float32, device=x.device) if h0 is None
-         else h0.float())
-    a32 = a_neg.float()
+    cdt = torch.float64 if x.dtype == torch.float64 else torch.float32
+    h = (torch.zeros(b, nh, hd, n, dtype=cdt, device=x.device) if h0 is None
+         else h0.to(cdt))
+    a32 = a_neg.to(cdt)
     ys = []
     for t in range(s):
-        bt = torch.repeat_interleave(bmat[:, t].float(), rep, dim=1)   # [b,nh,n]
-        ct = torch.repeat_interleave(cmat[:, t].float(), rep, dim=1)
-        dtt = dt[:, t].float()
+        bt = torch.repeat_interleave(bmat[:, t].to(cdt), rep, dim=1)   # [b,nh,n]
+        ct = torch.repeat_interleave(cmat[:, t].to(cdt), rep, dim=1)
+        dtt = dt[:, t].to(cdt)
         h = (h * torch.exp(dtt * a32)[:, :, None, None]
-             + dtt[:, :, None, None] * x[:, t].float()[:, :, :, None] * bt[:, :, None, :])
+             + dtt[:, :, None, None] * x[:, t].to(cdt)[:, :, :, None] * bt[:, :, None, :])
         ys.append(torch.einsum("bhdn,bhn->bhd", h, ct))
     return torch.stack(ys, dim=1).to(x.dtype), h

@@ -8,10 +8,9 @@ f32, B/C [B,S,G,N], an optional initial state h0 [B,nh,hd,N] f32 -> (y
 [B,S,nh,hd] in x.dtype, the final state [B,nh,hd,N] f32).  The wrappers
 take CUDA tensors only (the CPU goes to the plain version through
 `repro_torch.kernels.ops`), check what the kernels need, allocate the
-outputs and count their launches.  The forward's C function picks the body
-by dtype: bf16 runs its products on the tensor cores, float32 on the CUDA
-cores; the backward runs on the CUDA cores in both.  `SSDScanFn` ties the
-two together for autograd.
+outputs and count their launches.  Each C function picks the body by
+dtype: bf16 runs its products on the tensor cores, float32 on the CUDA
+cores.  `SSDScanFn` ties the two together for autograd.
 """
 from __future__ import annotations
 

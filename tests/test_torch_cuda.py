@@ -1003,19 +1003,25 @@ def _ssd_grads_plain(x, dt, a, bm, cm, h0, dy, dhf, chunk):
     return torch.autograd.grad(outs, ins + ([h0g] if h0 is not None else []), cots)
 
 
-@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("b,s,nh,hd,g,n,ch,with_h0,with_dhf", [
-    (2, 96, 4, 16, 1, 8, 32, True, True),
-    (1, 200, 6, 16, 2, 16, 64, True, True),      # ragged, G = 2
-    (2, 50, 4, 8, 2, 8, 16, False, True),        # the last chunk of 2 rows
-    (1, 33, 2, 8, 1, 4, 16, True, False),
-    (2, 300, 48, 64, 1, 128, 128, False, False),  # mamba2-780m's heads: 3 slices of 16
-    (1, 200, 50, 64, 1, 16, 128, True, True),    # hymba-1.5b's 50 heads, N 16
-])
-def test_ssd_scan_backward_matches_autograd_through_plain(cuda, b, s, nh, hd, g, n, ch,
-                                                         with_h0, with_dhf, dtype):
+def _ssd_grads_f64(x, dt, a, bm, cm, h0, dy, dhf):
+    """autograd through the token-by-token recurrence in float64 on the same
+    values."""
+    ins = [t.double().requires_grad_() for t in (x, dt, a, bm, cm)]
+    h0g = None if h0 is None else h0.double().requires_grad_()
+    y, hf = ref.ssd_sequential_ref(*ins, h0=h0g)
+    outs, cots = [y], [dy.double()]
+    if dhf is not None:
+        outs.append(hf)
+        cots.append(dhf.double())
+    return torch.autograd.grad(outs, ins + ([h0g] if h0 is not None else []), cots)
+
+
+def _check_ssd_backward(cuda, b, s, nh, hd, g, n, ch, with_h0, with_dhf, dtype,
+                        same_bc=False):
     from repro_torch.kernels.ssd_scan import SSDScanFn
     x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, b, s, nh, hd, g, n, dtype, with_h0, seed=1)
+    if same_bc:
+        cm = bm.clone()
     gen = torch.Generator(device=cuda).manual_seed(2)
     dy = torch.randn(b, s, nh, hd, generator=gen, device=cuda).to(dtype)
     dhf = torch.randn(b, nh, hd, n, generator=gen, device=cuda) if with_dhf else None
@@ -1031,25 +1037,92 @@ def test_ssd_scan_backward_matches_autograd_through_plain(cuda, b, s, nh, hd, g,
     torch.cuda.synchronize()
     assert LAUNCHES["ssd_scan"] == n0["ssd_scan"] + 1
     assert LAUNCHES["ssd_scan_bwd"] == n0["ssd_scan_bwd"] + 1
-    want = _ssd_grads_plain(x, dt, a, bm, cm, h0, dy, dhf, min(ch, s))
+    want = (_ssd_grads_f64(x, dt, a, bm, cm, h0, dy, dhf) if same_bc
+            else _ssd_grads_plain(x, dt, a, bm, cm, h0, dy, dhf, min(ch, s)))
     for name, mine, exp in zip(("dx", "ddt", "da", "dB", "dC", "dh0"), got, want):
         assert mine.dtype == (dtype if name in ("dx", "dB", "dC") else torch.float32), name
         assert mine.shape == exp.shape, name
         bound = SSD_TOL[dtype] * max(1.0, exp.abs().max().item())
-        err = (mine.float() - exp).abs().max().item()
+        err = (mine.double() - exp).abs().max().item()
         assert err <= bound, f"{name}: max |err| {err} > {bound}"
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-def test_ssd_scan_backward_is_deterministic(cuda, dtype):
+@pytest.mark.parametrize("b,s,nh,hd,g,n,ch,with_h0,with_dhf", [
+    (2, 96, 4, 16, 1, 8, 32, True, True),
+    (1, 200, 6, 16, 2, 16, 64, True, True),      # ragged, G = 2
+    (2, 50, 4, 8, 2, 8, 16, False, True),        # the last chunk of 2 rows
+    (1, 33, 2, 8, 1, 4, 16, True, False),
+    (2, 300, 48, 64, 1, 128, 128, False, False),  # mamba2-780m's heads: 3 slices of 16
+    (1, 200, 50, 64, 1, 16, 128, True, True),    # hymba-1.5b's 50 heads, N 16
+    (1, 200, 4, 16, 1, 16, 48, True, True),      # Q 48: no multiple of 64; 200 = 4 * 48 + 8
+    (2, 97, 4, 16, 1, 8, 32, False, True),       # a last chunk of one row
+    (2, 70, 6, 8, 2, 4, 32, True, True),         # hd 8 and N 4, padded to the MMA tile
+    (1, 150, 10, 16, 2, 8, 32, True, True),      # G = 2, five heads a group
+    (2, 300, 4, 64, 1, 128, 128, True, True),    # mamba2's widths, the state terms' rows
+    (1, 70, 4, 6, 1, 5, 32, True, True),         # odd hd and N: no 16-byte rows, hd * N % 4
+])
+def test_ssd_scan_backward_matches_autograd_through_plain(cuda, b, s, nh, hd, g, n, ch,
+                                                         with_h0, with_dhf, dtype):
+    _check_ssd_backward(cuda, b, s, nh, hd, g, n, ch, with_h0, with_dhf, dtype)
+
+
+@pytest.mark.parametrize("b,s,nh,hd,g,n,ch,dtype", [
+    (2, 200, 4, 16, 1, 16, 64, torch.float32),
+    (2, 200, 4, 16, 1, 16, 64, torch.bfloat16),
+    (1, 300, 6, 64, 1, 128, 128, torch.bfloat16),   # mamba2-780m's widths
+])
+def test_ssd_scan_backward_when_b_equals_c(cuda, b, s, nh, hd, g, n, ch, dtype):
+    """B = C: dcum_i = C_i . dC_i - B_i . dB_i is a difference of two terms
+    of one size, the case where a rounding before the dots would show.  The
+    yardstick is the recurrence in float64.  At mamba2's widths f32 itself
+    comes near or past the f32 band on da (the plain version's da sits up to
+    1.4e-4 * max|da| from the float64 recurrence, the f32 body's up to
+    1.6e-4, five to ten times their distances where B and C differ:
+    tools/ssd_bwd_precision.py), so that shape runs in bf16, the body this
+    checks."""
+    _check_ssd_backward(cuda, b, s, nh, hd, g, n, ch, True, True, dtype, same_bc=True)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("nh,n", [(48, 128), (50, 16)])   # mamba2-780m's and hymba-1.5b's
+def test_ssd_scan_backward_is_deterministic(cuda, nh, n, dtype):
     from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
-    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 2, 300, 48, 64, 1, 128, dtype, True, seed=3)
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 2, 300, nh, 64, 1, n, dtype, True, seed=3)
     dy = torch.randn(x.shape, generator=torch.Generator(device=cuda).manual_seed(4),
                      device=cuda).to(dtype)
     _, hf, states = ssd_scan(x, dt, a, bm, cm, h0, chunk=128, with_states=True)
     one = ssd_scan_bwd(dy, None, x, dt, a, bm, cm, h0, states, hf, chunk=128)
     two = ssd_scan_bwd(dy, None, x, dt, a, bm, cm, h0, states, hf, chunk=128)
     assert all(torch.equal(p, q) for p, q in zip(one, two))
+
+
+@pytest.mark.parametrize("dtype,body,not_body", [
+    (torch.bfloat16, ("ssd_bwd_dc_mma_kernel", "ssd_bwd_scan_kernel", "ssd_bwd_dx_mma_kernel",
+                      "ssd_bwd_reduce_kernel"), ("ssd_bwd_chunk_kernel", "ssd_bwd_state_kernel")),
+    (torch.float32, ("ssd_bwd_state_kernel", "ssd_bwd_chunk_kernel", "ssd_bwd_reduce_kernel"),
+     ("_mma_", "ssd_bwd_scan_kernel")),
+])
+def test_ssd_scan_backward_body_by_dtype(cuda, dtype, body, not_body):
+    """The dtype picks the body: bf16 on the tensor cores (the chunk passes
+    on mma.sync, the state pass an elementwise scan), f32 on the CUDA cores;
+    the profile names the kernels that ran."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.ssd_scan import ssd_scan, ssd_scan_bwd
+    x, dt, a, bm, cm, h0 = _ssd_inputs(cuda, 2, 300, 8, 64, 1, 128, dtype, True, seed=3)
+    dy = torch.ones_like(x)
+    _, hf, states = ssd_scan(x, dt, a, bm, cm, h0, chunk=128, with_states=True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        ssd_scan_bwd(dy, None, x, dt, a, bm, cm, h0, states, hf, chunk=128)
+        torch.cuda.synchronize()
+    names = [e.key for e in prof.key_averages() if e.device_type == DeviceType.CUDA]
+    for k in body:
+        assert any(k in nm for nm in names), (k, names)
+    for k in not_body:
+        assert not any(k in nm for nm in names), (k, names)
 
 
 def test_ssd_scan_backward_refuses_what_it_does_not_take(cuda):

@@ -107,3 +107,25 @@ def test_plain_backward_matches_jax_vjp(b, s, nh, hd, g, n, chunk, with_h0, with
     for name, got in zip(NAMES, explicit):
         if got is not None:
             _check(name, got, want[name], "ssd_scan_bwd_ref")
+
+
+@pytest.mark.parametrize("b,s,nh,hd,g,n,chunk", [
+    (2, 200, 4, 16, 1, 16, 64),                   # ragged: 200 = 3 * 64 + 8
+    (1, 200, 6, 16, 2, 8, 32),                    # G = 2
+])
+def test_plain_backward_matches_jax_vjp_when_b_equals_c(b, s, nh, hd, g, n, chunk):
+    """B = C, where dcum_i = C_i . dC_i - B_i . dB_i is a difference of two
+    terms of one size: `ssd_scan_bwd_ref` against `jax.vjp` of
+    `ssd_chunked` on the same inputs, under the file's tolerances.  Not at
+    mamba2-780m's widths: there the port's f32 da alone drifts up to 1.4e-4
+    * max|da| from a float64 recurrence (tools/ssd_bwd_precision.py), past
+    the 1e-4 this file allows between the two sides."""
+    ins, cots = _inputs(b, s, nh, hd, g, n, True, True, seed=s * 37 + nh)
+    ins["C"] = ins["B"].copy()
+    want = _jax_grads(ins, cots, chunk)
+    plain = {k: torch.from_numpy(v) for k, v in ins.items()}
+    got = ssd_scan_bwd_ref(torch.from_numpy(cots["dy"]), torch.from_numpy(cots["dh_final"]),
+                           plain["x"], plain["dt"], plain["a_neg"], plain["B"], plain["C"],
+                           h0=plain["h0"], chunk=chunk)
+    for name, g_ in zip(NAMES, got):
+        _check(name, g_, want[name], "ssd_scan_bwd_ref, B = C")
