@@ -32,7 +32,12 @@ Phases, each printing one JSON line with its seconds:
                bit-identical), timed at mamba2-780m's and hymba-1.5b's
                training shapes (the profile must name its mma.sync chunk
                kernels), and the SSD forward with and without its chunk
-               states in turns.
+               states in turns.  The shapes of ``mm_models``: full flash
+               over seamless-m4t-large-v2's encoder and its cross-attention
+               (the prompt's 64 queries and decode's one over 1,024 source
+               rows), causal flash over phi-3-vision-4.2b's 576 patch slots
+               and 512 prompt tokens at head dim 96, and decode over both
+               models' serving caches, each timed beside its bound and SDPA.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
                trace that chunks its prompts and preempts; once plain (both
@@ -118,16 +123,35 @@ Phases, each printing one JSON line with its seconds:
                and 2, launches exact per family); (b) smollm-360m at full
                width and depth, bf16, remat, batch 8 x 2048, 20 steps: the
                loss falls by more than 0.1, launches exact, a checkpoint at
-               step 10 restored bit for bit and run on beside the
-               uninterrupted run; (c) qwen3-moe-30b-a3b at full width, 4
-               layers, bf16, batch 4 x 1024, 5 steps; (d) mamba2-780m at
-               full width and depth (780,148,992 parameters), bf16, remat,
-               batch 8 x 2048, 10 steps, the loss falling by more than 0.1,
-               a checkpoint at step 5 restored and run on; (e) hymba-1.5b
-               at full width and depth (1,641,179,520 parameters), bf16,
-               remat, batch 4 x 2048, 5 steps.  ``--profile`` writes one
+               step 10 restored bit for bit and run on to the
+               uninterrupted run's losses and weights, bit for bit; (c)
+               qwen3-moe-30b-a3b at full width, 4 layers, bf16, batch 4 x
+               1024, 5 steps; (d) mamba2-780m at full width and depth
+               (780,148,992 parameters), bf16, remat, batch 8 x 2048, 10
+               steps, the loss falling by more than 0.1, a checkpoint at
+               step 5 restored and run on, as (b); (e) hymba-1.5b at full
+               width and depth (1,641,179,520 parameters), bf16, remat,
+               batch 4 x 2048, 5 steps.  ``--profile`` writes one
                profiled step of each into <model>_profile.txt
                (``train_profile.txt`` for smollm).
+16. ``mm_models`` the vlm and encdec families through the Model API: (a)
+               reduced phi-3-vision-4.2b and seamless-m4t-large-v2 at fp32,
+               the card against the CPU (prefill logits and state, 8 greedy
+               decode steps with tokens identical, the loss and every
+               gradient leaf, three train steps, launches exact); (b) both
+               served at full width and depth in bf16 through prefill and
+               decode_step (phi-3-vision: 4 requests of 576 patch
+               embeddings and 512 tokens; seamless: 4 requests of 1,024
+               source frames and 64 tokens; 32 new tokens each): tokens/s,
+               prefill ms, the decode step beside its weight-read bound,
+               peak memory and exact launches; (c) training in bf16 with
+               remat: seamless at full width and depth, batch 4 x 1024
+               tokens over 1,024 frames, 10 steps, the loss falling by more
+               than 0.1, a checkpoint at step 5 restored and run on bit for
+               bit as the uninterrupted run; phi-3-vision at full width and
+               depth, batch 2 x 1024 tokens after 576 patches, 5 steps.
+               ``--profile`` writes <model>_profile.txt for each served
+               model.
 
 Each phase's line carries the peak device memory it allocated; the models
 of a phase are freed before the next begins.
@@ -160,7 +184,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
 PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
           "ssm_serve", "recover", "mb_recover", "telemetry", "paged_modes", "moe",
-          "wide_heads", "train")
+          "wide_heads", "train", "mm_models")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -482,7 +506,8 @@ def phase_kernels(state: dict) -> dict:
         rows[time_it] = {
             **times(mine, lambda: ref.flash_attention_ref(q, k, v, causal=causal), sdpa),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
-            "shape": f"q[{b},{sq},{hq},{d}] kv[{b},{skv},{hkv},{d}] {tname} causal"}
+            "shape": f"q[{b},{sq},{hq},{d}] kv[{b},{skv},{hkv},{d}] {tname} "
+                     f"{'causal' if causal else 'full'}"}
 
     # the mb_serve prefill: microbatch 4 of 512-token prompts, gpt2 heads
     flash_case("gpt2_prefill", 4, 512, 512, 25, 25, 64, torch.float32,
@@ -705,6 +730,25 @@ def phase_kernels(state: dict) -> dict:
     # the K/V stages of the bf16 body are chosen by head dim
     flash_case("d128_prefill", 1, 512, 512, 32, 4, 128, torch.bfloat16,
                time_it="flash_attention d128")
+    # the mm_models phase's serving shapes: seamless-m4t-large-v2's encoder
+    # over 1,024 frames and its cross-attention over them (the prompt's 64
+    # queries, and decode's one: a 64-row tile with one live row), full, 16:16
+    # heads of 64; phi-3-vision-4.2b's prefill, causal over 576 patch slots
+    # and 512 prompt tokens, 32:32 heads of 96; and decode over both models'
+    # caches at the last of 32 new tokens (phi-3-vision's 1,120 slots with
+    # the query at 1,118, seamless's 96 with the query at 94)
+    phi3v_slots, seamless_slots = torch.arange(1120, device=dev), torch.arange(96, device=dev)
+    for dt_ in (torch.float32, torch.bfloat16):
+        bf16 = dt_ == torch.bfloat16
+        for name, sq in (("encoder", 1024), ("prompt_cross", 64), ("decode_cross", 1)):
+            flash_case(f"seamless_{name}", 4, sq, 1024, 16, 16, 64, dt_, causal=False,
+                       time_it=f"flash_attention seamless {name}" if bf16 else None)
+        flash_case("phi3v_prefill", 4, 1088, 1088, 32, 32, 96, dt_,
+                   time_it="flash_attention phi3v prefill" if bf16 else None)
+        decode_case("phi3v_decode", 4, 1120, 32, 32, 96, phi3v_slots <= 1118, dt_,
+                    time_it="decode_attention phi3v" if bf16 else None)
+        decode_case("seamless_decode", 4, 96, 16, 16, 64, seamless_slots <= 94, dt_,
+                    time_it="decode_attention seamless" if bf16 else None)
     flash_backward_cases(g, rows, checks)
     ssd_backward_cases(g, rows, checks)
     state["kernel_rows"] = rows
@@ -1523,11 +1567,13 @@ def _to(tree, dev):
     return tree.to(dev)
 
 
-def generate(model, params, prompts, max_new: int, sync, pre_ms=None, dec_ms=None):
+def generate(model, params, prompts, max_new: int, sync, pre_ms=None, dec_ms=None,
+             extra=None):
     """Greedy generation through the Model API: one `prefill` of the prompts
-    [B,S] and `max_new - 1` decode steps.  Returns (tokens [B,max_new], the
-    logits rows on the CPU, the final decode state), the host times of each
-    call appended to `pre_ms` / `dec_ms`."""
+    [B,S] (with `extra`, the batch's other inputs: a vlm's patch_embeds, an
+    encdec's src_embeds) and `max_new - 1` decode steps.  Returns (tokens
+    [B,max_new], the logits rows on the CPU, the final decode state), the
+    host times of each call appended to `pre_ms` / `dec_ms`."""
     import torch
     pre_ms = [] if pre_ms is None else pre_ms
     dec_ms = [] if dec_ms is None else dec_ms
@@ -1535,7 +1581,8 @@ def generate(model, params, prompts, max_new: int, sync, pre_ms=None, dec_ms=Non
     max_len = model.cfg.context_overhead + tokens.shape[1] + max_new
     sync()
     t = time.perf_counter()
-    logits, state, pos = model.prefill(params, {"tokens": tokens}, max_len=max_len)
+    logits, state, pos = model.prefill(params, {"tokens": tokens, **(extra or {})},
+                                       max_len=max_len)
     sync()
     pre_ms.append((time.perf_counter() - t) * 1e3)
     out, rows = [], []
@@ -1706,23 +1753,24 @@ def phase_ssm_serve(state: dict) -> dict:
             for k in ("flash_attention", "decode_attention"):
                 state["launches"].setdefault(k, res["launches"][k])
         if state.get("profile"):
-            out[name]["profile"] = profile_ssm(model, params, n, plen, state["out"])
+            out[name]["profile"] = profile_generation(model, params, n, plen, state["out"])
         del model, params
     state["launches"]["ssd_scan"] = ssd_launches
     return out
 
 
-def profile_ssm(model, params, n: int, plen: int, out_dir: Path) -> dict:
-    """Device time by kernel over one generation (n prompts of plen tokens,
-    8 new tokens: one prefill and seven decode steps), as `profile_serve`
-    does for the paged path.  The table goes to
-    `out_dir`/<model>_profile.txt."""
+def profile_generation(model, params, n: int, plen: int, out_dir: Path,
+                       extra=None) -> dict:
+    """Device time by kernel over one generation through the Model API (n
+    prompts of plen tokens and `extra` as `generate` takes it, 8 new tokens:
+    one prefill and seven decode steps), as `profile_serve` does for the
+    paged path.  The table goes to `out_dir`/<model>_profile.txt."""
     import numpy as np
     import torch
     prompts = np.random.default_rng(11).integers(0, model.cfg.vocab_size, (n, plen))
 
     def window():
-        generate(model, params, prompts, 8, torch.cuda.synchronize)
+        generate(model, params, prompts, 8, torch.cuda.synchronize, extra=extra)
         return 8
     return _profile(window, out_dir / f"{model.cfg.name}_profile.txt",
                     {"ssd_scan": SSD_NAMES, "flash_attention": FLASH_NAMES,
@@ -2871,12 +2919,12 @@ def train_exact(name: str, layers: int = 4) -> dict:
     from repro_torch.configs import get_arch
     from repro_torch.kernels import LAUNCHES, TRAIN_KERNELS, reset_launches, train_launches
     from repro_torch.models import build_model
-    from repro_torch.training import SyntheticDataPipeline, TrainConfig, adamw_init, make_train_step
+    from repro_torch.training import TrainConfig, adamw_init, make_train_step
     from repro_torch.training.optimizer import tree_leaves
     from repro_torch.training.train import batch_to
     cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32", num_layers=layers)
     params0 = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    data = SyntheticDataPipeline(cfg.vocab_size, 64, 4, seed=1)
+    data = pipeline_of(cfg, 64, 4, seed=1)
     res = {}
     for dev in ("cuda", "cpu"):
         model = build_model(cfg, device=dev)
@@ -2922,6 +2970,16 @@ def train_exact(name: str, layers: int = 4) -> dict:
         out[f"grad_accum_{accum}"] = {"losses_card": a["losses"], "losses_cpu": b["losses"],
                                       "loss_rel_err": lrel, "param_max_abs_err": pmax}
     return out
+
+
+def pipeline_of(cfg, seq: int, batch: int, seed: int):
+    """The synthetic batches of `cfg`, with a vlm's patch embeddings and an
+    encdec's source frames (min(max_source_len, seq) of them), as
+    launch/train makes them."""
+    from repro_torch.training import SyntheticDataPipeline
+    return SyntheticDataPipeline(cfg.vocab_size, seq, batch, seed=seed, family=cfg.family,
+                                 d_model=cfg.d_model, num_patches=cfg.num_patches,
+                                 src_len=min(cfg.max_source_len, seq))
 
 
 def train_run(model, params, data, steps, *, start=0, ckpt=None, save_at=None):
@@ -2993,27 +3051,30 @@ def train_full(state: dict, cfg, key: str, batch: int, seq: int, steps: int,
     twice), the parameter count `n_params` where given, and the loss
     falling by more than `fall` where given.  With `save_at`, a checkpoint
     after that step is restored bit for bit into fresh tensors and run on
-    to `steps` beside the uninterrupted run.  Step 1 builds and warms up,
-    so the step times are steps 2 on.  `--profile` adds one profiled step
-    after the run, into <out>/<key>_profile.txt."""
+    to `steps`: its losses and final parameters must equal the
+    uninterrupted run's bit for bit.
+    Step 1 builds and warms up, so the step times are steps 2 on.
+    `--profile` adds one profiled step after the run, into
+    <out>/<key>_profile.txt."""
     import shutil
 
     import torch
 
     from repro_torch.kernels import LAUNCHES, TRAIN_KERNELS, reset_launches, train_launches
     from repro_torch.models import build_model
-    from repro_torch.training import SyntheticDataPipeline, adamw_init, restore_checkpoint
+    from repro_torch.training import adamw_init, restore_checkpoint
     from repro_torch.training.optimizer import tree_leaves, tree_map
     model = build_model(cfg, device="cuda", remat=True)
-    params = model.init(torch.Generator(device="cuda").manual_seed(0))
-    count = sum(p.numel() for p in tree_leaves(params))
+    # held by the list alone, so the first step frees the initial weights
+    init = [model.init(torch.Generator(device="cuda").manual_seed(0))]
+    count = sum(p.numel() for p in tree_leaves(init[0]))
     check(n_params is None or count == n_params, f"{key}: {count} parameters, not {n_params}")
-    data = SyntheticDataPipeline(cfg.vocab_size, seq, batch, seed=0)
+    data = pipeline_of(cfg, seq, batch, seed=0)
     ckpt = state["out"] / f"{key}_ckpt"
     shutil.rmtree(ckpt, ignore_errors=True)
     torch.cuda.reset_peak_memory_stats()
     reset_launches()
-    p_end, o_end, run, saved = train_run(model, params, data, steps, ckpt=ckpt,
+    p_end, o_end, run, saved = train_run(model, init.pop(), data, steps, ckpt=ckpt,
                                          save_at=save_at)
     launches = {k: LAUNCHES[k] for k in TRAIN_KERNELS}
     peak = torch.cuda.max_memory_allocated() / 2**30
@@ -3031,28 +3092,35 @@ def train_full(state: dict, cfg, key: str, batch: int, seq: int, steps: int,
            "losses": losses, "grad_norms": run["grad_norms"],
            "step_ms_median": med, "step_ms_min": ms[0], "step_ms_max": ms[-1],
            "step_ms_iqr": quart[2] - quart[0], "tokens_per_s": batch * seq / (med / 1e3),
-           "peak_mem_gib": peak, "launches": launches}
+           "peak_mem_gib": peak, "launches": launches,
+           "launches_per_step": {k: v / steps for k, v in launches.items()}}
     if save_at is not None:
         p_s, o_s = saved
-        template = {"params": tree_map(torch.zeros_like, params), "opt": adamw_init(params)}
+        del saved
+        template = {"params": tree_map(torch.zeros_like, p_s), "opt": adamw_init(p_s)}
         restored, at = restore_checkpoint(str(ckpt), template)
+        del template
         check(at == save_at, f"{key}: latest checkpoint at step {at}, not {save_at}")
         check(equal_trees(restored["params"], p_s) and equal_trees(restored["opt"].m, o_s.m)
               and equal_trees(restored["opt"].v, o_s.v)
               and int(restored["opt"].step) == int(o_s.step) == save_at,
               f"{key}: the restored step-{save_at} state differs from the saved one")
-        del p_s, o_s, saved
-        p_end, o_end, resumed, _ = train_run(model, (restored["params"], restored["opt"]),
-                                             data, steps - save_at, start=save_at)
-        diffs = [abs(a - b) / abs(b) for a, b in zip(resumed["losses"], losses[save_at:])]
-        check(max(diffs) <= 1e-2, f"{key}: resumed losses {resumed['losses']} vs "
-              f"{losses[save_at:]}")
+        del p_s, o_s
+        # the uninterrupted run's end, on the host where the bits are compared
+        p_full = tree_map(lambda t: t.cpu(), p_end)
+        del p_end, o_end
+        p_end, o_end, resumed, _ = train_run(
+            model, (restored.pop("params"), restored.pop("opt")), data, steps - save_at,
+            start=save_at)
+        check(resumed["losses"] == losses[save_at:]
+              and equal_trees(tree_map(lambda t: t.cpu(), p_end), p_full),
+              f"{key}: the resumed run differs from the uninterrupted one in its bits "
+              f"(losses {resumed['losses']} against {losses[save_at:]})")
+        del p_full
         out["checkpoint"] = {
             "restored_bit_exact": True, "resumed_losses": resumed["losses"],
-            "max_rel_diff_vs_uninterrupted": max(diffs),
-            "bit_identical_to_uninterrupted": resumed["losses"] == losses[save_at:],
+            "bit_identical_to_uninterrupted": True,
             "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
-        del restored, template
     shutil.rmtree(ckpt, ignore_errors=True)
     if state.get("profile"):
         out["profile"] = profile_train(model, p_end, o_end, data, steps,
@@ -3066,8 +3134,8 @@ def phase_train(state: dict) -> dict:
     depth (d 960, 32 layers, 15:5 heads of 64, vocab 49,152), bf16, remat,
     batch 8 x 2048, 20 steps on the synthetic pipeline: the loss falls by
     more than 0.1, launches exact, a checkpoint at step 10 restored bit for
-    bit into fresh tensors and run on to step 20 beside the uninterrupted
-    run; (c) qwen3-moe at full width with 4 of its 48 layers, bf16, remat,
+    bit into fresh tensors and run on to step 20, equal to the
+    uninterrupted run bit for bit; (c) qwen3-moe at full width with 4 of its 48 layers, bf16, remat,
     batch 4 x 1024, 5 steps (capacity-bounded dispatch and the aux loss);
     (d) mamba2-780m at its published width and depth (48 layers, d 1536, 48
     SSD heads of 64, N 128, vocab 50,280), bf16, remat, batch 8 x 2048, 10
@@ -3117,6 +3185,242 @@ def phase_train(state: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 16: the vlm and encdec families through the Model API
+# ---------------------------------------------------------------------------
+
+# parameters of the reference's init at full width and depth (its analytic
+# ArchConfig.param_count() leaves the position tables, patch_proj and the
+# norms out: 3,821,076,480 and 1,632,129,024)
+PHI3V_PARAMS = 3_830_516_736
+SEAMLESS_PARAMS = 1_670_004_736
+MM_TOL = 1e-4            # fp32 logits and decode state, card against CPU (absolute)
+MM_SERVE = {             # name -> (requests, prompt tokens, source frames)
+    "phi-3-vision-4.2b": (4, 512, 0),
+    "seamless-m4t-large-v2": (4, 64, 1024),
+}
+MM_NEW_TOKENS = 32
+
+
+def mm_inputs(cfg, n: int, rng, dev, src: int = 0) -> dict:
+    """The stub frontends' inputs of n requests, f32 from numpy's `rng`, on
+    `dev`: a vlm's patch embeddings [n, num_patches, d], an encdec's `src`
+    source frames [n, src, d]."""
+    import torch
+    if cfg.family == "vlm":
+        shape, key = (n, cfg.num_patches, cfg.d_model), "patch_embeds"
+    else:
+        shape, key = (n, src, cfg.d_model), "src_embeds"
+    return {key: torch.from_numpy(rng.standard_normal(shape).astype("float32")).to(dev)}
+
+
+def mm_expected_launches(cfg, prefills: int, decode_steps: int) -> dict:
+    """A prefill runs flash_attention once per decoder layer, an encdec's
+    also once per encoder layer and once per decoder layer's
+    cross-attention; a decode step runs decode_attention once per decoder
+    layer, and an encdec's flash_attention once more per layer (the one
+    query's cross-attention)."""
+    from repro_torch.kernels import KERNELS
+    want = dict.fromkeys(KERNELS, 0)
+    n = cfg.num_layers
+    if cfg.family == "encdec":
+        want["flash_attention"] = (cfg.num_encoder_layers + 2 * n) * prefills + n * decode_steps
+    else:
+        want["flash_attention"] = n * prefills
+    want["decode_attention"] = n * decode_steps
+    return want
+
+
+def mm_exact(cfg, devs=("cuda", "cpu")) -> dict:
+    """One set of seeded weights on each device (the last is the CPU): the
+    prefill's logits and every leaf of its decode state within MM_TOL of
+    the CPU's, then 8 greedy tokens identical, launches exact on the card
+    and none on the CPU."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
+    n, plen, max_new = 2, 24, 8
+    rng = np.random.default_rng(6)
+    prompts = rng.integers(0, cfg.vocab_size, (n, plen))
+    # reduced seamless: 20 of its 32 source slots, fewer than the prompt's 24
+    extra = mm_inputs(cfg, n, rng, "cpu", src=20)
+    runs = {}
+    for dev in devs:
+        sync = torch.cuda.synchronize if dev != "cpu" else (lambda: None)
+        model, p = build_model(cfg, device=dev), _to(params, dev)
+        ex = _to(extra, dev)
+        reset_launches()
+        logits, st, _ = model.prefill(p, {"tokens": torch.as_tensor(prompts, device=dev), **ex},
+                                      max_len=cfg.context_overhead + plen + max_new)
+        sync()
+        pre = {"logits": logits.cpu(), "state": [t.cpu() for t in _leaves(st)],
+               "launches": dict(LAUNCHES)}
+        reset_launches()
+        toks, rows, _ = generate(model, p, prompts, max_new, sync, extra=ex)
+        runs[dev] = {"prefill": pre, "tokens": toks, "rows": rows, "launches": dict(LAUNCHES)}
+    cpu = runs[devs[-1]]
+    check(not any(cpu["launches"].values()) and not any(cpu["prefill"]["launches"].values()),
+          "a kernel launched on the CPU run")
+    out = {"config": f"{cfg.name} reduced, fp32", "prompts": n, "prompt_len": plen,
+           "max_new": max_new, "tokens": cpu["tokens"].tolist()}
+    for dev in devs[:-1]:
+        r = runs[dev]
+        diffs = [(a - b).abs().max().item() for a, b in
+                 zip([r["prefill"]["logits"]] + r["prefill"]["state"],
+                     [cpu["prefill"]["logits"]] + cpu["prefill"]["state"])]
+        check(max(diffs) <= MM_TOL, f"{cfg.name}: prefill logits or state off by {max(diffs)}")
+        check(torch.equal(r["tokens"], cpu["tokens"]),
+              f"{cfg.name}: card tokens {r['tokens'].tolist()} differ from CPU tokens "
+              f"{cpu['tokens'].tolist()}")
+        if dev != "cpu":
+            want = mm_expected_launches(cfg, 1, 0)
+            check(r["prefill"]["launches"] == want,
+                  f"{cfg.name}: prefill launches {r['prefill']['launches']}, want {want}")
+            want = mm_expected_launches(cfg, 1, max_new - 1)
+            check(r["launches"] == want, f"{cfg.name}: launches {r['launches']}, want {want}")
+        out.update({"tokens_identical": True, "max_abs_prefill_diff": max(diffs),
+                    "max_abs_logit_diff": max((a - b).abs().max().item()
+                                              for a, b in zip(r["rows"], cpu["rows"])),
+                    "launches": r["launches"]})
+    return out
+
+
+def decode_bytes(cfg, params, batch: int, pos: int) -> tuple:
+    """(weight bytes, cache bytes) one decode step at position `pos` must
+    read: every weight but the embedding rows it gathers (and a vlm's
+    patch_proj, an encdec's encoder and position tables), and the live
+    self-attention K/V plus an encdec's cross K/V."""
+    skip = ("embed", "patch_proj", "pos_table", "src_pos", "enc_layers", "enc_final")
+    weights = sum(t.numel() * t.element_size() for k, v in params.items() if k not in skip
+                  for t in _leaves(v))
+    if cfg.tie_embeddings:
+        weights += params["embed"].numel() * params["embed"].element_size()
+    es = params["final_norm"]["scale"].element_size()
+    row = cfg.num_layers * batch * cfg.kv_dim * 2 * es          # k and v of one slot
+    return weights, row * (pos + 1)
+
+
+def mm_serve(cfg, dev: str, model, params, n: int, plen: int, src: int, max_new: int,
+             repeats: int, sync) -> dict:
+    """`repeats` generations of n requests (plen prompt tokens, and the
+    family's frontend inputs) after a warm-up: tokens/s, the prefill's and
+    the decode step's times, the decode step's bound, and launches exact."""
+    import numpy as np
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    rng = np.random.default_rng(8)
+    # warm-up: library handles and the first launch of every path
+    generate(model, params, rng.integers(0, cfg.vocab_size, (n, 16)), 3, sync,
+             extra=mm_inputs(cfg, n, rng, dev, src))
+    prompts = rng.integers(0, cfg.vocab_size, (n, plen))
+    extra = mm_inputs(cfg, n, rng, dev, src)
+    pre_ms, dec_ms = [], []
+    reset_launches()
+    sync()
+    t = time.perf_counter()
+    for _ in range(repeats):
+        toks, _, st = generate(model, params, prompts, max_new, sync, pre_ms, dec_ms,
+                               extra=extra)
+    wall = time.perf_counter() - t
+    launches = dict(LAUNCHES)
+    check(toks.shape == (n, max_new), f"tokens of shape {tuple(toks.shape)}")
+    check(all(bool(torch.isfinite(v).all()) for v in _leaves(st)), "non-finite decode state")
+    if dev != "cpu":
+        want = mm_expected_launches(cfg, len(pre_ms), len(dec_ms))
+        check(launches == want, f"launches {launches}, the calls say {want}")
+    pos_mid = cfg.context_overhead + plen + max_new // 2
+    w_bytes, kv_bytes = decode_bytes(cfg, params, n, pos_mid)
+    cross = 0 if src == 0 else st["cross"]["k"].numel() * st["cross"]["k"].element_size() * 2
+    gen = repeats * n * max_new
+    return {"requests": n, "prompt_len": plen, "source_frames": src,
+            "patch_slots": cfg.num_patches, "max_new": max_new, "repeats": repeats,
+            "wall_s": wall, "tokens_generated": gen, "tokens_per_s": gen / wall,
+            "prefill_ms": pre_ms, "median_prefill_ms": statistics.median(pre_ms),
+            "median_decode_step_ms": statistics.median(dec_ms),
+            "decode_step_weight_bytes": w_bytes,
+            "decode_step_cache_bytes_mid": kv_bytes + cross,
+            "decode_step_weight_bound_ms": w_bytes / HBM_BYTES_PER_S * 1e3,
+            "decode_step_bound_ms": (w_bytes + kv_bytes + cross) / HBM_BYTES_PER_S * 1e3,
+            "prefill_calls": len(pre_ms), "decode_steps": len(dec_ms), "launches": launches}
+
+
+def phase_mm_models(state: dict) -> dict:
+    """(a) reduced phi-3-vision-4.2b and seamless-m4t-large-v2 at fp32, the
+    card against the CPU: `mm_exact`, then `train_exact` (loss, every
+    gradient leaf, three steps with grad_accum 1 and 2, launches exact);
+    (b) both at full width and depth in bf16 through prefill and
+    decode_step, `MM_SERVE`'s requests and 32 new tokens, three times after
+    a warm-up; (c) seamless trained at full width and depth (bf16, remat,
+    batch 4 x 1024 tokens over 1,024 frames, 10 steps, the loss falling by
+    more than 0.1, a checkpoint at step 5 resumed bit for bit), then
+    phi-3-vision at full width and depth (batch 2 x 1024 tokens after 576
+    patches, 5 steps)."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.models import build_model
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+
+    def free():
+        gc.collect()
+        torch.cuda.empty_cache()
+
+    out = {"exact": {}, "serve": {}}
+    for name in MM_SERVE:
+        cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
+        out["exact"][name] = {**mm_exact(cfg), "train": train_exact(name)}
+    free()
+    for name, (n, plen, src) in MM_SERVE.items():
+        cfg = dataclasses.replace(get_arch(name), dtype="bfloat16")
+        t = time.perf_counter()
+        model = build_model(cfg, device="cuda")
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        torch.cuda.synchronize()
+        init_s = time.perf_counter() - t
+        count = sum(p.numel() for p in _leaves(params))
+        want = {"vlm": PHI3V_PARAMS, "encdec": SEAMLESS_PARAMS}[cfg.family]
+        check(count == want, f"{name}: {count} parameters, not {want}")
+        torch.cuda.reset_peak_memory_stats()
+        res = mm_serve(cfg, "cuda", model, params, n, plen, src, MM_NEW_TOKENS, 3,
+                       torch.cuda.synchronize)
+        out["serve"][name] = {
+            "config": f"{name}, {cfg.num_layers} layers"
+                      + (f" + {cfg.num_encoder_layers} encoder" if src else "") + ", bf16",
+            "params": count, "init_s": init_s, **res,
+            "peak_mem_gib": torch.cuda.max_memory_allocated() / 2**30}
+        for k in ("flash_attention", "decode_attention"):   # where mb_serve did not run
+            state["launches"].setdefault(k, res["launches"][k])
+        if state.get("profile"):
+            extra = mm_inputs(cfg, n, np.random.default_rng(11), "cuda", src)
+            out["serve"][name]["profile"] = profile_generation(model, params, n, plen,
+                                                               state["out"], extra)
+        del model, params
+        free()
+
+    def bf16(name, **kw):
+        return dataclasses.replace(get_arch(name), dtype="bfloat16", **kw)
+
+    out["seamless_train"] = {
+        "config": "seamless-m4t-large-v2, 24 + 24 layers, d 1024, 16:16 heads of 64, vocab "
+                  "256,206, bf16, remat (decoder), batch 4 x 1024 tokens over 1,024 source "
+                  "frames, lr 1e-3",
+        **train_full(state, bf16("seamless-m4t-large-v2"), "seamless_train", 4, 1024, 10,
+                     save_at=5, n_params=SEAMLESS_PARAMS, fall=0.1)}
+    free()
+    out["phi3v_train"] = {
+        "config": "phi-3-vision-4.2b, 32 layers, d 3072, 32:32 heads of 96, bf16, remat, "
+                  "batch 2 x (576 patches + 1024 tokens), lr 1e-3",
+        **train_full(state, bf16("phi-3-vision-4.2b"), "phi3v_train", 2, 1024, 5,
+                     n_params=PHI3V_PARAMS)}
+    return out
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3159,8 +3463,9 @@ def main() -> int:
     ap.add_argument("--phases", default=",".join(PHASES),
                     help="comma list of phases to run (default: all)")
     ap.add_argument("--profile", action="store_true",
-                    help="after the serve, mb_serve, ssm_serve and train phases, profile "
-                         "a short window of each (one step of each train run)")
+                    help="after the serve, mb_serve, ssm_serve, train and mm_models "
+                         "phases, profile a short window of each (one step of each train "
+                         "run)")
     ap.add_argument("--out", default=str(ROOT / "build" / "chip_smoke"),
                     help="directory for the build log and the profile table")
     args = ap.parse_args()
@@ -3186,7 +3491,8 @@ def main() -> int:
            "ssm_parity": phase_ssm_parity, "ssm_serve": phase_ssm_serve,
            "recover": phase_recover, "mb_recover": phase_mb_recover,
            "telemetry": phase_telemetry, "paged_modes": phase_paged_modes,
-           "moe": phase_moe, "wide_heads": phase_wide_heads, "train": phase_train}
+           "moe": phase_moe, "wide_heads": phase_wide_heads, "train": phase_train,
+           "mm_models": phase_mm_models}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     (state["out"] / "phases.jsonl").unlink(missing_ok=True)
     if "env" not in phases:

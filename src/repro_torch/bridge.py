@@ -38,19 +38,34 @@ _STACKED = {"ssm": (("ssm", "w_in"),), "hybrid": (("attn", "wq"), ("ssm", "w_in"
             "moe": (("attn", "wq"), ("moe", "w_gate"))}
 
 
+def _stacks(cfg: ArchConfig):
+    """(stack key, layer count, the leaves to check) of each layer stack."""
+    if cfg.family == "encdec":
+        return (("enc_layers", cfg.num_encoder_layers, (("attn", "wq"), ("mlp", "w_down"))),
+                ("dec_layers", cfg.num_layers, (("attn", "wq"), ("cross", "wq"))))
+    return (("layers", cfg.num_layers, _STACKED.get(cfg.family, (("attn", "wq"),))),)
+
+
 def params_from_jax(cfg: ArchConfig, params_np: Dict, device="cuda") -> Dict:
     dev = resolve_device(device)
     embed = params_np["embed"]
     if tuple(embed.shape) != (cfg.vocab_size, cfg.d_model):
         raise ValueError(f"embed {tuple(embed.shape)} does not match {cfg.name}: "
                          f"({cfg.vocab_size}, {cfg.d_model})")
-    layers = params_np["layers"]
-    for block, leaf in _STACKED.get(cfg.family, (("attn", "wq"),)):
-        if block not in layers:
-            raise ValueError(f"params have no layers.{block} stack, which a {cfg.family} "
-                             f"model ({cfg.name}) needs")
-        n = layers[block][leaf].shape[0]
-        if n != cfg.num_layers:
-            raise ValueError(f"params stack {n} layers in layers.{block}.{leaf}, "
-                             f"config has {cfg.num_layers}")
+    for stack, want, leaves in _stacks(cfg):
+        layers = params_np.get(stack, {})
+        for block, leaf in leaves:
+            if block not in layers:
+                raise ValueError(f"params have no {stack}.{block} stack, which a "
+                                 f"{cfg.family} model ({cfg.name}) needs")
+            n = layers[block][leaf].shape[0]
+            if n != want:
+                raise ValueError(f"params stack {n} layers in {stack}.{block}.{leaf}, "
+                                 f"config has {want}")
+    if cfg.family == "vlm":
+        proj = params_np.get("patch_proj")
+        if proj is None or tuple(proj.shape) != (cfg.d_model, cfg.d_model):
+            raise ValueError(f"a vlm model ({cfg.name}) needs patch_proj "
+                             f"({cfg.d_model}, {cfg.d_model}), got "
+                             f"{None if proj is None else tuple(proj.shape)}")
     return _convert(params_np, dev)

@@ -13,14 +13,16 @@ from repro_torch.configs.mamba2_780m import CONFIG as _mamba2
 from repro_torch.configs.moonshot_v1_16b_a3b import CONFIG as _moonshot
 from repro_torch.configs.nemotron_4_340b import CONFIG as _nemotron
 from repro_torch.configs.opt_66b import CONFIG as _opt66b
+from repro_torch.configs.phi_3_vision_4_2b import CONFIG as _phi3v
 from repro_torch.configs.qwen3_moe_30b_a3b import CONFIG as _qwen3_moe
+from repro_torch.configs.seamless_m4t_large_v2 import CONFIG as _seamless
 from repro_torch.configs.smollm_360m import CONFIG as _smollm
 from repro_torch.configs.yi_34b import CONFIG as _yi_34b
 
 ARCHS: dict[str, ArchConfig] = {
     c.name: c
     for c in (_gpt2, _mamba2, _hymba, _yi_34b, _nemotron, _smollm, _internlm2, _moonshot,
-              _qwen3_moe)
+              _qwen3_moe, _phi3v, _seamless)
 }
 
 # the paper's own evaluation models

@@ -97,9 +97,18 @@ class DejaVuCluster:
         if tiered and not paged:
             raise ValueError("tiered=True needs paged=True")
         # the stage API (slice_params, stage_prefill, ...) exists for the
-        # DecoderLM families only; MambaLM and HybridLM serve through
-        # prefill/decode_step
-        not_ported(**{f"family={cfg.family} in the cluster": cfg.family not in ("dense", "moe")})
+        # DecoderLM families only; MambaLM, HybridLM and EncDecLM serve
+        # through prefill/decode_step.  The reference's EncDecLM has no stage
+        # API either, so its cluster cannot serve the encdec family at all.
+        # A vlm cluster builds, off the fused rounds (`fused_supported`); its
+        # whole-prompt stage prefill raises without patch_embeds, as the
+        # reference's does
+        if cfg.family == "encdec":
+            raise ValueError("family=encdec has no stage API (slice_params, stage_prefill, "
+                             "...), neither here nor in the reference: serve it through "
+                             "EncDecLM.prefill and decode_step")
+        not_ported(**{f"family={cfg.family} in the cluster":
+                      cfg.family not in ("dense", "moe", "vlm")})
         self.cfg = cfg
         self.model = model
         self.params = params             # full weights (the checkpoint store)

@@ -22,13 +22,18 @@ TRAIN_KERNELS = ("flash_attention", "flash_attention_bwd", "ssd_scan", "ssd_scan
 def train_launches(cfg, passes: int, remat: bool = False) -> Dict[str, int]:
     """Each training kernel's launches on the card for `passes` forward and
     backward passes of `cfg`: flash and its backward once per attention
-    layer (every layer of a dense or moe model, Hymba's global ones), the
-    SSD scan and its backward once per Mamba-2 or Hymba layer; with `remat`
-    each forward runs once more in the backward."""
-    attn = {"ssm": 0, "hybrid": len(cfg.full_attn_layers)}.get(cfg.family, cfg.num_layers)
+    (every layer of a dense, moe or vlm model, Hymba's global ones; an
+    encdec decoder layer's self- and cross-attention, and each encoder
+    layer), the SSD scan and its backward once per Mamba-2 or Hymba layer;
+    with `remat` each forward runs once more in the backward (an encdec's
+    encoder runs without it, as the reference's)."""
+    attn = {"ssm": 0, "hybrid": len(cfg.full_attn_layers),
+            "encdec": 2 * cfg.num_layers}.get(cfg.family, cfg.num_layers)
+    enc = cfg.num_encoder_layers if cfg.family == "encdec" else 0
     ssd = cfg.num_layers if cfg.family in ("ssm", "hybrid") else 0
     fwd = passes * (2 if remat else 1)
-    return {"flash_attention": attn * fwd, "flash_attention_bwd": attn * passes,
+    return {"flash_attention": attn * fwd + enc * passes,
+            "flash_attention_bwd": (attn + enc) * passes,
             "ssd_scan": ssd * fwd, "ssd_scan_bwd": ssd * passes}
 
 

@@ -3,7 +3,8 @@
 The decode state is a nested dict of tensors so that DéjàVuLib streaming can
 address leaves by path.  Layouts:
 
-dense, moe         {"kv": {"k": [L,B,S,Hkv,Dh], "v": ...}}
+dense, moe, vlm    {"kv": {"k": [L,B,S,Hkv,Dh], "v": ...}}   (vlm: S counts the patches)
+encdec             {"kv": ..., "cross": {"k": [L,B,Ssrc,Hkv,Dh], "v": ...}}
 ssm (mamba2)       {"conv": [L,B,K-1,conv_dim], "ssd": [L,B,nh,hd,N] f32}
 hybrid (hymba)     {"kv_swa":  {"k": [Lswa,B,M+W,Hkv,Dh], "v": ...},
                     "kv_full": {"k": [Lfull,B,M+S,Hkv,Dh], "v": ...},
@@ -12,8 +13,7 @@ hybrid (hymba)     {"kv_swa":  {"k": [Lswa,B,M+W,Hkv,Dh], "v": ...},
 
 For the attention-free and hybrid families the paper's "KV cache"
 generalises to this decode state: everything that must be swapped, streamed
-or replicated to resume generation.  The encdec and vlm layouts come with
-those families.
+or replicated to resume generation.
 """
 from __future__ import annotations
 
@@ -21,7 +21,7 @@ from typing import Dict, Optional
 
 import torch
 
-from repro_torch import not_ported, torch_dtype
+from repro_torch import torch_dtype
 from repro_torch.configs.base import ArchConfig
 
 
@@ -34,15 +34,21 @@ def decode_state_shapes(cfg: ArchConfig, batch: int, seq_len: int,
     """Nested dict of (shape, torch dtype) describing the decode state of
     `layers` layers (default: the whole model; a pipeline stage of a dense
     model passes its own layer count)."""
-    not_ported(**{f"family={cfg.family}": cfg.family not in ("dense", "moe", "ssm", "hybrid")})
-    if layers is not None and cfg.family == "hybrid":
-        raise ValueError("a hybrid decode state covers the whole model (no stage layout)")
+    if cfg.family not in ("dense", "moe", "vlm", "ssm", "hybrid", "encdec"):
+        raise ValueError(f"unknown family {cfg.family!r}")
+    if layers is not None and cfg.family in ("hybrid", "encdec"):
+        raise ValueError(f"a {cfg.family} decode state covers the whole model "
+                         "(no stage layout)")
     L = cfg.num_layers if layers is None else layers
     dt = torch_dtype(cfg.dtype)
     hkv, dh = cfg.num_kv_heads, cfg.resolved_head_dim
-    if cfg.family in ("dense", "moe"):
+    if cfg.family in ("dense", "moe", "vlm", "encdec"):
         shape = (L, batch, seq_len, hkv, dh)
-        return {"kv": {"k": (shape, dt), "v": (shape, dt)}}
+        kv = {"kv": {"k": (shape, dt), "v": (shape, dt)}}
+        if cfg.family == "encdec":
+            src = (L, batch, min(cfg.max_source_len, seq_len), hkv, dh)
+            kv["cross"] = {"k": (src, dt), "v": (src, dt)}
+        return kv
     ssm = {"conv": ((L, batch, cfg.ssm_conv - 1, _conv_dim(cfg)), dt),
            "ssd": ((L, batch, cfg.ssm_nheads, cfg.ssm_head_dim, cfg.ssm_state), torch.float32)}
     if cfg.family == "ssm":

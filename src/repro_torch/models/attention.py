@@ -3,7 +3,9 @@ decode paths (counterparts of `repro.models.attention`).
 
 Kernel routing, as the reference's ``backend="pallas"`` routes it: a whole
 prompt goes through `ops.attention_auto` (the `flash_attention` kernel where
-the layer is plain causal); a one-query step over a cache with one shared
+the layer is plain causal), and so do a bidirectional encoder and
+cross-attention, with no mask (full `flash_attention`, any Sq over any Skv,
+one query row in decode); a one-query step over a cache with one shared
 position row goes through `decode_attention`, with ALiBi through
 `batched_decode_attention`, as does every fused-round step over a gathered
 cache; multi-token chunks over a gathered cache use the plain `attend`,
@@ -231,3 +233,21 @@ def attention_paged_batch(x, p, cfg, k_pages, v_pages, block_tables, write_idx, 
     else:
         o = kops.paged_prefill_attention_auto(q, k_pages, v_pages, block_tables, pos, q_lens)
     return out_proj(o, p)
+
+
+def cross_attention(x, p, cfg, k_cache, v_cache):
+    """Decoder-to-encoder attention, no mask and no rope: x [B,S,d] over the
+    encoder's K/V [B,Ssrc,Hkv,Dh] (`cross_kv`) -> [B,S,d]."""
+    b, s, _ = x.shape
+    q = (x @ p["wq"]).reshape(b, s, cfg.num_heads, cfg.resolved_head_dim)
+    return out_proj(kops.attention_auto(q, k_cache, v_cache), p)
+
+
+def cross_kv(enc_out, p, cfg):
+    """Cross-attention K/V [B,Ssrc,Hkv,Dh] from the encoder's output,
+    computed once per request."""
+    b, s, _ = enc_out.shape
+    dh = cfg.resolved_head_dim
+    k = (enc_out @ p["wk"]).reshape(b, s, cfg.num_kv_heads, dh)
+    v = (enc_out @ p["wv"]).reshape(b, s, cfg.num_kv_heads, dh)
+    return k, v

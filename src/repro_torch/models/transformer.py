@@ -1,4 +1,4 @@
-"""Decoder-only transformer LM, dense and moe families (counterpart of
+"""Decoder-only transformer LM, dense, moe and vlm families (counterpart of
 `repro.models.transformer.DecoderLM`).
 
 Parameters are a nested dict of tensors with the layers stacked ``[L, ...]``,
@@ -10,6 +10,13 @@ pipeline stage's layer slice; their caches ``[Lstage,B,S,H,D]`` are updated
 in place and also returned, mirroring the reference's signatures.  The
 whole-model `prefill` and `decode_step` are the one-stage case, the oracle
 the serving tests hold the pipeline against.
+
+The vlm family (phi-3-vision) is the backbone behind a stub vision tower:
+callers pass ``patch_embeds [B, num_patches, d]``, which stage 0 casts to
+the model's dtype, projects by ``patch_proj`` and prepends to the token
+embeddings.  Positions run over the patch slots, so a prompt of S tokens
+fills num_patches + S cache slots and decoding starts there; the loss drops
+the patch positions before the head.
 """
 from __future__ import annotations
 
@@ -18,7 +25,7 @@ from typing import Dict, List
 import torch
 import torch.nn.functional as F
 
-from repro_torch import not_ported, resolve_device, torch_dtype
+from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.models import attention as attn
@@ -31,11 +38,12 @@ from repro_torch.models.moe import moe_apply, moe_init
 
 
 class DecoderLM:
-    """Dense and moe decoder (the vlm family is a later slice)."""
+    """Dense, moe and vlm decoder."""
 
     def __init__(self, cfg: ArchConfig, device="cuda", remat: bool = False):
-        not_ported(**{f"family={cfg.family}": cfg.family not in ("dense", "moe"),
-                      "num_patches": cfg.num_patches})
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise ValueError(f"DecoderLM serves the dense, moe and vlm families, "
+                             f"not family={cfg.family}")
         self.cfg = cfg
         self.device = resolve_device(device)
         self.remat = remat
@@ -56,6 +64,8 @@ class DecoderLM:
         p: Dict = {"embed": embed_init(g, (cfg.vocab_size, cfg.d_model), dtype, dev)}
         if cfg.pos_emb == "learned":
             p["pos_table"] = embed_init(g, (cfg.max_seq_len, cfg.d_model), dtype, dev)
+        if cfg.family == "vlm":
+            p["patch_proj"] = embed_init(g, (cfg.d_model, cfg.d_model), dtype, dev)
 
         def one_layer():
             lp = {"ln1": norm_init(cfg.norm, cfg.d_model, dtype, dev),
@@ -119,16 +129,19 @@ class DecoderLM:
         return x, aux[0] if aux else None
 
     def loss(self, params, batch):
-        """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} -> the
-        causal-LM loss, f32 scalar, plus 0.01 times the mean moe aux loss."""
+        """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} (vlm:
+        and "patch_embeds") -> the causal-LM loss, f32 scalar, plus 0.01 times
+        the mean moe aux loss."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"])
+        x = self._embed(params, batch["tokens"], batch.get("patch_embeds"))
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         auxs = []
         for lp, w in zip(unstack_layers(params["layers"], cfg.num_layers),
                          self._layer_window):
             x, aux = run_layer(self._train_layer, self.remat, x, lp, positions, w)
             auxs.append(aux)
+        if cfg.family == "vlm":             # the head reads the text positions only
+            x = x[:, cfg.num_patches:]
         loss = causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
         if cfg.is_moe:
             loss = loss + 0.01 * torch.stack(auxs).mean()
@@ -140,10 +153,19 @@ class DecoderLM:
                                   window=w, **kw)
         return x
 
-    def _embed(self, sp, tokens):
+    def _embed(self, sp, tokens, patch_embeds=None):
+        """Token embeddings [B,S,d]; vlm: the projected patches prepended,
+        [B,num_patches+S,d]."""
+        cfg = self.cfg
         x = F.embedding(tokens, sp["embed"])
-        if self.cfg.pos_emb == "learned":
-            x = x + sp["pos_table"][:tokens.shape[1]][None]
+        if cfg.family == "vlm":
+            if patch_embeds is None:
+                raise ValueError(f"family=vlm ({cfg.name}) needs patch_embeds "
+                                 f"[B,{cfg.num_patches},{cfg.d_model}] with the tokens")
+            patches = patch_embeds.to(x.dtype) @ sp["patch_proj"]
+            x = torch.cat([patches, x], dim=1)
+        if cfg.pos_emb == "learned":
+            x = x + sp["pos_table"][:x.shape[1]][None]
         return x
 
     # ------------------------------------------------------------------
@@ -157,7 +179,7 @@ class DecoderLM:
         sp = {"layers": cut(params["layers"]),
               "layer_window": self._layer_window[lo:hi]}
         if first:
-            for k in ("embed", "pos_table"):
+            for k in ("embed", "pos_table", "patch_proj"):
                 if k in params:
                     sp[k] = params[k]
         if last:
@@ -168,12 +190,14 @@ class DecoderLM:
                 sp["lm_head"] = params["lm_head"]
         return sp
 
-    def stage_prefill(self, sp, x, *, first: bool, last: bool, tokens=None):
+    def stage_prefill(self, sp, x, *, first: bool, last: bool, tokens=None,
+                      patch_embeds=None):
         """Run one stage over whole prompts at positions 0..S-1 (stage 0
-        takes `tokens` [B,S]).  Returns (x or, on the last stage, the final
-        token's logits [B,V], ks, vs) with ks/vs [Lstage,B,S,H,D]."""
+        takes `tokens` [B,S], and a vlm's `patch_embeds`, which it
+        prepends: S counts them).  Returns (x or, on the last stage, the
+        final token's logits [B,V], ks, vs) with ks/vs [Lstage,B,S,H,D]."""
         if first:
-            x = self._embed(sp, tokens)
+            x = self._embed(sp, tokens, patch_embeds)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         ks, vs = [], []
         for i, w in enumerate(sp["layer_window"]):
@@ -323,13 +347,15 @@ class DecoderLM:
     # whole-model generation: the one-stage case of the stage API
     # ------------------------------------------------------------------
     def prefill(self, params, batch, max_len=None):
-        """batch {"tokens": [B,S]} -> (last-token logits [B,V], decode state
-        {"kv": {"k", "v": [L,B,max_len,H,D]}} holding the prompt's K/V, the
-        next position S)."""
+        """batch {"tokens": [B,S]} (vlm: and "patch_embeds") -> (last-token
+        logits [B,V], decode state {"kv": {"k", "v": [L,B,max_len,H,D]}}
+        holding the prompt's K/V, the next position S).  A vlm's S and
+        max_len count its num_patches slots."""
         tokens = batch["tokens"]
-        b, s = tokens.shape
         sp = self.slice_params(params, 0, self.cfg.num_layers, first=True, last=True)
-        logits, ks, vs = self.stage_prefill(sp, None, first=True, last=True, tokens=tokens)
+        logits, ks, vs = self.stage_prefill(sp, None, first=True, last=True, tokens=tokens,
+                                            patch_embeds=batch.get("patch_embeds"))
+        b, s = ks.shape[1], ks.shape[2]
         state = init_decode_state(self.cfg, b, max(max_len or s, s), device=ks.device)
         state["kv"]["k"][:, :, :s] = ks
         state["kv"]["v"][:, :, :s] = vs

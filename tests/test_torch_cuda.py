@@ -93,6 +93,9 @@ def test_kv_pack_kernels_match_plain_bit_for_bit(cuda, dtype):
     (2, 50, 70, 4, 4, 96, False),                # D 96, full attention
     (1, 200, 200, 96, 8, 192, True),             # nemotron's heads: three boxes
     (1, 70, 150, 4, 2, 192, True),               # D 192, Sq < Skv, keys end mid-tile
+    (4, 1, 1024, 16, 16, 64, False),             # seamless's decode cross-attention: one
+    (4, 64, 1024, 16, 16, 64, False),            # query, then the prompt, over the source
+    (2, 1, 100, 4, 2, 96, False),                # one query, keys end mid-tile
 ])
 def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, causal, dtype):
     g = torch.Generator(device=cuda).manual_seed(1)
@@ -888,6 +891,7 @@ BWD_TOL = {torch.float32: 1e-4, torch.bfloat16: 2e-2}
     (1, 150, 200, 1, 1, 128, False),             # full, Sq < Skv
     (2, 200, 150, 6, 2, 192, False),             # full, Sq > Skv
     (2, 300, 300, 8, 1, 16, False),
+    (2, 64, 32, 4, 2, 16, False),                # reduced seamless's cross: Sq > Skv
 ])
 def test_flash_attention_backward_matches_autograd_through_plain(cuda, b, sq, skv, hq, hkv,
                                                                  d, causal, dtype):
@@ -1191,7 +1195,8 @@ def test_launch_train_runs_the_ssm_families_on_the_card(cuda, tmp_path):
 
 
 @pytest.mark.parametrize("name", ["smollm-360m", "qwen3-moe-30b-a3b", "mamba2-780m",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-large-v2"])
 def test_loss_and_gradients_on_the_card_give_the_cpus(cuda, name):
     """Reduced model, fp32, remat on the card: the loss and every gradient
     leaf equal the CPU's (1e-4 relative to max(1, max|g|)), the attention
@@ -1202,7 +1207,9 @@ def test_loss_and_gradients_on_the_card_give_the_cpus(cuda, name):
     from repro_torch.training.train import batch_to
     cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
     params = build_model(cfg, device="cpu").init(torch.Generator().manual_seed(0))
-    batch = SyntheticDataPipeline(cfg.vocab_size, 48, 3, seed=1).batch_at(0)
+    batch = SyntheticDataPipeline(cfg.vocab_size, 48, 3, seed=1, family=cfg.family,
+                                  d_model=cfg.d_model, num_patches=cfg.num_patches,
+                                  src_len=min(cfg.max_source_len, 48)).batch_at(0)
     res = {}
     for dev in ("cpu", "cuda"):
         live = tree_map(lambda p: p.to(dev).requires_grad_(), params)

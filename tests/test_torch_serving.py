@@ -5,7 +5,7 @@ decisions; the device pages must hold what the reference's numpy pages hold
 after the same writes, copies and gathers; a stage worker must leave the
 same pages and logits after chunked prefill and fused decode passes.  The
 entry points run on the card by default and raise without one unless the
-caller asks for the CPU; what this slice leaves out raises
+caller asks for the CPU; what the port leaves out raises
 NotImplementedError.
 """
 import dataclasses
@@ -273,7 +273,8 @@ def _moe():
 @pytest.mark.parametrize("knob", list(LEFT_OUT))
 def test_knobs_left_out_of_this_slice_raise(knob, models, tmp_path, monkeypatch):
     """Each knob now builds a paged engine, for the dense and the moe
-    family; with the encdec family the guard raises and names the family
+    family; with the encdec family, which has no stage API here or in the
+    reference, the cluster raises a ValueError that names the family
     alone."""
     import tempfile
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))     # the SSD tiers' roots
@@ -285,15 +286,15 @@ def test_knobs_left_out_of_this_slice_raise(knob, models, tmp_path, monkeypatch)
     assert all((w.tier is not None) == bool(kw.get("tiered")) for w in cl.workers())
     mcl = DejaVuCluster(*_moe(), 2, **kw)
     assert mcl.paged and all(w.pool is not None for w in mcl.workers())
-    with pytest.raises(NotImplementedError, match="does not port") as e:
+    with pytest.raises(ValueError, match="no stage API") as e:
         DejaVuCluster(dataclasses.replace(TCFG, family="encdec"), tm, tp, 2, **kw)
     assert "family=encdec" in str(e.value) and knob.split("_")[0] not in str(e.value)
 
 
 def test_run_and_fault_injection_raise():
-    """The families the port does not serve yet raise (fault injection,
+    """DecoderLM refuses a family it does not serve (fault injection,
     migration and repartition are served: tests/test_torch_recovery*.py)."""
-    with pytest.raises(NotImplementedError, match="family"):
+    with pytest.raises(ValueError, match="family=encdec"):
         DecoderLM(dataclasses.replace(TCFG, family="encdec"), device="cpu")
     cfg, model, params = _moe()
     assert isinstance(DejaVuCluster(cfg, model, params, 2, device="cpu"), DejaVuCluster)

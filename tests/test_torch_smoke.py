@@ -232,7 +232,8 @@ def test_ssd_backward_bound_at_the_training_shape_is_bytes(smoke):
 
 @pytest.mark.parametrize("name,attn,ssd", [
     ("smollm-360m", 2, 0), ("qwen3-moe-30b-a3b", 2, 0), ("mamba2-780m", 0, 2),
-    ("hymba-1.5b", 1, 2)])                       # reduced Hymba: one global layer of two
+    ("hymba-1.5b", 1, 2),                        # reduced Hymba: one global layer of two
+    ("phi-3-vision-4.2b", 2, 0)])
 def test_train_launches_follow_the_family(name, attn, ssd):
     from repro_torch.kernels import train_launches
     cfg = get_arch(name).reduced()
@@ -415,3 +416,43 @@ def test_wide_heads_phase_rehearsed(smoke):
     assert b["tokens_generated"] == 4 * 16 and b["prefill_passes"] == 2
     exact = smoke.wide_heads_exact(cfg, [16, 40, 23, 31], devs=("cpu",))
     assert exact["tokens_identical"]
+
+
+@pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "seamless-m4t-large-v2"])
+def test_mm_models_phase_rehearsed(smoke, name):
+    """The mm_models phase at a tiny width: (a)'s exact run (both sides on
+    the CPU: logits, state, tokens), and (b)'s serving run with the launches
+    its calls imply and the decode step's bytes."""
+    cfg = dataclasses.replace(get_arch(name).reduced(), dtype="float32")
+    exact = smoke.mm_exact(cfg, devs=("cpu", "cpu"))
+    assert exact["tokens_identical"] and exact["max_abs_prefill_diff"] == 0.0
+    assert len(exact["tokens"]) == 2 and all(len(t) == 8 for t in exact["tokens"])
+    from repro_torch.models import build_model
+    model = build_model(cfg, device="cpu")
+    params = model.init(torch.Generator().manual_seed(0))
+    src = 12 if cfg.family == "encdec" else 0
+    res = smoke.mm_serve(cfg, "cpu", model, params, 3, 20, src, 5, 2, sync=lambda: None)
+    assert res["tokens_generated"] == 2 * 3 * 5
+    assert res["prefill_calls"] == 2 and res["decode_steps"] == 2 * 4
+    want = smoke.mm_expected_launches(cfg, 2, 8)
+    n = cfg.num_layers
+    assert want["decode_attention"] == n * 8
+    assert want["flash_attention"] == ((2 + 2 * n) * 2 + n * 8 if cfg.family == "encdec"
+                                       else n * 2)
+    assert sum(want.values()) == want["flash_attention"] + want["decode_attention"]
+    # a decode step reads the decoder's weights and head, not the embedding
+    weights, cache = smoke.decode_bytes(cfg, params, 3, 10)
+    head = params["lm_head"].numel() * 4
+    assert head < weights < sum(t.numel() * 4 for t in smoke._leaves(params)) - head
+    assert cache == cfg.num_layers * 3 * cfg.kv_dim * 2 * 4 * 11
+
+
+def test_train_launches_of_the_encdec_family():
+    """seamless: flash and its backward for each encoder layer and each
+    decoder layer's self- and cross-attention; remat reruns the decoder's
+    forward alone, as the reference's jax.checkpoint does."""
+    from repro_torch.kernels import train_launches
+    cfg = get_arch("seamless-m4t-large-v2").reduced()      # 2 encoder, 2 decoder layers
+    assert train_launches(cfg, 3) == {"flash_attention": 3 * 6, "flash_attention_bwd": 3 * 6,
+                                      "ssd_scan": 0, "ssd_scan_bwd": 0}
+    assert train_launches(cfg, 3, remat=True)["flash_attention"] == 3 * (2 + 2 * 4)

@@ -30,7 +30,7 @@ from repro_torch.bridge import params_from_jax  # noqa: E402
 from repro_torch.configs import get_arch  # noqa: E402
 from repro_torch.kernels import LAUNCHES, ops, ref  # noqa: E402
 from repro_torch.kvcache.cache import decode_state_shapes, init_decode_state, state_bytes  # noqa: E402,E501
-from repro_torch.models import DecoderLM, HybridLM, MambaLM, build_model  # noqa: E402
+from repro_torch.models import DecoderLM, EncDecLM, HybridLM, MambaLM, build_model  # noqa: E402,E501
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.common import layer_params  # noqa: E402
 
@@ -299,9 +299,10 @@ def test_build_model_dispatches_by_family():
     assert isinstance(build_model(get_arch("hymba-1.5b").reduced(), device="cpu"), HybridLM)
     assert isinstance(build_model(get_arch("qwen3-moe-30b-a3b").reduced(), device="cpu"),
                       DecoderLM)
-    for fam in ("encdec", "vlm"):
-        with pytest.raises(NotImplementedError, match=f"family={fam}"):
-            build_model(dataclasses.replace(base, family=fam), device="cpu")
+    assert isinstance(build_model(get_arch("phi-3-vision-4.2b").reduced(), device="cpu"),
+                      DecoderLM)
+    assert isinstance(build_model(get_arch("seamless-m4t-large-v2").reduced(), device="cpu"),
+                      EncDecLM)
     with pytest.raises(ValueError, match="unknown family"):
         build_model(dataclasses.replace(base, family="rnn"), device="cpu")
 

@@ -45,6 +45,7 @@ from repro_torch.launch import serve as port_serve  # noqa: E402
 from repro_torch.launch import train as port_train  # noqa: E402
 from repro_torch.models import build_model  # noqa: E402
 from repro_torch.models.losses import causal_lm_loss  # noqa: E402
+from repro_torch.models.encdec import EncDecLM  # noqa: E402
 from repro_torch.models.transformer import DecoderLM  # noqa: E402
 from repro_torch.training import (SyntheticDataPipeline, TrainConfig, adamw_init,  # noqa: E402
                                   adamw_update, global_norm, latest_step, make_train_step,
@@ -56,7 +57,8 @@ from repro_torch.training.train import batch_to  # noqa: E402
 
 LR = 1e-3
 FAMILIES = {"gpt2-1.5b": "dense", "smollm-360m": "dense", "qwen3-moe-30b-a3b": "moe",
-            "mamba2-780m": "ssm", "hymba-1.5b": "hybrid"}
+            "mamba2-780m": "ssm", "hymba-1.5b": "hybrid", "phi-3-vision-4.2b": "vlm",
+            "seamless-m4t-large-v2": "encdec"}
 
 
 def configs(name: str):
@@ -88,7 +90,11 @@ def _paths(tree, prefix=""):
 
 
 def pipeline(cfg, batch=4, seq=16, seed=1):
-    return SyntheticDataPipeline(cfg.vocab_size, seq, batch, seed=seed)
+    """The synthetic batches of `cfg`, with a vlm's patch embeddings and an
+    encdec's source frames, as launch/train makes them."""
+    return SyntheticDataPipeline(cfg.vocab_size, seq, batch, seed=seed, family=cfg.family,
+                                 d_model=cfg.d_model, num_patches=cfg.num_patches,
+                                 src_len=min(cfg.max_source_len, seq))
 
 
 def jax_batch(b):
@@ -140,9 +146,12 @@ def test_loss_and_gradients_match_jax(name):
         assert a.shape == b.shape
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, a.abs().max().item())
     # every layer leaf gets a gradient, the attention projections included
-    n_layer_leaves = len(tree_leaves(tp["layers"]))
-    layer_grads = [g for (path, g) in zip(_paths(tp), tg) if path.startswith("layers/")]
-    assert len(layer_grads) == n_layer_leaves
+    # (an encdec model stacks its encoder's and decoder's layers apart)
+    stacks = [k for k in tp if k.endswith("layers")]
+    n_layer_leaves = sum(len(tree_leaves(tp[k])) for k in stacks)
+    layer_grads = [g for (path, g) in zip(_paths(tp), tg)
+                   if path.split("/")[0] in stacks]
+    assert stacks and len(layer_grads) == n_layer_leaves
     assert all(g.abs().max().item() > 0 for g in layer_grads)
 
 
@@ -187,7 +196,7 @@ def test_adamw_update_matches_jax_on_the_same_gradients():
 
 @pytest.mark.parametrize("name,grad_accum", [
     ("smollm-360m", 1), ("smollm-360m", 2), ("qwen3-moe-30b-a3b", 1), ("mamba2-780m", 1),
-    ("hymba-1.5b", 1)])
+    ("hymba-1.5b", 1), ("phi-3-vision-4.2b", 1), ("seamless-m4t-large-v2", 2)])
 def test_five_train_steps_match_jax(name, grad_accum):
     jcfg, jm, jp, tcfg, tm, tp = models(name)
     data = pipeline(jcfg)
@@ -216,7 +225,8 @@ def test_grad_accum_matches_full_batch():
 
 
 @pytest.mark.parametrize("name", ["smollm-360m", "qwen3-moe-30b-a3b", "mamba2-780m",
-                                  "hymba-1.5b"])
+                                  "hymba-1.5b", "phi-3-vision-4.2b",
+                                  "seamless-m4t-large-v2"])
 def test_remat_matches_no_remat(name):
     _, _, _, tcfg, tm, tp = models(name)
     batch = batch_to(pipeline(tcfg).batch_at(0), "cpu")
@@ -368,6 +378,31 @@ def test_launch_train_runs_then_resumes(tmp_path, capsys):
     assert "step     2 loss=" not in out
     assert latest_step(ckpt) == 6
     assert LAUNCHES == n0, "a CPU run must not reach a kernel"
+
+
+@pytest.mark.parametrize("name", ["phi-3-vision-4.2b", "seamless-m4t-large-v2"])
+def test_launch_train_feeds_each_familys_embeddings(name, tmp_path, capsys, monkeypatch):
+    """launch.train on a vlm and an encdec config: the patch embeddings or
+    source frames reach the model's loss as tensors on its device, and the
+    run trains and checkpoints."""
+    seen = []
+    cls = DecoderLM if FAMILIES[name] == "vlm" else EncDecLM
+    loss = cls.loss
+
+    def spy(self, params, batch):
+        seen.append({k: (v.device.type, str(v.dtype), tuple(v.shape)) for k, v in batch.items()})
+        return loss(self, params, batch)
+
+    monkeypatch.setattr(cls, "loss", spy)
+    ckpt = str(tmp_path / "ckpt")
+    port_train.main(["--arch", name, "--reduced", "--device", "cpu", "--batch", "2",
+                     "--seq", "16", "--steps", "2", "--ckpt-dir", ckpt, "--log-every", "1"])
+    out = capsys.readouterr().out
+    assert "step     2 loss=" in out and latest_step(ckpt) == 2
+    cfg = get_arch(name).reduced()
+    key, shape = (("patch_embeds", (2, cfg.num_patches, cfg.d_model)) if cfg.family == "vlm"
+                  else ("src_embeds", (2, 16, cfg.d_model)))
+    assert len(seen) == 2 and all(b[key] == ("cpu", "torch.float32", shape) for b in seen)
 
 
 def test_launch_serve_gives_the_jax_drivers_tokens(monkeypatch, capsys):
