@@ -152,6 +152,18 @@ Phases, each printing one JSON line with its seconds:
                depth, batch 2 x 1024 tokens after 576 patches, 5 steps.
                ``--profile`` writes <model>_profile.txt for each served
                model.
+17. ``dist``   the distributed layer on a world of one (NCCL, a file
+               store, `make_local_mesh("cuda")`): smollm-360m at full width
+               and depth, bf16, remat, batch 8 x 2048, 3 steps of the
+               sharded train step (parameters and moments as DTensors under
+               the rules) and 3 of `make_train_step` from the same seeded
+               weights, in turns: losses, gradient norms, parameters and
+               moments bit-identical, and the launches of
+               ``flash_attention`` and ``flash_attention_bwd`` equal
+               between the two; both step times.  Then
+               `compressed_allreduce` over NCCL on one of the model's
+               gradients in f32: bit for bit the plain ``q.float() *
+               scale``, its all-gathered payload int8, numel bytes.
 
 Each phase's line carries the peak device memory it allocated; the models
 of a phase are freed before the next begins.
@@ -184,7 +196,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
 PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
           "ssm_serve", "recover", "mb_recover", "telemetry", "paged_modes", "moe",
-          "wide_heads", "train", "mm_models")
+          "wide_heads", "train", "mm_models", "dist")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -3421,6 +3433,138 @@ def phase_mm_models(state: dict) -> dict:
     return out
 
 
+# ---------------------------------------------------------------------------
+# phase 17: the distributed layer on a world of one
+# ---------------------------------------------------------------------------
+
+DIST_STEPS = 3
+DIST_KERNELS = ("flash_attention", "flash_attention_bwd")
+
+
+def dist_steps(cfg, mesh, batch: int, seq: int) -> tuple:
+    """`cfg` trained DIST_STEPS steps by the sharded step and by
+    `make_train_step` from one set of seeded weights, a step of each in
+    turn: per step, each run's loss, gradient norm, ms and launches of
+    DIST_KERNELS (the counts set to 0 before the step); both end states,
+    gathered; and the model."""
+    import torch
+
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.distributed.train_step import make_sharded_train_step, shard_train_state
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.training import TrainConfig, adamw_init, make_train_step
+    from repro_torch.training.train import batch_to
+    model = build_model(cfg, device="cuda", remat=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    sharded = shard_train_state(params, adamw_init(params), cfg, mesh)
+    runs = {"sharded": [sharded, make_sharded_train_step(model, TrainConfig(lr=TRAIN_LR), mesh)],
+            "plain": [(params, adamw_init(params)), make_train_step(model,
+                                                                     TrainConfig(lr=TRAIN_LR))]}
+    del params, sharded
+    data = pipeline_of(cfg, seq, batch, seed=0)
+    out = {k: {"loss": [], "grad_norm": [], "step_ms": [], "launches": []} for k in runs}
+    for i in range(DIST_STEPS):
+        b = batch_to(data.batch_at(i), "cuda")
+        for name, run in runs.items():
+            (p, o), step = run
+            torch.cuda.synchronize()
+            reset_launches()
+            t = time.perf_counter()
+            p, o, m = step(p, o, b)
+            torch.cuda.synchronize()
+            out[name]["step_ms"].append((time.perf_counter() - t) * 1e3)
+            out[name]["launches"].append({k: LAUNCHES[k] for k in DIST_KERNELS})
+            out[name]["loss"].append(m["loss"].item())
+            out[name]["grad_norm"].append(m["grad_norm"].item())
+            if name == "sharded":
+                out[name]["collective_bytes"] = m["collective_bytes"]
+            run[0] = (p, o)
+    ends = {}
+    for name, run in runs.items():
+        (p, o), _ = run
+        ends[name] = gather_tree({"params": p, "m": o.m, "v": o.v, "step": o.step})
+    return out, ends, model
+
+
+def phase_dist(state: dict) -> dict:
+    """The sharded train step against `make_train_step` on a world of one,
+    and `compressed_allreduce` over NCCL (see the module docstring)."""
+    import torch
+    import torch.distributed as dist
+
+    from repro_torch.configs import get_arch
+    from repro_torch.launch.mesh import MeshShape, make_local_mesh
+    from repro_torch.training import TrainConfig
+    from repro_torch.training.optimizer import (all_gather_fn, compressed_allreduce,
+                                                quantize_int8)
+    from repro_torch.training.train import batch_to, loss_and_grads
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t = time.perf_counter()
+    mesh = make_local_mesh("cuda")
+    try:
+        # NCCL makes each group's communicator at its first collective
+        for group in [None] + [mesh.get_group(a) for a in mesh.mesh_dim_names]:
+            dist.all_reduce(torch.zeros(1, device="cuda"), group=group)
+        torch.cuda.synchronize()
+        setup_s = time.perf_counter() - t
+        check(MeshShape.of(mesh) == MeshShape(("data", "model"), (1, 1))
+              and dist.get_backend() == "nccl", f"the local mesh is {mesh} on "
+              f"{dist.get_backend()}")
+        cfg = dataclasses.replace(get_arch("smollm-360m"), dtype="bfloat16")
+        runs, ends, model = dist_steps(cfg, mesh, 8, 2048)
+        sh, pl = runs["sharded"], runs["plain"]
+        check(sh["loss"] == pl["loss"] and sh["grad_norm"] == pl["grad_norm"],
+              f"sharded losses {sh['loss']} / norms {sh['grad_norm']} against unsharded "
+              f"{pl['loss']} / {pl['grad_norm']}")
+        check(all(map(lambda x: x == x and abs(x) < float("inf"), sh["loss"])),
+              f"a non-finite loss {sh['loss']}")
+        check(equal_trees(ends["sharded"], ends["plain"]),
+              "the sharded run's parameters or moments differ from the unsharded run's bits")
+        check(sh["launches"] == pl["launches"] and all(
+            n == {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+            for n in sh["launches"]), f"launches: sharded {sh['launches']}, unsharded "
+              f"{pl['launches']}")
+        del ends
+        # compressed_allreduce over NCCL on one gradient, in f32
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        _, grads = loss_and_grads(model, TrainConfig(), params,
+                                  batch_to(pipeline_of(cfg, 2048, 8, seed=0).batch_at(0), "cuda"))
+        g = grads["embed"].float()
+        del params, grads
+        real, sent = all_gather_fn(), []
+        name = real.__name__
+
+        def recording(output, inp, *a, **kw):
+            sent.append((inp.dtype, inp.numel() * inp.element_size()))
+            return real(output, inp, *a, **kw)
+        setattr(dist, name, recording)
+        try:
+            got = compressed_allreduce(g)
+        finally:
+            setattr(dist, name, real)
+        q, scale = quantize_int8(g)
+        plain = q.float() * scale
+        torch.cuda.synchronize()
+        check(torch.equal(got, plain), "compressed_allreduce over NCCL differs from "
+              "q.float() * scale on one rank")
+        check(sent[0] == (torch.int8, g.numel()), f"payload {sent[0]}, want int8 of "
+              f"{g.numel()} bytes")
+        car_ms = cuda_ms(lambda: compressed_allreduce(g), iters=10, warmup=2)
+        return {"config": "smollm-360m, 32 layers, d 960, 15:5 heads of 64, vocab 49,152, "
+                          "bf16, remat, batch 8 x 2048, 1 x 1 mesh (data, model) on NCCL",
+                "setup_s": setup_s, "sharded": sh, "unsharded": pl,
+                "bit_identical": True,
+                "step_ms_median": {"sharded": statistics.median(sh["step_ms"][1:]),
+                                   "unsharded": statistics.median(pl["step_ms"][1:])},
+                "compressed_allreduce": {"numel": g.numel(), "payload_bytes": sent[0][1],
+                                         "scale_bytes": sent[1][1], "bit_identical": True,
+                                         "ms": car_ms}}
+    finally:
+        dist.destroy_process_group()
+
+
 def _leaves(tree):
     if isinstance(tree, dict):
         for v in tree.values():
@@ -3492,7 +3636,7 @@ def main() -> int:
            "recover": phase_recover, "mb_recover": phase_mb_recover,
            "telemetry": phase_telemetry, "paged_modes": phase_paged_modes,
            "moe": phase_moe, "wide_heads": phase_wide_heads, "train": phase_train,
-           "mm_models": phase_mm_models}
+           "mm_models": phase_mm_models, "dist": phase_dist}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     (state["out"] / "phases.jsonl").unlink(missing_ok=True)
     if "env" not in phases:

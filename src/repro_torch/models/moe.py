@@ -81,5 +81,8 @@ def moe_apply(x: torch.Tensor, p, cfg, return_aux: bool = False, drop: bool = Tr
     if not return_aux:
         return out
     me = probs.mean(dim=0)                                           # mean router prob
-    ce = torch.bincount(fe, minlength=e).float() / (t * k)           # share of entries
+    # bincount's output shape depends on the data; this count has a static one
+    counts = torch.zeros(e, dtype=torch.int64, device=x.device).scatter_add_(
+        0, fe, torch.ones_like(fe))
+    ce = counts.float() / (t * k)                                    # share of entries
     return out, e * torch.sum(me * ce)

@@ -31,33 +31,47 @@ def batch_to(batch, device) -> dict:
     return {k: torch.from_numpy(np.asarray(v)).to(device) for k, v in batch.items()}
 
 
-def make_train_step(model, tcfg: TrainConfig = TrainConfig()):
-    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics).  With grad_accum > 1, the leading batch dim is split into
-    microbatches whose losses and gradients are averaged, the gradients
-    summed in f32 as the reference's scan does."""
+def loss_and_grads(model, tcfg: TrainConfig, params, batch, weights=None):
+    """(loss, gradient tree) of `model.loss` on `batch`.  With grad_accum >
+    1, the leading batch dim is split into microbatches whose losses and
+    gradients are averaged, the gradients summed in f32 as the reference's
+    scan does.  `weights` ([grad_accum] f32; default none) scale each
+    microbatch's loss and gradients before they are averaged: a sharded
+    step's share of each global microbatch's mask count."""
 
-    def value_and_grad(params, batch):
+    def value_and_grad(batch, i):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
             loss = model.loss(live, batch)
             grads = torch.autograd.grad(loss, tree_leaves(live))
-        return loss.detach(), _unflatten(live, iter(grads))
+        loss = loss.detach()
+        if weights is not None:
+            loss = loss * weights[i]
+            for g in grads:
+                g.mul_(weights[i])
+        return loss, _unflatten(live, iter(grads))
+
+    n = tcfg.grad_accum
+    if n == 1:
+        return value_and_grad(batch, 0)
+    micro = [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
+              for k, v in batch.items()} for i in range(n)]
+    loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
+    grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
+                                           device=p.device), params)
+    for i, mb in enumerate(micro):
+        l, g = value_and_grad(mb, i)
+        loss = loss + l / n
+        grads = tree_map(lambda a, b_: a + b_ / n, grads, g)
+    return loss, grads
+
+
+def make_train_step(model, tcfg: TrainConfig = TrainConfig()):
+    """Returns train_step(params, opt_state, batch) -> (params, opt_state,
+    metrics): `loss_and_grads`, then the AdamW update."""
 
     def train_step(params, opt_state: AdamWState, batch):
-        n = tcfg.grad_accum
-        if n == 1:
-            loss, grads = value_and_grad(params, batch)
-        else:
-            micro = [{k: v.reshape(n, v.shape[0] // n, *v.shape[1:])[i]
-                      for k, v in batch.items()} for i in range(n)]
-            loss = torch.zeros((), dtype=torch.float32, device=tree_leaves(params)[0].device)
-            grads = tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                                   device=p.device), params)
-            for mb in micro:
-                l, g = value_and_grad(params, mb)
-                loss = loss + l / n
-                grads = tree_map(lambda a, b_: a + b_ / n, grads, g)
+        loss, grads = loss_and_grads(model, tcfg, params, batch)
         params, opt_state, om = adamw_update(
             grads, opt_state, params, lr=tcfg.lr, b1=tcfg.b1, b2=tcfg.b2,
             weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm)
