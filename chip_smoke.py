@@ -160,7 +160,24 @@ Phases, each printing one JSON line with its seconds:
                weights, in turns: losses, gradient norms, parameters and
                moments bit-identical, and the launches of
                ``flash_attention`` and ``flash_attention_bwd`` equal
-               between the two; both step times.  Then
+               between the two; both step times.  The sharded step is
+               the split one (`distributed.tensor_parallel`: per-layer
+               hook, vocabulary-parallel embedding and loss).  Then
+               `make_sharded_prefill` and `make_sharded_decode_step` on the
+               same mesh against the unsharded `prefill` and `decode_step`
+               (smollm-360m, full width and depth, bf16, 4 prompts of 512,
+               32 greedy tokens): the same tokens, the same decode-state
+               bits, the same launches of ``flash_attention`` and
+               ``decode_attention``; then, both warm, timed in the order
+               sharded, plain, plain, sharded, and 8 decode steps of each
+               profiled (wall and device time, device launches).  Then ``decode_attention`` with its
+               LSE at smollm-360m's and yi-34b's decode heads (8 x 2048
+               slots, bf16): its output the same bits as without, its LSE
+               within 5e-3 of the plain version's, and the kernel over
+               each half of the cache merged by `tensor_parallel.combine`
+               within 2e-2 of the largest |o| of the kernel over the whole
+               (once with an empty second half), with and without the LSE
+               timed in turns.  Then
                `compressed_allreduce` over NCCL on one of the model's
                gradients in f32: bit for bit the plain ``q.float() *
                scale``, its all-gathered payload int8, numel bytes.
@@ -3438,6 +3455,7 @@ def phase_mm_models(state: dict) -> dict:
 # ---------------------------------------------------------------------------
 
 DIST_STEPS = 3
+DIST_WINDOW = 8       # decode steps of each serve path profiled
 DIST_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
@@ -3487,9 +3505,146 @@ def dist_steps(cfg, mesh, batch: int, seq: int) -> tuple:
     return out, ends, model
 
 
+def dist_serve(cfg, mesh, batch: int, plen: int, new: int, out_dir: Path) -> dict:
+    """`make_sharded_prefill` and `make_sharded_decode_step` on `mesh`
+    against the unsharded `prefill` and `decode_step` from one set of
+    seeded weights: `new` greedy tokens of `batch` random prompts of `plen`,
+    each run's tokens, the decode kernel's launches (the counts set to 0
+    before each run) and whether the end states are the same bits.  Then,
+    both paths warm, four timed runs in the order sharded, plain, plain,
+    sharded, and a window of DIST_WINDOW decode steps of each profiled
+    (`_profile`: wall and device time, device launches; tables in
+    `out_dir`)."""
+    import torch
+
+    from repro_torch.distributed.serve_step import make_sharded_decode_step, make_sharded_prefill
+    from repro_torch.distributed.train_step import shard_train_state
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.training import adamw_init
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    sharded, _ = shard_train_state(params, adamw_init(params), cfg, mesh)
+    prompts = {"tokens": torch.randint(0, cfg.vocab_size, (batch, plen), device="cuda",
+                                       generator=torch.Generator(device="cuda").manual_seed(1))}
+    pre, dec = make_sharded_prefill(model, mesh), make_sharded_decode_step(model, mesh)
+    runs = {"sharded": (lambda b, m: pre(sharded, b, m),
+                        lambda st, t, p: dec(sharded, st, t, p)),
+            "plain": (lambda b, m: model.prefill(params, b, max_len=m),
+                      lambda st, t, p: model.decode_step(params, st, t, p))}
+
+    def generate_(name):
+        prefill, decode = runs[name]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, st, pos = prefill(prompts, plen + new)
+        toks = []
+        for _ in range(new):
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            logits, st = decode(st, tok, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        return toks, st, time.perf_counter() - t
+
+    out, states = {}, {}
+    for name in runs:
+        reset_launches()
+        toks, states[name], s = generate_(name)
+        out[name] = {"tokens": torch.stack(toks, 1).tolist(), "s": s,
+                     "launches": {k: LAUNCHES[k] for k in ("flash_attention",
+                                                          "decode_attention")},
+                     "warm_s": []}
+    out["state_bit_identical"] = equal_trees(states["sharded"], states["plain"])
+    out["decode_bytes"] = dict(dec.comm.bytes)
+    for name in ("sharded", "plain", "plain", "sharded"):
+        out[name]["warm_s"].append(generate_(name)[2])
+    # the last DIST_WINDOW slots of each end state decoded again: timing only
+    tok = torch.zeros(batch, dtype=torch.int64, device="cuda")
+    for name, (_, decode) in runs.items():
+        st = states[name]
+
+        def window(decode=decode, st=st):
+            for i in range(DIST_WINDOW):
+                decode(st, tok, plen + new - DIST_WINDOW + i)
+            return DIST_WINDOW
+        out[name]["decode_window"] = _profile(
+            window, out_dir / f"dist_decode_{name}.txt",
+            {"decode_attention": ("decode",), "matmul": ("gemm", "sm90", "cutlass")})
+    return out
+
+
+# decode_attention's LSE against its plain version, absolute (bf16 inputs; a
+# cluster block's (m, l) left out of one row's LSE of 8 blocks moves it by
+# log(8/7) = 0.13); and the two halves combined against the whole cache,
+# relative to the whole output's largest |value|
+DECODE_LSE_TOL = 5e-3
+COMBINE_REL = 2e-2
+
+
+def lse_combine_cases(shapes, b: int = 8, s: int = 2048) -> dict:
+    """`decode_attention` with its LSE against its plain version, and the
+    kernel over each half of a cache merged by `tensor_parallel.combine`
+    against the kernel over the whole cache (bf16; DECODE_LSE_TOL,
+    COMBINE_REL), at the
+    decode head shapes `shapes` {name: (Hq, Hkv, D)}: the second half holds
+    no valid key in one case and some in the other.  Times with and without
+    the LSE, in turns."""
+    import torch
+
+    from repro_torch.distributed.tensor_parallel import combine
+    from repro_torch.kernels import ref
+    from repro_torch.kernels.decode_attention import decode_attention
+    g = torch.Generator(device="cuda").manual_seed(5)
+    res = {}
+    for name, (hq, hkv, d) in shapes.items():
+        q = torch.randn(b, hq, d, generator=g, device="cuda").bfloat16()
+        k = torch.randn(b, s, hkv, d, generator=g, device="cuda").bfloat16()
+        v = torch.randn(b, s, hkv, d, generator=g, device="cuda").bfloat16()
+        slots = torch.arange(s, device="cuda")
+        errs = {}
+        for tag, n_valid in (("second_half_empty", s // 2 - 100), ("both_halves", s - 100)):
+            valid = slots < n_valid
+            o, lse = decode_attention(q, k, v, valid, with_lse=True)
+            check(torch.equal(o, decode_attention(q, k, v, valid)),
+                  f"{name}: decode_attention's output moves with its LSE")
+            po, plse = ref.decode_attention_ref(q, k, v, valid, with_lse=True)
+            check(torch.isfinite(lse).all().item(), f"{name}: a non-finite LSE")
+            lse_err = (lse - plse).abs().max().item()
+            check(lse_err <= DECODE_LSE_TOL,
+                  f"{name} {tag}: LSE off its plain version by {lse_err} > {DECODE_LSE_TOL}")
+            halves = [decode_attention(q, k[:, a:a + s // 2].contiguous(),
+                                       v[:, a:a + s // 2].contiguous(),
+                                       valid[a:a + s // 2].contiguous(), with_lse=True)
+                      for a in (0, s // 2)]
+            got = combine(torch.stack([h[0] for h in halves]),
+                          torch.stack([h[1] for h in halves]),
+                          lambda t: t.amax(0), lambda t: t.sum(0))
+            err = (got.float() - o.float()).abs().max().item()
+            o_max = o.float().abs().max().item()
+            check(torch.isfinite(got.float()).all().item() and err <= COMBINE_REL * o_max,
+                  f"{name} {tag}: halves combined off the whole cache by {err} > "
+                  f"{COMBINE_REL} x max|o| {o_max}")
+            errs[tag] = {"combine_max_abs_err": err, "combine_tol": COMBINE_REL * o_max,
+                         "o_max_abs": o_max, "lse_max_abs_err": lse_err,
+                         "lse_tol": DECODE_LSE_TOL,
+                         "out_max_abs_err": (o.float() - po.float()).abs().max().item()}
+        valid = slots < s - 100
+        ms = {"with_lse": [], "without": []}
+        for _ in range(3):
+            ms["without"].append(cuda_ms(lambda: decode_attention(q, k, v, valid), iters=20))
+            ms["with_lse"].append(cuda_ms(lambda: decode_attention(q, k, v, valid,
+                                                                   with_lse=True), iters=20))
+        res[name] = {"shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] bf16", **errs,
+                     "ms_median": {k: statistics.median(x) for k, x in ms.items()}}
+    return res
+
+
 def phase_dist(state: dict) -> dict:
     """The sharded train step against `make_train_step` on a world of one,
-    and `compressed_allreduce` over NCCL (see the module docstring)."""
+    the sharded serve steps against `prefill` and `decode_step`, the decode
+    kernel's LSE and the cross-slice combine, and `compressed_allreduce`
+    over NCCL (see the module docstring)."""
     import torch
     import torch.distributed as dist
 
@@ -3527,6 +3682,21 @@ def phase_dist(state: dict) -> dict:
             for n in sh["launches"]), f"launches: sharded {sh['launches']}, unsharded "
               f"{pl['launches']}")
         del ends
+        # (b) the split serve steps on the world of one: the same greedy tokens
+        serve_cfg = dataclasses.replace(get_arch("smollm-360m"), dtype="bfloat16")
+        serve = dist_serve(serve_cfg, mesh, batch=4, plen=512, new=32,
+                           out_dir=state["out"])
+        sv = serve["sharded"]
+        check(sv["tokens"] == serve["plain"]["tokens"], "the sharded serve steps' tokens "
+              "differ from the unsharded prefill and decode_step's")
+        check(serve["state_bit_identical"], "the sharded decode state differs from the "
+              "unsharded one's bits")
+        check(sv["launches"] == serve["plain"]["launches"] == {
+            "flash_attention": serve_cfg.num_layers,
+            "decode_attention": serve_cfg.num_layers * 32},
+            f"serve launches: sharded {sv['launches']}, unsharded {serve['plain']['launches']}")
+        # (c) the LSE and the cross-slice combine at smollm's and yi-34b's decode heads
+        lse = lse_combine_cases({"smollm-360m": (15, 5, 64), "yi-34b": (56, 8, 128)})
         # compressed_allreduce over NCCL on one gradient, in f32
         params = model.init(torch.Generator(device="cuda").manual_seed(0))
         _, grads = loss_and_grads(model, TrainConfig(), params,
@@ -3558,6 +3728,9 @@ def phase_dist(state: dict) -> dict:
                 "bit_identical": True,
                 "step_ms_median": {"sharded": statistics.median(sh["step_ms"][1:]),
                                    "unsharded": statistics.median(pl["step_ms"][1:])},
+                "serve": {"config": "smollm-360m, 32 layers, bf16, 4 prompts of 512, 32 "
+                                    "greedy tokens, 1 x 1 mesh on NCCL", **serve},
+                "lse_combine": lse,
                 "compressed_allreduce": {"numel": g.numel(), "payload_bytes": sent[0][1],
                                          "scale_bytes": sent[1][1], "bit_identical": True,
                                          "ms": car_ms}}

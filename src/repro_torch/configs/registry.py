@@ -35,3 +35,9 @@ def get_arch(name: str) -> ArchConfig:
     if name not in _ALL:
         raise KeyError(f"unknown arch {name!r}; available: {sorted(_ALL)}")
     return _ALL[name]
+
+
+def list_archs(include_paper: bool = False) -> list[str]:
+    """The reference's ten assigned architectures (ARCHS less the paper's
+    models), or with `include_paper` every one the registry holds."""
+    return sorted(_ALL if include_paper else set(ARCHS) - set(PAPER_ARCHS))

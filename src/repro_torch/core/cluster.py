@@ -359,6 +359,17 @@ class DejaVuCluster:
             return all(fits(w, blocks_for(prompt_len, bs)) for w in self.prompt_group)
         return True
 
+    def prefill_seq(self, rid: int, prompt: np.ndarray, max_new: int) -> torch.Tensor:
+        """Prefill ONE request through the prompt pipeline into pool blocks,
+        running every pipeline pass back to back (the engine's scheduler
+        calls `prefill_seq_begin` and `prefill_seq_step` itself, so that
+        decode steps run between chunks).  Returns its last-token logits."""
+        self.prefill_seq_begin(rid, prompt, max_new)
+        logits = None
+        while logits is None:
+            logits = self.prefill_seq_step(rid)
+        return logits
+
     def prefill_seq_begin(self, rid: int, prompt: np.ndarray, max_new: int) -> None:
         """Stage a prefill for `prefill_seq_step` to advance pass by pass.
         Tiered, the prompt's prefix chain is first matched against the live

@@ -30,7 +30,7 @@ zeros: the cache equals the reference's.
 from __future__ import annotations
 
 from dataclasses import dataclass
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,6 +54,13 @@ class PipelineTopo:
         splits = np.array_split(np.arange(self.num_layers), self.depth)
         seg = splits[stage]
         return (int(seg[0]), int(seg[-1]) + 1) if len(seg) else (0, 0)
+
+    def stage_of_layer(self, layer: int) -> int:
+        for s in range(self.depth):
+            lo, hi = self.layer_range(s)
+            if lo <= layer < hi:
+                return s
+        raise ValueError(layer)
 
 
 @dataclass(frozen=True)
@@ -118,6 +125,20 @@ def fetch(store: HostMemoryStore, key: str, transport: Transport, *, tag: str = 
           device="cpu") -> torch.Tensor:
     """A copy of one stored chunk on `device`."""
     return transport.transfer(store.get(key), device=device, tag=tag or key)
+
+
+def gather(store: HostMemoryStore, leaf_name: str, shape, dtype,
+           chunks: Sequence[CacheChunk], transport: Transport, *, mb: int | str = 0,
+           device="cpu") -> torch.Tensor:
+    """Assemble `chunks` (fetched from `store`) into a dense leaf of
+    `shape` on `device`, zeros where no chunk lands."""
+    out = torch.zeros(tuple(shape), dtype=dtype, device=device)
+    for ch in chunks:
+        sl = [slice(*ch.layers), slice(*ch.batch)]
+        if ch.tokens is not None:
+            sl.append(slice(*ch.tokens))
+        out[tuple(sl)] = fetch(store, ch.key(mb), transport, device=device)
+    return out
 
 
 # ---------------------------------------------------------------------------

@@ -76,6 +76,12 @@ class StreamEngine:
                                         name=f"dejavu-{name}")
         self._thread.start()
 
+    def reset(self) -> None:
+        """Zero the modeled stream and compute seconds (`overlap_report`)."""
+        with self._lock:
+            self._stream_model_time = 0.0
+            self._compute_model_time = 0.0
+
     def _run(self):
         if self.stream is not None:
             with torch.cuda.stream(self.stream):

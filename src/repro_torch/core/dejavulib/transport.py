@@ -177,6 +177,14 @@ class Transport:
         with self._lock:
             return self._model_s
 
+    def reset_log(self) -> None:
+        """Start the counts afresh: bytes, modeled seconds, transfers,
+        attempts and retransmits (the reference clears the log of records
+        its totals sum; the port keeps the sums alone)."""
+        with self._lock:
+            self._bytes, self._model_s = 0, 0.0
+            self.transfers = self.attempts = self.retransmits = 0
+
 
 class LocalTransport(Transport):
     """Same-host copy."""
@@ -190,6 +198,16 @@ class HostLinkTransport(Transport):
     @staticmethod
     def _link(hw: HardwareModel):
         return hw.host_link_bw, hw.transfer_latency
+
+
+class ICITransport(Transport):
+    """Card to card inside one host (the role of the reference's
+    intra-pod ICI link for prompt-to-token transfers; NVLink here)."""
+    kind = "ici"
+
+    @staticmethod
+    def _link(hw: HardwareModel):
+        return hw.ici_bw, hw.transfer_latency
 
 
 class NetworkTransport(Transport):

@@ -3,43 +3,45 @@ DeviceMesh by the rules of `sharding` (the port's counterpart of the
 reference's ``jax.jit(train_step, in_shardings=...)``,
 `repro.launch.specs.make_cell`).
 
-Each step, on every rank:
+Each step, on every rank, over the rank's share of the batch
+(`rank_batch`: its slice, as `batch_shardings` splits a microbatch over the
+data axes, of each of the `grad_accum` microbatches that the unsharded
+step cuts; whole where a microbatch does not divide):
 
-1. gathers the parameters whole from their shards (an all-gather per
-   sharded mesh axis of each leaf, minor axis first);
-2. runs the port's ordinary `loss_and_grads` (the model's `loss` through
-   its kernels) on the rank's share of the batch (`rank_batch`): its
-   slice, as `batch_shardings` splits a microbatch over the data axes, of
-   each of the `grad_accum` microbatches that the unsharded step cuts
-   (whole where a microbatch does not divide);
-3. weights each microbatch's loss and gradients by the rank's share of
-   that microbatch's global loss-mask count and sums them over the data
-   axes, flattened into one group (one all-reduce a tensor): each global
-   microbatch's masked mean, where a mean of per-rank means would differ
-   whenever the shards' masks differ.  Ranks that differ only in their
-   `model` coordinate computed the same gradients and are not summed;
-4. cuts each gradient to the rank's shard and takes the global norm with
-   each element counted once (a shard's squares count on the rank at
-   coordinate 0 of every axis that does not split it);
-5. applies `adamw_update` to the local shards, the moments in place.
+1. weights each microbatch's loss by the rank's share of that
+   microbatch's global loss-mask count, before the backward: summed over
+   the data axes that gives each global microbatch's masked mean, where a
+   mean of per-rank means would differ whenever the shards' masks differ;
+2. for the dense, moe and vlm families, splits the compute
+   (`tensor_parallel.Split`, the model's ``tp``): each layer gathers its
+   FSDP rows over the data axes where it runs (inside its activation
+   checkpoint) and computes the rank's heads, ff columns, experts and
+   vocabulary; the gradients of FSDP-sharded leaves come out of the
+   backward reduce-scattered over the data axes, those of `model`-split
+   leaves are the rank's own, and the rest are summed over the data axes,
+   flattened into one group (one all-reduce a tensor).  The moe family
+   keeps each global microbatch's capacity and load-balancing loss.  The
+   ssm, hybrid and encdec families gather every parameter whole, run the
+   model's ordinary loss, all-reduce each gradient over the data axes and
+   cut it to the shard (gather to compute);
+3. takes the global norm with each element counted once (a shard's
+   squares count on the rank at coordinate 0 of every axis that does not
+   split it);
+4. applies `adamw_update` to the local shards, the moments in place.
 
-On one rank every collective is a copy and every weight is 1, so the step
-is bit for bit `make_train_step`'s.
+On one rank every collective is a copy, every selection the whole leaf
+and every weight 1, so the step is bit for bit `make_train_step`'s.
 
-Limits: at compute time the full parameters and gradients are resident on
-every rank; each gradient is all-reduced whole and then cut to the shard
-(a reduce-scatter would move the same operand and keep only the shard),
-and the ranks of the `model` axis store less but compute the same thing;
-per-layer gathering and tensor-parallel compute are queued (ROADMAP).
-The moe family's capacity and load-balancing loss are taken over each
-rank's tokens, as data-parallel moe training does, not over the global
-microbatch; a loss mask whose sum on a rank lies strictly between 0 and 1
-is weighted by that sum where the unsharded mean clamps it to 1.
+Limits: a loss mask whose sum on a rank lies strictly between 0 and 1 is
+weighted by that sum where the unsharded mean clamps it to 1; the
+gather-to-compute families hold their full parameters and gradients on
+every rank at compute time (per-layer gathering there is queued, ROADMAP
+A.20b).
 """
 from __future__ import annotations
 
 import math
-from typing import Optional, Sequence, Tuple
+from typing import Sequence
 
 import torch
 
@@ -59,9 +61,14 @@ class Collectives:
     """The step's collectives over the process groups of a DeviceMesh's axes,
     each counted by its per-device operand bytes (the convention of the
     reference's dry run: an all-gather's operand is the rank's input, an
-    all-reduce's the whole tensor).  The transport is `_gather` and
-    `_reduce`; the dry run's `launch.specs.ShapeCollectives` replaces only
-    those, so a fake step counts what a real one does."""
+    all-reduce's and a reduce-scatter's the whole tensor, an all-to-all's
+    what the rank sends).  The transport is `_gather`, `_reduce`,
+    `_reduce_scatter` and `_all_to_all`; the dry run's
+    `launch.specs.ShapeCollectives` replaces only those, so a fake step
+    counts what a real one does.  `axes` is one mesh axis or a tuple of
+    them (the flattened data axes), None every rank.  Over a group of one
+    rank a collective is the identity: it moves nothing and copies
+    nothing, and counts its bytes all the same."""
 
     def __init__(self, device_mesh):
         self.device_mesh = device_mesh
@@ -73,33 +80,84 @@ class Collectives:
     def reset(self) -> None:
         self.bytes = dict.fromkeys(COLLECTIVES, 0)
 
-    def all_gather(self, t: torch.Tensor, dim: int, axis: str) -> torch.Tensor:
-        """`t` concatenated along `dim` over the ranks of mesh axis `axis`."""
+    def size(self, axes) -> int:
+        """The ranks of `axes` (None: every rank)."""
+        if axes is None:
+            return self.mesh.size
+        return math.prod(self.mesh.shape[a] for a in _names(axes))
+
+    def all_gather(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """`t` concatenated along `dim` over the ranks of `axes`, major to
+        minor."""
+        self.bytes["all-gather"] += t.numel() * t.element_size()
+        if self.size(axes) == 1:
+            return t
         src = t.movedim(dim, 0).contiguous()
-        out = src.new_empty((self.mesh.shape[axis] * src.shape[0],) + tuple(src.shape[1:]))
-        self._gather(out, src, axis)
-        self.bytes["all-gather"] += src.numel() * src.element_size()
+        out = src.new_empty((self.size(axes) * src.shape[0],) + tuple(src.shape[1:]))
+        self._gather(out, src, _names(axes))
         return out.movedim(0, dim).contiguous()   # the layout the unsharded step has
 
-    def all_reduce(self, t: torch.Tensor, axes: Optional[Tuple[str, ...]] = None
-                   ) -> torch.Tensor:
-        """`t` summed in place, in one collective, over the ranks that differ
-        from this one only on the mesh axes `axes` (None: every rank)."""
-        self._reduce(t, axes)
+    def all_reduce(self, t: torch.Tensor, axes=None, op: str = "sum") -> torch.Tensor:
+        """`t` reduced in place (op "sum" or "max"), in one collective, over
+        the ranks that differ from this one only on `axes`."""
         self.bytes["all-reduce"] += t.numel() * t.element_size()
+        if self.size(axes) > 1:
+            self._reduce(t, None if axes is None else _names(axes), op)
         return t
 
-    def _gather(self, out: torch.Tensor, src: torch.Tensor, axis: str) -> None:
-        all_gather_fn()(out, src, group=self.device_mesh.get_group(axis))
+    def all_reduced(self, t: torch.Tensor, axes=None, op: str = "sum") -> torch.Tensor:
+        """`all_reduce` into a new tensor, `t` left as it is (`t` itself
+        over a group of one rank)."""
+        if self.size(axes) == 1:
+            self.bytes["all-reduce"] += t.numel() * t.element_size()
+            return t
+        return self.all_reduce(t.contiguous().clone(), axes, op)
 
-    def _reduce(self, t: torch.Tensor, axes) -> None:
+    def reduce_scatter(self, t: torch.Tensor, dim: int, axes) -> torch.Tensor:
+        """This rank's block along `dim` of `t` summed over the ranks of
+        `axes` (the backward of `all_gather`)."""
+        self.bytes["reduce-scatter"] += t.numel() * t.element_size()
+        if self.size(axes) == 1:
+            return t
+        src = t.movedim(dim, 0).contiguous()
+        out = src.new_empty((src.shape[0] // self.size(axes),) + tuple(src.shape[1:]))
+        self._reduce_scatter(out, src, _names(axes))
+        return out.movedim(0, dim).contiguous()
+
+    def all_to_all(self, sends: Sequence[torch.Tensor], recv_shapes, axes) -> list:
+        """sends[i] to the i-th rank of `axes`; returns what each rank sent
+        this one, of shapes `recv_shapes` (one dtype throughout)."""
+        self.bytes["all-to-all"] += sum(t.numel() * t.element_size() for t in sends)
+        if self.size(axes) == 1:
+            return [sends[0].reshape(tuple(recv_shapes[0]))]
+        src = torch.cat([t.reshape(-1) for t in sends])
+        sizes = [math.prod(s) for s in recv_shapes]
+        out = src.new_empty((sum(sizes),))
+        self._all_to_all(out, src, sizes, [t.numel() for t in sends], _names(axes))
+        return [c.view(tuple(s)) for c, s in zip(out.split(sizes), recv_shapes)]
+
+    def _gather(self, out: torch.Tensor, src: torch.Tensor, axes) -> None:
+        all_gather_fn()(out, src, group=self._group(axes))
+
+    def _reduce(self, t: torch.Tensor, axes, op: str) -> None:
         import torch.distributed as dist
-        dist.all_reduce(t, op=dist.ReduceOp.SUM, group=self._group(axes))
+        dist.all_reduce(t, op=dist.ReduceOp.MAX if op == "max" else dist.ReduceOp.SUM,
+                        group=self._group(axes))
+
+    def _reduce_scatter(self, out: torch.Tensor, src: torch.Tensor, axes) -> None:
+        import torch.distributed as dist
+        dist.reduce_scatter_tensor(out, src, group=self._group(axes))
+
+    def _all_to_all(self, out, src, out_sizes, in_sizes, axes) -> None:
+        import torch.distributed as dist
+        dist.all_to_all_single(out, src, output_split_sizes=out_sizes,
+                               input_split_sizes=in_sizes, group=self._group(axes))
 
     def _group(self, axes):
         """The process group over `axes`: one axis's group of the mesh, or for
         several axes one group of each set of ranks that differ only on them,
-        made at first use (every rank reaches it at the same point)."""
+        ranked major to minor, made at first use (every rank reaches it at
+        the same point)."""
         if axes is None:
             return None
         if len(axes) == 1:
@@ -133,25 +191,57 @@ def _owns(spec, comm) -> float:
     return float(all(c == 0 for a, c in comm.coords.items() if a not in split))
 
 
-def rank_step(model, tcfg: TrainConfig, params, p_specs, opt: AdamWState, batch, comm):
+def splits_compute(cfg) -> bool:
+    """Whether a model of `cfg` computes split over the mesh
+    (`tensor_parallel.Split`: the dense, moe and vlm families); the others
+    gather to compute."""
+    return cfg.family in ("dense", "moe", "vlm")
+
+
+class _OnMesh:
+    """A model whose `loss` runs this rank's share of the split compute."""
+
+    def __init__(self, model, tp):
+        self.model, self.tp = model, tp
+
+    def loss(self, params, batch):
+        return self.model.loss(params, batch, tp=self.tp)
+
+
+def rank_step(model, tcfg: TrainConfig, params, p_specs, opt: AdamWState, batch,
+              batch_split: bool, comm):
     """One train step as one rank runs it, on local tensors: `params` and
-    `opt`'s moments are this rank's shards under `p_specs`, `batch` its
-    share of the global batch (`rank_batch`).  `comm` carries the mesh,
-    this rank's coordinates and the collectives.  Returns (new parameter
-    shards, the state, {"loss", "grad_norm"}), the loss and norm the
-    global ones."""
+    `opt`'s moments are this rank's shards under `p_specs`, `batch` and
+    `batch_split` its share of the global batch and whether the
+    microbatches were split, as `rank_batch` returns them.  `comm` carries
+    the mesh, this rank's coordinates and the collectives.  Returns (new
+    parameter shards, the state, {"loss", "grad_norm"}), the loss and norm
+    the global ones."""
+    from repro_torch.distributed.tensor_parallel import Split
     dp, _ = _axes(comm.mesh)
-    full = tree_map(lambda t, s: gather_leaf(t, s, comm), params, p_specs)
     count = batch["loss_mask"].float().reshape(tcfg.grad_accum, -1).sum(1)
-    total = comm.all_reduce(count.clone(), dp)
-    loss, grads = loss_and_grads(model, tcfg, full, batch,
-                                 weights=count / torch.clamp(total, min=1.0))
-    del full
+    total = comm.all_reduced(count, dp)
+    weights = count / torch.clamp(total, min=1.0)
     specs = tree_leaves(p_specs)
-    comm.all_reduce(loss, dp)
-    for g in tree_leaves(grads):
-        comm.all_reduce(g, dp)
-    g_local = tree_map(lambda g, s: local_slice(g, s, comm.mesh, comm.coords), grads, p_specs)
+    if splits_compute(model.cfg):
+        tp = Split(model.cfg, comm, p_specs, batch_split)
+        loss, grads = loss_and_grads(_OnMesh(model, tp), tcfg, params, batch, weights=weights)
+        comm.all_reduce(loss, dp)
+        # FSDP rows came out of the backward reduce-scattered over the data
+        # axes; the rest is summed over them here
+        for g, s in zip(tree_leaves(grads), specs):
+            if not any(a in dp for e in s if e is not None for a in _names(e)):
+                comm.all_reduce(g, dp)
+        g_local = grads
+    else:
+        full = tree_map(lambda t, s: gather_leaf(t, s, comm), params, p_specs)
+        loss, grads = loss_and_grads(model, tcfg, full, batch, weights=weights)
+        del full
+        comm.all_reduce(loss, dp)
+        for g in tree_leaves(grads):
+            comm.all_reduce(g, dp)
+        g_local = tree_map(lambda g, s: local_slice(g, s, comm.mesh, comm.coords),
+                           grads, p_specs)
     sq = torch.stack([torch.sum(torch.square(g.float())) for g in tree_leaves(g_local)])
     sq = sq * torch.tensor([_owns(s, comm) for s in specs], device=sq.device)
     comm.all_reduce(sq)
@@ -162,16 +252,24 @@ def rank_step(model, tcfg: TrainConfig, params, p_specs, opt: AdamWState, batch,
     return new, opt, {"loss": loss, **om}
 
 
+def splits_rows(batch_specs) -> bool:
+    """Whether `batch_shardings`' specs of a microbatch split its rows over
+    the data axes (they do not where the rows do not divide: every data
+    rank then holds the microbatch whole)."""
+    return batch_specs["tokens"][0] is not None
+
+
 def rank_batch(batch, cfg, mesh: MeshShape, coords, grad_accum: int):
     """This rank's share of the global `batch`: its slice, under
     `batch_shardings` of one microbatch, of each of the `grad_accum`
     microbatches that `loss_and_grads` cuts, stacked in their order (with
-    one microbatch, the rank's slice of the batch)."""
+    one microbatch, the rank's slice of the batch); and whether the
+    microbatches were split (`splits_rows`)."""
     micro = {k: v.reshape(grad_accum, v.shape[0] // grad_accum, *v.shape[1:])
              for k, v in batch.items()}
     specs = batch_shardings({k: v[0] for k, v in micro.items()}, cfg, mesh)
-    return {k: local_slice(v, (None,) + tuple(specs[k]), mesh, coords)
-            .reshape(-1, *v.shape[2:]) for k, v in micro.items()}
+    return ({k: local_slice(v, (None,) + tuple(specs[k]), mesh, coords)
+             .reshape(-1, *v.shape[2:]) for k, v in micro.items()}, splits_rows(specs))
 
 
 def shard_train_state(params, opt: AdamWState, cfg, device_mesh):
@@ -205,9 +303,9 @@ def make_sharded_train_step(model, tcfg: TrainConfig, device_mesh):
             v = tree_map(lambda t: t.to_local(), opt_state.v)
         p_specs = tree_map(lambda t: spec_of(t.placements, names, t.ndim), params)
         comm.reset()
-        mine = rank_batch(batch, model.cfg, mesh, comm.coords, tcfg.grad_accum)
+        mine, split = rank_batch(batch, model.cfg, mesh, comm.coords, tcfg.grad_accum)
         new, opt, metrics = rank_step(model, tcfg, local, p_specs,
-                                      AdamWState(opt_state.step, m, v), mine, comm)
+                                      AdamWState(opt_state.step, m, v), mine, split, comm)
         new_params = tree_map(
             lambda n, t: DTensor.from_local(n, device_mesh, t.placements, run_check=False,
                                             shape=t.shape, stride=t.stride()), new, params)

@@ -44,7 +44,7 @@ _SIGNATURES = {
                  _vp]),
         "repro_decode_split_plan": (_ll, [_i, _i, _i, _i, _i, _i, _ip, _ip]),
         "repro_decode_attention": (
-            _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _vp]),
+            _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _f, _i, _vp]),
         "repro_paged_decode_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _ll, _i, _i, _i, _f, _vp]),
     },

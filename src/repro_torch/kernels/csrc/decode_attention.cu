@@ -44,7 +44,10 @@
 //     keeps its own online softmax, the warps merge in shared memory, and
 //     after cluster.sync() each block reads every block's (m, l) and its
 //     share of acc[G,D] through map_shared_rank in one round of loads,
-//     rescales, and writes q's dtype.
+//     rescales, and writes q's dtype.  Asked for it, decode_attention also
+//     writes each row's log-sum-exp M + log L (f32) from the same reads, so
+//     that partials over slices of one cache combine; a row with no valid
+//     key gets NEG_INF there, which weighs 0 in such a combine.
 //   * Tiles stay in their stored type in a ring of up to 3 stages filled by
 //     16-byte cp.async, so the next tiles' loads are in flight while this one
 //     is scored.  Paged keys take their page from block_tables[b, p / bs];
@@ -117,6 +120,7 @@ struct SplitArgs {
   const int* win_starts;   // kRagged: [B] or null
   const float* slopes;     // kRagged: [Hq] or null
   void* out;               // [B, Hq, D]
+  float* lse;              // kValid: [B, Hq] f32, each row's log-sum-exp, or null
   long long page_stride;   // kPaged: elements between pages
   int bs, bs_log2;         // kPaged: page size, and its log2 (-1 if not a power of 2)
   int max_blocks;          // kPaged
@@ -488,9 +492,11 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   // One round of reads from every block of the cluster: row g's (m, l) and
   // element e's acc; returns L and leaves the weights exp(m_r - M) in w.
   float w[kMaxSplits], av[kMaxSplits];
+  float M = kNegInf;   // the row's max over the blocks, left by gather
   auto gather = [&](int g, int e, bool has_e) -> float {
     float2 ml[kMaxSplits];
-    float M = kNegInf, L = 0.f;
+    float L = 0.f;
+    M = kNegInf;
 #pragma unroll
     for (int rr = 0; rr < kMaxSplits; ++rr) {
       if (rr < splits) {
@@ -510,6 +516,8 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   };
   // this block writes its share [e0, e1) of the block's GB*D outputs
   T* ob = static_cast<T*>(a.out) + ((long long)b * a.Hq + (long long)h * G + g0) * D;
+  // the rows' log-sum-exps, written by the thread that holds a row's first element
+  float* lse_b = a.lse ? a.lse + (long long)b * a.Hq + (long long)h * G + g0 : nullptr;
   const int e0 = GB * D * r / splits, e1 = GB * D * (r + 1) / splits;
   const int e_first = e0 + tid;
   const bool mine = e_first < e1;
@@ -524,6 +532,7 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
       for (int rr = 0; rr < kMaxSplits; ++rr)
         if (rr < splits) o = fmaf(w[rr], av[rr], o);
       ob[e] = from_float<T>(o / L);
+      if (lse_b && e % D == 0) lse_b[e / D] = M + logf(L);
     }
   } else {
     // no valid key in the row: the sum of V over all S slots over
@@ -541,6 +550,7 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
       float sum = 0.f;
       for (int rr = 0; rr < splits; ++rr) sum += *cluster.map_shared_rank(acc_s + e % D, rr);
       ob[e] = from_float<T>(sum / (float)a.no_key_div);
+      if (lse_b && e % D == 0) lse_b[e / D] = kNegInf;
     }
   }
   // keep this block's shared memory alive until the cluster has read it
@@ -698,15 +708,17 @@ extern "C" int repro_batched_decode_attention(int dtype, const void* q, const vo
 
 // decode_attention: dtype as above; q/out [B,Hq,D], k/v [B,S,Hkv,D]
 // contiguous; valid a device bool [S] shared by every sequence (a row with
-// no valid key gets the sum of V over the S slots divided by no_key_div).
+// no valid key gets the sum of V over the S slots divided by no_key_div);
+// lse a device f32 [B,Hq] for each row's log-sum-exp of its scaled scores
+// over its valid keys (NEG_INF where it has none), or null for none.
 // One cluster launch; shared memory as repro_decode_split_plan.  Returns the
 // launch's error, or cudaGetLastError() after it.
 extern "C" int repro_decode_attention(int dtype, const void* q, const void* k, const void* v,
-                                      const bool* valid, void* out, int B, int S, int Hq,
-                                      int Hkv, int D, float scale, int no_key_div,
+                                      const bool* valid, void* out, float* lse, int B, int S,
+                                      int Hq, int Hkv, int D, float scale, int no_key_div,
                                       void* stream) {
   SplitArgs a = {};
-  a.q = q, a.k = k, a.v = v, a.valid = valid, a.out = out;
+  a.q = q, a.k = k, a.v = v, a.valid = valid, a.out = out, a.lse = lse;
   a.S = S, a.Hq = Hq, a.Hkv = Hkv, a.D = D, a.no_key_div = no_key_div, a.scale = scale;
   return launch_dtype<Mode::kValid>(dtype, a, B, stream);
 }

@@ -1099,7 +1099,9 @@ ssd_bwd_dc_mma_kernel(const __nv_bfloat16* __restrict__ x, const float* __restri
 // dlast its cum_last; walking the chunks from the last, each chunk's entry
 // is replaced by dh_out, dlast by <dh_out, h_out> (a fixed-order block sum),
 // and dh <- exp(cum_last) dh + local.  dh0 gets the state leaving chunk 0.
-// A thread owns the same elements throughout, so dh needs no barrier.
+// Past the barrier after dh's first store, a thread owns the same elements
+// throughout, so the walk needs no other barrier on dh; that first store
+// goes element by element, the walk's float4s are owned by other threads.
 __global__ void __launch_bounds__(kThreadsScan)
 ssd_bwd_scan_kernel(const float* __restrict__ hstates, const float* __restrict__ hfinal,
                     const float* __restrict__ dhfinal, float* __restrict__ dhout,
@@ -1111,6 +1113,7 @@ ssd_bwd_scan_kernel(const float* __restrict__ hstates, const float* __restrict__
   const long long hb = (long long)bi * nh + h;
   const float* dhf = dhfinal ? dhfinal + hb * hdn : nullptr;
   for (int e = tid; e < hdn; e += kThreadsScan) dh_s[e] = dhf ? dhf[e] : 0.f;
+  __syncthreads();
   const bool v4 = (hdn & 3) == 0;
   for (int c = nc - 1; c >= 0; --c) {
     const long long at = ((long long)bi * nc + c) * nh + h;

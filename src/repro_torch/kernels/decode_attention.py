@@ -115,11 +115,14 @@ def batched_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     kv_valid: torch.Tensor) -> torch.Tensor:
+                     kv_valid: torch.Tensor, *, with_lse: bool = False):
     """q [B,Hq,D]; k/v [B,S,Hkv,D]; kv_valid bool [S], one validity row
     shared by every sequence -> [B,Hq,D] in q.dtype.  With no valid key,
     a row gets the sum of V over the S slots divided by
-    `no_key_divisor(S)`."""
+    `no_key_divisor(S)`.  With `with_lse`, returns (out, lse): lse [B,Hq]
+    f32, each row's log-sum-exp of its scaled scores over its valid keys
+    (NEG_INF where it has none), from the same launch; `out` is the same
+    bits either way."""
     _check_qkv(q, k, v, "decode_attention")
     b, hq, d = q.shape
     _, s, hkv, _ = k.shape
@@ -128,13 +131,15 @@ def decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"kv_valid must be a contiguous bool [{s}] on {q.device}")
     lib = _split_lib(q, s, hkv)
     out = torch.empty_like(q)
+    lse = torch.empty(b, hq, dtype=torch.float32, device=q.device) if with_lse else None
     err = lib.repro_decode_attention(
         _DTYPE_CODE[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(), kv_valid.data_ptr(),
-        out.data_ptr(), b, s, hq, hkv, d, float(d) ** -0.5, no_key_divisor(s),
+        out.data_ptr(), None if lse is None else lse.data_ptr(), b, s, hq, hkv, d,
+        float(d) ** -0.5, no_key_divisor(s),
         ctypes.c_void_p(torch.cuda.current_stream(q.device).cuda_stream))
     _build.check(err, "decode_attention")
     LAUNCHES["decode_attention"] += 1
-    return out
+    return (out, lse) if with_lse else out
 
 
 def check_pages(k_pages: torch.Tensor, v_pages: torch.Tensor, what: str) -> int:

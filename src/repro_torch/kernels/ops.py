@@ -60,15 +60,18 @@ def _flash(q, k, v, *, causal: bool):
     return flash_attention(q, k, v, causal=causal)
 
 
-def decode_attention_auto(q, k_cache, v_cache, mask):
+def decode_attention_auto(q, k_cache, v_cache, mask, *, with_lse: bool = False):
     """One-query decode over a dense cache with one validity row shared by
     the batch.  q [B,1,Hq,D]; k/v [B,S,Hkv,D]; mask [1,S] or [S] bool ->
-    [B,1,Hq,D]."""
+    [B,1,Hq,D]; with `with_lse`, (out, lse [B,Hq] f32) as `decode_attention`
+    gives them."""
     valid = mask[0] if mask.dim() == 2 else mask
     if _route(q) == "cpu":
-        return ref.decode_attention_ref(q[:, 0], k_cache, v_cache, valid)[:, None]
-    return decode_attention(q[:, 0].contiguous(), k_cache, v_cache,
-                            valid.contiguous())[:, None]
+        res = ref.decode_attention_ref(q[:, 0], k_cache, v_cache, valid, with_lse=with_lse)
+    else:
+        res = decode_attention(q[:, 0].contiguous(), k_cache, v_cache, valid.contiguous(),
+                               with_lse=with_lse)
+    return (res[0][:, None], res[1]) if with_lse else res[:, None]
 
 
 def batched_decode_attention_auto(q, k_cache, v_cache, lengths, *,

@@ -76,11 +76,13 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                         kv_valid: torch.Tensor) -> torch.Tensor:
+                         kv_valid: torch.Tensor, *, with_lse: bool = False):
     """q [B,Hq,D]; k/v [B,S,Hkv,D]; kv_valid [S] bool, one validity row
     shared by every sequence (any pattern, not only a prefix) -> [B,Hq,D].
     With no valid key, every row is the sum of V over the S slots divided by
-    `no_key_divisor(S)`, as the Pallas kernel gives."""
+    `no_key_divisor(S)`, as the Pallas kernel gives.  With `with_lse`,
+    returns (out, lse [B,Hq] f32): the log-sum-exp of each row's masked
+    scores, NEG_INF (to f32's rounding) where no key is valid."""
     b, hq, d = q.shape
     s, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -90,7 +92,10 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
     out = torch.einsum("bhgk,bkhd->bhgd", probs, v)
     out = _average_where_no_key(out, v, ~kv_valid.bool().any(), no_key_divisor(s))
-    return out.reshape(b, hq, d)
+    out = out.reshape(b, hq, d)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(b, hq)
 
 
 def batched_decode_attention_ref(q: torch.Tensor, k: torch.Tensor,

@@ -403,12 +403,19 @@ class PagedKVCache:
         return out
 
     def copy_block(self, src_bid: int, dst_bid: int) -> None:
-        """Apply a copy-on-write move to the pages."""
+        """Apply a copy-on-write or defrag move to the pages."""
         self.k[dst_bid] = self.k[src_bid]
         self.v[dst_bid] = self.v[src_bid]
 
     def apply_cow(self, cow: Sequence[Tuple[int, int]]) -> None:
         for old, new in cow:
+            self.copy_block(old, new)
+
+    def apply_defrag(self, moves: Dict[int, int]) -> None:
+        """Apply `BlockPool.defrag`'s {old: new} moves to the pages, lowest
+        destination first (each lies below its source, so no move
+        overwrites a block still to be moved)."""
+        for old, new in sorted(moves.items(), key=lambda kv: kv[1]):
             self.copy_block(old, new)
 
     def block_arrays(self, bid: int, width: Optional[int] = None

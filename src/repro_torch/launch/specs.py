@@ -8,13 +8,15 @@ kernels' routing stay as they are, and a fake CPU tensor goes to each
 kernel's plain version, which computes nothing on fake tensors.
 
 `make_cell` gives the cell's step as one rank of the port runs it on a
-mesh: the train step is `distributed.train_step.rank_step`; prefill and
-serve_step gather the parameters (and the decode state's sequence shards)
-and run the model's `prefill` or `decode_step` on the rank's slice of the
-batch.  The reference also lowers per-layer corrections
-(`_layer_corrections`) because XLA's cost analysis counts a ``scan`` body
-once whatever its trip count; a torch run executes every layer, so the
-port needs none.
+mesh: the train step is `distributed.train_step.rank_step`; for the dense,
+moe and vlm families prefill and serve_step are `distributed.serve_step`'s
+split `rank_prefill` and `rank_decode` over the rank's shards and its
+slice of the decode state, and for the others they gather the parameters
+(and the decode state's sequence shards) and run the model's `prefill` or
+`decode_step` on the rank's slice of the batch. The reference also lowers
+per-layer corrections (`_layer_corrections`) because XLA's cost analysis
+counts a ``scan`` body once whatever its trip count; a torch run executes
+every layer, so the port needs none.
 """
 from __future__ import annotations
 
@@ -26,7 +28,9 @@ import torch
 from repro_torch.configs.base import ArchConfig, ShapeConfig
 from repro_torch.distributed.sharding import (batch_shardings, local_shape, local_slice,
                                               param_shardings, state_shardings)
-from repro_torch.distributed.train_step import Collectives, gather_leaf, rank_step
+from repro_torch.distributed.serve_step import rank_decode, rank_prefill
+from repro_torch.distributed.train_step import (Collectives, gather_leaf, rank_step,
+                                                splits_compute, splits_rows)
 from repro_torch.kvcache.cache import decode_state_shapes
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import build_model
@@ -121,18 +125,26 @@ def input_specs(arch: ArchConfig, shape: ShapeConfig, model=None, mode=None) -> 
 class ShapeCollectives(Collectives):
     """`train_step.Collectives` on fake tensors, counting the same bytes with
     no transport: a gather's output keeps its fresh fake tensor, a
-    reduction leaves its tensor as it is.  One rank at coordinate 0 of
-    every axis (every rank holds shards of the same shapes)."""
+    reduction leaves its tensor as it is.  One rank: coordinate 0 of the
+    data axes (every rank holds shards of the same shapes) and the last of
+    `model`, which computes the largest share of an uneven split
+    (ceil(H/n) heads; `tensor_parallel.balanced`)."""
 
     def __init__(self, mesh: MeshShape):
         self.mesh = mesh
-        self.coords = dict.fromkeys(mesh.axis_names, 0)
+        self.coords = {a: mesh.shape[a] - 1 if a == "model" else 0 for a in mesh.axis_names}
         self.reset()
 
-    def _gather(self, out, src, axis) -> None:
+    def _gather(self, out, src, axes) -> None:
         pass
 
-    def _reduce(self, t, axes) -> None:
+    def _reduce(self, t, axes, op) -> None:
+        pass
+
+    def _reduce_scatter(self, out, src, axes) -> None:
+        pass
+
+    def _all_to_all(self, out, src, out_sizes, in_sizes, axes) -> None:
         pass
 
 
@@ -199,10 +211,14 @@ def make_cell(cfg: ArchConfig, shape: ShapeConfig, mesh: MeshShape,
             args = (params, AdamWState(_sds((), torch.int32), _local(opt.m, o_specs.m, mesh),
                                        _local(opt.v, o_specs.v, mesh)),
                     _local(inputs["batch"], specs["batch"], mesh))
+            split = splits_rows(specs["batch"])      # one microbatch, as `rank_batch`'s
 
             def fn(p, o, b):
-                return rank_step(model, TrainConfig(), p, p_specs, o, b, comm)
+                return rank_step(model, TrainConfig(), p, p_specs, o, b, split, comm)
             return Cell("train_step", fn, args, inputs, specs, mode, comm)
+
+        if splits_compute(cfg):
+            return _split_serve_cell(cfg, shape, model, mode, inputs, specs, params, comm, mesh)
 
         def gathered(p):
             return tree_map(lambda t, s: gather_leaf(t, s, comm), p, p_specs)
@@ -230,3 +246,21 @@ def make_cell(cfg: ArchConfig, shape: ShapeConfig, mesh: MeshShape,
         args = (params, _local(inputs["state"], st_specs, mesh),
                 _local(inputs["token"], specs["token"], mesh), shape.seq_len - 1)
         return Cell("serve_step", fn, args, inputs, specs, mode, comm)
+
+
+def _split_serve_cell(cfg, shape, model, mode, inputs, specs, params, comm, mesh) -> Cell:
+    """The prefill or serve_step cell of a family that splits its compute:
+    the rank's shards, its rows and its sequence slice of the state."""
+    p_specs = specs["params"]
+    if shape.kind == "prefill":
+        def fn(p, b):
+            return rank_prefill(model, p, p_specs, b, shape.seq_len, comm)
+        args = (params, _local(inputs["batch"], specs["batch"], mesh))
+        return Cell("prefill", fn, args, inputs, specs, mode, comm)
+
+    def fn(p, st, tok, pos):
+        return rank_decode(model, p, p_specs, st, tok, pos, comm)
+    # the port's decode step takes its position on the host: the last slot
+    args = (params, _local(inputs["state"], specs["state"], mesh),
+            _local(inputs["token"], specs["token"], mesh), shape.seq_len - 1)
+    return Cell("serve_step", fn, args, inputs, specs, mode, comm)

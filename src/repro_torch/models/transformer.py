@@ -17,6 +17,14 @@ the model's dtype, projects by ``patch_proj`` and prepends to the token
 embeddings.  Positions run over the patch slots, so a prompt of S tokens
 fills num_patches + S cache slots and decoding starts there; the loss drops
 the patch positions before the head.
+
+Split compute on a mesh: `loss`, `prefill` and `decode_step` (and the
+stage functions they run) take ``tp``, a `distributed.tensor_parallel.Split`
+built from the mesh.  A per-layer hook hands each layer the weights its
+rank computes with (FSDP rows gathered, the rank's heads, ff columns or
+experts); the embedding, the head and the loss take their vocabulary-
+parallel forms; the decode state is the rank's sequence slice.  With
+``tp=None`` (the default) nothing of this runs.
 """
 from __future__ import annotations
 
@@ -82,33 +90,39 @@ class DecoderLM:
         return p
 
     # ------------------------------------------------------------------
-    def _final(self, sp, x):
-        return unembed(self.cfg, sp, x)
+    def _final(self, sp, x, tp=None):
+        """Logits [.., V] (under `tp`, this rank's vocabulary columns)."""
+        return unembed(self.cfg, sp, x) if tp is None else tp.logits(sp, x)
 
-    def _ffn(self, h, lp, aux=None):
+    def _ffn(self, h, lp, aux=None, tp=None):
         """The MLP, or the experts over the flattened tokens.  Inference
         takes the lossless dispatch: a token's output must not depend on how
         the scheduler packed its pass.  Training (`aux`, a list) takes the
         capacity-bounded one and appends its load-balancing loss."""
         if not self.cfg.is_moe:
-            return mlp_apply(h, lp["mlp"], self.cfg)
+            if tp is None:
+                return mlp_apply(h, lp["mlp"], self.cfg)
+            return tp.reduce(mlp_apply(tp.copy(h), lp["mlp"], self.cfg))
         b, s, d = h.shape
         if aux is None:
             return moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg,
-                             drop=False).view(b, s, d)
-        out, a = moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg, return_aux=True)
+                             drop=False, tp=tp).view(b, s, d)
+        out, a = moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg, return_aux=True, tp=tp)
         aux.append(a)
         return out.view(b, s, d)
 
     def _layer(self, x, lp, *, mode, kc=None, vc=None, kv_positions=None, pos=None,
-               q_lens=None, positions=None, window=0, aux=None):
+               q_lens=None, positions=None, window=0, aux=None, tp=None):
         """One layer.  Returns (x, kc, vc): the caches updated in place, or
         in "prefill" mode the prompt's own K/V [B,S,H,D].  `aux` as `_ffn`."""
         cfg = self.cfg
         h = norm_apply(cfg.norm, x, lp["ln1"])
         kw = dict(window=window, num_meta=cfg.num_meta_tokens,
                   rope=cfg.pos_emb == "rope", alibi=self._alibi)
-        if mode == "prefill":
+        if tp is not None:
+            a, kc, vc = tp.attention(mode, h, lp["attn"], positions=positions, kc=kc, vc=vc,
+                                     pos=pos, **kw)
+        elif mode == "prefill":
             a, kc, vc = attn.attention_prefill(h, lp["attn"], cfg, positions, **kw)
         elif mode == "decode_batch":
             a, kc, vc = attn.attention_decode_batch(h, lp["attn"], cfg, kc, vc,
@@ -119,45 +133,53 @@ class DecoderLM:
                                               kv_positions, pos, **kw)
         x = x + a
         h = norm_apply(cfg.norm, x, lp["ln2"])
-        return x + self._ffn(h, lp, aux), kc, vc
+        return x + self._ffn(h, lp, aux, tp), kc, vc
 
-    def _train_layer(self, x, lp, positions, window: int):
-        """One layer of the training forward -> (x, the moe aux loss or None)."""
+    def _train_layer(self, x, lp, positions, window: int, tp=None):
+        """One layer of the training forward -> (x, the moe aux loss or None).
+        The hook runs here, inside the layer's activation checkpoint."""
         aux = []
-        x, _, _ = self._layer(x, lp, mode="prefill", positions=positions, window=window,
-                              aux=aux)
+        x, _, _ = self._layer(x, _hooked(lp, tp), mode="prefill", positions=positions,
+                              window=window, aux=aux, tp=tp)
         return x, aux[0] if aux else None
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, tp=None):
         """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} (vlm:
         and "patch_embeds") -> the causal-LM loss, f32 scalar, plus 0.01 times
-        the mean moe aux loss."""
+        the mean moe aux loss.  Under `tp`, `params` are this rank's shards."""
         cfg = self.cfg
-        x = self._embed(params, batch["tokens"], batch.get("patch_embeds"))
+        x = self._embed(params, batch["tokens"], batch.get("patch_embeds"), tp)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         auxs = []
         for lp, w in zip(unstack_layers(params["layers"], cfg.num_layers),
                          self._layer_window):
-            x, aux = run_layer(self._train_layer, self.remat, x, lp, positions, w)
+            x, aux = run_layer(self._train_layer, self.remat, x, lp, positions, w, tp)
             auxs.append(aux)
         if cfg.family == "vlm":             # the head reads the text positions only
             x = x[:, cfg.num_patches:]
-        loss = causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
+        if tp is None:
+            loss = causal_lm_loss(unembed(cfg, params, x), batch["targets"],
+                                  batch["loss_mask"])
+        else:
+            loss = tp.lm_loss(tp.logits(params, x), batch["targets"], batch["loss_mask"])
         if cfg.is_moe:
             loss = loss + 0.01 * torch.stack(auxs).mean()
         return loss
 
-    def _layers(self, sp, x, kc, vc, **kw):
+    def _layers(self, sp, x, kc, vc, tp=None, **kw):
         for i, w in enumerate(sp["layer_window"]):
-            x, _, _ = self._layer(x, layer_params(sp["layers"], i), kc=kc[i], vc=vc[i],
-                                  window=w, **kw)
+            x, _, _ = self._layer(x, _hooked(layer_params(sp["layers"], i), tp), kc=kc[i],
+                                  vc=vc[i], window=w, tp=tp, **kw)
         return x
 
-    def _embed(self, sp, tokens, patch_embeds=None):
+    def _lookup(self, sp, tokens, tp=None):
+        return F.embedding(tokens, sp["embed"]) if tp is None else tp.embed(sp["embed"], tokens)
+
+    def _embed(self, sp, tokens, patch_embeds=None, tp=None):
         """Token embeddings [B,S,d]; vlm: the projected patches prepended,
         [B,num_patches+S,d]."""
         cfg = self.cfg
-        x = F.embedding(tokens, sp["embed"])
+        x = self._lookup(sp, tokens, tp)
         if cfg.family == "vlm":
             if patch_embeds is None:
                 raise ValueError(f"family=vlm ({cfg.name}) needs patch_embeds "
@@ -191,22 +213,22 @@ class DecoderLM:
         return sp
 
     def stage_prefill(self, sp, x, *, first: bool, last: bool, tokens=None,
-                      patch_embeds=None):
+                      patch_embeds=None, tp=None):
         """Run one stage over whole prompts at positions 0..S-1 (stage 0
         takes `tokens` [B,S], and a vlm's `patch_embeds`, which it
         prepends: S counts them).  Returns (x or, on the last stage, the
         final token's logits [B,V], ks, vs) with ks/vs [Lstage,B,S,H,D]."""
         if first:
-            x = self._embed(sp, tokens, patch_embeds)
+            x = self._embed(sp, tokens, patch_embeds, tp)
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         ks, vs = [], []
         for i, w in enumerate(sp["layer_window"]):
-            x, k, v = self._layer(x, layer_params(sp["layers"], i), mode="prefill",
-                                  positions=positions, window=w)
+            x, k, v = self._layer(x, _hooked(layer_params(sp["layers"], i), tp),
+                                  mode="prefill", positions=positions, window=w, tp=tp)
             ks.append(k)
             vs.append(v)
         if last:
-            x = self._final(sp, x[:, -1:, :])[:, 0]
+            x = self._final(sp, x[:, -1:, :], tp)[:, 0]
         return x, torch.stack(ks), torch.stack(vs)
 
     def stage_prefill_chunk(self, sp, x, kc, vc, pos: int, *, first: bool,
@@ -231,19 +253,20 @@ class DecoderLM:
         return x, kc, vc
 
     def stage_decode(self, sp, x, kc, vc, pos: int, *, first: bool, last: bool,
-                     token=None):
+                     token=None, tp=None):
         """One decode step of one sequence at position `pos` (the
-        per-sequence path).  kc/vc [Lstage,B,S,H,D]."""
+        per-sequence path).  kc/vc [Lstage,B,S,H,D] (under `tp`, the rank's
+        sequence slice)."""
         if first:
-            x = F.embedding(token[:, None], sp["embed"])
+            x = self._lookup(sp, token[:, None], tp)
             if self.cfg.pos_emb == "learned":
                 x = x + sp["pos_table"][pos:pos + 1][None]
         slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)
         kv_positions = torch.where(slots <= pos, slots, -1)
         x = self._layers(sp, x, kc, vc, mode="decode", kv_positions=kv_positions,
-                         pos=pos)
+                         pos=pos, tp=tp)
         if last:
-            x = self._final(sp, x)[:, 0]
+            x = self._final(sp, x, tp)[:, 0]
         return x, kc, vc
 
     def _embed_batch(self, sp, tokens, pos):
@@ -346,25 +369,34 @@ class DecoderLM:
     # ------------------------------------------------------------------
     # whole-model generation: the one-stage case of the stage API
     # ------------------------------------------------------------------
-    def prefill(self, params, batch, max_len=None):
+    def prefill(self, params, batch, max_len=None, tp=None):
         """batch {"tokens": [B,S]} (vlm: and "patch_embeds") -> (last-token
         logits [B,V], decode state {"kv": {"k", "v": [L,B,max_len,H,D]}}
         holding the prompt's K/V, the next position S).  A vlm's S and
-        max_len count its num_patches slots."""
+        max_len count its num_patches slots.  Under `tp` the state is the
+        rank's sequence slice [L,B,max_len/n,H,D]."""
         tokens = batch["tokens"]
         sp = self.slice_params(params, 0, self.cfg.num_layers, first=True, last=True)
         logits, ks, vs = self.stage_prefill(sp, None, first=True, last=True, tokens=tokens,
-                                            patch_embeds=batch.get("patch_embeds"))
+                                            patch_embeds=batch.get("patch_embeds"), tp=tp)
         b, s = ks.shape[1], ks.shape[2]
+        if tp is not None:
+            return tp.gather_vocab(logits), tp.seq_state(ks, vs, max(max_len or s, s)), s
         state = init_decode_state(self.cfg, b, max(max_len or s, s), device=ks.device)
         state["kv"]["k"][:, :, :s] = ks
         state["kv"]["v"][:, :, :s] = vs
         return logits, state, s
 
-    def decode_step(self, params, state, token, pos: int):
+    def decode_step(self, params, state, token, pos: int, tp=None):
         """token [B] at position `pos` -> (logits [B,V], the state, its cache
         updated in place)."""
         sp = self.slice_params(params, 0, self.cfg.num_layers, first=True, last=True)
         logits, _, _ = self.stage_decode(sp, None, state["kv"]["k"], state["kv"]["v"],
-                                         int(pos), first=True, last=True, token=token)
-        return logits, state
+                                         int(pos), first=True, last=True, token=token, tp=tp)
+        return (logits if tp is None else tp.gather_vocab(logits)), state
+
+
+def _hooked(lp, tp):
+    """The per-layer parameter hook: a layer's weights as they are, or under
+    `tp` those its rank computes with."""
+    return lp if tp is None else tp.layer(lp)

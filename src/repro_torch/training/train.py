@@ -37,19 +37,18 @@ def loss_and_grads(model, tcfg: TrainConfig, params, batch, weights=None):
     gradients are averaged, the gradients summed in f32 as the reference's
     scan does.  `weights` ([grad_accum] f32; default none) scale each
     microbatch's loss and gradients before they are averaged: a sharded
-    step's share of each global microbatch's mask count."""
+    step's share of each global microbatch's mask count; the loss is
+    scaled before the backward, so that gradients the backward already sums
+    over ranks (a split step's reduce-scatters) carry each rank's weight."""
 
     def value_and_grad(batch, i):
         live = tree_map(lambda p: p.detach().requires_grad_(), params)
         with torch.enable_grad():
             loss = model.loss(live, batch)
+            if weights is not None:
+                loss = loss * weights[i]
             grads = torch.autograd.grad(loss, tree_leaves(live))
-        loss = loss.detach()
-        if weights is not None:
-            loss = loss * weights[i]
-            for g in grads:
-                g.mul_(weights[i])
-        return loss, _unflatten(live, iter(grads))
+        return loss.detach(), _unflatten(live, iter(grads))
 
     n = tcfg.grad_accum
     if n == 1:

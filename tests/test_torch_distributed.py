@@ -13,6 +13,7 @@ sharded steps within the band of `tests/test_torch_training.py`'s five
 train steps (loss and gradient norm 1e-4 relative, parameters 2 lr).
 """
 import dataclasses
+import math
 
 import numpy as np
 import pytest
@@ -169,19 +170,26 @@ def fake_step_bytes(cfg, mesh, params, specs, batch, accum: int) -> dict:
     with fake_mode():
         local = tree_map(lambda t, s: torch.empty(sharding.local_shape(t.shape, s, mesh),
                                                   dtype=t.dtype), params, specs)
-        b = rank_batch({k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype)
-                        for k, v in batch.items()}, cfg, mesh, comm.coords, accum)
+        b, split = rank_batch({k: torch.empty(v.shape, dtype=torch.from_numpy(v).dtype)
+                               for k, v in batch.items()}, cfg, mesh, comm.coords, accum)
         rank_step(model, TrainConfig(lr=LR, grad_accum=accum), local, specs, adamw_init(local),
-                  b, comm)
+                  b, split, comm)
     return comm.bytes
 
 
 @pytest.mark.parametrize("mesh", [m[0] for m in STEP_MESHES])
 def test_collective_bytes_equal_the_dry_runs_arithmetic(ranks, mesh, monkeypatch):
     """What each rank's step counted, by kind, is what the dry run's fake
-    step counts for that config and mesh; the all-reduces are one a tensor
-    whatever the number of data axes (f32 gradients, each microbatch's mask
-    count, the loss, the per-leaf squared norms); the shards hold the
+    step counts for that config and mesh, and both are the split step's
+    schedule (f32 throughout): all-reduced are the gradients of the leaves
+    the data axes do not split, each microbatch's mask count, the loss and
+    the per-leaf squared norms, one a tensor whatever the number of data
+    axes, and over `model` per layer and microbatch the attention's and the
+    MLP's outputs and their inputs' gradients, the embedding, the head's
+    input gradient and each token's max, sum of exps and target logit;
+    with FSDP rows over ("pod", "data"), each use of such a leaf gathers
+    its rows (the shard over `data`, then two shards' worth over `pod`) and
+    its backward reduce-scatters them (four, then two); the shards hold the
     rules' local shapes."""
     name, shape, fsdp, accum = next(m for m in STEP_MESHES if m[0] == mesh)
     if fsdp:
@@ -190,9 +198,20 @@ def test_collective_bytes_equal_the_dry_runs_arithmetic(ranks, mesh, monkeypatch
     params = params_from_jax(cfg, ranks["params_np"], device="cpu")
     specs = sharding.param_shardings(params, cfg, shape)
     want = fake_step_bytes(cfg, shape, params, specs, ranks["batches"][0], accum)
-    leaves = tree_leaves(params)
-    assert want["all-gather"] > 0
-    assert want["all-reduce"] == 4 * (sum(p.numel() for p in leaves) + accum + 1 + len(leaves))
+    leaves, leaf_specs = tree_leaves(params), tree_leaves(specs)
+    local = [math.prod(sharding.local_shape(p.shape, sp, shape)) for p, sp in
+             zip(leaves, leaf_specs)]
+    rows = sum(n for n, sp in zip(local, leaf_specs)
+               if any(e is not None and e != "model" for e in sp))
+    b, s = ranks["batches"][0]["tokens"].shape
+    b_rank = b // math.prod(shape.shape[a] for a in shape.axis_names if a != "model")
+    activations = b_rank * s * ((2 + 4 * cfg.num_layers) * cfg.d_model + 3)
+    assert want["all-reduce"] == 4 * (sum(local) - rows + accum + 1 + len(leaves)
+                                      + activations)
+    # a shard's rows: gathered from 1 then 2 shards' worth, reduce-scattered from 4 then 2
+    assert want["all-gather"] == 4 * 3 * accum * rows
+    assert want["reduce-scatter"] == 4 * 6 * accum * rows
+    assert (rows > 0) is fsdp
     for res in ranks["ranks"]:
         assert res[mesh]["bytes"] == [want] * STEPS
         for k, got in res[mesh]["local_shapes"].items():

@@ -158,10 +158,14 @@ def test_dry_run_writes_the_references_record_keys(tmp_path, capsys):
     assert all(pd[k] > 0 for k in PER_DEVICE_KEYS)
     assert pd["hbm_total_bytes"] == pd["argument_bytes"] + pd["temp_bytes"] + pd["output_bytes"]
     assert ok["fits_hbm"] is (pd["hbm_total_bytes"] <= dryrun.HBM_CAPACITY_BYTES)
-    # decode gathers the parameters (columns over `model`) and the cache's
-    # sequence shards, and reduces nothing
-    assert ok["collective_breakdown"]["all-reduce"] == 0
-    assert ok["collective_breakdown"]["all-gather"] == pd["collective_bytes"]
+    # split decode: q, the new K/V, the logits and the head columns a rank
+    # lacks are all-gathered over `model`, the layers' outputs and the
+    # attention partials all-reduced; nothing gathers the cache's sequence
+    # shards (a tenth of the rank's slice of the state would not fit)
+    coll = ok["collective_breakdown"]
+    assert coll["all-reduce"] > 0 and coll["reduce-scatter"] == coll["all-to-all"] == 0
+    assert coll["all-gather"] + coll["all-reduce"] == pd["collective_bytes"]
+    assert 0 < coll["all-gather"] < pd["argument_bytes"] / 10
     capsys.readouterr()
     dryrun.main(["--arch", "smollm-360m", "--shape", "decode_32k", "--mesh", "single",
                  "--out", str(out)])

@@ -49,17 +49,26 @@ def internlm2_cfg():
     return dataclasses.replace(get_arch("internlm2-1.8b").reduced(), dtype="float32")
 
 
-def spawn(fn, world: int, args: tuple, timeout: float = 240.0) -> None:
+def spawn(fn, world: int, args: tuple, timeout: float = 240.0, meanwhile=None):
     """Run fn(rank, *args) in `world` spawned processes; a rank's exception
-    fails the test, and so does a run past `timeout` seconds."""
+    fails the test, and so does a run past `timeout` seconds.  `meanwhile`,
+    if given, runs in this process while the ranks do; its result is
+    returned."""
     ctx = torch.multiprocessing.start_processes(fn, args=args, nprocs=world, join=False,
                                                 start_method="spawn")
     deadline = time.monotonic() + timeout
+    try:
+        out = meanwhile() if meanwhile is not None else None
+    except BaseException:
+        for p in ctx.processes:
+            p.kill()
+        raise
     while not ctx.join(timeout=max(1.0, deadline - time.monotonic())):
         if time.monotonic() > deadline:
             for p in ctx.processes:
                 p.kill()
             pytest.fail(f"{world} ranks still running after {timeout} s")
+    return out
 
 
 def _init(rank: int, world: int, out: str) -> None:
