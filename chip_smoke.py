@@ -180,7 +180,21 @@ Phases, each printing one JSON line with its seconds:
                timed in turns.  Then
                `compressed_allreduce` over NCCL on one of the model's
                gradients in f32: bit for bit the plain ``q.float() *
-               scale``, its all-gathered payload int8, numel bytes.
+               scale``, its all-gathered payload int8, numel bytes.  Then
+               the other families split on the same mesh, at full width in
+               bf16 with their depth cut (mamba2-780m 8 of 48 layers;
+               hymba-1.5b 4 of 32, layer 0 global; seamless-m4t-large-v2 4
+               + 4 of 24 + 24; `DIST_FAMILIES`): 3 split and 3 unsharded
+               train steps in turns (remat), bit for bit, with the
+               launches of ``ssd_scan``, ``ssd_scan_bwd``,
+               ``flash_attention`` and ``flash_attention_bwd`` per step as
+               `train_launches` counts them; then sharded prefill and 32
+               greedy steps against `prefill` and `decode_step` (Hymba's
+               prompts wrap its window ring): the same tokens and
+               decode-state bits, the launches of ``ssd_scan``,
+               ``flash_attention`` and ``decode_attention`` as the model
+               runs them; step ms, generation seconds and peak GiB for
+               each.
 
 Each phase's line carries the peak device memory it allocated; the models
 of a phase are freed before the next begins.
@@ -3459,11 +3473,11 @@ DIST_WINDOW = 8       # decode steps of each serve path profiled
 DIST_KERNELS = ("flash_attention", "flash_attention_bwd")
 
 
-def dist_steps(cfg, mesh, batch: int, seq: int) -> tuple:
+def dist_steps(cfg, mesh, batch: int, seq: int, kernels=DIST_KERNELS) -> tuple:
     """`cfg` trained DIST_STEPS steps by the sharded step and by
     `make_train_step` from one set of seeded weights, a step of each in
     turn: per step, each run's loss, gradient norm, ms and launches of
-    DIST_KERNELS (the counts set to 0 before the step); both end states,
+    `kernels` (the counts set to 0 before the step); both end states,
     gathered; and the model."""
     import torch
 
@@ -3492,7 +3506,7 @@ def dist_steps(cfg, mesh, batch: int, seq: int) -> tuple:
             p, o, m = step(p, o, b)
             torch.cuda.synchronize()
             out[name]["step_ms"].append((time.perf_counter() - t) * 1e3)
-            out[name]["launches"].append({k: LAUNCHES[k] for k in DIST_KERNELS})
+            out[name]["launches"].append({k: LAUNCHES[k] for k in kernels})
             out[name]["loss"].append(m["loss"].item())
             out[name]["grad_norm"].append(m["grad_norm"].item())
             if name == "sharded":
@@ -3529,7 +3543,7 @@ def dist_serve(cfg, mesh, batch: int, plen: int, new: int, out_dir: Path) -> dic
                                        generator=torch.Generator(device="cuda").manual_seed(1))}
     pre, dec = make_sharded_prefill(model, mesh), make_sharded_decode_step(model, mesh)
     runs = {"sharded": (lambda b, m: pre(sharded, b, m),
-                        lambda st, t, p: dec(sharded, st, t, p)),
+                        lambda st, t, p: dec(sharded, st, t, p, pre.state_specs)),
             "plain": (lambda b, m: model.prefill(params, b, max_len=m),
                       lambda st, t, p: model.decode_step(params, st, t, p))}
 
@@ -3640,6 +3654,115 @@ def lse_combine_cases(shapes, b: int = 8, s: int = 2048) -> dict:
     return res
 
 
+# the other families split on the 1 x 1 mesh, at full width and cut depth:
+# name -> (layer cut, train batch x seq, serve rows, prompt tokens, source frames)
+DIST_FAMILIES = {
+    "mamba2-780m": ({"num_layers": 8}, (4, 2048), 4, 512, 0),
+    "hymba-1.5b": ({"num_layers": 4, "full_attn_layers": (0,)}, (4, 2048), 4, 1200, 0),
+    "seamless-m4t-large-v2": ({"num_layers": 4, "num_encoder_layers": 4}, (4, 1024), 4, 64,
+                              1024)}
+
+
+def dist_family(name: str, mesh, new: int = 32) -> dict:
+    """One of DIST_FAMILIES on `mesh`: DIST_STEPS split and unsharded train
+    steps in turns (bit for bit, launches per step as `train_launches`
+    counts them), then sharded prefill and `new` greedy decode steps
+    against the unsharded `prefill` and `decode_step` from the same seeded
+    weights (the same tokens and state bits, the launches as the model runs
+    them), each generation timed once more warm, split then plain."""
+    import numpy as np
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.serve_step import make_sharded_decode_step, make_sharded_prefill
+    from repro_torch.distributed.train_step import shard_train_state
+    from repro_torch.kernels import KERNELS, LAUNCHES, TRAIN_KERNELS, reset_launches
+    from repro_torch.kernels import train_launches
+    from repro_torch.models import build_model
+    from repro_torch.training import adamw_init
+    cut, (tb, ts), rows, plen, src = DIST_FAMILIES[name]
+    cfg = dataclasses.replace(get_arch(name), dtype="bfloat16", **cut)
+    torch.cuda.reset_peak_memory_stats()
+    runs, ends, _ = dist_steps(cfg, mesh, tb, ts, kernels=TRAIN_KERNELS)
+    sh, pl = runs["sharded"], runs["plain"]
+    check(sh["loss"] == pl["loss"] and sh["grad_norm"] == pl["grad_norm"],
+          f"{name}: split losses {sh['loss']} / norms {sh['grad_norm']} against unsharded "
+          f"{pl['loss']} / {pl['grad_norm']}")
+    check(all(x == x and abs(x) < float("inf") for x in sh["loss"]),
+          f"{name}: a non-finite loss {sh['loss']}")
+    check(equal_trees(ends["sharded"], ends["plain"]),
+          f"{name}: the split run's parameters or moments differ from the unsharded run's")
+    want = train_launches(cfg, 1, remat=True)
+    check(all(n == want for n in sh["launches"] + pl["launches"]),
+          f"{name}: launches a step, split {sh['launches']}, unsharded {pl['launches']}, "
+          f"want {want}")
+    del ends
+    train_peak = torch.cuda.max_memory_allocated() / 2**30
+    gc.collect()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    # serving: the split steps and the unsharded ones from one set of weights
+    model = build_model(cfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    sharded, _ = shard_train_state(params, adamw_init(params), cfg, mesh)
+    batch = {"tokens": torch.randint(0, cfg.vocab_size, (rows, plen), device="cuda",
+                                     generator=torch.Generator(device="cuda").manual_seed(1))}
+    if src:
+        batch.update(mm_inputs(cfg, rows, np.random.default_rng(2), "cuda", src))
+    slots = cfg.context_overhead + plen + new
+    pre, dec = make_sharded_prefill(model, mesh), make_sharded_decode_step(model, mesh)
+    paths = {"sharded": (lambda: pre(sharded, batch, slots),
+                         lambda st, t, p: dec(sharded, st, t, p, pre.state_specs)),
+             "plain": (lambda: model.prefill(params, batch, max_len=slots),
+                       lambda st, t, p: model.decode_step(params, st, t, p))}
+
+    def generate_(path):
+        prefill, decode = paths[path]
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, st, pos = prefill()
+        toks = []
+        for _ in range(new):
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            logits, st = decode(st, tok, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        return torch.stack(toks, 1).tolist(), st, time.perf_counter() - t
+
+    serve, states = {}, {}
+    for path in paths:
+        reset_launches()
+        toks, states[path], s = generate_(path)
+        serve[path] = {"tokens": toks, "s": [s],
+                       "launches": {k: LAUNCHES[k] for k in KERNELS if LAUNCHES[k]}}
+    for path in paths:
+        serve[path]["s"].append(generate_(path)[2])
+    check(serve["sharded"]["tokens"] == serve["plain"]["tokens"],
+          f"{name}: the sharded serve steps' tokens differ from the unsharded ones'")
+    check(equal_trees(states["sharded"], states["plain"]),
+          f"{name}: the sharded decode state differs from the unsharded one's bits")
+    want_serve = (mm_expected_launches if cfg.family == "encdec" else ssm_expected_launches)(
+        cfg, 1, new)
+    want_serve = {k: n for k, n in want_serve.items() if n}
+    check(serve["sharded"]["launches"] == serve["plain"]["launches"] == want_serve,
+          f"{name}: serve launches split {serve['sharded']['launches']}, unsharded "
+          f"{serve['plain']['launches']}, want {want_serve}")
+    out = {"config": f"{name}, {cut}, bf16, remat, train {tb} x {ts}; serve {rows} prompts "
+                     f"of {plen}" + (f" over {src} source frames" if src else "")
+                     + f", {new} greedy tokens, 1 x 1 mesh on NCCL",
+           "bit_identical": True, "train_launches_a_step": want,
+           "step_ms": {"sharded": sh["step_ms"], "unsharded": pl["step_ms"]},
+           "step_ms_median": {"sharded": statistics.median(sh["step_ms"][1:]),
+                              "unsharded": statistics.median(pl["step_ms"][1:])},
+           "loss": sh["loss"], "train_peak_gib": train_peak,
+           "serve_launches": want_serve,
+           "serve_s": {k: v["s"] for k, v in serve.items()},
+           "serve_peak_gib": torch.cuda.max_memory_allocated() / 2**30}
+    emit({"dist_family": name, **out})
+    return out
+
+
 def phase_dist(state: dict) -> dict:
     """The sharded train step against `make_train_step` on a world of one,
     the sharded serve steps against `prefill` and `decode_step`, the decode
@@ -3722,7 +3845,17 @@ def phase_dist(state: dict) -> dict:
         check(sent[0] == (torch.int8, g.numel()), f"payload {sent[0]}, want int8 of "
               f"{g.numel()} bytes")
         car_ms = cuda_ms(lambda: compressed_allreduce(g), iters=10, warmup=2)
-        return {"config": "smollm-360m, 32 layers, d 960, 15:5 heads of 64, vocab 49,152, "
+        del g
+        gc.collect()
+        torch.cuda.empty_cache()
+        # each family resets the peak: the phase's is the largest of them all
+        peak = torch.cuda.max_memory_allocated() / 2**30
+        t_fam = time.perf_counter()
+        families = {name: dist_family(name, mesh) for name in DIST_FAMILIES}
+        families_s = time.perf_counter() - t_fam
+        peak = max([peak] + [f[k] for f in families.values()
+                             for k in ("train_peak_gib", "serve_peak_gib")])
+        return {"max_memory_allocated_gib": peak,"config": "smollm-360m, 32 layers, d 960, 15:5 heads of 64, vocab 49,152, "
                           "bf16, remat, batch 8 x 2048, 1 x 1 mesh (data, model) on NCCL",
                 "setup_s": setup_s, "sharded": sh, "unsharded": pl,
                 "bit_identical": True,
@@ -3731,9 +3864,11 @@ def phase_dist(state: dict) -> dict:
                 "serve": {"config": "smollm-360m, 32 layers, bf16, 4 prompts of 512, 32 "
                                     "greedy tokens, 1 x 1 mesh on NCCL", **serve},
                 "lse_combine": lse,
-                "compressed_allreduce": {"numel": g.numel(), "payload_bytes": sent[0][1],
+                "compressed_allreduce": {"numel": plain.numel(),
+                                         "payload_bytes": sent[0][1],
                                          "scale_bytes": sent[1][1], "bit_identical": True,
-                                         "ms": car_ms}}
+                                         "ms": car_ms},
+                "families": families, "families_s": families_s}
     finally:
         dist.destroy_process_group()
 

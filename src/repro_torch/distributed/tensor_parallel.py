@@ -1,5 +1,5 @@
-"""Split compute for the dense, moe and vlm families on a DeviceMesh (the
-port's counterpart of what GSPMD does with the reference's cells once
+"""Split compute on a DeviceMesh for every model family (the port's
+counterpart of what GSPMD does with the reference's cells once
 `sharding.param_spec` has placed their weights).
 
 One rank's share, given the rules' placements and nothing else:
@@ -13,13 +13,21 @@ One rank's share, given the rules' placements and nothing else:
   rules left a leaf replicated over `model`, the rank slices it locally,
   behind `copy` (its gradient is summed over `model`).  Query head h still
   reads KV head h // G in every rank's own numbering: a rank whose heads
-  do not group evenly over its KV heads holds one KV slot a query head;
+  do not group evenly over their KV heads holds one KV slot a query head.
+  Self-attention, an encoder's bidirectional attention and
+  cross-attention split alike;
 - the ff columns, the experts and the vocabulary likewise, in balanced
   contiguous ranges;
-- FSDP: the d_model rows a leaf's spec splits over the data axes are
-  all-gathered where a layer uses them (`gather_rows`, whose backward
-  reduce-scatters, once per use), inside the layer's activation
-  checkpoint, so remat's recompute gathers them again.
+- the Mamba-2 block by SSM heads, in balanced whole-head ranges: a rank's
+  columns of z, x and dt in `w_in`, its x channels of the conv, its
+  entries of `A_log`, `dt_bias` and `D`, its slice of `norm_scale` and its
+  rows of `w_out`; the B and C columns (one group, read by every head) are
+  taken whole.  The gated RMSNorm over d_inner sums its squares over
+  `model`;
+- FSDP: the rows a leaf's spec splits over the data axes are all-gathered
+  where a layer uses them (`gather_rows`, whose backward reduce-scatters,
+  once per use), inside the layer's activation checkpoint, so remat's
+  recompute gathers them again.
 
 Activations cross between replicated and per-rank compute through two
 functions: `copy` (identity forward, all-reduce over `model` backward) into
@@ -28,40 +36,57 @@ The embedding is a masked lookup of the rank's vocabulary rows then a
 `reduce`; the causal-LM loss reduces each token's max, sum of exps and
 target logit over `model` (the f32 function of `models.losses`).
 
-Decode runs over a KV cache whose sequence is split over `model` (the
-rules' state placement): each rank makes q and the new K/V for its heads,
-all-gathers them over `model` (B x H x D), the rank holding slot `pos`
-writes the new K/V, every rank runs `decode_attention` with its LSE over
-its slice, and `combine` merges the partials: o = sum_r exp(lse_r - M) o_r
-/ sum_r exp(lse_r - M), M = max_r lse_r.  A slice with no valid key has an
-LSE of NEG_INF and weighs exactly 0.  Prefill runs flash over the rank's
-heads for the whole prompt and hands each rank its slice of the K/V by
-one all-to-all over `model` (`seq_state`).
+Serving follows the rules' decode-state placement (`state_shardings`): a
+cache [L,B,S,H,D] has its sequence over `model`, over the data axes
+(batch 1, long_500k) or nowhere (a length that divides neither); the SSD
+state has its heads over `model` where they divide, else it is whole on
+every rank; the conv state is whole.  Decode makes q and the new K/V for
+the rank's heads, all-gathers them over `model` (B x H x D), the rank
+holding the write slot writes the new K/V, every rank runs
+`decode_attention` with its LSE over its slice (slot positions given for a
+ring), and `combine` merges the partials over the axes that split the
+sequence: o = sum_r exp(lse_r - M) o_r / sum_r exp(lse_r - M), M = max_r
+lse_r.  A slice with no valid key has an LSE of NEG_INF and weighs exactly
+0.  Cross-attention decodes its one query over the rank's source slice
+with `flash_attention`'s LSE, combined likewise.  An SSD state whole on
+every rank is decoded whole, with the whole block, on every rank, so its
+copies stay equal with no gather.  Prefill computes the rank's heads for
+the whole prompt, hands each rank its slice of every cache (one
+all-to-all over `model`, or an all-gather of the heads where `model` does
+not split the sequence) and all-gathers the SSD final states once where
+the rules keep them whole.
 
 On a world of one every collective is a copy and every selection is the
 whole leaf, so the unsharded model's function comes out bit for bit.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
 import torch
 import torch.nn.functional as F
 
-from repro_torch.distributed.sharding import _axes, _names, shard_index
+from repro_torch.distributed.sharding import (_axes, _names, shard_index,
+                                              state_shardings)
 from repro_torch.kernels import ops as kops
-from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.models import attention as attn
 from repro_torch.models.common import apply_rope, norm_apply
 
 MODEL = "model"
 
 # the tensor dim of each layer leaf that `model` splits, and what it counts
-_LAYER_DIMS = {("attn", "wq"): (1, "q"), ("attn", "wk"): (1, "kv"), ("attn", "wv"): (1, "kv"),
-               ("attn", "wo"): (0, "q"), ("mlp", "w_gate"): (1, "ff"),
-               ("mlp", "w_up"): (1, "ff"), ("mlp", "w_down"): (0, "ff"),
+_ATTN_DIMS = {"wq": (1, "q"), "wk": (1, "kv"), "wv": (1, "kv"), "wo": (0, "q")}
+_LAYER_DIMS = {**{("attn", k): v for k, v in _ATTN_DIMS.items()},
+               **{("cross", k): v for k, v in _ATTN_DIMS.items()},
+               ("mlp", "w_gate"): (1, "ff"), ("mlp", "w_up"): (1, "ff"),
+               ("mlp", "w_down"): (0, "ff"),
                ("moe", "w_gate"): (0, "experts"), ("moe", "w_up"): (0, "experts"),
-               ("moe", "w_down"): (0, "experts")}
+               ("moe", "w_down"): (0, "experts"),
+               ("ssm", "w_in"): (1, "ssm_in"), ("ssm", "conv_w"): (1, "ssm_conv"),
+               ("ssm", "conv_b"): (0, "ssm_conv"), ("ssm", "A_log"): (0, "ssm_heads"),
+               ("ssm", "dt_bias"): (0, "ssm_heads"), ("ssm", "D"): (0, "ssm_heads"),
+               ("ssm", "norm_scale"): (0, "ssm_inner"), ("ssm", "w_out"): (0, "ssm_inner")}
 
 
 def balanced(items: int, n: int, r: int) -> Tuple[int, int]:
@@ -98,9 +123,10 @@ class _Reduce(torch.autograd.Function):
         return g, None
 
 
-class _DataSum(torch.autograd.Function):
-    """Summed over the data axes, forward and backward: a term every data
-    rank's loss holds (the moe load-balancing loss of a microbatch)."""
+class _Sum(torch.autograd.Function):
+    """Summed over `axes`, forward and backward: a term that every rank's
+    per-rank compute reads (the moe load-balancing loss of a microbatch
+    over the data axes; the gated norm's sum of squares over `model`)."""
 
     @staticmethod
     def forward(ctx, x, comm, axes):
@@ -139,16 +165,36 @@ def gather_rows(t: torch.Tensor, spec, comm, skip=()) -> torch.Tensor:
     return t
 
 
+def _merged(ranges) -> List[Tuple[int, int]]:
+    """Column ranges [lo, hi) in order, the empty ones dropped and the
+    adjacent ones merged."""
+    out: List[Tuple[int, int]] = []
+    for lo, hi in ranges:
+        if lo == hi:
+            continue
+        if out and out[-1][1] == lo:
+            out[-1] = (out[-1][0], hi)
+        else:
+            out.append((lo, hi))
+    return out
+
+
 def _segments(ids: Sequence[int], width: int) -> List[Tuple[int, int]]:
     """Column ranges [lo, hi) of the blocks `ids` (each `width` wide), the
     adjacent ones merged."""
-    out: List[Tuple[int, int]] = []
-    for i in ids:
-        if out and out[-1][1] == i * width:
-            out[-1] = (out[-1][0], (i + 1) * width)
-        else:
-            out.append((i * width, (i + 1) * width))
-    return out
+    return _merged((i * width, (i + 1) * width) for i in ids)
+
+
+def _ssm_ranges(cfg, lo: int, hi: int) -> Dict[str, List[Tuple[int, int]]]:
+    """The columns of SSM heads [lo, hi) in each split leaf: `w_in` is [z |
+    x | B | C | dt], the conv's channels [x | B | C]."""
+    hd, di, gn = cfg.ssm_head_dim, cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+    inner = (lo * hd, hi * hd)
+    return {"ssm_heads": [(lo, hi)], "ssm_inner": [inner],
+            "ssm_conv": _merged([inner, (di, di + 2 * gn)]),
+            "ssm_in": _merged([inner, (di + inner[0], di + inner[1]),
+                               (2 * di, 2 * di + 2 * gn),
+                               (2 * di + 2 * gn + lo, 2 * di + 2 * gn + hi)])}
 
 
 def combine(o, lse, reduce_max, reduce_sum):
@@ -165,22 +211,47 @@ def combine(o, lse, reduce_max, reduce_sum):
 
 
 class Split:
-    """One rank's share of a `DecoderLM` on a mesh: built from the model's
+    """One rank's share of a model on a mesh, built from the model's
     config, the step's `train_step.Collectives` (mesh, coordinates,
     transport), the spec tree of the stored parameters and whether the
     tokens are this rank's slice of training microbatches split over the
-    data axes (`train_step.rank_batch`); the model's `loss`, `prefill` and
+    data axes (`train_step.rank_batch`).  A prefill also gives `batch`, the
+    global rows (the decode state is placed for it, `place_kv`,
+    `place_ssm`); a decode step gives `state_specs`, the specs of the
+    decode state it runs on.  The model's `loss`, `prefill` and
     `decode_step` take it as ``tp``."""
 
-    def __init__(self, cfg, comm, p_specs: Dict, data_split: bool):
-        if cfg.family not in ("dense", "moe", "vlm"):
-            raise ValueError(f"split compute covers the dense, moe and vlm families, "
-                             f"not {cfg.family}")
+    def __init__(self, cfg, comm, p_specs: Dict, data_split: bool = False, *,
+                 batch: int = None, state_specs: Dict = None):
         self.cfg, self.comm, self.specs = cfg, comm, p_specs
         self.n, self.r = comm.mesh.shape[MODEL], comm.coords[MODEL]
         # a microbatch split over more than one data rank
         self.dp = _axes(comm.mesh)[0]
         self.data_split = data_split and comm.size(self.dp) > 1
+        self.batch = batch
+        # the spec of each top-level entry of the decode state (its leaves
+        # share it), as given for a decode step or as `place_*` set them
+        self.layout = {k: next(iter(v.values())) if isinstance(v, dict) else v
+                       for k, v in (state_specs or {}).items()}
+        ranges: Dict[str, list] = {}
+        if cfg.family != "ssm":
+            self._heads(cfg, ranges)
+        if cfg.is_moe:
+            if cfg.num_experts < self.n:
+                raise ValueError(f"{cfg.num_experts} experts on {self.n} ranks of `model`")
+            self.experts = balanced(cfg.num_experts, self.n, self.r)
+            ranges["experts"] = [[balanced(cfg.num_experts, self.n, r)] for r in range(self.n)]
+        elif cfg.d_ff:
+            ranges["ff"] = [[balanced(cfg.d_ff, self.n, r)] for r in range(self.n)]
+        if cfg.family in ("ssm", "hybrid"):
+            self._ssm_heads(cfg, ranges, state_specs is not None)
+        self.vocab = balanced(cfg.vocab_size, self.n, self.r)
+        self.vocab_sizes = [b - a for a, b in (balanced(cfg.vocab_size, self.n, r)
+                                               for r in range(self.n))]
+        ranges["vocab"] = [[balanced(cfg.vocab_size, self.n, r)] for r in range(self.n)]
+        self.ranges = ranges
+
+    def _heads(self, cfg, ranges) -> None:
         self.dh = cfg.resolved_head_dim
         hq, hkv = cfg.num_heads, cfg.num_kv_heads
         g = hq // hkv
@@ -205,23 +276,32 @@ class Split:
                 owner.setdefault(j, r)
         self.own = [self.kv_ids.index(j) for j in sorted(owner) if owner[j] == self.r]
         self.own_sizes = [sum(1 for j in owner if owner[j] == r) for r in range(self.n)]
-        nq, nkv = self.q_sizes[self.r], len(self.kv_ids)
-        self.local_cfg = _replace(cfg, num_heads=nq, num_kv_heads=nkv, head_dim=self.dh)
-        self.vocab = balanced(cfg.vocab_size, self.n, self.r)
-        self.vocab_sizes = [b - a for a, b in (balanced(cfg.vocab_size, self.n, r)
-                                               for r in range(self.n))]
+        self.local_cfg = dataclasses.replace(cfg, num_heads=self.q_sizes[self.r],
+                                             num_kv_heads=len(self.kv_ids), head_dim=self.dh)
         # each rank's columns of each split dim, as ranges [lo, hi)
-        ranges = {"q": [_segments(range(*hs), self.dh) for hs in heads],
-                  "kv": [_segments(ids, self.dh) for ids in kv_ids]}
-        if cfg.is_moe:
-            if cfg.num_experts < self.n:
-                raise ValueError(f"{cfg.num_experts} experts on {self.n} ranks of `model`")
-            self.experts = balanced(cfg.num_experts, self.n, self.r)
-            ranges["experts"] = [[balanced(cfg.num_experts, self.n, r)] for r in range(self.n)]
-        elif cfg.d_ff:
-            ranges["ff"] = [[balanced(cfg.d_ff, self.n, r)] for r in range(self.n)]
-        ranges["vocab"] = [[balanced(cfg.vocab_size, self.n, r)] for r in range(self.n)]
-        self.ranges = ranges
+        ranges["q"] = [_segments(range(*hs), self.dh) for hs in heads]
+        ranges["kv"] = [_segments(ids, self.dh) for ids in kv_ids]
+
+    def _ssm_heads(self, cfg, ranges, decode: bool) -> None:
+        """SSM heads in balanced ranges over `model`; a decode step whose SSD
+        state the rules keep whole runs the whole block on every rank
+        (`ssm_tp` None)."""
+        nh = cfg.ssm_nheads
+        whole = decode and self.layout["ssd"][2] != MODEL
+        heads = [(0, nh) if whole else balanced(nh, self.n, r) for r in range(self.n)]
+        if not whole and self.n > 1:
+            if nh < self.n:
+                raise ValueError(f"{nh} SSM heads on {self.n} ranks of `model`")
+            if cfg.ssm_ngroups != 1:
+                raise ValueError("split SSM heads need one B/C group (every head reads it), "
+                                 f"not {cfg.ssm_ngroups}")
+        self.ssm_tp = None if whole else self
+        self.ssm_sizes = [hi - lo for lo, hi in heads]
+        self.ssm_inner = (heads[self.r][0] * cfg.ssm_head_dim,
+                          heads[self.r][1] * cfg.ssm_head_dim)
+        per_rank = [_ssm_ranges(cfg, lo, hi) for lo, hi in heads]
+        for kind in per_rank[0]:
+            ranges[kind] = [rs[kind] for rs in per_rank]
 
     # ------------------------------------------------------------------
     def copy(self, x):
@@ -236,7 +316,8 @@ class Split:
         cutting first, the row gathers move only the columns the rank
         computes with.  The all-gather over `model` runs where any rank's
         columns are not its stored shard, so every rank issues the same
-        collectives."""
+        collectives.  Where the data axes split `mdim` itself (`w_out`'s
+        d_inner rows), those rows are gathered before the cut."""
         segs = self.ranges[kind][self.r]
         if spec[mdim] == MODEL:
             w = t.shape[mdim]
@@ -244,31 +325,32 @@ class Split:
                 return gather_rows(t, spec, self.comm, skip=(mdim,))
             t = _Gather.apply(t, self.comm, mdim, MODEL)
         else:
+            if spec[mdim] is not None:
+                t = gather_rows(t, tuple(e if d == mdim else None for d, e in enumerate(spec)),
+                                self.comm)
             t = self.copy(t)
         parts = [t.narrow(mdim, lo, hi - lo) for lo, hi in segs]
         t = parts[0] if len(parts) == 1 else torch.cat(parts, mdim)
         return gather_rows(t, spec, self.comm, skip=(mdim,))
 
-    def layer(self, lp: Dict) -> Dict:
-        """The per-layer hook: one layer's stored shards -> the weights this
-        rank computes with."""
-        out = {}
-        for name, sub in lp.items():
-            specs = self.specs["layers"][name]
-            out[name] = {}
-            for leaf, t in sub.items():
-                spec = tuple(specs[leaf])[1:]            # the stacked [L] dim dropped
-                what = _LAYER_DIMS.get((name, leaf))
-                out[name][leaf] = (gather_rows(t, spec, self.comm) if what is None
-                                   else self._take(t, spec, *what))
-        return out
+    def layer(self, lp: Dict, stack: str = "layers") -> Dict:
+        """The per-layer hook: one layer's stored shards (of the stacked
+        layers `stack`) -> the weights this rank computes with."""
+        return self._hook(lp, self.specs[stack], ())
+
+    def _hook(self, t, specs, path):
+        if isinstance(t, dict):
+            return {k: self._hook(v, specs[k], path + (k,)) for k, v in t.items()}
+        spec = tuple(specs)[1:]                      # the stacked [L] dim dropped
+        what = _LAYER_DIMS.get(path[-2:])
+        return gather_rows(t, spec, self.comm) if what is None else self._take(t, spec, *what)
 
     # the microbatch over the data axes (moe training)
     def data_tokens(self, t: int) -> int:
         return t * self.comm.size(self.dp)
 
     def data_sum(self, x):
-        return _DataSum.apply(x, self.comm, self.dp)
+        return _Sum.apply(x, self.comm, self.dp)
 
     def expert_rows(self, kept, capacity: int) -> int:
         """The rows a buffer of one of this rank's experts needs: the most
@@ -290,28 +372,89 @@ class Split:
         return every[:mine].sum(dim=0)
 
     # ------------------------------------------------------------------
+    # the SSM block (`models.ssm` calls these with its ``tp``)
+    # ------------------------------------------------------------------
+    def inner_mean(self, mean, width: int):
+        """A mean over this rank's `width` channels of d_inner -> the mean
+        over all of d_inner, summed over `model` both ways (each rank's
+        gated norm reads it)."""
+        return _Sum.apply(mean * (width / self.cfg.d_inner), self.comm, MODEL)
+
+    def gather_inner(self, t):
+        """This rank's d_inner channels along the last dim -> all of them."""
+        return self._gather_model(t, t.dim() - 1, [n * self.cfg.ssm_head_dim
+                                                   for n in self.ssm_sizes])
+
+    def place_ssm(self, ssd, conv) -> Dict:
+        """The prompt's final states of this rank's SSM heads, ssd
+        [L,B,nh_local,hd,N] and conv [L,B,K-1,x_local | B | C], as the rules
+        place them: the SSD heads kept where they lie over `model`, else
+        all-gathered once; the conv state whole (its x channels
+        all-gathered)."""
+        xw = self.ssm_sizes[self.r] * self.cfg.ssm_head_dim
+        conv = torch.cat([self.gather_inner(conv[..., :xw]), conv[..., xw:]], dim=-1)
+        spec = self.place("ssd", (ssd.shape[0], self.batch, self.cfg.ssm_nheads)
+                           + tuple(ssd.shape[3:]), ssd.dtype)
+        self.place("conv", (conv.shape[0], self.batch) + tuple(conv.shape[2:]), conv.dtype)
+        if spec[2] != MODEL:
+            ssd = self._gather_model(ssd, 2, self.ssm_sizes)
+        return {"conv": conv, "ssd": ssd}
+
+    # ------------------------------------------------------------------
     # attention
     # ------------------------------------------------------------------
-    def attention(self, mode: str, h, p, *, positions=None, kc=None, vc=None, pos=None,
-                  window: int = 0, num_meta: int = 0, rope: bool = True, alibi=None, **_):
-        """The layer's attention on this rank's heads, summed over `model`:
-        (out [B,S,d], k, v).  "prefill": a whole prompt at `positions`, k/v
-        [B,S,Hkv_local,D] for `seq_state`; "decode": one token at `pos` over
-        the cache slices kc/vc [B,S/n,Hkv,D] (updated in place)."""
-        hf = self.copy(h)
+    def attention(self, mode: str, hf, p, *, positions=None, kc=None, vc=None, pos=None,
+                  window: int = 0, num_meta: int = 0, rope: bool = True, alibi=None,
+                  key: str = "kv", kv_positions=None, write_index=None, **_):
+        """The layer's attention on this rank's heads of its normed input
+        `hf`, which the caller has passed through `copy` (once for every
+        branch that reads it, so that its gradient sums as the unsharded
+        one does), summed over `model`: (out [B,S,d], k, v).  "prefill": a
+        whole prompt at `positions`, k/v
+        [B,S,Hkv_local,D] for `place_kv`; "full": bidirectional, no mask (an
+        encoder); "decode": one token at `pos` over this rank's slice kc/vc
+        [B,S_local,Hkv,D] of the decode state's cache `key` (updated in
+        place), its slots at positions `kv_positions` [S] (default the slot
+        indices) and the new K/V written at slot `write_index` (default
+        `pos`)."""
         if mode == "decode":
             if alibi is not None:
                 raise ValueError("sequence-sharded decode takes no ALiBi slopes")
-            return self._decode(hf, p, kc, vc, int(pos), window, num_meta, rope)
-        if mode != "prefill":
-            raise ValueError(f"split attention runs prefill and decode, not {mode!r}")
+            return self._decode(hf, p, kc, vc, int(pos), window, num_meta, rope, key,
+                                kv_positions, write_index)
+        if mode not in ("prefill", "full"):
+            raise ValueError(f"split attention runs prefill, full and decode, not {mode!r}")
         if self.local_cfg.num_heads == 0:
             return self._no_heads(hf, p)
+        if mode == "full":
+            q, k, v = attn.qkv_proj(hf, p, self.local_cfg)
+            return self.reduce(attn.out_proj(kops.attention_auto(q, k, v), p)), k, v
         if alibi is not None:
             alibi = alibi[self.heads[0]:self.heads[1]]
         a, k, v = attn.attention_prefill(hf, p, self.local_cfg, positions, window=window,
                                          num_meta=num_meta, rope=rope, alibi=alibi)
         return self.reduce(a), k, v
+
+    def cross(self, mode: str, hf, p, *, enc_out=None, kc=None, vc=None):
+        """Cross-attention on this rank's heads of `hf` (through `copy`, as
+        `attention` takes it), summed over `model`.  "prefill": (out, k, v)
+        over the encoder's output `enc_out` (through `copy` once for every
+        layer), k/v [B,Ssrc,Hkv_local,D] of the rank's KV heads for
+        `place_kv`; "decode": out of one query over this rank's slice kc/vc
+        of the state's cross K/V, the partials (`flash_attention` with its
+        LSE) combined over the axes that split the source."""
+        b, s, _ = hf.shape
+        q = (hf @ p["wq"]).reshape(b, s, self.local_cfg.num_heads, self.dh)
+        if mode == "prefill":
+            k, v = attn.cross_kv(enc_out, p, self.local_cfg)
+            return self.reduce(attn.out_proj(kops.attention_auto(q, k, v), p)), k, v
+        if mode != "decode":
+            raise ValueError(f"split cross-attention runs prefill and decode, not {mode!r}")
+        q_all = self._gather_model(q[:, 0], 1, self.q_sizes)[:, None]    # [B,1,H,D]
+        o, lse = kops.attention_auto(q_all, kc, vc, with_lse=True)
+        o = self._merge(o[:, 0], lse[..., 0], self.layout["cross"][2])
+        mine = o[:, self.heads[0]:self.heads[1]]
+        return self.reduce(mine.reshape(b, 1, -1) @ p["wo"])
 
     def _no_heads(self, hf, p):
         """A rank with no query head: its (empty) projections stay in the
@@ -334,11 +477,16 @@ class Split:
         parts = [c.narrow(dim, 0, n) for c, n in zip(whole.split(m, dim), sizes)]
         return parts[0] if len(parts) == 1 else torch.cat(parts, dim)
 
-    def _decode(self, hf, p, kc, vc, pos: int, window: int, num_meta: int, rope: bool):
+    def _decode(self, hf, p, kc, vc, pos: int, window: int, num_meta: int, rope: bool,
+                key: str, kv_positions, write_index):
         cfg, b, dh = self.local_cfg, hf.shape[0], self.dh
+        axes = self.layout[key][2]
+        part, parts = shard_index(axes, self.comm.mesh, self.comm.coords)
         s_loc = kc.shape[1]
-        # a row's own key, at slot pos, lies in some slice and is valid there
-        assert 0 <= pos < s_loc * self.n, (pos, s_loc * self.n)
+        lo = part * s_loc
+        wi = pos if write_index is None else int(write_index)
+        # a row's own key, at its write slot, lies in some slice and is valid there
+        assert 0 <= wi < s_loc * parts, (wi, s_loc * parts)
         q, k, v = attn.qkv_proj(hf, p, cfg)
         posv = torch.full((1,), pos, dtype=torch.int32, device=hf.device)
         if rope:
@@ -347,44 +495,71 @@ class Split:
         q_all = self._gather_model(q[:, 0], 1, self.q_sizes)              # [B,H,D]
         kv = torch.stack([k[:, 0], v[:, 0]])[:, :, self.own]
         kv_all = self._gather_model(kv, 2, self.own_sizes)                # [2,B,Hkv,D]
-        if pos // s_loc == self.r:
-            kc[:, pos % s_loc] = kv_all[0].to(kc.dtype)
-            vc[:, pos % s_loc] = kv_all[1].to(vc.dtype)
-        slots = self.r * s_loc + torch.arange(s_loc, dtype=torch.int32, device=hf.device)
-        valid = attn.build_mask(posv, torch.where(slots <= pos, slots, -1), causal=True,
-                                window=window, num_meta=num_meta)[0]
+        if lo <= wi < lo + s_loc:
+            kc[:, wi - lo] = kv_all[0].to(kc.dtype)
+            vc[:, wi - lo] = kv_all[1].to(vc.dtype)
+        slots = lo + torch.arange(s_loc, dtype=torch.int32, device=hf.device)
+        valid = attn.build_mask(posv, torch.where(slots <= pos, slots, -1) if kv_positions is None
+                                else kv_positions[lo:lo + s_loc], causal=True, window=window,
+                                num_meta=num_meta)[0]
         o, lse = kops.decode_attention_auto(q_all[:, None], kc, vc, valid, with_lse=True)
-        o = self.combine(o[:, 0], lse)
+        o = self._merge(o[:, 0], lse, axes)
         mine = o[:, self.heads[0]:self.heads[1]]
         out = mine.reshape(b, 1, cfg.num_heads * dh) @ p["wo"]
         return self.reduce(out), kc, vc
 
-    def combine(self, o, lse):
-        """This rank's attention partial over its slice of the cache, merged
-        with the other ranks' over `model` (`combine`)."""
-        return combine(o, lse, lambda t: self.comm.all_reduced(t, MODEL, op="max"),
-                       lambda t: self.comm.all_reduce(t, MODEL))
+    def _merge(self, o, lse, axes):
+        """This rank's attention partial over its slice of a cache, merged
+        with the other slices' over `axes` (`combine`); a cache no axis
+        splits is whole here."""
+        if axes is None:
+            return o
+        return combine(o, lse, lambda t: self.comm.all_reduced(t, axes, op="max"),
+                       lambda t: self.comm.all_reduce(t, axes))
 
-    def seq_state(self, ks, vs, max_len: int) -> Dict:
+    # ------------------------------------------------------------------
+    # the decode state of a prefill
+    # ------------------------------------------------------------------
+    def place(self, key: str, shape, dtype):
+        """The rules' spec of the decode state's entry `key` of global
+        `shape` for this prefill's global batch, recorded in `layout`."""
+        spec = state_shardings({key: (tuple(shape), dtype)}, self.cfg, self.comm.mesh,
+                               self.batch)[key]
+        self.layout[key] = spec
+        return spec
+
+    def state_specs(self, state: Dict) -> Dict:
+        """The spec tree of a decode state whose entries `place_*` placed."""
+        return {k: {kk: self.layout[k] for kk in v} if isinstance(v, dict) else self.layout[k]
+                for k, v in state.items()}
+
+    def place_kv(self, key: str, ks, vs, total: int):
         """The prompt's K/V of this rank's KV heads, ks/vs [L,B,S,Hkv_local,D],
-        as this rank's sequence slice of the decode state {"kv": {"k", "v":
-        [L,B,max_len/n,Hkv,D]}}: one all-to-all over `model`, each KV head
-        sent by the first rank that has it (heads to sequence)."""
-        if max_len % self.n:
-            raise ValueError(f"a {max_len}-slot cache does not split over {self.n} ranks")
-        s_loc, s = max_len // self.n, ks.shape[2]
-        state = init_decode_state(self.cfg, ks.shape[1], s_loc, device=ks.device)
-        span = [(min(t * s_loc, s), min((t + 1) * s_loc, s)) for t in range(self.n)]
+        as this rank's slice (k, v) [L,B,S_local,Hkv,D] of the state's cache
+        `key` of `total` slots, zeros past the prompt.  Where `model` splits
+        the sequence, one all-to-all over it, each KV head sent by the first
+        rank that has it (heads to sequence); elsewhere each rank gathers
+        every head over `model` and keeps its data slice, if any."""
+        n_l, b, s = ks.shape[0], ks.shape[1], ks.shape[2]
+        hkv = self.cfg.num_kv_heads
+        axes = self.place(key, (n_l, self.batch, total, hkv, self.dh), ks.dtype)[2]
+        part, parts = shard_index(axes, self.comm.mesh, self.comm.coords)
+        s_loc = total // parts
         kv = torch.stack([ks, vs])[:, :, :, :, self.own]
-        mine = span[self.r][1] - span[self.r][0]
-        shape = (2,) + tuple(kv.shape[1:3])
-        got = self.comm.all_to_all(
-            [kv[:, :, :, lo:hi] for lo, hi in span],
-            [shape + (mine, n, self.dh) for n in self.own_sizes], MODEL)
-        got = torch.cat(got, dim=4)
-        state["kv"]["k"][:, :, :mine] = got[0]
-        state["kv"]["v"][:, :, :mine] = got[1]
-        return state
+        out = torch.zeros((2, n_l, b, s_loc, hkv, self.dh), dtype=kv.dtype, device=kv.device)
+        if axes == MODEL:
+            span = [(min(t * s_loc, s), min((t + 1) * s_loc, s)) for t in range(self.n)]
+            mine = span[self.r][1] - span[self.r][0]
+            got = self.comm.all_to_all(
+                [kv[:, :, :, lo:hi] for lo, hi in span],
+                [(2, n_l, b, mine, n, self.dh) for n in self.own_sizes], MODEL)
+            out[:, :, :, :mine] = torch.cat(got, dim=4)
+        else:
+            whole = self._gather_model(kv, 4, self.own_sizes)
+            lo = part * s_loc
+            mine = max(0, min(s, lo + s_loc) - lo)
+            out[:, :, :, :mine] = whole[:, :, :, lo:lo + mine]
+        return out[0], out[1]
 
     # ------------------------------------------------------------------
     # vocabulary
@@ -426,8 +601,3 @@ class Split:
         mask = loss_mask.float()
         denom = torch.clamp(mask.sum(), min=1.0)
         return ((lse - tgt) * mask).sum() / denom
-
-
-def _replace(cfg, **kw):
-    import dataclasses
-    return dataclasses.replace(cfg, **kw)

@@ -12,18 +12,14 @@ step cuts; whole where a microbatch does not divide):
    microbatch's global loss-mask count, before the backward: summed over
    the data axes that gives each global microbatch's masked mean, where a
    mean of per-rank means would differ whenever the shards' masks differ;
-2. for the dense, moe and vlm families, splits the compute
-   (`tensor_parallel.Split`, the model's ``tp``): each layer gathers its
-   FSDP rows over the data axes where it runs (inside its activation
-   checkpoint) and computes the rank's heads, ff columns, experts and
-   vocabulary; the gradients of FSDP-sharded leaves come out of the
-   backward reduce-scattered over the data axes, those of `model`-split
-   leaves are the rank's own, and the rest are summed over the data axes,
-   flattened into one group (one all-reduce a tensor).  The moe family
-   keeps each global microbatch's capacity and load-balancing loss.  The
-   ssm, hybrid and encdec families gather every parameter whole, run the
-   model's ordinary loss, all-reduce each gradient over the data axes and
-   cut it to the shard (gather to compute);
+2. splits the compute (`tensor_parallel.Split`, the model's ``tp``): each
+   layer gathers its FSDP rows over the data axes where it runs (inside
+   its activation checkpoint) and computes the rank's heads, ff columns,
+   experts, SSM heads and vocabulary; the gradients of FSDP-sharded leaves
+   come out of the backward reduce-scattered over the data axes, those of
+   `model`-split leaves are the rank's own, and the rest are summed over
+   the data axes (one all-reduce a tensor).  The moe family keeps each
+   global microbatch's capacity and load-balancing loss;
 3. takes the global norm with each element counted once (a shard's
    squares count on the rank at coordinate 0 of every axis that does not
    split it);
@@ -32,11 +28,8 @@ step cuts; whole where a microbatch does not divide):
 On one rank every collective is a copy, every selection the whole leaf
 and every weight 1, so the step is bit for bit `make_train_step`'s.
 
-Limits: a loss mask whose sum on a rank lies strictly between 0 and 1 is
-weighted by that sum where the unsharded mean clamps it to 1; the
-gather-to-compute families hold their full parameters and gradients on
-every rank at compute time (per-layer gathering there is queued, ROADMAP
-A.20b).
+Limit: a loss mask whose sum on a rank lies strictly between 0 and 1 is
+weighted by that sum where the unsharded mean clamps it to 1.
 """
 from __future__ import annotations
 
@@ -172,30 +165,12 @@ class Collectives:
         return self.groups[axes]
 
 
-def gather_leaf(t: torch.Tensor, spec, comm, keep: Sequence[int] = ()) -> torch.Tensor:
-    """A shard gathered whole along every dim its spec splits (but those in
-    `keep`): one all-gather per mesh axis, the minor axis first."""
-    for dim, entry in enumerate(spec):
-        if entry is None or dim in keep:
-            continue
-        for axis in reversed(_names(entry)):
-            t = comm.all_gather(t, dim, axis)
-    return t
-
-
 def _owns(spec, comm) -> float:
     """1.0 on the one rank of each group of copies of a shard that counts
     it in the global norm: coordinate 0 on every axis that does not split
     the leaf."""
     split = {a for e in spec if e is not None for a in _names(e)}
     return float(all(c == 0 for a, c in comm.coords.items() if a not in split))
-
-
-def splits_compute(cfg) -> bool:
-    """Whether a model of `cfg` computes split over the mesh
-    (`tensor_parallel.Split`: the dense, moe and vlm families); the others
-    gather to compute."""
-    return cfg.family in ("dense", "moe", "vlm")
 
 
 class _OnMesh:
@@ -223,25 +198,14 @@ def rank_step(model, tcfg: TrainConfig, params, p_specs, opt: AdamWState, batch,
     total = comm.all_reduced(count, dp)
     weights = count / torch.clamp(total, min=1.0)
     specs = tree_leaves(p_specs)
-    if splits_compute(model.cfg):
-        tp = Split(model.cfg, comm, p_specs, batch_split)
-        loss, grads = loss_and_grads(_OnMesh(model, tp), tcfg, params, batch, weights=weights)
-        comm.all_reduce(loss, dp)
-        # FSDP rows came out of the backward reduce-scattered over the data
-        # axes; the rest is summed over them here
-        for g, s in zip(tree_leaves(grads), specs):
-            if not any(a in dp for e in s if e is not None for a in _names(e)):
-                comm.all_reduce(g, dp)
-        g_local = grads
-    else:
-        full = tree_map(lambda t, s: gather_leaf(t, s, comm), params, p_specs)
-        loss, grads = loss_and_grads(model, tcfg, full, batch, weights=weights)
-        del full
-        comm.all_reduce(loss, dp)
-        for g in tree_leaves(grads):
+    tp = Split(model.cfg, comm, p_specs, batch_split)
+    loss, g_local = loss_and_grads(_OnMesh(model, tp), tcfg, params, batch, weights=weights)
+    comm.all_reduce(loss, dp)
+    # FSDP rows came out of the backward reduce-scattered over the data
+    # axes; the rest is summed over them here
+    for g, s in zip(tree_leaves(g_local), specs):
+        if not any(a in dp for e in s if e is not None for a in _names(e)):
             comm.all_reduce(g, dp)
-        g_local = tree_map(lambda g, s: local_slice(g, s, comm.mesh, comm.coords),
-                           grads, p_specs)
     sq = torch.stack([torch.sum(torch.square(g.float())) for g in tree_leaves(g_local)])
     sq = sq * torch.tensor([_owns(s, comm) for s in specs], device=sq.device)
     comm.all_reduce(sq)

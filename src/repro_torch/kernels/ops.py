@@ -27,9 +27,12 @@ def _route(t: torch.Tensor) -> str:
     return t.device.type
 
 
-def attention_auto(q, k, v, mask=None, bias=None, *, window: int = 0):
+def attention_auto(q, k, v, mask=None, bias=None, *, window: int = 0,
+                   with_lse: bool = False):
     """Whole-prompt attention.  q [B,Sq,Hq,D]; k/v [B,Skv,Hkv,D]; mask
     [..,Sq,Skv] bool or None; bias as `models.attention.attend` takes it.
+    With `with_lse` (full attention only: no mask, no bias), (out, lse
+    [B,Hq,Sq] f32) as `flash_attention` gives them.
 
     `flash_attention` runs where the layer is plain causal, decided from the
     layer's configuration (window 0, no ALiBi bias, Sq == Skv), never from
@@ -40,6 +43,13 @@ def attention_auto(q, k, v, mask=None, bias=None, *, window: int = 0):
     The mask of a plain causal layer is then the causal mask, which the
     kernel applies itself.  With neither mask nor bias it runs full
     (non-causal) attention.  Everything else goes to the plain `attend`."""
+    if with_lse:
+        if mask is not None or bias is not None or window:
+            raise ValueError("attention with its LSE runs full attention only")
+        if _route(q) == "cpu":
+            return ref.flash_attention_ref(q, k, v, causal=False, with_lse=True)
+        return flash_attention(q.contiguous(), k.contiguous(), v.contiguous(), causal=False,
+                               with_lse=True)
     if bias is None and window == 0:
         if mask is None:
             return _flash(q, k, v, causal=False)

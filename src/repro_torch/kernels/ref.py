@@ -58,10 +58,11 @@ def kv_unpack_ref(cache: torch.Tensor, buf: torch.Tensor, t0: int) -> torch.Tens
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
-                        causal: bool = True) -> torch.Tensor:
+                        causal: bool = True, with_lse: bool = False):
     """q [B,Sq,Hq,D]; k/v [B,Skv,Hkv,D] -> [B,Sq,Hq,D], f32 softmax.  Causal
     with the offset of a query block at the end of the keys: query i sees
-    keys j <= i + (Skv - Sq)."""
+    keys j <= i + (Skv - Sq).  With `with_lse`, (out, lse [B,Hq,Sq] f32):
+    each row's log-sum-exp of its (masked) scaled scores."""
     b, sq, hq, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     g = hq // hkv
@@ -71,8 +72,10 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         mask = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(skv - sq)
         scores = torch.where(mask, scores, NEG_INF)
     probs = torch.softmax(scores, dim=-1).to(q.dtype)
-    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v)
-    return out.reshape(b, sq, hq, d)
+    out = torch.einsum("bhgqk,bkhd->bqhgd", probs, v).reshape(b, sq, hq, d)
+    if not with_lse:
+        return out
+    return out, torch.logsumexp(scores, dim=-1).reshape(b, hq, sq)
 
 
 def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,

@@ -4,10 +4,9 @@ tensors (counterpart of `repro.launch.dryrun`):
     python -m repro_torch.launch.dryrun --mesh both   # 80 records, in --out
 
 For each cell and mesh, one rank's step of the port (`launch.specs.
-make_cell`: the train step of `distributed.train_step`, and for the
-dense, moe and vlm families the split prefill and serve_step of
-`distributed.serve_step`; the other families' prefill and serve_step
-after gathering) runs on fake tensors at the per-device batch:
+make_cell`: the split train step of `distributed.train_step`, prefill and
+serve_step of `distributed.serve_step`) runs on fake tensors at the
+per-device batch:
 split over the data axes where `batch_shardings` splits it, whole where it
 does not.  Nothing is allocated and no device is used.  Per device:
 
@@ -24,21 +23,20 @@ does not.  Nothing is allocated and no device is used.  Per device:
 - collective_bytes: the operand bytes of the collectives the fake step
   issues, counted as it issues them by the real step's counter
   (`train_step.Collectives`, its transport left out by
-  `specs.ShapeCollectives`, backward collectives included): for the
-  split families the FSDP rows each layer gathers and reduce-scatters,
-  the column gathers a rank's heads need, the row-parallel and
-  vocabulary reductions over `model`, prefill's all-to-all of the K/V,
-  decode's gathers of q and the new K/V and its combine; for the others
-  the parameters' and the decode state's gathers; and the train step's
-  gradient, loss and mask-count all-reduces over the data axes and its
-  norm all-reduce;
+  `specs.ShapeCollectives`, backward collectives included): the FSDP
+  rows each layer gathers and reduce-scatters, the column gathers a
+  rank's heads need, the row-parallel, vocabulary and gated-norm
+  reductions over `model` and the gradients of leaves it leaves
+  replicated, prefill's all-to-all (or head gather) of each cache and
+  gather of whole SSD states, decode's gathers of q, the new K/V and the
+  new conv channels and its combine; and the train step's gradient, loss
+  and mask-count all-reduces over the data axes and its norm all-reduce;
 
 against the H100 SXM's datasheet rates (`HardwareModel`).  The records
 keep the keys of the reference's, so `benchmarks/render_tables.py` reads
-them. The FLOPs are what each rank computes: split for the dense, moe and
-vlm families (the fake rank is the last of `model`, which takes the
-largest share of an uneven split), the same on every rank of `model` for
-the gather-to-compute families, which `useful_flops_ratio` shows. A fake
+them. The FLOPs are what each rank computes (the fake rank is the last of
+`model`, which takes the largest share of an uneven split); an SSD state
+the rules keep whole decodes whole on every rank of `model`. A fake
 run cannot enter a CUDA kernel, so each kernel's share is its plain
 version's: plain attention computes and holds the whole S x S score
 matrix, causal or not, where the kernels skip the masked tiles and hold

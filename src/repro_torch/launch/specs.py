@@ -8,12 +8,10 @@ kernels' routing stay as they are, and a fake CPU tensor goes to each
 kernel's plain version, which computes nothing on fake tensors.
 
 `make_cell` gives the cell's step as one rank of the port runs it on a
-mesh: the train step is `distributed.train_step.rank_step`; for the dense,
-moe and vlm families prefill and serve_step are `distributed.serve_step`'s
-split `rank_prefill` and `rank_decode` over the rank's shards and its
-slice of the decode state, and for the others they gather the parameters
-(and the decode state's sequence shards) and run the model's `prefill` or
-`decode_step` on the rank's slice of the batch. The reference also lowers
+mesh: the train step is `distributed.train_step.rank_step`, prefill and
+serve_step are `distributed.serve_step`'s split `rank_prefill` and
+`rank_decode` over the rank's shards, its rows and its slice of the decode
+state, for every family. The reference also lowers
 per-layer corrections (`_layer_corrections`) because XLA's cost analysis
 counts a ``scan`` body once whatever its trip count; a torch run executes
 every layer, so the port needs none.
@@ -26,11 +24,10 @@ from typing import Callable, Dict
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.distributed.sharding import (batch_shardings, local_shape, local_slice,
-                                              param_shardings, state_shardings)
+from repro_torch.distributed.sharding import (batch_shardings, local_shape, param_shardings,
+                                              state_shardings)
 from repro_torch.distributed.serve_step import rank_decode, rank_prefill
-from repro_torch.distributed.train_step import (Collectives, gather_leaf, rank_step,
-                                                splits_compute, splits_rows)
+from repro_torch.distributed.train_step import Collectives, rank_step, splits_rows
 from repro_torch.kvcache.cache import decode_state_shapes
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.models import build_model
@@ -217,50 +214,18 @@ def make_cell(cfg: ArchConfig, shape: ShapeConfig, mesh: MeshShape,
                 return rank_step(model, TrainConfig(), p, p_specs, o, b, split, comm)
             return Cell("train_step", fn, args, inputs, specs, mode, comm)
 
-        if splits_compute(cfg):
-            return _split_serve_cell(cfg, shape, model, mode, inputs, specs, params, comm, mesh)
-
-        def gathered(p):
-            return tree_map(lambda t, s: gather_leaf(t, s, comm), p, p_specs)
-
-        def shard_state(state):
-            st_specs = state_shardings(state, cfg, mesh, shape.global_batch)
-            # the rank's rows are already its own: cut the other sharded dims
-            return tree_map(lambda t, s: local_slice(t, s, mesh, comm.coords, keep=(1,)),
-                            state, st_specs)
-
         if shape.kind == "prefill":
             def fn(p, b):
-                logits, state, pos = model.prefill(gathered(p), b, max_len=shape.seq_len)
-                return logits, shard_state(state), pos
+                return rank_prefill(model, p, p_specs, b, shape.seq_len, comm,
+                                    shape.global_batch)[:3]
             args = (params, _local(inputs["batch"], specs["batch"], mesh))
             return Cell("prefill", fn, args, inputs, specs, mode, comm)
 
         st_specs = specs["state"]
 
         def fn(p, st, tok, pos):
-            state = tree_map(lambda t, s: gather_leaf(t, s, comm, keep=(1,)), st, st_specs)
-            logits, state = model.decode_step(gathered(p), state, tok, pos)
-            return logits, shard_state(state)
+            return rank_decode(model, p, p_specs, st, st_specs, tok, pos, comm)
         # the port's decode step takes its position on the host: the last slot
         args = (params, _local(inputs["state"], st_specs, mesh),
                 _local(inputs["token"], specs["token"], mesh), shape.seq_len - 1)
         return Cell("serve_step", fn, args, inputs, specs, mode, comm)
-
-
-def _split_serve_cell(cfg, shape, model, mode, inputs, specs, params, comm, mesh) -> Cell:
-    """The prefill or serve_step cell of a family that splits its compute:
-    the rank's shards, its rows and its sequence slice of the state."""
-    p_specs = specs["params"]
-    if shape.kind == "prefill":
-        def fn(p, b):
-            return rank_prefill(model, p, p_specs, b, shape.seq_len, comm)
-        args = (params, _local(inputs["batch"], specs["batch"], mesh))
-        return Cell("prefill", fn, args, inputs, specs, mode, comm)
-
-    def fn(p, st, tok, pos):
-        return rank_decode(model, p, p_specs, st, tok, pos, comm)
-    # the port's decode step takes its position on the host: the last slot
-    args = (params, _local(inputs["state"], specs["state"], mesh),
-            _local(inputs["token"], specs["token"], mesh), shape.seq_len - 1)
-    return Cell("serve_step", fn, args, inputs, specs, mode, comm)

@@ -15,6 +15,8 @@ import torch
 import torch.nn.functional as F
 import torch.utils.checkpoint
 
+from repro_torch.models.losses import causal_lm_loss
+
 
 def activation_fn(name: str):
     if name == "silu":
@@ -27,10 +29,15 @@ def activation_fn(name: str):
     raise ValueError(f"unknown activation {name!r}")
 
 
-def rmsnorm(x, scale, eps: float = 1e-6):
+def rmsnorm(x, scale, eps: float = 1e-6, tp=None):
+    """RMSNorm over the last dim; under `tp` (a `distributed.tensor_parallel.
+    Split`), x is a rank's share of the Mamba-2 block's d_inner channels
+    and the mean of squares is over all of them."""
     dtype = x.dtype
     x = x.float()
     var = torch.mean(torch.square(x), dim=-1, keepdim=True)
+    if tp is not None:
+        var = tp.inner_mean(var, x.shape[-1])
     x = x * torch.rsqrt(var + eps)
     return (x * (1.0 + scale.float())).to(dtype)
 
@@ -118,6 +125,31 @@ def unembed(cfg, params, x):
     """The final norm, then the tied or untied LM head: x [..., d] -> [..., V]."""
     head = params["embed"].t() if cfg.tie_embeddings else params["lm_head"]
     return norm_apply(cfg.norm, x, params["final_norm"]) @ head
+
+
+def hooked(lp, tp, stack: str = "layers"):
+    """The per-layer parameter hook: a layer's weights as they are, or under
+    `tp` (a `distributed.tensor_parallel.Split`) those its rank computes
+    with (`stack` names the stacked layers they come from)."""
+    return lp if tp is None else tp.layer(lp, stack)
+
+
+def lookup(table, tokens, tp=None):
+    """Token embeddings; under `tp` vocabulary-parallel."""
+    return F.embedding(tokens, table) if tp is None else tp.embed(table, tokens)
+
+
+def head(cfg, params, x, tp=None):
+    """`unembed`; under `tp` the rank's vocabulary columns."""
+    return unembed(cfg, params, x) if tp is None else tp.logits(params, x)
+
+
+def lm_loss(cfg, params, x, batch, tp=None):
+    """The causal-LM loss of the hidden states x [B,S,d] against the batch's
+    targets and mask, through the head; under `tp` vocabulary-parallel."""
+    if tp is None:
+        return causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
+    return tp.lm_loss(tp.logits(params, x), batch["targets"], batch["loss_mask"])
 
 
 def stack_layers(items):

@@ -7,21 +7,21 @@ are a nested dict with the layers stacked ``[L, ...]``, the reference's
 layout.  `decode_step` updates the state in place and returns it.  `loss`
 trains through the plain SSD scan on the CPU and, on the card, through the
 `ssd_scan` kernel and its backward kernel (`kernels.ssd_scan.SSDScanFn`).
+`loss`, `prefill` and `decode_step` take ``tp`` for split compute on a mesh
+(`distributed.tensor_parallel.Split`); with ``tp=None`` nothing of it runs.
 """
 from __future__ import annotations
 
 from typing import Dict
 
 import torch
-import torch.nn.functional as F
 
 from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
-from repro_torch.models.common import (embed_init, head_init, layer_params, norm_apply,
-                                       norm_init, run_layer, stack_layers, unembed,
-                                       unstack_layers)
-from repro_torch.models.losses import causal_lm_loss
+from repro_torch.models.common import (embed_init, head, head_init, hooked, layer_params,
+                                       lm_loss, lookup, norm_apply, norm_init, run_layer,
+                                       stack_layers, unstack_layers)
 
 
 class MambaLM:
@@ -44,46 +44,61 @@ class MambaLM:
         p.update(head_init(g, cfg, dtype, dev))
         return p
 
-    def _train_layer(self, x, lp):
-        out, _, _ = ssm.ssm_prefill(norm_apply(self.cfg.norm, x, lp["ln"]), lp["ssm"],
-                                    self.cfg)
+    def _normed(self, x, lp, tp):
+        """The block's input: under `tp` through `copy`."""
+        h = norm_apply(self.cfg.norm, x, lp["ln"])
+        return h if tp is None else tp.copy(h)
+
+    def _train_layer(self, x, lp, tp=None):
+        lp = hooked(lp, tp)
+        out, _, _ = ssm.ssm_prefill(self._normed(x, lp, tp), lp["ssm"], self.cfg, tp=tp)
         return x + out
 
-    def loss(self, params, batch):
+    def loss(self, params, batch, tp=None):
         """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} -> the
-        causal-LM loss, f32 scalar."""
+        causal-LM loss, f32 scalar.  Under `tp` (split compute,
+        `distributed.tensor_parallel.Split`) `params` are this rank's
+        shards."""
         cfg = self.cfg
-        x = F.embedding(batch["tokens"], params["embed"])
+        x = lookup(params["embed"], batch["tokens"], tp)
         for lp in unstack_layers(params["layers"], cfg.num_layers):
-            x = run_layer(self._train_layer, self.remat, x, lp)
-        return causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
+            x = run_layer(self._train_layer, self.remat, x, lp, tp)
+        return lm_loss(cfg, params, x, batch, tp)
 
-    def prefill(self, params, batch, max_len=None):
+    def prefill(self, params, batch, max_len=None, tp=None):
         """batch {"tokens": [B,S]} -> (last-token logits [B,V], decode state,
         the next position S).  The state has a fixed size: `max_len` is
-        accepted for the Model API and not needed."""
+        accepted for the Model API and not needed.  Under `tp` the state is
+        placed as the rules place it (`Split.place_ssm`)."""
         cfg = self.cfg
-        x = F.embedding(batch["tokens"], params["embed"])
+        x = lookup(params["embed"], batch["tokens"], tp)
         hs, convs = [], []
         for i in range(cfg.num_layers):
-            lp = layer_params(params["layers"], i)
-            out, hfin, conv = ssm.ssm_prefill(norm_apply(cfg.norm, x, lp["ln"]), lp["ssm"], cfg)
+            lp = hooked(layer_params(params["layers"], i), tp)
+            out, hfin, conv = ssm.ssm_prefill(self._normed(x, lp, tp), lp["ssm"], cfg, tp=tp)
             x = x + out
             hs.append(hfin)
             convs.append(conv)
-        logits = unembed(cfg, params, x[:, -1:, :])[:, 0]
+        logits = head(cfg, params, x[:, -1:, :], tp)[:, 0]
+        if tp is not None:
+            return (tp.gather_vocab(logits), tp.place_ssm(torch.stack(hs), torch.stack(convs)),
+                    x.shape[1])
         return logits, {"conv": torch.stack(convs), "ssd": torch.stack(hs)}, x.shape[1]
 
-    def decode_step(self, params, state, token, pos):
+    def decode_step(self, params, state, token, pos, tp=None):
         """token [B] -> (logits [B,V], the state, updated in place).  The
-        recurrence needs no position: `pos` is accepted for the Model API."""
+        recurrence needs no position: `pos` is accepted for the Model API.
+        Under `tp` the SSM runs on the rank's heads where the state's lie
+        over `model`, whole where the rules keep the state whole."""
         cfg = self.cfg
-        x = F.embedding(token[:, None], params["embed"])
+        x = lookup(params["embed"], token[:, None], tp)
+        stp = None if tp is None else tp.ssm_tp
         for i in range(cfg.num_layers):
-            lp = layer_params(params["layers"], i)
-            out, h, conv = ssm.ssm_decode(norm_apply(cfg.norm, x, lp["ln"]), lp["ssm"], cfg,
-                                          state["ssd"][i], state["conv"][i])
+            lp = hooked(layer_params(params["layers"], i), tp)
+            out, h, conv = ssm.ssm_decode(self._normed(x, lp, stp), lp["ssm"], cfg,
+                                          state["ssd"][i], state["conv"][i], tp=stp)
             state["ssd"][i] = h
             state["conv"][i] = conv
             x = x + out
-        return unembed(cfg, params, x)[:, 0], state
+        logits = head(cfg, params, x, tp)[:, 0]
+        return (logits if tp is None else tp.gather_vocab(logits)), state

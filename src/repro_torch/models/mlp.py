@@ -11,7 +11,11 @@ def mlp_init(generator, cfg, dtype, device):
             for n in names}
 
 
-def mlp_apply(x, p, cfg):
+def mlp_apply(x, p, cfg, tp=None):
+    """The MLP; under `tp` (a `distributed.tensor_parallel.Split`) on the
+    rank's ff columns, summed over `model`."""
+    if tp is not None:
+        return tp.reduce(mlp_apply(tp.copy(x), p, cfg))
     act = activation_fn(cfg.activation)
     if "w_gate" in p:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])

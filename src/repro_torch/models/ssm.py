@@ -39,19 +39,25 @@ def ssm_init(generator, cfg, dtype, device):
     }
 
 
+def _dims(p, cfg):
+    """(heads, inner width, B/C width) of the block `p`: the whole block's,
+    or under split compute the rank's heads' (its weights' widths)."""
+    nh = p["A_log"].shape[0]
+    return nh, nh * cfg.ssm_head_dim, cfg.ssm_ngroups * cfg.ssm_state
+
+
 def _proj_in_parts(x, p, cfg):
     """The input projection as one matmul, split into (z, x, B, C, dt).
     (The reference's five-way split of the weight exists for its sharding
     rules; the port has none.)"""
-    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+    _, di, gn = _dims(p, cfg)
     h = x @ p["w_in"]
     return (h[..., :di], h[..., di: 2 * di], h[..., 2 * di: 2 * di + gn],
             h[..., 2 * di + gn: 2 * di + 2 * gn], h[..., 2 * di + 2 * gn:])
 
 
-def _conv_slices(cfg):
-    """(x, b, c) channel slices of the concatenated conv buffers."""
-    di, gn = cfg.d_inner, cfg.ssm_ngroups * cfg.ssm_state
+def _conv_slices(di: int, gn: int):
+    """(x, b, c) channel slices of conv buffers [x (di) | B | C]."""
     return slice(0, di), slice(di, di + gn), slice(di + gn, di + 2 * gn)
 
 
@@ -79,11 +85,16 @@ def ssd_decode_step(x, dt, a_neg, bmat, cmat, h):
     return y.to(x.dtype), h_new
 
 
-def ssm_prefill(x, p, cfg, h0=None, conv0=None):
+def ssm_prefill(x, p, cfg, h0=None, conv0=None, tp=None):
     """x [B,S,d] -> (out [B,S,d], ssd_state [B,nh,hd,N] f32, conv_state
-    [B,K-1,conv_dim]).  h0 / conv0 resume from a state streamed in."""
+    [B,K-1,conv_dim]).  h0 / conv0 resume from a state streamed in (not
+    under `tp`).  Under
+    `tp` (a `distributed.tensor_parallel.Split`), x has passed through
+    `tp.copy`, `p` is the rank's heads' share, the states are its heads'
+    and its x channels' (then B, C), and `out` is summed over `model`."""
+    nh, di, gn = _dims(p, cfg)
     z, xp, bp, cp, dt = _proj_in_parts(x, p, cfg)
-    sx, sb, sc = _conv_slices(cfg)
+    sx, sb, sc = _conv_slices(di, gn)
     km1 = cfg.ssm_conv - 1
 
     def conv_part(part, ch, ctx):
@@ -105,40 +116,50 @@ def ssm_prefill(x, p, cfg, h0=None, conv0=None):
     conv_state = torch.cat([tail(xp, ctx[0]), tail(bp, ctx[1]), tail(cp, ctx[2])], dim=2)
 
     b, s, _ = x.shape
-    xh = xin.reshape(b, s, cfg.ssm_nheads, cfg.ssm_head_dim)
+    xh = xin.reshape(b, s, nh, cfg.ssm_head_dim)
     bm = bmat.reshape(b, s, cfg.ssm_ngroups, cfg.ssm_state)
     cm = cmat.reshape(b, s, cfg.ssm_ngroups, cfg.ssm_state)
     dtv = F.softplus(dt.float() + p["dt_bias"])
     a_neg = -torch.exp(p["A_log"])
     y, hfin = kops.ssd_auto(xh, dtv, a_neg, bm, cm, chunk=min(DEFAULT_CHUNK, s), h0=h0)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
-    y = rmsnorm(y.reshape(b, s, cfg.d_inner) * F.silu(z), p["norm_scale"])
-    return y @ p["w_out"], hfin, conv_state.to(x.dtype)
+    y = rmsnorm(y.reshape(b, s, di) * F.silu(z), p["norm_scale"], tp=tp)
+    out = y @ p["w_out"]
+    return (out if tp is None else tp.reduce(out)), hfin, conv_state.to(x.dtype)
 
 
-def ssm_decode(x, p, cfg, ssd_state, conv_state):
-    """x [B,1,d] -> (out [B,1,d], ssd_state', conv_state')."""
+def ssm_decode(x, p, cfg, ssd_state, conv_state, tp=None):
+    """x [B,1,d] -> (out [B,1,d], ssd_state', conv_state').  Under `tp`,
+    `p` and `ssd_state` are the rank's heads' share, `conv_state` is whole
+    (the rank reads its x channels and B, C; the new x channels are
+    all-gathered over `model`) and `out` is summed over `model`."""
     b = x.shape[0]
+    nh, di, gn = _dims(p, cfg)
     z, xp, bp, cp, dt = _proj_in_parts(x[:, 0], p, cfg)
-    sx, sb, sc = _conv_slices(cfg)
+    sx, sb, sc = _conv_slices(di, gn)
+    # the conv state's channels: [x (all of d_inner) | B | C]
+    cx, cb, cc = _conv_slices(cfg.d_inner, gn)
+    if tp is not None:
+        cx = slice(*tp.ssm_inner)
 
     def conv_step(part, ch, ctx):
         w, bias = p["conv_w"][:, ch], p["conv_b"][ch]
         win = torch.cat([ctx.to(part.dtype), part[:, None, :]], dim=1)
-        out = torch.einsum("bkc,kc->bc", win, w) + bias
-        return F.silu(out), win[:, 1:]
+        return F.silu(torch.einsum("bkc,kc->bc", win, w) + bias)
 
-    xin, wx = conv_step(xp, sx, conv_state[:, :, sx])
-    bmat, wb = conv_step(bp, sb, conv_state[:, :, sb])
-    cmat, wc = conv_step(cp, sc, conv_state[:, :, sc])
-    new_conv = torch.cat([wx, wb, wc], dim=2).to(conv_state.dtype)
+    xin = conv_step(xp, sx, conv_state[:, :, cx])
+    bmat = conv_step(bp, sb, conv_state[:, :, cb])
+    cmat = conv_step(cp, sc, conv_state[:, :, cc])
+    new = torch.cat([xp if tp is None else tp.gather_inner(xp), bp, cp], dim=1)
+    new_conv = torch.cat([conv_state[:, 1:], new[:, None, :].to(conv_state.dtype)], dim=1)
 
-    xh = xin.reshape(b, cfg.ssm_nheads, cfg.ssm_head_dim)
+    xh = xin.reshape(b, nh, cfg.ssm_head_dim)
     bm = bmat.reshape(b, cfg.ssm_ngroups, cfg.ssm_state)
     cm = cmat.reshape(b, cfg.ssm_ngroups, cfg.ssm_state)
     dtv = F.softplus(dt.float() + p["dt_bias"])
     a_neg = -torch.exp(p["A_log"])
     y, h_new = ssd_decode_step(xh, dtv, a_neg, bm, cm, ssd_state)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
-    y = rmsnorm(y.reshape(b, cfg.d_inner) * F.silu(z), p["norm_scale"])
-    return (y @ p["w_out"])[:, None, :], h_new, new_conv
+    y = rmsnorm(y.reshape(b, di) * F.silu(z), p["norm_scale"], tp=tp)
+    out = (y @ p["w_out"])[:, None, :]
+    return (out if tp is None else tp.reduce(out)), h_new, new_conv

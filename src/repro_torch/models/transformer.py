@@ -37,10 +37,9 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.models import attention as attn
-from repro_torch.models.common import (alibi_slopes, embed_init, head_init, layer_params,
-                                       norm_apply, norm_init, run_layer, stack_layers,
-                                       unembed, unstack_layers)
-from repro_torch.models.losses import causal_lm_loss
+from repro_torch.models.common import (alibi_slopes, embed_init, head, head_init, hooked,
+                                       layer_params, lm_loss, lookup, norm_apply, norm_init,
+                                       run_layer, stack_layers, unstack_layers)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_init
 
@@ -92,7 +91,7 @@ class DecoderLM:
     # ------------------------------------------------------------------
     def _final(self, sp, x, tp=None):
         """Logits [.., V] (under `tp`, this rank's vocabulary columns)."""
-        return unembed(self.cfg, sp, x) if tp is None else tp.logits(sp, x)
+        return head(self.cfg, sp, x, tp)
 
     def _ffn(self, h, lp, aux=None, tp=None):
         """The MLP, or the experts over the flattened tokens.  Inference
@@ -100,9 +99,7 @@ class DecoderLM:
         the scheduler packed its pass.  Training (`aux`, a list) takes the
         capacity-bounded one and appends its load-balancing loss."""
         if not self.cfg.is_moe:
-            if tp is None:
-                return mlp_apply(h, lp["mlp"], self.cfg)
-            return tp.reduce(mlp_apply(tp.copy(h), lp["mlp"], self.cfg))
+            return mlp_apply(h, lp["mlp"], self.cfg, tp)
         b, s, d = h.shape
         if aux is None:
             return moe_apply(h.reshape(b * s, d), lp["moe"], self.cfg,
@@ -120,7 +117,7 @@ class DecoderLM:
         kw = dict(window=window, num_meta=cfg.num_meta_tokens,
                   rope=cfg.pos_emb == "rope", alibi=self._alibi)
         if tp is not None:
-            a, kc, vc = tp.attention(mode, h, lp["attn"], positions=positions, kc=kc, vc=vc,
+            a, kc, vc = tp.attention(mode, tp.copy(h), lp["attn"], positions=positions, kc=kc, vc=vc,
                                      pos=pos, **kw)
         elif mode == "prefill":
             a, kc, vc = attn.attention_prefill(h, lp["attn"], cfg, positions, **kw)
@@ -139,7 +136,7 @@ class DecoderLM:
         """One layer of the training forward -> (x, the moe aux loss or None).
         The hook runs here, inside the layer's activation checkpoint."""
         aux = []
-        x, _, _ = self._layer(x, _hooked(lp, tp), mode="prefill", positions=positions,
+        x, _, _ = self._layer(x, hooked(lp, tp), mode="prefill", positions=positions,
                               window=window, aux=aux, tp=tp)
         return x, aux[0] if aux else None
 
@@ -157,29 +154,22 @@ class DecoderLM:
             auxs.append(aux)
         if cfg.family == "vlm":             # the head reads the text positions only
             x = x[:, cfg.num_patches:]
-        if tp is None:
-            loss = causal_lm_loss(unembed(cfg, params, x), batch["targets"],
-                                  batch["loss_mask"])
-        else:
-            loss = tp.lm_loss(tp.logits(params, x), batch["targets"], batch["loss_mask"])
+        loss = lm_loss(cfg, params, x, batch, tp)
         if cfg.is_moe:
             loss = loss + 0.01 * torch.stack(auxs).mean()
         return loss
 
     def _layers(self, sp, x, kc, vc, tp=None, **kw):
         for i, w in enumerate(sp["layer_window"]):
-            x, _, _ = self._layer(x, _hooked(layer_params(sp["layers"], i), tp), kc=kc[i],
+            x, _, _ = self._layer(x, hooked(layer_params(sp["layers"], i), tp), kc=kc[i],
                                   vc=vc[i], window=w, tp=tp, **kw)
         return x
-
-    def _lookup(self, sp, tokens, tp=None):
-        return F.embedding(tokens, sp["embed"]) if tp is None else tp.embed(sp["embed"], tokens)
 
     def _embed(self, sp, tokens, patch_embeds=None, tp=None):
         """Token embeddings [B,S,d]; vlm: the projected patches prepended,
         [B,num_patches+S,d]."""
         cfg = self.cfg
-        x = self._lookup(sp, tokens, tp)
+        x = lookup(sp["embed"], tokens, tp)
         if cfg.family == "vlm":
             if patch_embeds is None:
                 raise ValueError(f"family=vlm ({cfg.name}) needs patch_embeds "
@@ -223,7 +213,7 @@ class DecoderLM:
         positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
         ks, vs = [], []
         for i, w in enumerate(sp["layer_window"]):
-            x, k, v = self._layer(x, _hooked(layer_params(sp["layers"], i), tp),
+            x, k, v = self._layer(x, hooked(layer_params(sp["layers"], i), tp),
                                   mode="prefill", positions=positions, window=w, tp=tp)
             ks.append(k)
             vs.append(v)
@@ -258,7 +248,7 @@ class DecoderLM:
         per-sequence path).  kc/vc [Lstage,B,S,H,D] (under `tp`, the rank's
         sequence slice)."""
         if first:
-            x = self._lookup(sp, token[:, None], tp)
+            x = lookup(sp["embed"], token[:, None], tp)
             if self.cfg.pos_emb == "learned":
                 x = x + sp["pos_table"][pos:pos + 1][None]
         slots = torch.arange(kc.shape[2], dtype=torch.int32, device=x.device)
@@ -381,7 +371,8 @@ class DecoderLM:
                                             patch_embeds=batch.get("patch_embeds"), tp=tp)
         b, s = ks.shape[1], ks.shape[2]
         if tp is not None:
-            return tp.gather_vocab(logits), tp.seq_state(ks, vs, max(max_len or s, s)), s
+            k, v = tp.place_kv("kv", ks, vs, max(max_len or s, s))
+            return tp.gather_vocab(logits), {"kv": {"k": k, "v": v}}, s
         state = init_decode_state(self.cfg, b, max(max_len or s, s), device=ks.device)
         state["kv"]["k"][:, :, :s] = ks
         state["kv"]["v"][:, :, :s] = vs
@@ -395,8 +386,3 @@ class DecoderLM:
                                          int(pos), first=True, last=True, token=token, tp=tp)
         return (logits if tp is None else tp.gather_vocab(logits)), state
 
-
-def _hooked(lp, tp):
-    """The per-layer parameter hook: a layer's weights as they are, or under
-    `tp` those its rank computes with."""
-    return lp if tp is None else tp.layer(lp)

@@ -261,7 +261,7 @@ def test_split_decode_bytes_equal_the_fake_step(tp, case):
         st_specs = sharding.state_shardings(state, cfg, mesh, b)
         tok = torch.empty((b // mesh.shape["data"],), dtype=torch.int64)
         rank_decode(model, _fake_local(params, specs, mesh), specs,
-                    _fake_local(state, st_specs, mesh), tok, s, comm)
+                    _fake_local(state, st_specs, mesh), st_specs, tok, s, comm)
     assert comm.bytes["all-to-all"] == 0 and comm.bytes["all-gather"] > 0
     for res in tp["ranks"]:
         assert res[case_name(case)]["decode_bytes"] == [comm.bytes] * NEW_TOKENS, case

@@ -104,7 +104,7 @@ def tp_ranks(rank, out, params_np, train_batches, prompts):
             for _ in range(NEW_TOKENS):
                 tok = logits.argmax(-1)
                 got["tokens"].append(tok)
-                logits, state = decode(p, state, tok, pos)
+                logits, state = decode(p, state, tok, pos, prefill.state_specs)
                 got["logits"].append(logits)
                 got["decode_bytes"].append(dict(decode.comm.bytes))
                 pos += 1
