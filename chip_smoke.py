@@ -194,7 +194,14 @@ Phases, each printing one JSON line with its seconds:
                decode-state bits, the launches of ``ssd_scan``,
                ``flash_attention`` and ``decode_attention`` as the model
                runs them; step ms, generation seconds and peak GiB for
-               each.
+               each.  Last the reference's opt variants (`dist_opt`):
+               smollm-360m at (b)'s shape, one unsharded step and one
+               split step under opt (sequence parallelism) and opt-zmlp
+               (FSDP-only MLP on the rank's tokens), the same bits and
+               flash launches; mamba2-780m at the families' depth, opt
+               prefill and 32 greedy steps on opt-rowssm's row-split SSM
+               weights against the unsharded ones, the same tokens, state
+               bits and ``ssd_scan`` launches.
 
 Each phase's line carries the peak device memory it allocated; the models
 of a phase are freed before the next begins.
@@ -3763,6 +3770,125 @@ def dist_family(name: str, mesh, new: int = 32) -> dict:
     return out
 
 
+# the reference's opt variants on the 1 x 1 mesh: smollm-360m train (b)'s
+# shape, one split step of each variant against one unsharded step; mamba2
+# at DIST_FAMILIES' depth, prefill and greedy steps under opt (opt-rowssm's
+# row-split SSM weights in decode) against the unsharded ones
+OPT_VARIANTS = ("opt", "opt-zmlp")
+
+
+def dist_opt(mesh, new: int = 32) -> dict:
+    """The opt variants on `mesh`, from seeded weights: (a) smollm-360m at
+    full width and depth, bf16, remat, 8 x 2048: one unsharded step, then
+    one split step under each of OPT_VARIANTS (sequence parallelism;
+    opt-zmlp's FSDP-only MLP, its moments under the baseline placements),
+    each of the same bits (loss, norm, parameters, moments) and the same
+    flash launches; (b) mamba2-780m cut as DIST_FAMILIES cuts it: prefill
+    and `new` greedy steps under opt (parameters placed for prefill, then
+    for decode: opt-rowssm) against `prefill` and `decode_step`, the same
+    tokens and state bits and the same ``ssd_scan`` launches.  Step ms and
+    generation seconds of each."""
+    import torch
+
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed.serve_step import make_sharded_decode_step, make_sharded_prefill
+    from repro_torch.distributed.sharding import gather_tree
+    from repro_torch.distributed.train_step import (make_sharded_train_step, shard_params,
+                                                    shard_train_state)
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    from repro_torch.training import TrainConfig, adamw_init, make_train_step
+    from repro_torch.training.train import batch_to
+    cfg = dataclasses.replace(get_arch("smollm-360m"), dtype="bfloat16")
+    model = build_model(cfg, device="cuda", remat=True)
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    batch = batch_to(pipeline_of(cfg, 2048, 8, seed=0).batch_at(0), "cuda")
+    tcfg = TrainConfig(lr=TRAIN_LR)
+    steps = {"unsharded": lambda: make_train_step(model, tcfg)(params, adamw_init(params), batch)}
+    for v in OPT_VARIANTS:
+        def split(v=v):
+            sp, so = shard_train_state(params, adamw_init(params), cfg, mesh, v)
+            return make_sharded_train_step(model, tcfg, mesh, v)(sp, so, batch)
+        steps[v] = split
+    train, ends = {}, {}
+    for name, step in steps.items():
+        torch.cuda.synchronize()
+        reset_launches()
+        t = time.perf_counter()
+        p, o, m = step()
+        torch.cuda.synchronize()
+        train[name] = {"ms": (time.perf_counter() - t) * 1e3, "loss": m["loss"].item(),
+                       "grad_norm": m["grad_norm"].item(),
+                       "launches": {k: LAUNCHES[k] for k in DIST_KERNELS}}
+        if name != "unsharded":
+            train[name]["collective_bytes"] = m["collective_bytes"]
+        ends[name] = gather_tree({"params": p, "m": o.m, "v": o.v, "step": o.step})
+    want = {"flash_attention": 2 * cfg.num_layers, "flash_attention_bwd": cfg.num_layers}
+    for v in OPT_VARIANTS:
+        check(train[v]["loss"] == train["unsharded"]["loss"]
+              and train[v]["grad_norm"] == train["unsharded"]["grad_norm"],
+              f"smollm-360m {v}: loss / norm {train[v]['loss']} / {train[v]['grad_norm']} "
+              f"against unsharded {train['unsharded']['loss']} / "
+              f"{train['unsharded']['grad_norm']}")
+        check(equal_trees(ends[v], ends["unsharded"]),
+              f"smollm-360m {v}: the split step's parameters or moments differ from the "
+              "unsharded step's bits")
+        check(train[v]["launches"] == train["unsharded"]["launches"] == want,
+              f"smollm-360m {v}: launches {train[v]['launches']}, unsharded "
+              f"{train['unsharded']['launches']}, want {want}")
+    del model, params, ends, batch
+    gc.collect()
+    torch.cuda.empty_cache()
+    # (b) mamba2 under opt: prefill placements, then opt-rowssm's in decode
+    cut, _, rows, plen, _ = DIST_FAMILIES["mamba2-780m"]
+    mcfg = dataclasses.replace(get_arch("mamba2-780m"), dtype="bfloat16", **cut)
+    model = build_model(mcfg, device="cuda")
+    params = model.init(torch.Generator(device="cuda").manual_seed(0))
+    pre_p = shard_params(params, mcfg, mesh, "opt", "prefill")
+    dec_p = shard_params(params, mcfg, mesh, "opt", "decode")
+    prompts = {"tokens": torch.randint(0, mcfg.vocab_size, (rows, plen), device="cuda",
+                                       generator=torch.Generator(device="cuda").manual_seed(1))}
+    pre = make_sharded_prefill(model, mesh, "opt")
+    dec = make_sharded_decode_step(model, mesh, "opt")
+    paths = {"opt": (lambda: pre(pre_p, prompts, plen + new),
+                     lambda st, t, p: dec(dec_p, st, t, p, pre.state_specs)),
+             "unsharded": (lambda: model.prefill(params, prompts, max_len=plen + new),
+                           lambda st, t, p: model.decode_step(params, st, t, p))}
+    serve, states = {}, {}
+    for name, (prefill, decode) in paths.items():
+        reset_launches()
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        logits, st, pos = prefill()
+        toks = []
+        for _ in range(new):
+            tok = logits.argmax(-1)
+            toks.append(tok)
+            logits, st = decode(st, tok, pos)
+            pos += 1
+        torch.cuda.synchronize()
+        serve[name] = {"s": time.perf_counter() - t, "tokens": torch.stack(toks, 1).tolist(),
+                       "launches": {k: LAUNCHES[k] for k in ("ssd_scan",)}}
+        states[name] = st
+    serve["decode_bytes"] = dict(dec.comm.bytes)
+    check(serve["opt"]["tokens"] == serve["unsharded"]["tokens"],
+          "mamba2-780m opt: the split serve steps' tokens differ from the unsharded ones'")
+    check(equal_trees(states["opt"], states["unsharded"]),
+          "mamba2-780m opt: the split decode state differs from the unsharded one's bits")
+    check(serve["opt"]["launches"] == serve["unsharded"]["launches"]
+          == {"ssd_scan": mcfg.num_layers},
+          f"mamba2-780m opt: ssd_scan launches {serve['opt']['launches']}, unsharded "
+          f"{serve['unsharded']['launches']}, want {mcfg.num_layers}")
+    for name in paths:
+        del serve[name]["tokens"]
+    out = {"config": "smollm-360m, 32 layers, bf16, remat, batch 8 x 2048, one step each; "
+                     f"mamba2-780m {cut}, bf16, {rows} prompts of {plen}, {new} greedy "
+                     "tokens; 1 x 1 mesh on NCCL",
+           "bit_identical": True, "train": train, "serve": serve}
+    emit({"dist_opt": out})
+    return out
+
+
 def phase_dist(state: dict) -> dict:
     """The sharded train step against `make_train_step` on a world of one,
     the sharded serve steps against `prefill` and `decode_step`, the decode
@@ -3853,6 +3979,9 @@ def phase_dist(state: dict) -> dict:
         t_fam = time.perf_counter()
         families = {name: dist_family(name, mesh) for name in DIST_FAMILIES}
         families_s = time.perf_counter() - t_fam
+        t_opt = time.perf_counter()
+        opt = dist_opt(mesh)
+        opt_s = time.perf_counter() - t_opt
         peak = max([peak] + [f[k] for f in families.values()
                              for k in ("train_peak_gib", "serve_peak_gib")])
         return {"max_memory_allocated_gib": peak,"config": "smollm-360m, 32 layers, d 960, 15:5 heads of 64, vocab 49,152, "
@@ -3868,7 +3997,8 @@ def phase_dist(state: dict) -> dict:
                                          "payload_bytes": sent[0][1],
                                          "scale_bytes": sent[1][1], "bit_identical": True,
                                          "ms": car_ms},
-                "families": families, "families_s": families_s}
+                "families": families, "families_s": families_s, "opt": opt,
+                "opt_s": opt_s}
     finally:
         dist.destroy_process_group()
 

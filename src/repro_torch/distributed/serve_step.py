@@ -19,8 +19,14 @@ A rank computes its share of every layer (`tensor_parallel.Split`):
   rank's heads of the state, or whole where the state is whole;
 - the logits are all-gathered over the vocabulary for sampling.
 
-Nothing gathers the parameters whole or a cache.  On a world of one the
-steps are the unsharded `prefill` and `decode_step` bit for bit.
+Nothing gathers the parameters whole or a cache.  Every step takes the
+reference's `variant` ("baseline", "opt", "opt-zmlp"; `launch.specs.
+cell_rules`): under opt, prefill attends blocked off the card and, with
+opt-zmlp, runs the MLP on the rank's slice of the sequence; a pure SSM's
+decode computes with opt-rowssm's row-split weights (`shard_params` with
+kind "decode" places them).  On a world of one the steps are the unsharded
+`prefill` and `decode_step` bit for bit (off the card, blocked attention
+agrees within f32 rounding).
 """
 from __future__ import annotations
 
@@ -63,26 +69,29 @@ def check_state_specs(st_specs: Dict, mesh: MeshShape) -> None:
                 raise ValueError(f"split decode takes no state entry {key!r} placed {s}")
 
 
-def rank_prefill(model, params, p_specs, batch, max_len: int, comm, global_batch: int):
+def rank_prefill(model, params, p_specs, batch, max_len: int, comm, global_batch: int,
+                 variant: str = "baseline"):
     """Prefill as one rank runs it: `params` this rank's shards under
     `p_specs`, `batch` its rows of a global batch of `global_batch` rows.
     Returns (last-token logits [B,V], this rank's slice of the decode state,
     the next position, the state's specs)."""
     # serving keeps no microbatch: moe dispatches without capacity
-    tp = Split(model.cfg, comm, p_specs, False, batch=global_batch)
+    tp = Split(model.cfg, comm, p_specs, False, batch=global_batch, variant=variant)
     logits, state, pos = model.prefill(params, batch, max_len=max_len, tp=tp)
     st_specs = tp.state_specs(state)
     check_state_specs(st_specs, comm.mesh)
     return logits, state, pos, st_specs
 
 
-def rank_decode(model, params, p_specs, state, st_specs, token, pos: int, comm):
+def rank_decode(model, params, p_specs, state, st_specs, token, pos: int, comm,
+                variant: str = "baseline"):
     """One decode step as one rank runs it on its shards, its slice of the
     state (placed by `st_specs`, updated in place) and its rows' tokens:
     (logits [B,V], state)."""
     check_state_specs(st_specs, comm.mesh)
     return model.decode_step(params, state, token, pos,
-                             tp=Split(model.cfg, comm, p_specs, False, state_specs=st_specs))
+                             tp=Split(model.cfg, comm, p_specs, False, state_specs=st_specs,
+                                      variant=variant))
 
 
 def _local_params(params, names):
@@ -98,10 +107,11 @@ def _rows(tree, cfg, mesh: MeshShape, coords):
     return tree_map(lambda t, s: local_slice(t, s, mesh, coords), tree, specs)
 
 
-def make_sharded_prefill(model, device_mesh):
+def make_sharded_prefill(model, device_mesh, variant: str = "baseline"):
     """Returns prefill(params, batch, max_len) -> (logits [B_rank,V], state,
-    next position) over DTensor parameters (`train_step.shard_train_state`'s
-    placements) and the global batch, the same on every rank: each takes
+    next position) under `variant`'s rules over DTensor parameters
+    (`train_step.shard_params(..., variant, "prefill")`'s placements) and
+    the global batch, the same on every rank: each takes
     its rows, and gets its rows' logits and its slice of the decode state
     (local tensors under `state_shardings`).  `prefill.comm` counts the
     collectives of the last call, `prefill.state_specs` is its state's
@@ -114,16 +124,18 @@ def make_sharded_prefill(model, device_mesh):
         local, p_specs = _local_params(params, names)
         rows = _rows(batch, model.cfg, mesh, comm.coords)
         logits, state, pos, prefill.state_specs = rank_prefill(
-            model, local, p_specs, rows, max_len, comm, batch["tokens"].shape[0])
+            model, local, p_specs, rows, max_len, comm, batch["tokens"].shape[0], variant)
         return logits, state, pos
 
     prefill.comm = comm
     return prefill
 
 
-def make_sharded_decode_step(model, device_mesh):
+def make_sharded_decode_step(model, device_mesh, variant: str = "baseline"):
     """Returns decode_step(params, state, token, pos, state_specs) ->
-    (logits [B_rank,V], state): `state` this rank's slice
+    (logits [B_rank,V], state) under `variant`'s rules, over DTensor
+    parameters placed as `train_step.shard_params(..., variant, "decode")`
+    places them: `state` this rank's slice
     (`make_sharded_prefill`'s), updated in place, `state_specs` its spec
     tree (the prefill's `state_specs`), `token` the global [B] tokens (each
     rank takes its rows).  `decode_step.comm` counts the collectives of the
@@ -135,7 +147,7 @@ def make_sharded_decode_step(model, device_mesh):
         comm.reset()
         local, p_specs = _local_params(params, names)
         return rank_decode(model, local, p_specs, state, state_specs,
-                           _rows(token, model.cfg, mesh, comm.coords), pos, comm)
+                           _rows(token, model.cfg, mesh, comm.coords), pos, comm, variant)
 
     decode_step.comm = comm
     return decode_step

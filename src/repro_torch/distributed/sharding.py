@@ -210,8 +210,11 @@ def activation_rules(mesh, variant: str = "baseline",
     """Logical-axis rules of the reference's activations, as data.
 
     The reference installs them into its models' ``logical_constraint``
-    calls; the port's models have no such calls, so nothing in the port
-    consumes these rules yet (tensor-parallel compute is queued, ROADMAP).
+    calls.  The port reads them, with the reference's per-cell
+    adjustments (`launch.specs.cell_rules`), in its split steps
+    (`distributed.tensor_parallel.Split`): ``seq`` for sequence
+    parallelism, ``ff`` and ``mlp_seq`` for opt-zmlp; the rest name what
+    its split compute does under every variant.
 
     baseline: None — no activation constraints; GSPMD propagates from the
               weight/IO shardings alone (the paper-faithful starting point).

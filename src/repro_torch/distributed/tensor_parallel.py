@@ -30,11 +30,44 @@ One rank's share, given the rules' placements and nothing else:
   recompute gathers them again.
 
 Activations cross between replicated and per-rank compute through two
-functions: `copy` (identity forward, all-reduce over `model` backward) into
-a rank's share, `reduce` (all-reduce forward, identity backward) out of it.
-The embedding is a masked lookup of the rank's vocabulary rows then a
-`reduce`; the causal-LM loss reduces each token's max, sum of exps and
-target logit over `model` (the f32 function of `models.losses`).
+functions: `enter` into a rank's share, `leave` out of it.  Under the
+baseline rules they are `copy` (identity forward, all-reduce over `model`
+backward) and `reduce` (all-reduce forward, identity backward).  The
+embedding is a masked lookup of the rank's vocabulary rows then a `leave`;
+the causal-LM loss reduces each token's max, sum of exps and target logit
+over `model` (the f32 function of `models.losses`).
+
+The reference's `opt` variants (`variant=`, the rules of
+`launch.specs.cell_rules`) change four things, each where its rule and the
+mesh allow it (a dim that `model` does not divide stays unconstrained, as
+the reference's ``logical_constraint`` leaves it):
+
+- sequence parallelism (``seq`` -> model, training, every family but moe):
+  the residual stream between blocks is the rank's slice [B, S/n, d]
+  (`on_seq`); `enter` all-gathers the sequence (its backward
+  reduce-scatters), `leave` reduce-scatters it (its backward all-gathers),
+  the embedding's sum is a reduce-scatter, norms and residual adds run on
+  the slice (their weights through `copy`: each rank's gradient covers its
+  tokens) and the hidden states are gathered after the final norm, for the
+  head;
+- opt-zmlp (``ff`` None, ``mlp_seq`` -> model): the MLP weights are
+  FSDP-only and the MLP runs on the rank's tokens: the residual slice in
+  training, with no collective; in prefill the rank's slice of the
+  sequence, its output all-gathered;
+- opt-rowssm (decode of a pure SSM): `w_in`'s d_model rows and `w_out`'s
+  d_inner rows lie over `model`; the rank multiplies its slice of x (of y)
+  by them and the partial projections are summed over `model`; where the
+  vocabulary does not divide, the embedding's d_model columns lie over
+  `model` (each rank looks its columns up, then all-gathers them) and the
+  tied head's rows give partial logits summed over `model`;
+- blocked attention in training and prefill (`attention.attend_blocked`)
+  wherever attention does not run the flash kernel on the card.
+
+Every other rule of the variants (heads, kv_heads, vocab, experts,
+d_inner, ssm_heads -> model) is what the port computes under the baseline
+rules already; those that decode drops (heads, kv_heads, d_inner,
+ssm_heads) change nothing either, since a decode step attends over the
+rank's slice of the cache with every head.
 
 Serving follows the rules' decode-state placement (`state_shardings`): a
 cache [L,B,S,H,D] has its sequence over `model`, over the data axes
@@ -61,6 +94,7 @@ whole leaf, so the unsharded model's function comes out bit for bit.
 """
 from __future__ import annotations
 
+import copy
 import dataclasses
 from typing import Dict, List, Sequence, Tuple
 
@@ -72,6 +106,7 @@ from repro_torch.distributed.sharding import (_axes, _names, shard_index,
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import apply_rope, norm_apply
+from repro_torch.models.mlp import mlp_apply
 
 MODEL = "model"
 
@@ -121,6 +156,50 @@ class _Reduce(torch.autograd.Function):
     @staticmethod
     def backward(ctx, g):
         return g, None
+
+
+class _ReduceScatter(torch.autograd.Function):
+    """Out of a rank's share onto its slice of the stream: summed over
+    `model` and cut along `dim` forward; the backward all-gathers."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim: int):
+        ctx.comm, ctx.dim = comm, dim
+        return comm.reduce_scatter(x, dim, MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, MODEL), None, None
+
+
+class _Scatter(torch.autograd.Function):
+    """A tensor whole on every rank of `model` -> the rank's block along
+    `dim`; the backward all-gathers the blocks' gradients."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim: int, r: int, n: int):
+        ctx.comm, ctx.dim = comm, dim
+        w = x.shape[dim] // n
+        return x.narrow(dim, r * w, w).clone()
+
+    @staticmethod
+    def backward(ctx, g):
+        return ctx.comm.all_gather(g, ctx.dim, MODEL), None, None, None, None
+
+
+class _Assemble(torch.autograd.Function):
+    """The ranks' blocks along `dim` all-gathered over `model` into a tensor
+    that replicated compute reads; the backward keeps the rank's block of
+    the (whole, equal on every rank) gradient."""
+
+    @staticmethod
+    def forward(ctx, x, comm, dim: int, r: int):
+        ctx.dim, ctx.r, ctx.w = dim, r, x.shape[dim]
+        return comm.all_gather(x, dim, MODEL)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.narrow(ctx.dim, ctx.r * ctx.w, ctx.w), None, None, None
 
 
 class _Sum(torch.autograd.Function):
@@ -218,21 +297,51 @@ class Split:
     data axes (`train_step.rank_batch`).  A prefill also gives `batch`, the
     global rows (the decode state is placed for it, `place_kv`,
     `place_ssm`); a decode step gives `state_specs`, the specs of the
-    decode state it runs on.  The model's `loss`, `prefill` and
-    `decode_step` take it as ``tp``."""
+    decode state it runs on.  `variant` names the reference's rules
+    ("baseline", "opt", "opt-zmlp"), which `launch.specs.cell_rules` turns
+    into this step's activation rules.  The parameters must lie as those
+    rules' parameter variant places them (opt-zmlp's FSDP-only MLP,
+    opt-rowssm's SSM rows: both read from `p_specs`).  The model's `loss`,
+    `prefill` and `decode_step` take it as ``tp``."""
 
     def __init__(self, cfg, comm, p_specs: Dict, data_split: bool = False, *,
-                 batch: int = None, state_specs: Dict = None):
+                 batch: int = None, state_specs: Dict = None, variant: str = "baseline"):
+        from repro_torch.launch.specs import cell_rules
         self.cfg, self.comm, self.specs = cfg, comm, p_specs
         self.n, self.r = comm.mesh.shape[MODEL], comm.coords[MODEL]
         # a microbatch split over more than one data rank
         self.dp = _axes(comm.mesh)[0]
         self.data_split = data_split and comm.size(self.dp) > 1
         self.batch = batch
+        kind = "decode" if state_specs is not None else "train" if batch is None else "prefill"
+        rules = cell_rules(cfg, kind, variant, comm.mesh)[0] or {}
+        self.sp = rules.get("seq") == MODEL                 # sequence parallelism (`on_seq`)
+        self.ff_split = rules.get("ff", MODEL) == MODEL     # else opt-zmlp's FSDP-only MLP
+        self.mlp_tokens = rules.get("mlp_seq") == MODEL
+        self.blocked = variant.startswith("opt") and kind != "decode"
+        self.seq = False                 # this stream is cut over `model` (`on_seq`)
+        self.unsplit = self
         # the spec of each top-level entry of the decode state (its leaves
         # share it), as given for a decode step or as `place_*` set them
         self.layout = {k: next(iter(v.values())) if isinstance(v, dict) else v
                        for k, v in (state_specs or {}).items()}
+        # leaves the rules keep whole over `model` that the baseline splits
+        self.whole_leaves = set()
+        if not self.ff_split:
+            self.whole_leaves |= {("mlp", k) for k in ("w_gate", "w_up", "w_down")}
+        stack = p_specs.get("layers") or p_specs.get("dec_layers") or {}
+        if any(e == MODEL for e in stack.get("mlp", {}).get("w_up", ())) and not self.ff_split:
+            raise ValueError("opt-zmlp computes with MLP weights placed FSDP-only, not "
+                             f"{stack['mlp']['w_up']}")
+        # opt-rowssm: the SSM's weight rows and, where the vocabulary does
+        # not divide, the embedding's d_model columns over `model`
+        self.ssm_rows = stack.get("ssm", {}).get("w_in", (None, None))[1] == MODEL
+        if self.ssm_rows:
+            self.whole_leaves |= {("ssm", "w_in"), ("ssm", "w_out")}
+        self.embed_cols = p_specs["embed"][1] == MODEL
+        if (self.ssm_rows or self.embed_cols) and kind != "decode":
+            raise ValueError("row-split SSM weights and d_model-split embeddings "
+                             "(opt-rowssm) serve decode steps only")
         ranges: Dict[str, list] = {}
         if cfg.family != "ssm":
             self._heads(cfg, ranges)
@@ -250,6 +359,19 @@ class Split:
                                                for r in range(self.n))]
         ranges["vocab"] = [[balanced(cfg.vocab_size, self.n, r)] for r in range(self.n)]
         self.ranges = ranges
+
+    def on_seq(self, length: int) -> "Split":
+        """This Split for a residual stream of `length` tokens: where the
+        rules put the sequence over `model` (training, every family but
+        moe) and `model` divides `length`, a copy whose stream is cut over
+        `model` (rank r holds tokens [rL/n, (r+1)L/n)); else itself.  Each
+        stream of a step takes its own (an encoder's and a decoder's
+        lengths differ)."""
+        if not self.sp or length % self.n:
+            return self
+        out = copy.copy(self)
+        out.seq = True
+        return out
 
     def _heads(self, cfg, ranges) -> None:
         self.dh = cfg.resolved_head_dim
@@ -285,7 +407,8 @@ class Split:
     def _ssm_heads(self, cfg, ranges, decode: bool) -> None:
         """SSM heads in balanced ranges over `model`; a decode step whose SSD
         state the rules keep whole runs the whole block on every rank
-        (`ssm_tp` None)."""
+        (`ssm_tp` None, or with opt-rowssm's row-split projections this
+        Split with `ssm_whole` set)."""
         nh = cfg.ssm_nheads
         whole = decode and self.layout["ssd"][2] != MODEL
         heads = [(0, nh) if whole else balanced(nh, self.n, r) for r in range(self.n)]
@@ -295,10 +418,14 @@ class Split:
             if cfg.ssm_ngroups != 1:
                 raise ValueError("split SSM heads need one B/C group (every head reads it), "
                                  f"not {cfg.ssm_ngroups}")
-        self.ssm_tp = None if whole else self
+        self.ssm_whole = whole
+        self.ssm_tp = self if self.ssm_rows or not whole else None
         self.ssm_sizes = [hi - lo for lo, hi in heads]
         self.ssm_inner = (heads[self.r][0] * cfg.ssm_head_dim,
                           heads[self.r][1] * cfg.ssm_head_dim)
+        if self.ssm_rows and not whole:      # the rank's heads are its rows of w_out
+            rows = cfg.d_inner // self.n
+            assert self.ssm_inner == (self.r * rows, (self.r + 1) * rows), self.ssm_inner
         per_rank = [_ssm_ranges(cfg, lo, hi) for lo, hi in heads]
         for kind in per_rank[0]:
             ranges[kind] = [rs[kind] for rs in per_rank]
@@ -309,6 +436,33 @@ class Split:
 
     def reduce(self, x):
         return _Reduce.apply(x, self.comm)
+
+    def enter(self, h):
+        """An activation of the stream into the rank's share: on a stream
+        cut over `model` the sequence all-gathered (the backward
+        reduce-scatters), else `copy`."""
+        return _Gather.apply(h, self.comm, 1, MODEL) if self.seq else self.copy(h)
+
+    def leave(self, a):
+        """The rank's share of a block's output [B,S,..] back onto the
+        stream: on a stream cut over `model` reduce-scattered onto the
+        rank's slice (the backward all-gathers), else `reduce`."""
+        return _ReduceScatter.apply(a, self.comm, 1) if self.seq else self.reduce(a)
+
+    def scatter(self, t, dim: int = 1):
+        """A tensor whole on every rank, cut to the rank's slice of a stream
+        cut over `model` along `dim` (the backward all-gathers); else
+        itself."""
+        return _Scatter.apply(t, self.comm, dim, self.r, self.n) if self.seq else t
+
+    def shared(self, tree):
+        """Weights whole over `model` that a rank applies to its slice of a
+        stream cut over `model` (the final norms): through `copy`, whose
+        backward sums the ranks' gradients; elsewhere as they are."""
+        if not self.seq:
+            return tree
+        return {k: self.shared(v) for k, v in tree.items()} if isinstance(tree, dict) \
+            else self.copy(tree)
 
     def _take(self, t, spec, mdim: int, kind: str) -> torch.Tensor:
         """`t` (a stored shard under `spec`) cut to this rank's columns of
@@ -342,8 +496,27 @@ class Split:
         if isinstance(t, dict):
             return {k: self._hook(v, specs[k], path + (k,)) for k, v in t.items()}
         spec = tuple(specs)[1:]                      # the stacked [L] dim dropped
-        what = _LAYER_DIMS.get(path[-2:])
-        return gather_rows(t, spec, self.comm) if what is None else self._take(t, spec, *what)
+        what = None if path[-2:] in self.whole_leaves else _LAYER_DIMS.get(path[-2:])
+        if what is not None:
+            return self._take(t, spec, *what)
+        # whole over `model`: on a stream cut over it, the leaf is applied to
+        # the rank's tokens, so its gradient is summed over `model` (the
+        # shard's, before the FSDP gather's reduce-scatter widens it)
+        return gather_rows(self.copy(t) if self.seq else t, spec, self.comm)
+
+    def mlp(self, x, p):
+        """The MLP of the stream `x`: on the rank's ff columns, summed over
+        `model`; under opt-zmlp (weights whole over `model`) on the rank's
+        tokens: a stream cut over `model` as it is, with no collective, or
+        (prefill, which takes no gradient) the rank's slice of the sequence
+        where `model` divides it, all-gathered after; else whole on every
+        rank."""
+        if self.ff_split:
+            return self.leave(mlp_apply(self.enter(x), p, self.cfg))
+        if self.seq or not self.mlp_tokens or x.shape[1] % self.n:
+            return mlp_apply(x, p, self.cfg)
+        mine = mlp_apply(_Scatter.apply(x, self.comm, 1, self.r, self.n), p, self.cfg)
+        return _Assemble.apply(mine, self.comm, 1, self.r)
 
     # the microbatch over the data axes (moe training)
     def data_tokens(self, t: int) -> int:
@@ -377,13 +550,42 @@ class Split:
     def inner_mean(self, mean, width: int):
         """A mean over this rank's `width` channels of d_inner -> the mean
         over all of d_inner, summed over `model` both ways (each rank's
-        gated norm reads it)."""
+        gated norm reads it); the mean itself where the block runs whole."""
+        if self.ssm_whole:
+            return mean
         return _Sum.apply(mean * (width / self.cfg.d_inner), self.comm, MODEL)
 
     def gather_inner(self, t):
         """This rank's d_inner channels along the last dim -> all of them."""
+        if self.ssm_whole:
+            return t
         return self._gather_model(t, t.dim() - 1, [n * self.cfg.ssm_head_dim
                                                    for n in self.ssm_sizes])
+
+    def ssm_in(self, x, w):
+        """The SSM's input projection of `x` (through `enter`) on the rank's
+        heads' columns of `w_in` [z | x | B | C | dt].  With its d_model
+        rows over `model` (opt-rowssm), the rank's rows multiply its slice
+        of x and the partial projections are summed over `model`, then the
+        rank's heads' columns are cut (all of them where the block runs
+        whole)."""
+        if not self.ssm_rows:
+            return x @ w
+        k = w.shape[0]
+        h = self.reduce(x[..., self.r * k:(self.r + 1) * k] @ w)
+        if self.ssm_whole:
+            return h
+        return torch.cat([h[..., lo:hi] for lo, hi in self.ranges["ssm_in"][self.r]], dim=-1)
+
+    def ssm_out(self, y, w):
+        """The SSM's output projection of y [.., d_inner of the rank's heads]
+        by the rank's rows of `w_out`, summed over `model` (`leave`).  With
+        opt-rowssm's rows and the block whole, the rank takes its rows'
+        slice of y first."""
+        if self.ssm_rows and self.ssm_whole:
+            k = w.shape[0]
+            y = y[..., self.r * k:(self.r + 1) * k]
+        return self.leave(y @ w)
 
     def place_ssm(self, ssd, conv) -> Dict:
         """The prompt's final states of this rank's SSM heads, ssd
@@ -428,12 +630,14 @@ class Split:
             return self._no_heads(hf, p)
         if mode == "full":
             q, k, v = attn.qkv_proj(hf, p, self.local_cfg)
-            return self.reduce(attn.out_proj(kops.attention_auto(q, k, v), p)), k, v
+            return self.leave(attn.out_proj(attn.full_attention(q, k, v, self.blocked),
+                                            p)), k, v
         if alibi is not None:
             alibi = alibi[self.heads[0]:self.heads[1]]
         a, k, v = attn.attention_prefill(hf, p, self.local_cfg, positions, window=window,
-                                         num_meta=num_meta, rope=rope, alibi=alibi)
-        return self.reduce(a), k, v
+                                         num_meta=num_meta, rope=rope, alibi=alibi,
+                                         blocked=self.blocked)
+        return self.leave(a), k, v
 
     def cross(self, mode: str, hf, p, *, enc_out=None, kc=None, vc=None):
         """Cross-attention on this rank's heads of `hf` (through `copy`, as
@@ -447,14 +651,15 @@ class Split:
         q = (hf @ p["wq"]).reshape(b, s, self.local_cfg.num_heads, self.dh)
         if mode == "prefill":
             k, v = attn.cross_kv(enc_out, p, self.local_cfg)
-            return self.reduce(attn.out_proj(kops.attention_auto(q, k, v), p)), k, v
+            return self.leave(attn.out_proj(attn.full_attention(q, k, v, self.blocked),
+                                            p)), k, v
         if mode != "decode":
             raise ValueError(f"split cross-attention runs prefill and decode, not {mode!r}")
         q_all = self._gather_model(q[:, 0], 1, self.q_sizes)[:, None]    # [B,1,H,D]
         o, lse = kops.attention_auto(q_all, kc, vc, with_lse=True)
         o = self._merge(o[:, 0], lse[..., 0], self.layout["cross"][2])
         mine = o[:, self.heads[0]:self.heads[1]]
-        return self.reduce(mine.reshape(b, 1, -1) @ p["wo"])
+        return self.leave(mine.reshape(b, 1, -1) @ p["wo"])
 
     def _no_heads(self, hf, p):
         """A rank with no query head: its (empty) projections stay in the
@@ -463,7 +668,7 @@ class Split:
         b, s, _ = hf.shape
         q, k, v = hf @ p["wq"], hf @ p["wk"], hf @ p["wv"]
         out = (q + (k.sum() + v.sum())) @ p["wo"]
-        return self.reduce(out), k.view(b, s, 0, self.dh), v.view(b, s, 0, self.dh)
+        return self.leave(out), k.view(b, s, 0, self.dh), v.view(b, s, 0, self.dh)
 
     def _gather_model(self, t, dim: int, sizes: Sequence[int]):
         """Per-rank blocks of `sizes` along `dim` all-gathered over `model`
@@ -506,7 +711,7 @@ class Split:
         o = self._merge(o[:, 0], lse, axes)
         mine = o[:, self.heads[0]:self.heads[1]]
         out = mine.reshape(b, 1, cfg.num_heads * dh) @ p["wo"]
-        return self.reduce(out), kc, vc
+        return self.leave(out), kc, vc
 
     def _merge(self, o, lse, axes):
         """This rank's attention partial over its slice of a cache, merged
@@ -566,24 +771,45 @@ class Split:
     # ------------------------------------------------------------------
     def embed(self, table, tokens):
         """Token embeddings [.., d] from this rank's vocabulary rows, summed
-        over `model`."""
+        over `model` (`leave`: onto the rank's slice of a stream cut over
+        `model`).  With the table's d_model columns over `model`
+        (opt-rowssm), the rank looks its columns up and they are
+        all-gathered."""
+        if self.embed_cols:
+            e = F.embedding(tokens, table)
+            return _Assemble.apply(e, self.comm, e.dim() - 1, self.r)
         lo, hi = self.vocab
         w = self._take(table, self.specs["embed"], 0, "vocab")
         idx = tokens.long() - lo
         inside = (idx >= 0) & (idx < hi - lo)
         e = F.embedding(idx.clamp(0, hi - lo - 1), w)
-        return self.reduce(torch.where(inside[..., None], e, e.new_zeros(())))
+        return self.leave(torch.where(inside[..., None], e, e.new_zeros(())))
 
-    def logits(self, sp, x):
-        """The final norm and the head on this rank's vocabulary columns."""
+    def logits(self, sp, x, skip: int = 0):
+        """The final norm and the head on this rank's vocabulary columns,
+        for the positions of `x` past its first `skip` (a stream cut over
+        `model` is normed on the rank's slice, then gathered).  With the
+        head's d_model rows over `model` (opt-rowssm) every rank's rows
+        give partial logits of the whole vocabulary, summed over
+        `model`."""
         cfg = self.cfg
-        h = self.copy(norm_apply(cfg.norm, x, sp["final_norm"]))
+        if self.seq:
+            h = self.enter(norm_apply(cfg.norm, x, self.shared(sp["final_norm"])))[:, skip:]
+        else:
+            h = self.copy(norm_apply(cfg.norm, x[:, skip:] if skip else x, sp["final_norm"]))
+        if self.embed_cols:
+            w = sp["embed"].t() if cfg.tie_embeddings else sp["lm_head"]
+            k = w.shape[0]
+            return self.reduce(h[..., self.r * k:(self.r + 1) * k] @ w)
         if cfg.tie_embeddings:
             return h @ self._take(sp["embed"], self.specs["embed"], 0, "vocab").t()
         return h @ self._take(sp["lm_head"], self.specs["lm_head"], 1, "vocab")
 
     def gather_vocab(self, logits):
-        """Logits [.., V/n] of this rank's columns -> [.., V], for sampling."""
+        """Logits [.., V/n] of this rank's columns -> [.., V], for sampling
+        (with opt-rowssm's head the logits are whole already)."""
+        if self.embed_cols:
+            return logits
         return self._gather_model(logits, logits.dim() - 1, self.vocab_sizes)
 
     def lm_loss(self, logits, targets, loss_mask):

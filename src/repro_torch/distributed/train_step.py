@@ -23,10 +23,22 @@ step cuts; whole where a microbatch does not divide):
 3. takes the global norm with each element counted once (a shard's
    squares count on the rank at coordinate 0 of every axis that does not
    split it);
-4. applies `adamw_update` to the local shards, the moments in place.
+4. applies `adamw_update` to the local shards, the moments in place.  The
+   moments lie under the baseline rules whatever the variant, as the
+   reference places them: where a moment is split over more axes than its
+   parameter (opt-zmlp's MLP, FSDP-only weights beside moments split over
+   `model`), the update takes the moment's block of the gradient and of
+   the parameter, and the new parameter's blocks are all-gathered back.
+
+`variant` names the reference's rules ("baseline", "opt", "opt-zmlp";
+`launch.specs.cell_rules`): under opt the residual stream runs cut over
+`model` (sequence parallelism), opt-zmlp's MLP runs on the rank's tokens,
+and attention off the card runs blocked (`tensor_parallel.Split`).
 
 On one rank every collective is a copy, every selection the whole leaf
-and every weight 1, so the step is bit for bit `make_train_step`'s.
+and every weight 1, so the step is bit for bit `make_train_step`'s (under
+opt off the card, where blocked attention replaces the plain one, within
+f32 rounding).
 
 Limit: a loss mask whose sum on a rank lies strictly between 0 and 1 is
 weighted by that sum where the unsharded mean clamps it to 1.
@@ -39,8 +51,8 @@ from typing import Sequence
 import torch
 
 from repro_torch.distributed.sharding import (_axes, _names, batch_shardings, local_slice,
-                                              mesh_coords, param_shardings, shard_tree,
-                                              spec_of)
+                                              mesh_coords, param_shardings, shard_index,
+                                              shard_tree, spec_of)
 from repro_torch.launch.mesh import MeshShape
 from repro_torch.training.optimizer import (AdamWState, adamw_update, all_gather_fn,
                                             tree_leaves, tree_map)
@@ -183,22 +195,55 @@ class _OnMesh:
         return self.model.loss(params, batch, tp=self.tp)
 
 
+def _moment_dims(p_spec, m_spec):
+    """[(tensor dim, axes)] that a moment's spec splits beyond its
+    parameter's (the moment's axes of a dim extend the parameter's)."""
+    out = []
+    for d, (pe, me) in enumerate(zip(p_spec, m_spec)):
+        pa, ma = (_names(e) if e is not None else () for e in (pe, me))
+        if pa != ma:
+            if ma[:len(pa)] != pa:
+                raise ValueError(f"a moment under {m_spec} beside its parameter under {p_spec}")
+            out.append((d, ma[len(pa):]))
+    return out
+
+
+def _to_moment(t, dims, comm):
+    """The block of a parameter shard (or its gradient) that this rank's
+    moment covers."""
+    for d, axes in dims:
+        i, n = shard_index(axes, comm.mesh, comm.coords)
+        w = t.shape[d] // n
+        t = t.narrow(d, i * w, w)
+    return t
+
+
+def _from_moment(t, dims, comm):
+    """A moment's block of a new parameter all-gathered to the parameter's
+    shard, minor axis first."""
+    for d, axes in reversed(dims):
+        for a in reversed(axes):
+            t = comm.all_gather(t, d, a)
+    return t
+
+
 def rank_step(model, tcfg: TrainConfig, params, p_specs, opt: AdamWState, batch,
-              batch_split: bool, comm):
+              batch_split: bool, comm, variant: str = "baseline", m_specs=None):
     """One train step as one rank runs it, on local tensors: `params` and
-    `opt`'s moments are this rank's shards under `p_specs`, `batch` and
-    `batch_split` its share of the global batch and whether the
-    microbatches were split, as `rank_batch` returns them.  `comm` carries
-    the mesh, this rank's coordinates and the collectives.  Returns (new
-    parameter shards, the state, {"loss", "grad_norm"}), the loss and norm
-    the global ones."""
+    `opt`'s moments are this rank's shards under `p_specs` and `m_specs`
+    (default `p_specs`), `batch` and `batch_split` its share of the global
+    batch and whether the microbatches were split, as `rank_batch` returns
+    them.  `comm` carries the mesh, this rank's coordinates and the
+    collectives; `variant` the rules (`Split`).  Returns (new parameter
+    shards, the state, {"loss", "grad_norm"}), the loss and norm the global
+    ones."""
     from repro_torch.distributed.tensor_parallel import Split
     dp, _ = _axes(comm.mesh)
     count = batch["loss_mask"].float().reshape(tcfg.grad_accum, -1).sum(1)
     total = comm.all_reduced(count, dp)
     weights = count / torch.clamp(total, min=1.0)
     specs = tree_leaves(p_specs)
-    tp = Split(model.cfg, comm, p_specs, batch_split)
+    tp = Split(model.cfg, comm, p_specs, batch_split, variant=variant)
     loss, g_local = loss_and_grads(_OnMesh(model, tp), tcfg, params, batch, weights=weights)
     comm.all_reduce(loss, dp)
     # FSDP rows came out of the backward reduce-scattered over the data
@@ -210,10 +255,13 @@ def rank_step(model, tcfg: TrainConfig, params, p_specs, opt: AdamWState, batch,
     sq = sq * torch.tensor([_owns(s, comm) for s in specs], device=sq.device)
     comm.all_reduce(sq)
     gnorm = torch.sqrt(torch.sum(sq))
-    new, opt, om = adamw_update(g_local, opt, params, lr=tcfg.lr, b1=tcfg.b1, b2=tcfg.b2,
+    dims = tree_map(_moment_dims, p_specs, p_specs if m_specs is None else m_specs)
+    new, opt, om = adamw_update(tree_map(lambda g, d: _to_moment(g, d, comm), g_local, dims),
+                                opt, tree_map(lambda p, d: _to_moment(p, d, comm), params, dims),
+                                lr=tcfg.lr, b1=tcfg.b1, b2=tcfg.b2,
                                 weight_decay=tcfg.weight_decay, clip_norm=tcfg.clip_norm,
                                 grad_norm=gnorm)
-    return new, opt, {"loss": loss, **om}
+    return tree_map(lambda p, d: _from_moment(p, d, comm), new, dims), opt, {"loss": loss, **om}
 
 
 def splits_rows(batch_specs) -> bool:
@@ -236,21 +284,34 @@ def rank_batch(batch, cfg, mesh: MeshShape, coords, grad_accum: int):
              .reshape(-1, *v.shape[2:]) for k, v in micro.items()}, splits_rows(specs))
 
 
-def shard_train_state(params, opt: AdamWState, cfg, device_mesh):
-    """Full parameters and AdamW state (the same on every rank) as DTensors
-    under the rules' placements (baseline); the moments take the
-    parameters' placements, the step count stays a plain replicated
+def shard_params(params, cfg, device_mesh, variant: str = "baseline", kind: str = "train"):
+    """Full parameters (the same on every rank) as DTensors under the
+    placements a `kind` step ("train", "prefill", "decode") of `variant`
+    computes with (`launch.specs.cell_rules`' parameter variant: a pure
+    SSM's opt decode takes opt-rowssm)."""
+    from repro_torch.launch.specs import cell_rules
+    mesh = MeshShape.of(device_mesh)
+    pvariant = cell_rules(cfg, kind, variant, mesh)[1]
+    return shard_tree(params, param_shardings(params, cfg, mesh, pvariant), device_mesh)
+
+
+def shard_train_state(params, opt: AdamWState, cfg, device_mesh, variant: str = "baseline"):
+    """Full parameters and AdamW state (the same on every rank) as DTensors:
+    the parameters under `variant`'s placements (`shard_params`), the
+    moments under the baseline rules whatever the variant, as the
+    reference places them; the step count stays a plain replicated
     tensor."""
     specs = param_shardings(params, cfg, MeshShape.of(device_mesh))
-    return (shard_tree(params, specs, device_mesh),
+    return (shard_params(params, cfg, device_mesh, variant),
             AdamWState(opt.step, shard_tree(opt.m, specs, device_mesh),
                        shard_tree(opt.v, specs, device_mesh)))
 
 
-def make_sharded_train_step(model, tcfg: TrainConfig, device_mesh):
+def make_sharded_train_step(model, tcfg: TrainConfig, device_mesh, variant: str = "baseline"):
     """Returns train_step(params, opt_state, batch) -> (params, opt_state,
-    metrics) over DTensor parameters and moments (`shard_train_state`) and
-    the global batch, the same on every rank (each takes its own slice).
+    metrics) under `variant`'s rules over DTensor parameters and moments
+    (`shard_train_state` with the same variant) and the global batch, the
+    same on every rank (each takes its own slice).
     metrics: "loss" and "grad_norm" (global, on every rank) and
     "collective_bytes", this step's per-device operand bytes by kind.
     Every rank of the mesh calls it."""
@@ -266,10 +327,12 @@ def make_sharded_train_step(model, tcfg: TrainConfig, device_mesh):
             m = tree_map(lambda t: t.to_local(), opt_state.m)
             v = tree_map(lambda t: t.to_local(), opt_state.v)
         p_specs = tree_map(lambda t: spec_of(t.placements, names, t.ndim), params)
+        m_specs = tree_map(lambda t: spec_of(t.placements, names, t.ndim), opt_state.m)
         comm.reset()
         mine, split = rank_batch(batch, model.cfg, mesh, comm.coords, tcfg.grad_accum)
         new, opt, metrics = rank_step(model, tcfg, local, p_specs,
-                                      AdamWState(opt_state.step, m, v), mine, split, comm)
+                                      AdamWState(opt_state.step, m, v), mine, split, comm,
+                                      variant, m_specs)
         new_params = tree_map(
             lambda n, t: DTensor.from_local(n, device_mesh, t.placements, run_check=False,
                                             shape=t.shape, stride=t.stride()), new, params)

@@ -11,7 +11,7 @@ kernel's plain version, which computes nothing on fake tensors.
 mesh: the train step is `distributed.train_step.rank_step`, prefill and
 serve_step are `distributed.serve_step`'s split `rank_prefill` and
 `rank_decode` over the rank's shards, its rows and its slice of the decode
-state, for every family. The reference also lowers
+state, for every family, under the rules of a `variant` (`cell_rules`). The reference also lowers
 per-layer corrections (`_layer_corrections`) because XLA's cost analysis
 counts a ``scan`` body once whatever its trip count; a torch run executes
 every layer, so the port needs none.
@@ -19,13 +19,13 @@ every layer, so the port needs none.
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Dict
+from typing import Callable, Dict, Optional, Tuple
 
 import torch
 
 from repro_torch.configs.base import ArchConfig, ShapeConfig
-from repro_torch.distributed.sharding import (batch_shardings, local_shape, param_shardings,
-                                              state_shardings)
+from repro_torch.distributed.sharding import (activation_rules, batch_shardings, local_shape,
+                                              param_shardings, state_shardings)
 from repro_torch.distributed.serve_step import rank_decode, rank_prefill
 from repro_torch.distributed.train_step import Collectives, rank_step, splits_rows
 from repro_torch.kvcache.cache import decode_state_shapes
@@ -156,16 +156,42 @@ class Cell:
     comm: ShapeCollectives  # what `fn`'s collectives moved, counted as it runs
 
 
-def param_variant(cfg: ArchConfig, shape: ShapeConfig, variant: str) -> str:
-    """The variant of `param_spec` a cell takes (the reference's make_cell):
-    opt decode shards a pure SSM's weight rows (opt-rowssm) and keeps Hymba
-    on the baseline rules."""
-    if variant.startswith("opt") and shape.kind == "decode":
+def cell_rules(cfg: ArchConfig, kind: str, variant: str,
+               mesh) -> Tuple[Optional[Dict], str]:
+    """(activation rules, parameter variant) of a cell of shape kind `kind`
+    ("train", "prefill", "decode") under `variant` on `mesh`: the
+    reference's `activation_rules` with its make_cell's adjustments
+    (`repro.launch.specs.make_cell`):
+
+    - moe: ``seq`` and ``experts`` None (the sort-based dispatch reads every
+      token), so the moe family keeps the baseline form;
+    - decode: ``heads`` and ``kv_heads`` None (the cache stays
+      sequence-sharded);
+    - pure-SSM decode: the parameters take opt-rowssm, ``d_inner`` and
+      ``ssm_heads`` None;
+    - hybrid decode: no rules, baseline parameters.
+
+    The split steps (`distributed.tensor_parallel.Split`) read the rules
+    as the reference's ``logical_constraint`` does: a dim that the mesh axis
+    does not divide stays unconstrained.  So sequence parallelism reaches
+    the train cells whose (meta- or patch-extended) sequence `model`
+    divides, and opt-zmlp's token split the prefill cells whose prompt it
+    divides: on the production meshes every train and prefill cell (streams
+    of 4,096 and 32,768 tokens, seamless's 4,096 source frames, over 16)."""
+    rules = activation_rules(mesh, variant, kind)
+    pvariant = variant
+    if rules is not None and cfg.is_moe:
+        rules = {**rules, "seq": None, "experts": None}
+    if variant.startswith("opt") and kind == "decode":
+        if rules is not None:
+            rules = {**rules, "heads": None, "kv_heads": None}
         if cfg.family == "ssm":
-            return "opt-rowssm"
-        if cfg.family == "hybrid":
-            return "baseline"
-    return variant
+            pvariant = "opt-rowssm"
+            if rules is not None:
+                rules = {**rules, "d_inner": None, "ssm_heads": None}
+        elif cfg.family == "hybrid":
+            rules, pvariant = None, "baseline"
+    return rules, pvariant
 
 
 def _local(tree, specs, mesh: MeshShape):
@@ -176,13 +202,14 @@ def _local(tree, specs, mesh: MeshShape):
 def cell_specs(cfg: ArchConfig, shape: ShapeConfig, inputs: Dict, mesh: MeshShape,
                variant: str = "baseline") -> Dict:
     """The rules' spec of every leaf of `input_specs`' tree on `mesh`.  The
-    parameters take `param_variant`'s rules and the AdamW moments the
-    parameters' placements (the reference's moments take the baseline
-    rules whatever the variant: the two differ under opt-zmlp only)."""
-    pvariant = param_variant(cfg, shape, variant)
+    parameters take `cell_rules`' parameter variant and the AdamW moments
+    the baseline rules whatever the variant, as the reference places them
+    (under opt-zmlp the MLP's moments are split over `model`, its weights
+    not)."""
+    pvariant = cell_rules(cfg, shape.kind, variant, mesh)[1]
     specs: Dict = {"params": param_shardings(inputs["params"], cfg, mesh, pvariant)}
     if shape.kind == "train":
-        specs["opt_state"] = param_shardings(inputs["opt_state"], cfg, mesh, pvariant)
+        specs["opt_state"] = param_shardings(inputs["opt_state"], cfg, mesh)
     if shape.kind in ("train", "prefill"):
         specs["batch"] = batch_shardings(inputs["batch"], cfg, mesh)
     else:
@@ -193,8 +220,8 @@ def cell_specs(cfg: ArchConfig, shape: ShapeConfig, inputs: Dict, mesh: MeshShap
 
 def make_cell(cfg: ArchConfig, shape: ShapeConfig, mesh: MeshShape,
               variant: str = "baseline") -> Cell:
-    """The step of one (arch × shape) cell as one rank of a `mesh` runs it,
-    with fake inputs (`cell_specs` places them)."""
+    """The step of one (arch × shape) cell as one rank of a `mesh` runs it
+    under `variant`'s rules, with fake inputs (`cell_specs` places them)."""
     model = build_model(cfg, device="cpu", remat=shape.kind == "train")
     mode = fake_mode()
     inputs = input_specs(cfg, shape, model, mode)
@@ -211,20 +238,22 @@ def make_cell(cfg: ArchConfig, shape: ShapeConfig, mesh: MeshShape,
             split = splits_rows(specs["batch"])      # one microbatch, as `rank_batch`'s
 
             def fn(p, o, b):
-                return rank_step(model, TrainConfig(), p, p_specs, o, b, split, comm)
+                return rank_step(model, TrainConfig(), p, p_specs, o, b, split, comm,
+                                 variant=variant, m_specs=o_specs.m)
             return Cell("train_step", fn, args, inputs, specs, mode, comm)
 
         if shape.kind == "prefill":
             def fn(p, b):
                 return rank_prefill(model, p, p_specs, b, shape.seq_len, comm,
-                                    shape.global_batch)[:3]
+                                    shape.global_batch, variant=variant)[:3]
             args = (params, _local(inputs["batch"], specs["batch"], mesh))
             return Cell("prefill", fn, args, inputs, specs, mode, comm)
 
         st_specs = specs["state"]
 
         def fn(p, st, tok, pos):
-            return rank_decode(model, p, p_specs, st, st_specs, tok, pos, comm)
+            return rank_decode(model, p, p_specs, st, st_specs, tok, pos, comm,
+                               variant=variant)
         # the port's decode step takes its position on the host: the last slot
         args = (params, _local(inputs["state"], st_specs, mesh),
                 _local(inputs["token"], specs["token"], mesh), shape.seq_len - 1)

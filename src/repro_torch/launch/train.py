@@ -14,8 +14,10 @@ initialised, each rank trains one shard of the state on a mesh:
 
 --mesh DxM is the ("data", "model") mesh (default: data = the world size,
 model 1).  The parameters and AdamW moments live sharded by the rules
-(`distributed.sharding`) and `distributed.train_step` gathers them to
-compute; each rank takes its slice of the same global batch.  Checkpoints
+(`distributed.sharding`) and `distributed.train_step` splits the compute
+over them, under the reference's rules of --variant (baseline, opt:
+sequence parallelism, opt-zmlp: the MLP FSDP-only on the rank's tokens);
+each rank takes its slice of the same global batch.  Checkpoints
 hold full tensors, written by rank 0 in the one-process format, so a run
 on one mesh resumes on another or in one process.
 """
@@ -54,6 +56,8 @@ def main(argv=None) -> None:
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--mesh", default=None,
                     help="DxM data x model mesh of a sharded run (default: Wx1)")
+    ap.add_argument("--variant", choices=["baseline", "opt", "opt-zmlp"], default="baseline",
+                    help="the reference's sharding rules of a sharded run")
     args = ap.parse_args(argv)
 
     import torch.distributed as dist
@@ -86,8 +90,8 @@ def main(argv=None) -> None:
     tcfg = TrainConfig(lr=args.lr, grad_accum=args.grad_accum)
     if sharded:
         mesh = make_mesh(_mesh_shape(args.mesh, dist.get_world_size()), dev)
-        params, opt = shard_train_state(params, opt, cfg, mesh)
-        step_fn = make_sharded_train_step(model, tcfg, mesh)
+        params, opt = shard_train_state(params, opt, cfg, mesh, args.variant)
+        step_fn = make_sharded_train_step(model, tcfg, mesh, args.variant)
     else:
         step_fn = make_train_step(model, tcfg)
     t0 = time.time()

@@ -15,6 +15,13 @@ instead (`attention_paged_batch`): `paged_decode_attention` for a decode
 pass, `paged_prefill_attention` for a chunk-set pass.  Masked scores take
 the finite NEG_INF of the reference: a padded query row masked everywhere
 then gives a finite uniform average instead of NaN.
+
+Under the reference's opt variants a split step (`distributed.
+tensor_parallel.Split`, its ``blocked``) sends training's and prefill's
+whole-prompt attention to `attend_blocked`, the reference's blocked
+schedule in plain tensor ops, wherever it would not run the flash kernel on
+the card: a window, meta tokens beside it, ALiBi, and every attention off
+the card.
 """
 from __future__ import annotations
 
@@ -95,14 +102,80 @@ def alibi_bias(slopes, q_pos, kv_pos):
     return -slopes[None, :, None, None] * dist[:, None]
 
 
+def attend_blocked(q, k, v, q_pos, kv_pos, *, causal: bool = True, window: int = 0,
+                   num_meta: int = 0, alibi: Optional[torch.Tensor] = None,
+                   block_k: int = 1024):
+    """Flash-style blocked attention in plain tensor ops (the reference's
+    `attend_blocked`): an online softmax over blocks of `block_k` keys, so
+    no [Sq, Skv] score matrix is ever held.  q [B,Sq,Hq,Dh], k/v
+    [B,Skv,Hkv,Dh], q_pos [Sq], kv_pos [Skv] (-1 = empty); the window,
+    meta and ALiBi terms of `build_mask` and `alibi_bias`; scores and the
+    running sums in f32, NEG_INF for masked scores.  The reference maps
+    its 512-query blocks one after another, each over every key block;
+    here every query row runs that scan at once (row for row the same
+    function), so a prompt costs one pass of ops a key block."""
+    b, sq, hq, dh = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    g = hq // hkv
+    qg = q.reshape(b, sq, hkv, g, dh).float() * (dh ** -0.5)
+    m = torch.full((b, hkv, g, sq), NEG_INF, dtype=torch.float32, device=q.device)
+    l = torch.zeros((b, hkv, g, sq), dtype=torch.float32, device=q.device)
+    acc = torch.zeros((b, hkv, g, sq, dh), dtype=torch.float32, device=q.device)
+    for k0 in range(0, skv, block_k):
+        kp = kv_pos[k0:k0 + block_k]
+        s = torch.einsum("bqhgd,bkhd->bhgqk", qg, k[:, k0:k0 + block_k].float())
+        if alibi is not None:
+            dist = (q_pos[:, None] - kp[None, :]).float().clamp(min=0.0)
+            s = s - alibi.float().reshape(hkv, g)[:, :, None, None] * dist
+        valid = (kp >= 0)[None, :]
+        if causal:
+            valid = valid & (kp[None, :] <= q_pos[:, None])
+        if window > 0:
+            valid = valid & ((kp[None, :] > q_pos[:, None] - window) | (kp < num_meta)[None, :])
+        s = torch.where(valid, s, NEG_INF)
+        m_new = torch.maximum(m, s.amax(dim=-1))
+        alpha = torch.exp(m - m_new)
+        pr = torch.exp(s - m_new[..., None])
+        l = l * alpha + pr.sum(dim=-1)
+        acc = acc * alpha[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", pr,
+                                                    v[:, k0:k0 + block_k].float())
+        m = m_new
+    o = acc / torch.clamp(l, min=1e-30)[..., None]                    # [b,hkv,g,sq,dh]
+    return o.permute(0, 3, 1, 2, 4).reshape(b, sq, hq, dh).to(q.dtype)
+
+
+def _blocked_here(q, window: int, alibi) -> bool:
+    """Whether a blocked split step's whole-prompt attention takes
+    `attend_blocked`: wherever the flash kernel does not run it on the card
+    (a window, ALiBi, or any tensor off the card)."""
+    return q.device.type != "cuda" or window > 0 or alibi is not None
+
+
+def full_attention(q, k, v, blocked: bool = False):
+    """Attention with no mask (an encoder's, cross-attention's): the full
+    `flash_attention` (`ops.attention_auto`), or in a blocked split step off
+    the card `attend_blocked` over positions 0..S-1, not causal."""
+    if blocked and _blocked_here(q, 0, None):
+        return attend_blocked(q, k, v, torch.arange(q.shape[1], device=q.device),
+                              torch.arange(k.shape[1], device=q.device), causal=False)
+    return kops.attention_auto(q, k, v)
+
+
 def attention_prefill(x, p, cfg, positions, *, window: int = 0, num_meta: int = 0,
-                      rope: bool = True, alibi: Optional[torch.Tensor] = None):
+                      rope: bool = True, alibi: Optional[torch.Tensor] = None,
+                      blocked: bool = False):
     """Causal self-attention over a whole prompt at `positions` [S].
-    Returns (out, k, v), k/v [B,S,Hkv,Dh] for the caller's cache."""
+    Returns (out, k, v), k/v [B,S,Hkv,Dh] for the caller's cache.  A
+    blocked split step (the opt variants) takes `attend_blocked` where the
+    flash kernel would not run on the card."""
     q, k, v = qkv_proj(x, p, cfg)
     if rope:
         q = apply_rope(q, positions, cfg.rope_theta)
         k = apply_rope(k, positions, cfg.rope_theta)
+    if blocked and _blocked_here(q, window, alibi):
+        o = attend_blocked(q, k, v, positions, positions, causal=True, window=window,
+                           num_meta=num_meta, alibi=alibi)
+        return out_proj(o, p), k, v
     mask = build_mask(positions, positions, causal=True, window=window, num_meta=num_meta)
     bias = alibi_bias(alibi, positions, positions) if alibi is not None else None
     o = kops.attention_auto(q, k, v, mask=mask, bias=bias, window=window)

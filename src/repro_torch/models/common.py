@@ -144,12 +144,30 @@ def head(cfg, params, x, tp=None):
     return unembed(cfg, params, x) if tp is None else tp.logits(params, x)
 
 
-def lm_loss(cfg, params, x, batch, tp=None):
-    """The causal-LM loss of the hidden states x [B,S,d] against the batch's
-    targets and mask, through the head; under `tp` vocabulary-parallel."""
+def lm_loss(cfg, params, x, batch, tp=None, skip: int = 0):
+    """The causal-LM loss of the hidden states x [B,S,d] past their first
+    `skip` positions (a prefix the head does not read) against the batch's
+    targets and mask, through the head; under `tp` vocabulary-parallel,
+    `x` the rank's slice of a stream cut over `model` (`Split.on_seq`)."""
     if tp is None:
-        return causal_lm_loss(unembed(cfg, params, x), batch["targets"], batch["loss_mask"])
-    return tp.lm_loss(tp.logits(params, x), batch["targets"], batch["loss_mask"])
+        return causal_lm_loss(unembed(cfg, params, x[:, skip:] if skip else x),
+                              batch["targets"], batch["loss_mask"])
+    return tp.lm_loss(tp.logits(params, x, skip), batch["targets"], batch["loss_mask"])
+
+
+def on_seq(tp, length: int):
+    """`tp` for a residual stream of `length` tokens (`Split.on_seq`)."""
+    return None if tp is None else tp.on_seq(length)
+
+
+def scatter(x, tp, dim: int = 1):
+    """`x`, whole on every rank, as the rank's slice of `tp`'s stream."""
+    return x if tp is None else tp.scatter(x, dim)
+
+
+def shared(p, tp):
+    """Weights applied to the rank's slice of `tp`'s stream (`Split.shared`)."""
+    return p if tp is None else tp.shared(p)
 
 
 def stack_layers(items):

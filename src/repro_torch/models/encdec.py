@@ -19,7 +19,9 @@ so `repro_torch.bridge` hands the reference's weights over unchanged.
 has no stage API: the cluster does not serve it, nor does the reference's.
 `loss`, `encode`, `prefill` and `decode_step` take ``tp`` for split compute
 on a mesh (`distributed.tensor_parallel.Split`); with ``tp=None`` nothing
-of it runs.
+of it runs.  Under the opt rules `loss` cuts both residual streams, the
+encoder's and the decoder's, over `model` (`Split.on_seq`), and the
+encoder's output is gathered once for cross-attention.
 """
 from __future__ import annotations
 
@@ -32,7 +34,8 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.kernels import ops as kops
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (embed_init, head, hooked, lm_loss, lookup, norm_apply,
-                                       norm_init, run_layer, stack_layers, unstack_layers)
+                                       norm_init, on_seq, run_layer, scatter, shared,
+                                       stack_layers, unstack_layers)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 
@@ -84,21 +87,23 @@ class EncDecLM:
             q, k, v = attn.qkv_proj(h, lp["attn"], cfg)
             a = attn.out_proj(kops.attention_auto(q, k, v), lp["attn"])
         else:
-            a = tp.attention("full", tp.copy(h), lp["attn"])[0]
+            a = tp.attention("full", tp.enter(h), lp["attn"])[0]
         x = x + a
         return x + mlp_apply(norm_apply(cfg.norm, x, lp["ln2"]), lp["mlp"], cfg, tp)
 
     def encode(self, params, src_embeds, tp=None):
-        """src_embeds [B,Ssrc,d] -> the encoder's output [B,Ssrc,d]."""
+        """src_embeds [B,Ssrc,d] -> the encoder's output [B,Ssrc,d] (under a
+        `tp` whose stream is cut over `model`, the rank's slice)."""
         cfg = self.cfg
         s = src_embeds.shape[1]
-        x = src_embeds.to(torch_dtype(cfg.dtype)) + params["src_pos"][:s][None]
+        x = scatter(src_embeds.to(torch_dtype(cfg.dtype)) + params["src_pos"][:s][None], tp)
         for lp in unstack_layers(params["enc_layers"], cfg.num_encoder_layers):
             x = self._enc_layer(x, lp, tp)
-        return norm_apply(cfg.norm, x, params["enc_final"])
+        return norm_apply(cfg.norm, x, shared(params["enc_final"], tp))
 
     def _embed(self, params, tokens, tp=None):
-        return lookup(params["embed"], tokens, tp) + params["pos_table"][:tokens.shape[1]][None]
+        pos = params["pos_table"][:tokens.shape[1]]
+        return lookup(params["embed"], tokens, tp) + scatter(pos, tp, 0)[None]
 
     def _dec_layer(self, x, lp, enc_out, positions, tp=None):
         """One decoder layer over whole prompts (the hook gathers its
@@ -111,7 +116,7 @@ class EncDecLM:
         if tp is None:
             a, k, v = attn.attention_prefill(h, lp["attn"], cfg, positions, rope=False)
         else:
-            a, k, v = tp.attention("prefill", tp.copy(h), lp["attn"], positions=positions,
+            a, k, v = tp.attention("prefill", tp.enter(h), lp["attn"], positions=positions,
                                    rope=False)
         x = x + a
         h = norm_apply(cfg.norm, x, lp["lnx"])
@@ -119,7 +124,7 @@ class EncDecLM:
             ck, cv = attn.cross_kv(enc_out, lp["cross"], cfg)
             c = attn.cross_attention(h, lp["cross"], cfg, ck, cv)
         else:
-            c, ck, cv = tp.cross("prefill", tp.copy(h), lp["cross"], enc_out=enc_out)
+            c, ck, cv = tp.cross("prefill", tp.enter(h), lp["cross"], enc_out=enc_out)
         x = x + c
         x = x + mlp_apply(norm_apply(cfg.norm, x, lp["ln2"]), lp["mlp"], cfg, tp)
         return x, k, v, ck, cv
@@ -129,10 +134,11 @@ class EncDecLM:
 
     def _encoded(self, params, src_embeds, tp=None):
         """The encoder's output as the decoder layers read it: under `tp`
-        through `copy` once (its gradient then sums as the unsharded one
-        does)."""
+        through `enter` once (its gradient then sums as the unsharded one
+        does; a stream cut over `model` is gathered)."""
+        tp = on_seq(tp, src_embeds.shape[1])
         enc_out = self.encode(params, src_embeds, tp)
-        return enc_out if tp is None else tp.copy(enc_out)
+        return enc_out if tp is None else tp.enter(enc_out)
 
     # ------------------------------------------------------------------
     def loss(self, params, batch, tp=None):
@@ -142,8 +148,9 @@ class EncDecLM:
         this rank's shards."""
         cfg = self.cfg
         enc_out = self._encoded(params, batch["src_embeds"], tp)
+        tp = on_seq(tp, batch["tokens"].shape[1])
         x = self._embed(params, batch["tokens"], tp)
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        positions = torch.arange(batch["tokens"].shape[1], dtype=torch.int32, device=x.device)
         for lp in unstack_layers(params["dec_layers"], cfg.num_layers):
             x = run_layer(self._train_layer, self.remat, x, lp, enc_out, positions, tp)
         return lm_loss(cfg, params, x, batch, tp)

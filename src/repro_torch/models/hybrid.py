@@ -37,8 +37,9 @@ from repro_torch.configs.base import ArchConfig
 from repro_torch.models import attention as attn
 from repro_torch.models import ssm
 from repro_torch.models.common import (embed_init, head, head_init, hooked, layer_params,
-                                       lm_loss, lookup, norm_apply, norm_init, rmsnorm,
-                                       run_layer, stack_layers, unstack_layers)
+                                       lm_loss, lookup, norm_apply, norm_init, on_seq,
+                                       rmsnorm, run_layer, scatter, stack_layers,
+                                       unstack_layers)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 
 
@@ -104,7 +105,8 @@ class HybridLM:
 
     def _fuse_mlp(self, x, lp, a_out, s_out, tp=None):
         """Both branches' outputs, each whole (under `tp` summed over `model`
-        before its norm), fused; then the MLP."""
+        before its norm; on a stream cut over `model` the rank's slice),
+        fused; then the MLP."""
         cfg = self.cfg
         fused = 0.5 * (rmsnorm(a_out, lp["fuse_na"]) + rmsnorm(s_out, lp["fuse_ns"]))
         x = x + fused
@@ -119,7 +121,7 @@ class HybridLM:
         if tp is None:
             a_out, k, v = attn.attention_prefill(h, lp["attn"], cfg, positions, **kw)
         else:
-            h = tp.copy(h)                      # once: both branches read it
+            h = tp.enter(h)                     # once: both branches read it
             a_out, k, v = tp.attention("prefill", h, lp["attn"], positions=positions, **kw)
         s_out, hfin, conv = ssm.ssm_prefill(h, lp["ssm"], cfg, tp=tp)
         return self._fuse_mlp(x, lp, a_out, s_out, tp), k, v, hfin, conv
@@ -138,15 +140,20 @@ class HybridLM:
         causal-LM loss over the prompt's positions (the meta tokens' are
         dropped before the head), f32 scalar.  Under `tp` (split compute,
         `distributed.tensor_parallel.Split`) `params` are this rank's
-        shards."""
+        shards; under the opt rules the residual stream, meta tokens
+        included, is cut over `model` (`Split.on_seq`) after the embedding's
+        sum."""
         cfg = self.cfg
         x = self._embed_meta(params, batch["tokens"], tp)
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        tp = on_seq(tp, x.shape[1])
+        x = scatter(x, tp)
+        positions = torch.arange(cfg.num_meta_tokens + batch["tokens"].shape[1],
+                                 dtype=torch.int32, device=x.device)
         for lp, (kind, _) in zip(unstack_layers(params["layers"], cfg.num_layers),
                                  self.slots):
             window = 0 if kind == "full" else cfg.sliding_window
             x = run_layer(self._train_layer, self.remat, x, lp, positions, window, tp)
-        return lm_loss(cfg, params, x[:, cfg.num_meta_tokens:], batch, tp)
+        return lm_loss(cfg, params, x, batch, tp, skip=cfg.num_meta_tokens)
 
     # ------------------------------------------------------------------
     def prefill(self, params, batch, max_len=None, tp=None):
@@ -239,7 +246,7 @@ class HybridLM:
                     h, lp["attn"], cfg, cache["k"][ci], cache["v"][ci], kv_positions, pos,
                     window=window, num_meta=m, write_index=write_index)
             else:
-                h = tp.copy(h)
+                h = tp.enter(h)
                 a_out, _, _ = tp.attention(
                     "decode", h, lp["attn"], kc=cache["k"][ci], vc=cache["v"][ci], pos=pos,
                     window=window, num_meta=m, key="kv_" + kind,

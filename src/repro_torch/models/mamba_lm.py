@@ -20,8 +20,8 @@ from repro_torch import resolve_device, torch_dtype
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import ssm
 from repro_torch.models.common import (embed_init, head, head_init, hooked, layer_params,
-                                       lm_loss, lookup, norm_apply, norm_init, run_layer,
-                                       stack_layers, unstack_layers)
+                                       lm_loss, lookup, norm_apply, norm_init, on_seq,
+                                       run_layer, stack_layers, unstack_layers)
 
 
 class MambaLM:
@@ -45,9 +45,9 @@ class MambaLM:
         return p
 
     def _normed(self, x, lp, tp):
-        """The block's input: under `tp` through `copy`."""
+        """The block's input: under `tp` through `enter`."""
         h = norm_apply(self.cfg.norm, x, lp["ln"])
-        return h if tp is None else tp.copy(h)
+        return h if tp is None else tp.enter(h)
 
     def _train_layer(self, x, lp, tp=None):
         lp = hooked(lp, tp)
@@ -58,8 +58,10 @@ class MambaLM:
         """batch {"tokens", "targets": [B,S] int, "loss_mask": [B,S]} -> the
         causal-LM loss, f32 scalar.  Under `tp` (split compute,
         `distributed.tensor_parallel.Split`) `params` are this rank's
-        shards."""
+        shards; under the opt rules the residual stream is cut over `model`
+        (`Split.on_seq`)."""
         cfg = self.cfg
+        tp = on_seq(tp, batch["tokens"].shape[1])
         x = lookup(params["embed"], batch["tokens"], tp)
         for lp in unstack_layers(params["layers"], cfg.num_layers):
             x = run_layer(self._train_layer, self.remat, x, lp, tp)

@@ -12,10 +12,10 @@ def mlp_init(generator, cfg, dtype, device):
 
 
 def mlp_apply(x, p, cfg, tp=None):
-    """The MLP; under `tp` (a `distributed.tensor_parallel.Split`) on the
-    rank's ff columns, summed over `model`."""
+    """The MLP; under `tp` (a `distributed.tensor_parallel.Split`) as its
+    rules split it (`Split.mlp`: the rank's ff columns, or its tokens)."""
     if tp is not None:
-        return tp.reduce(mlp_apply(tp.copy(x), p, cfg))
+        return tp.mlp(x, p)
     act = activation_fn(cfg.activation)
     if "w_gate" in p:
         h = act(x @ p["w_gate"]) * (x @ p["w_up"])

@@ -46,12 +46,12 @@ def _dims(p, cfg):
     return nh, nh * cfg.ssm_head_dim, cfg.ssm_ngroups * cfg.ssm_state
 
 
-def _proj_in_parts(x, p, cfg):
+def _proj_in_parts(x, p, cfg, tp=None):
     """The input projection as one matmul, split into (z, x, B, C, dt).
     (The reference's five-way split of the weight exists for its sharding
-    rules; the port has none.)"""
+    rules; under split compute `tp.ssm_in` gives the rank's columns.)"""
     _, di, gn = _dims(p, cfg)
-    h = x @ p["w_in"]
+    h = x @ p["w_in"] if tp is None else tp.ssm_in(x, p["w_in"])
     return (h[..., :di], h[..., di: 2 * di], h[..., 2 * di: 2 * di + gn],
             h[..., 2 * di + gn: 2 * di + 2 * gn], h[..., 2 * di + 2 * gn:])
 
@@ -90,10 +90,11 @@ def ssm_prefill(x, p, cfg, h0=None, conv0=None, tp=None):
     [B,K-1,conv_dim]).  h0 / conv0 resume from a state streamed in (not
     under `tp`).  Under
     `tp` (a `distributed.tensor_parallel.Split`), x has passed through
-    `tp.copy`, `p` is the rank's heads' share, the states are its heads'
-    and its x channels' (then B, C), and `out` is summed over `model`."""
+    `tp.enter`, `p` is the rank's heads' share, the states are its heads'
+    and its x channels' (then B, C), and `out` is summed over `model`
+    (`tp.ssm_out`)."""
     nh, di, gn = _dims(p, cfg)
-    z, xp, bp, cp, dt = _proj_in_parts(x, p, cfg)
+    z, xp, bp, cp, dt = _proj_in_parts(x, p, cfg, tp)
     sx, sb, sc = _conv_slices(di, gn)
     km1 = cfg.ssm_conv - 1
 
@@ -124,18 +125,21 @@ def ssm_prefill(x, p, cfg, h0=None, conv0=None, tp=None):
     y, hfin = kops.ssd_auto(xh, dtv, a_neg, bm, cm, chunk=min(DEFAULT_CHUNK, s), h0=h0)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
     y = rmsnorm(y.reshape(b, s, di) * F.silu(z), p["norm_scale"], tp=tp)
-    out = y @ p["w_out"]
-    return (out if tp is None else tp.reduce(out)), hfin, conv_state.to(x.dtype)
+    out = y @ p["w_out"] if tp is None else tp.ssm_out(y, p["w_out"])
+    return out, hfin, conv_state.to(x.dtype)
 
 
 def ssm_decode(x, p, cfg, ssd_state, conv_state, tp=None):
     """x [B,1,d] -> (out [B,1,d], ssd_state', conv_state').  Under `tp`,
     `p` and `ssd_state` are the rank's heads' share, `conv_state` is whole
     (the rank reads its x channels and B, C; the new x channels are
-    all-gathered over `model`) and `out` is summed over `model`."""
+    all-gathered over `model`) and `out` is summed over `model`.  With
+    opt-rowssm's row-split `w_in` and `w_out` the partial projections are
+    summed instead (`Split.ssm_in`, `ssm_out`), whether the rank decodes
+    its heads or, where the state is whole, all of them."""
     b = x.shape[0]
     nh, di, gn = _dims(p, cfg)
-    z, xp, bp, cp, dt = _proj_in_parts(x[:, 0], p, cfg)
+    z, xp, bp, cp, dt = _proj_in_parts(x[:, 0], p, cfg, tp)
     sx, sb, sc = _conv_slices(di, gn)
     # the conv state's channels: [x (all of d_inner) | B | C]
     cx, cb, cc = _conv_slices(cfg.d_inner, gn)
@@ -161,5 +165,5 @@ def ssm_decode(x, p, cfg, ssd_state, conv_state, tp=None):
     y, h_new = ssd_decode_step(xh, dtv, a_neg, bm, cm, ssd_state)
     y = y + (p["D"][:, None] * xh.float()).to(y.dtype)
     y = rmsnorm(y.reshape(b, di) * F.silu(z), p["norm_scale"], tp=tp)
-    out = (y @ p["w_out"])[:, None, :]
-    return (out if tp is None else tp.reduce(out)), h_new, new_conv
+    out = (y @ p["w_out"] if tp is None else tp.ssm_out(y, p["w_out"]))[:, None, :]
+    return out, h_new, new_conv

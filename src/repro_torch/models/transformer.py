@@ -23,8 +23,9 @@ stage functions they run) take ``tp``, a `distributed.tensor_parallel.Split`
 built from the mesh.  A per-layer hook hands each layer the weights its
 rank computes with (FSDP rows gathered, the rank's heads, ff columns or
 experts); the embedding, the head and the loss take their vocabulary-
-parallel forms; the decode state is the rank's sequence slice.  With
-``tp=None`` (the default) nothing of this runs.
+parallel forms; the decode state is the rank's sequence slice.  Under the
+opt rules `loss` runs the residual stream cut over `model`
+(`Split.on_seq`).  With ``tp=None`` (the default) nothing of this runs.
 """
 from __future__ import annotations
 
@@ -39,7 +40,7 @@ from repro_torch.kvcache.cache import init_decode_state
 from repro_torch.models import attention as attn
 from repro_torch.models.common import (alibi_slopes, embed_init, head, head_init, hooked,
                                        layer_params, lm_loss, lookup, norm_apply, norm_init,
-                                       run_layer, stack_layers, unstack_layers)
+                                       on_seq, run_layer, stack_layers, unstack_layers)
 from repro_torch.models.mlp import mlp_apply, mlp_init
 from repro_torch.models.moe import moe_apply, moe_init
 
@@ -117,8 +118,8 @@ class DecoderLM:
         kw = dict(window=window, num_meta=cfg.num_meta_tokens,
                   rope=cfg.pos_emb == "rope", alibi=self._alibi)
         if tp is not None:
-            a, kc, vc = tp.attention(mode, tp.copy(h), lp["attn"], positions=positions, kc=kc, vc=vc,
-                                     pos=pos, **kw)
+            a, kc, vc = tp.attention(mode, tp.enter(h), lp["attn"], positions=positions,
+                                     kc=kc, vc=vc, pos=pos, **kw)
         elif mode == "prefill":
             a, kc, vc = attn.attention_prefill(h, lp["attn"], cfg, positions, **kw)
         elif mode == "decode_batch":
@@ -145,16 +146,18 @@ class DecoderLM:
         and "patch_embeds") -> the causal-LM loss, f32 scalar, plus 0.01 times
         the mean moe aux loss.  Under `tp`, `params` are this rank's shards."""
         cfg = self.cfg
+        prefix = cfg.num_patches if cfg.family == "vlm" else 0
+        s = prefix + batch["tokens"].shape[1]
+        tp = on_seq(tp, s)
         x = self._embed(params, batch["tokens"], batch.get("patch_embeds"), tp)
-        positions = torch.arange(x.shape[1], dtype=torch.int32, device=x.device)
+        positions = torch.arange(s, dtype=torch.int32, device=x.device)
         auxs = []
         for lp, w in zip(unstack_layers(params["layers"], cfg.num_layers),
                          self._layer_window):
             x, aux = run_layer(self._train_layer, self.remat, x, lp, positions, w, tp)
             auxs.append(aux)
-        if cfg.family == "vlm":             # the head reads the text positions only
-            x = x[:, cfg.num_patches:]
-        loss = lm_loss(cfg, params, x, batch, tp)
+        # the head reads a vlm's text positions only
+        loss = lm_loss(cfg, params, x, batch, tp, skip=prefix)
         if cfg.is_moe:
             loss = loss + 0.01 * torch.stack(auxs).mean()
         return loss
@@ -167,9 +170,16 @@ class DecoderLM:
 
     def _embed(self, sp, tokens, patch_embeds=None, tp=None):
         """Token embeddings [B,S,d]; vlm: the projected patches prepended,
-        [B,num_patches+S,d]."""
+        [B,num_patches+S,d].  On a stream cut over `model` the rank's
+        slice: the embedding's sum reduce-scattered, or behind a vlm's
+        patches summed whole and then cut."""
         cfg = self.cfg
-        x = lookup(sp["embed"], tokens, tp)
+        if tp is not None and tp.seq and cfg.family != "vlm":
+            x = lookup(sp["embed"], tokens, tp)
+            if cfg.pos_emb == "learned":
+                x = x + tp.scatter(sp["pos_table"][:tokens.shape[1]], 0)[None]
+            return x
+        x = lookup(sp["embed"], tokens, tp and tp.unsplit)
         if cfg.family == "vlm":
             if patch_embeds is None:
                 raise ValueError(f"family=vlm ({cfg.name}) needs patch_embeds "
@@ -178,7 +188,7 @@ class DecoderLM:
             x = torch.cat([patches, x], dim=1)
         if cfg.pos_emb == "learned":
             x = x + sp["pos_table"][:x.shape[1]][None]
-        return x
+        return x if tp is None else tp.scatter(x)
 
     # ------------------------------------------------------------------
     # Stage-wise API for the pipeline workers: a stage owns a contiguous

@@ -135,13 +135,40 @@ def _ref_bytes(tree, spec_tree, mesh) -> int:
     return total
 
 
-def reference_argument_bytes(jcfg, shape, ref, mesh) -> int:
+class _Placed(Exception):
+    """Raised by `reference_param_variant`'s stand-in once make_cell has
+    placed its parameters."""
+
+
+def reference_param_variant(jcfg, shape, stub, variant: str, monkeypatch) -> str:
+    """The `param_spec` variant the reference's `make_cell` gives a cell's
+    parameters under `variant`: its first `param_shardings` call, recorded
+    and cut short there (its logical rules reset after)."""
+    from repro.models.common import set_logical_rules
+    seen = []
+
+    def record(tree, cfg, mesh, variant="baseline"):
+        seen.append(variant)
+        raise _Placed
+    with monkeypatch.context() as m:
+        m.setattr(jax_specs, "param_shardings", record)
+        try:
+            jax_specs.make_cell(jcfg, shape, stub, variant=variant)
+        except _Placed:
+            pass
+        finally:
+            set_logical_rules(None)
+    return seen[0]
+
+
+def reference_argument_bytes(jcfg, shape, ref, mesh, pvariant: str = "baseline") -> int:
     """The arithmetic over the reference's in_shardings of its main step
-    (`repro.launch.specs.make_cell`, baseline): params, and the moments,
-    batch, or decode state, token and position."""
+    (`repro.launch.specs.make_cell`): params under `pvariant`, and the
+    moments (under the baseline rules, whatever the variant), batch, or
+    decode state, token and position."""
     stub = types.SimpleNamespace(axis_names=mesh.axis_names, shape=mesh.shape)
-    total = _ref_bytes(ref["params"], jax_sharding.param_shardings(ref["params"], jcfg, stub),
-                       mesh)
+    total = _ref_bytes(ref["params"], jax_sharding.param_shardings(ref["params"], jcfg, stub,
+                                                                   pvariant), mesh)
     if shape.kind == "train":
         total += _ref_bytes(ref["opt_state"],
                             jax_sharding.param_shardings(ref["opt_state"], jcfg, stub), mesh)
@@ -157,18 +184,31 @@ def reference_argument_bytes(jcfg, shape, ref, mesh) -> int:
     return total
 
 
-@pytest.mark.parametrize("arch,shape", CELLS)
-def test_dry_run_argument_bytes_match_the_reference_rules(arch, shape, inputs, monkeypatch):
+# every cell under baseline (ids as they were), then under opt and opt-zmlp
+VARIANT_CELLS = [pytest.param(a, s, v, id=f"{a}-{s}" if v == "baseline" else f"{a}-{s}-{v}")
+                 for v in ("baseline", "opt", "opt-zmlp") for a, s in CELLS]
+
+
+@pytest.mark.parametrize("arch,shape,variant", VARIANT_CELLS)
+def test_dry_run_argument_bytes_match_the_reference_rules(arch, shape, variant, inputs,
+                                                          monkeypatch):
     """At 16 x 16 and 2 x 16 x 16: `argument_bytes` over the cell's inputs
-    and `cell_specs` equals the per-device bytes of the reference's inputs
-    under its shardings."""
+    and `cell_specs` under `variant` equals the per-device bytes of the
+    reference's inputs under its shardings, the parameters under the
+    variant its `make_cell` gives them (opt-rowssm for mamba2's opt decode,
+    ROADMAP C.4), the moments under the baseline rules."""
     monkeypatch.setattr(jax_sharding, "NamedSharding", lambda mesh, spec: tuple(spec))
     ref, port = inputs(arch, shape)
     jcfg, cfg = jax_get_arch(arch), get_arch(arch)
     for multi in (False, True):
         mesh = production_mesh_shape(multi_pod=multi)
-        got = argument_bytes(port, specs.cell_specs(cfg, SHAPES[shape], port, mesh), mesh)
-        want = reference_argument_bytes(jcfg, JAX_SHAPES[shape], ref, mesh)
+        got = argument_bytes(port, specs.cell_specs(cfg, SHAPES[shape], port, mesh, variant),
+                             mesh)
+        stub = types.SimpleNamespace(axis_names=mesh.axis_names, shape=mesh.shape)
+        pvariant = reference_param_variant(jcfg, JAX_SHAPES[shape], stub, variant,
+                                           monkeypatch)
+        assert pvariant == specs.cell_rules(cfg, SHAPES[shape].kind, variant, mesh)[1]
+        want = reference_argument_bytes(jcfg, JAX_SHAPES[shape], ref, mesh, pvariant)
         assert got == want, (mesh.name, got, want)
         whole = sum(t.numel() * t.element_size() for t in flat(port).values())
         assert 0 < got < whole           # every cell shards something on these meshes
