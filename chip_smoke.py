@@ -355,17 +355,20 @@ def sass_counts():
     (wgmma) and HMMA (mma.sync), by `cuobjdump -sass` from the toolkit; a
     string saying so where cuobjdump is missing."""
     import shutil
+    from concurrent.futures import ThreadPoolExecutor
 
     from repro_torch.kernels import _build
     tool = shutil.which("cuobjdump") or str(Path(_build._nvcc()).parent / "cuobjdump")
     if not Path(tool).exists():
         return f"cuobjdump not found (looked on PATH and beside {_build._nvcc()})"
-    counts = {}
-    for name in _build.SOURCES:
+
+    def count(name):      # one cuobjdump a library, all at once
         sass = subprocess.run([tool, "-sass", str(_build._lib_path(name))],
                               capture_output=True, text=True, timeout=120).stdout
-        counts[name] = {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
-    return counts
+        return {op: len(re.findall(rf"\b{op}\.", sass)) for op in ("HGMMA", "HMMA")}
+
+    with ThreadPoolExecutor(len(_build.SOURCES)) as pool:
+        return dict(zip(_build.SOURCES, pool.map(count, _build.SOURCES)))
 
 
 # ---------------------------------------------------------------------------
@@ -383,6 +386,7 @@ def phase_kernels(state: dict) -> dict:
     from repro_torch.kernels.decode_attention import (batched_decode_attention,
                                                       decode_attention, split_plan)
     from repro_torch.kernels.flash_attention import flash_attention
+    from repro_torch.kernels.flash_attention import split_plan as flash_split_plan
     from repro_torch.kernels.kv_pack import kv_pack, kv_pack_ragged, kv_unpack
     from repro_torch.kernels.ssd_scan import ssd_scan
 
@@ -527,15 +531,24 @@ def phase_kernels(state: dict) -> dict:
         "shape": f"cache[{L},{B},{S},{H},{D}] bf16 starts {starts} width {wd}"}
     del cache
 
-    def flash_case(name, b, sq, skv, hq, hkv, d, dtype, causal=True, time_it=None):
-        """Checks the kernel on one shape; `time_it` names the row its times
-        go to."""
+    def flash_case(name, b, sq, skv, hq, hkv, d, dtype, causal=True, time_it=None,
+                   with_lse=False):
+        """Checks the kernel on one shape (with `with_lse`, its row LSE too,
+        against the f32 log-sum-exp within LSE_TOL); `time_it` names the row
+        its times go to."""
         q = torch.randn(b, sq, hq, d, generator=g, device=dev).to(dtype)
         k = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(dtype)
         v = torch.randn(b, skv, hkv, d, generator=g, device=dev).to(dtype)
         tname = str(dtype).replace("torch.", "")
         err = held("flash_attention", name, flash_attention(q, k, v, causal=causal),
                    ref.flash_attention_ref(q, k, v, causal=causal), tname)
+        splits = flash_split_plan(dtype, b, sq, skv, hq, d)
+        if with_lse:
+            lse_err = (flash_attention(q, k, v, causal=causal, with_lse=True)[1]
+                       - plain_lse(q, k, causal)).abs().max().item()
+            checks.append({"case": f"flash_attention lse {name}", "dtype": tname,
+                           "cluster": splits, "max_abs_err": lse_err, "tol": LSE_TOL})
+            check(lse_err <= LSE_TOL, f"flash lse {name} {tname}: {lse_err} > {LSE_TOL}")
         if not time_it:
             return
         # visible (query, key) pairs: what this causal call has to compute
@@ -553,9 +566,13 @@ def phase_kernels(state: dict) -> dict:
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=hq != hkv)
 
+        # the bf16 body's template instance names whether the call split
+        body = (f"flash_wgmma_kernel<{d}, {'true' if splits > 1 else 'false'}>"
+                if dtype == torch.bfloat16 else FLASH_NAMES[0])
         rows[time_it] = {
-            **times(mine, lambda: ref.flash_attention_ref(q, k, v, causal=causal), sdpa),
-            "bound_ms": bms, "bound_by": by, "max_abs_err": err,
+            **times(mine, lambda: ref.flash_attention_ref(q, k, v, causal=causal), sdpa,
+                    body=body),
+            "bound_ms": bms, "bound_by": by, "max_abs_err": err, "cluster": splits,
             "shape": f"q[{b},{sq},{hq},{d}] kv[{b},{skv},{hkv},{d}] {tname} "
                      f"{'causal' if causal else 'full'}"}
 
@@ -775,7 +792,9 @@ def phase_kernels(state: dict) -> dict:
                        time_it=f"flash_attention d{d}" if bf16 else None)
             flash_case(f"d{d}_sq_lt_skv_full", 1, 70, 150, hq, hkv, d, dt_, causal=False)
             paged_decode_case(f"d{d}", lengths, hq, hkv, dt_, d=d)
-            decode_case(f"d{d}", 2, 544, hq, hkv, d, slots <= 527, dt_)
+            # timed at 192: blocks of 8 query rows keep one chunk a lane
+            decode_case(f"d{d}", 2, 544, hq, hkv, d, slots <= 527, dt_,
+                        time_it="decode_attention d192" if bf16 and d == 192 else None)
     # flash at head dim 128 (qwen3-moe's 32:4 heads), beside 64 and 192 above:
     # the K/V stages of the bf16 body are chosen by head dim
     flash_case("d128_prefill", 1, 512, 512, 32, 4, 128, torch.bfloat16,
@@ -791,8 +810,11 @@ def phase_kernels(state: dict) -> dict:
     for dt_ in (torch.float32, torch.bfloat16):
         bf16 = dt_ == torch.bfloat16
         for name, sq in (("encoder", 1024), ("prompt_cross", 64), ("decode_cross", 1)):
+            # the cross-attention calls split over a cluster in bf16: their
+            # LSE is the combined one
             flash_case(f"seamless_{name}", 4, sq, 1024, 16, 16, 64, dt_, causal=False,
-                       time_it=f"flash_attention seamless {name}" if bf16 else None)
+                       time_it=f"flash_attention seamless {name}" if bf16 else None,
+                       with_lse=name != "encoder")
         flash_case("phi3v_prefill", 4, 1088, 1088, 32, 32, 96, dt_,
                    time_it="flash_attention phi3v prefill" if bf16 else None)
         decode_case("phi3v_decode", 4, 1120, 32, 32, 96, phi3v_slots <= 1118, dt_,
@@ -811,6 +833,22 @@ def phase_kernels(state: dict) -> dict:
 # to 8 bits of mantissa
 BWD_TOL = {"float32": 1e-4, "bfloat16": 2e-2}
 LSE_TOL = 1e-4       # the forward's row log-sum-exp, absolute, both bodies
+
+
+def plain_lse(q, k, causal: bool):
+    """Each query row's log-sum-exp of its scaled f32 scores, [B,Hq,Sq]:
+    what `flash_attention(..., with_lse=True)` returns beside its output."""
+    import torch
+
+    from repro_torch.kernels import ref
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(b, sq, hkv, -1, d),
+                          k.float()) * d ** -0.5
+    if causal:
+        vis = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(skv - sq)
+        scores = torch.where(vis, scores, ref.NEG_INF)
+    return torch.logsumexp(scores, -1).reshape(b, hq, sq)
 
 
 def visible_pairs(sq: int, skv: int, causal: bool) -> int:
@@ -846,12 +884,7 @@ def flash_backward_cases(g, rows: dict, checks: list) -> None:
         q32, k32, v32 = (t.float().requires_grad_() for t in (q, k, v))
         o32 = ref.flash_attention_ref(q32, k32, v32, causal=causal)
         exp = torch.autograd.grad(o32, (q32, k32, v32), dout.float())
-        scores = torch.einsum("bqhgd,bkhd->bhgqk", q32.detach().reshape(b, sq, hkv, -1, d),
-                              k32.detach()) * d ** -0.5
-        if causal:
-            vis = torch.ones(sq, skv, dtype=torch.bool, device=dev).tril(skv - sq)
-            scores = torch.where(vis, scores, ref.NEG_INF)
-        lse_err = (lse - torch.logsumexp(scores, -1).reshape(b, hq, sq)).abs().max().item()
+        lse_err = (lse - plain_lse(q, k, causal)).abs().max().item()
         checks.append({"case": f"flash_attention lse {name}", "dtype": tname,
                        "max_abs_err": lse_err, "tol": LSE_TOL})
         check(lse_err <= LSE_TOL, f"flash lse {name} {tname}: {lse_err} > {LSE_TOL}")

@@ -50,19 +50,33 @@
 //     key gets NEG_INF there, which weighs 0 in such a combine.
 //   * Tiles stay in their stored type in a ring of up to 3 stages filled by
 //     16-byte cp.async, so the next tiles' loads are in flight while this one
-//     is scored.  Paged keys take their page from block_tables[b, p / bs];
-//     only keys below the length are read.  For a validity vector one load
+//     is scored.  Fewer stages where only that keeps every cluster of the
+//     launch resident at once (the runtime's occupancy count): phi-3-vision's
+//     D = 96 cache is 128 clusters of 3 blocks, which 76 KB blocks (3
+//     stages) leave in two waves and 51 KB blocks (2) run in one.  Paged
+//     keys take their page from block_tables[b, p / bs]; only keys below
+//     the length are read.  For a validity vector one load
 //     of 64 flags a lane marks which of 32 tiles hold a valid key; a tile
 //     with none is neither loaded nor scored.  The ragged mode masks per slot
 //     only on a tile that holds the window start; its ALiBi slopes sit in
 //     registers and bias the f32 score before the mask, as the reference.
 //   * Scores: two lanes split each key's row (one shuffle), Q in shared
 //     memory as f32, K rows stored with their 16-byte chunks swizzled so the
-//     two lanes of 4 keys hit distinct banks; no serial D loop.  P.V: lanes
-//     own (key group, 16-byte chunk) accumulators for every query row of the
-//     block, folded across key groups once at the end.  A block takes all G
-//     rows of its group (instances for 1, 5 and 8 rows; G above 8 in blocks
-//     of 8 rows).
+//     two lanes of 4 keys hit distinct banks (k_swizzle: an XOR inside
+//     aligned groups of chunks, so it works for rows of 12 or 24 chunks
+//     too); no serial D loop.  P.V: lanes own (key group, 16-byte chunks)
+//     accumulators for every query row of the block, folded across key
+//     groups once at the end.  A power of two of lanes shares a row
+//     (lane_plan), each taking up to 3 chunks where that leaves fewer lanes
+//     idle than one chunk a lane: D = 96 in bf16 is 12 chunks, 4 lanes of 3
+//     (16 lanes of one left 4 of them idle in every load and P.V pass, and
+//     a warp took 2 keys a pass instead of 8); D = 192 is 24 chunks, 8 lanes
+//     of 3.  Rows of a power of two of chunks keep one chunk a lane (two for
+//     f32 rows past 128).  A block takes all G rows of its group (instances
+//     for 1, 5 and 8 rows; G above 8 in blocks of 8 rows), and for the wider
+//     lane plans a bf16 instance that holds 3 chunks a lane (none at 8 rows,
+//     whose accumulators would spill: there D = 192 keeps 32 lanes of one
+//     chunk, 8 of them idle; none for the f32 parity body).
 // At the live shapes each block walks 1-8 tiles, so the fixed costs (the
 // first loads, the two cluster barriers, the combine) weigh as much as the
 // streaming; chip_smoke.py's kernels phase times every mode.
@@ -161,14 +175,66 @@ __device__ __forceinline__ void load_chunk(const T* p, float* f) {
   unpack<T>(*reinterpret_cast<const uint4*>(p), f);
 }
 
+// How a key row's nchunk 16-byte chunks map to lanes in the loads and P.V:
+// 2^lpk_log2 lanes share a row (a power of two, so that a warp takes whole
+// rows), each taking cpl chunks c = lane + i * 2^lpk_log2.  The plan with the
+// fewest idle lanes among those of at most max_cpl chunks a lane, then the
+// fewest chunks a lane.  For a power of two that is one chunk a lane (two
+// for f32 rows past 128); D = 96 in bf16 (12 chunks) takes 4 lanes of 3
+// chunks, where 16 lanes of one chunk would leave 4 idle.
+struct LanePlan {
+  int lpk_log2, cpl;
+};
+__host__ __device__ inline LanePlan lane_plan(int nchunk, int max_cpl) {
+  LanePlan best = {5, (nchunk + 31) / 32};
+  int idle = 32 * best.cpl - nchunk;
+  for (int l2 = 4; l2 >= 0; --l2) {
+    const int lpk = 1 << l2, cpl = (nchunk + lpk - 1) / lpk;
+    if (cpl <= max_cpl && lpk * cpl - nchunk < idle) {
+      best = {l2, cpl};
+      idle = lpk * cpl - nchunk;
+    }
+  }
+  return best;
+}
+
+// K rows are stored with chunk c of key j at c ^ ((j >> shift) & mask), so
+// that the scores' two lanes of each of the 4 keys of a quarter-warp (chunk
+// i of the row's first half, chunk i of its second) read distinct banks:
+// XOR by j's low bits where the row spans a multiple of 8 chunks (or a power
+// of two below), by bit 1 of j where it spans 4 past a multiple of 8 (D = 96
+// in bf16: the 4 keys' rows start on 64-byte offsets 0, 64, 0, 64); none
+// otherwise.  The XOR stays inside an aligned group of mask + 1 chunks, so
+// inside the row.
+struct Swizzle {
+  int shift, mask;
+};
+__device__ __forceinline__ Swizzle k_swizzle(int nchunk) {
+  if ((nchunk & (nchunk - 1)) == 0 || nchunk % 8 == 0) return {0, min(nchunk, 8) - 1};
+  if (nchunk % 8 == 4) return {1, 1};
+  return {0, 0};
+}
+
+// Chunks a lane holds in P.V: one 16-byte chunk for bf16 and two for f32
+// (rows up to 256), or, in bf16, kWideCpl where a plan with more chunks a
+// lane leaves fewer lanes idle (lane_plan).  bf16 with 8 query rows a block
+// has no wide instance (8 rows x 3 chunks x 8 floats of accumulators would
+// spill), nor has f32, the parity body, whose instances would only lengthen
+// the build.
+template <typename T>
+constexpr int kBaseCpl = sizeof(T) == 4 ? 2 : 1;
+constexpr int kWideCpl = 3;
+template <typename T>
+constexpr bool has_wide(int kG) { return sizeof(T) == 2 && kG != 8; }
+
 // The split body: one block of a cluster of `splits` walks its share of the
 // whole 64-key tiles of one (KV head, sequence) for query rows g0 .. g0+kG-1
 // of the head's group.  Each warp keeps its own online softmax over its 16
 // keys of every tile: two lanes score a key (half of its row each, one
-// shuffle), and for P.V `lpk` lanes share a key's V row, one 16-byte chunk
-// each (two for f32 rows past 128).  The warps merge in shared memory, then
+// shuffle), and for P.V 2^lpk_log2 lanes share a key's V row, up to kCpl
+// 16-byte chunks each (lane_plan).  The warps merge in shared memory, then
 // the blocks of the cluster through distributed shared memory.
-template <typename T, Mode kMode, int kG>
+template <typename T, Mode kMode, int kG, int kCpl>
 __device__ __forceinline__ void split_body(const SplitArgs& a) {
   constexpr bool kPaged = kMode == Mode::kPaged;
   constexpr bool kRagged = kMode == Mode::kRagged;
@@ -183,16 +249,16 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   const int b = blockIdx.z;                        // sequence
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   constexpr int kVec = 16 / sizeof(T);
-  constexpr int kCpl = sizeof(T) == 4 ? 2 : 1;     // chunks a lane holds in P.V (D <= 256)
   const int nchunk = D / kVec;                     // 16-byte chunks in a key row
-  int lpk = 1, lpk_log2 = 0;                       // lanes per key row in loads and P.V
-  while (lpk < nchunk && lpk < 32) lpk <<= 1, ++lpk_log2;
+  const int lpk_log2 = lane_plan(nchunk, kCpl).lpk_log2;
+  const int lpk = 1 << lpk_log2;                   // lanes per key row in loads and P.V
   const int kpp = 32 >> lpk_log2;                  // keys of a warp per P.V pass
   const int passes = (kWarpKeys + kpp - 1) / kpp;
   const int lk = lane & (lpk - 1), kg = lane >> lpk_log2;
-  // K rows are stored with chunk c at c ^ (j & sw), so that the scores' two
-  // lanes per key read distinct banks across the 4 keys of a quarter-warp
-  const int sw = (nchunk & (nchunk - 1)) == 0 ? min(nchunk, 8) - 1 : 0;
+  const Swizzle swz = k_swizzle(nchunk);
+  auto k_at = [=](int j, int c) {                  // where K chunk c of key j is stored
+    return c ^ ((j >> swz.shift) & swz.mask);
+  };
   const int half = (nchunk + 1) >> 1;              // chunks a scoring lane takes
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
@@ -293,7 +359,7 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
       for (int cc = 0; cc < kCpl; ++cc) {
         const int c = lk + cc * lpk;
         if (c < nchunk) {
-          cp_async16(ks + j * D + (c ^ (j & sw)) * kVec, kb + off + c * kVec);
+          cp_async16(ks + j * D + k_at(j, c) * kVec, kb + off + c * kVec);
           cp_async16(vs + j * D + c * kVec, vb + off + c * kVec);
         }
       }
@@ -372,7 +438,7 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
 #pragma unroll 4
       for (int c = hf * half; c < c1; ++c) {
         float kf[kVec];
-        load_chunk(ks + j * D + (c ^ (j & sw)) * kVec, kf);
+        load_chunk(ks + j * D + k_at(j, c) * kVec, kf);
 #pragma unroll
         for (int g = 0; g < kG; ++g) {
 #pragma unroll
@@ -558,19 +624,19 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
 }
 
 // one name for each mode, so that profiles tell them apart
-template <typename T, int kG>
+template <typename T, int kG, int kCpl>
 __global__ void __launch_bounds__(kThreads) valid_decode_split_kernel(SplitArgs a) {
-  split_body<T, Mode::kValid, kG>(a);
+  split_body<T, Mode::kValid, kG, kCpl>(a);
 }
 
-template <typename T, int kG>
+template <typename T, int kG, int kCpl>
 __global__ void __launch_bounds__(kThreads) paged_decode_split_kernel(SplitArgs a) {
-  split_body<T, Mode::kPaged, kG>(a);
+  split_body<T, Mode::kPaged, kG, kCpl>(a);
 }
 
-template <typename T, int kG>
+template <typename T, int kG, int kCpl>
 __global__ void __launch_bounds__(kThreads) batched_decode_split_kernel(SplitArgs a) {
-  split_body<T, Mode::kRagged, kG>(a);
+  split_body<T, Mode::kRagged, kG, kCpl>(a);
 }
 
 // query rows one block takes: the whole group for gpt2 (G 1) and Hymba (G 5),
@@ -590,39 +656,40 @@ struct SplitPlan {
   size_t smem;
 };
 
-// SMs of the current device, read once per device
-int sm_count() {
-  static int counts[64] = {};
-  int dev = 0;
-  cudaGetDevice(&dev);
-  if (dev < 0 || dev >= 64) dev = 0;
-  if (counts[dev] <= 0 &&
-      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
-    counts[dev] = 132;
-  return counts[dev];
-}
-
-// The launch shape of the split body, from the capacity S alone.
-SplitPlan plan_split(size_t es, int B, int S, int Hq, int Hkv, int D) {
+// The launch shape of the split body, from the capacity S and the shapes
+// alone (no read of lengths or validity).  `kernel` is the valid-mode
+// instance of the call's rows and lane plan: its occupancy stands for the
+// three modes', so that one plan serves the launch and repro_decode_split_plan.
+SplitPlan plan_split(size_t es, int B, int S, int Hq, int Hkv, int D, int kG,
+                     const void* kernel) {
   const int sms = sm_count();
-  const int G = Hq / Hkv, kG = rows_per_block(G);
-  const long long blocks = (long long)B * Hkv * ((G + kG - 1) / kG);
+  const int G = Hq / Hkv;
+  const long long clusters = (long long)B * Hkv * ((G + kG - 1) / kG);
   const int nt = (S + kTileK - 1) / kTileK;
   // the fewest splits for which the blocks cover the SMs twice
   int splits = 1;
-  while (splits < kMaxSplits && blocks * splits < 2LL * sms) ++splits;
+  while (splits < kMaxSplits && clusters * splits < 2LL * sms) ++splits;
   splits = splits < nt ? splits : nt;
-  int stages = kMaxStages;
-  while (stages > 1 && split_smem(es, D, stages, kG) > kMaxSmem) --stages;
+  // the most ring stages that fit a block, unless fewer let every cluster
+  // of the launch be resident at once where the most do not (phi-3-vision's
+  // D = 96 cache: 128 clusters of 3 blocks of 76 KB at 3 stages, of 51 KB at 2)
+  int fit = kMaxStages;
+  while (fit > 1 && split_smem(es, D, fit, kG) > kMaxSmem) --fit;
+  auto resident = [&](int st) {
+    return resident_clusters(kernel, kThreads, splits, split_smem(es, D, st, kG)) >= clusters;
+  };
+  int stages = fit;
+  while (stages > 1 && !resident(stages)) --stages;
+  if (!resident(stages)) stages = fit;
   return {splits, stages, split_smem(es, D, stages, kG)};
 }
 
-template <typename T, Mode kMode, int kG>
-cudaError_t launch_split_rows(const SplitArgs& a, const SplitPlan& p, int B,
-                              cudaStream_t stream) {
-  void (*kernel)(SplitArgs) = valid_decode_split_kernel<T, kG>;
-  if constexpr (kMode == Mode::kPaged) kernel = paged_decode_split_kernel<T, kG>;
-  if constexpr (kMode == Mode::kRagged) kernel = batched_decode_split_kernel<T, kG>;
+template <typename T, Mode kMode, int kG, int kCpl>
+cudaError_t launch_split_kernel(const SplitArgs& a, const SplitPlan& p, int B,
+                                cudaStream_t stream) {
+  void (*kernel)(SplitArgs) = valid_decode_split_kernel<T, kG, kCpl>;
+  if constexpr (kMode == Mode::kPaged) kernel = paged_decode_split_kernel<T, kG, kCpl>;
+  if constexpr (kMode == Mode::kRagged) kernel = batched_decode_split_kernel<T, kG, kCpl>;
   // once per kernel and device: allow the most shared memory a block may use
   static bool allowed[64] = {};
   int dev = 0;
@@ -651,14 +718,52 @@ cudaError_t launch_split_rows(const SplitArgs& a, const SplitPlan& p, int B,
   return cudaGetLastError();
 }
 
-template <typename T, Mode kMode>
-cudaError_t launch_split(SplitArgs a, int B, cudaStream_t stream) {
-  const SplitPlan p = plan_split(sizeof(T), B, a.S, a.Hq, a.Hkv, a.D);
+// Chunks a lane holds for these rows and head dim: the wide instance's where
+// its lane plan takes more chunks a lane than the base one can hold.
+template <typename T, int kG>
+int cpl_for(int D) {
+  if constexpr (has_wide<T>(kG)) {
+    if (lane_plan(D / (16 / (int)sizeof(T)), kWideCpl).cpl > kBaseCpl<T>) return kWideCpl;
+  }
+  return kBaseCpl<T>;
+}
+
+template <typename T, int kG>
+SplitPlan plan_rows(int B, int S, int Hq, int Hkv, int D) {
+  const void* kernel = (const void*)valid_decode_split_kernel<T, kG, kBaseCpl<T>>;
+  if constexpr (has_wide<T>(kG)) {
+    if (cpl_for<T, kG>(D) == kWideCpl)
+      kernel = (const void*)valid_decode_split_kernel<T, kG, kWideCpl>;
+  }
+  return plan_split(sizeof(T), B, S, Hq, Hkv, D, kG, kernel);
+}
+
+template <typename T, Mode kMode, int kG>
+cudaError_t launch_split_rows(SplitArgs a, int B, cudaStream_t stream) {
+  const SplitPlan p = plan_rows<T, kG>(B, a.S, a.Hq, a.Hkv, a.D);
   a.stages = p.stages;
+  if constexpr (has_wide<T>(kG)) {
+    if (cpl_for<T, kG>(a.D) == kWideCpl)
+      return launch_split_kernel<T, kMode, kG, kWideCpl>(a, p, B, stream);
+  }
+  return launch_split_kernel<T, kMode, kG, kBaseCpl<T>>(a, p, B, stream);
+}
+
+template <typename T, Mode kMode>
+cudaError_t launch_split(const SplitArgs& a, int B, cudaStream_t stream) {
   switch (rows_per_block(a.Hq / a.Hkv)) {
-    case 1: return launch_split_rows<T, kMode, 1>(a, p, B, stream);
-    case 5: return launch_split_rows<T, kMode, 5>(a, p, B, stream);
-    default: return launch_split_rows<T, kMode, 8>(a, p, B, stream);
+    case 1: return launch_split_rows<T, kMode, 1>(a, B, stream);
+    case 5: return launch_split_rows<T, kMode, 5>(a, B, stream);
+    default: return launch_split_rows<T, kMode, 8>(a, B, stream);
+  }
+}
+
+template <typename T>
+SplitPlan plan_dtype(int B, int S, int Hq, int Hkv, int D) {
+  switch (rows_per_block(Hq / Hkv)) {
+    case 1: return plan_rows<T, 1>(B, S, Hq, Hkv, D);
+    case 5: return plan_rows<T, 5>(B, S, Hq, Hkv, D);
+    default: return plan_rows<T, 8>(B, S, Hq, Hkv, D);
   }
 }
 
@@ -678,7 +783,8 @@ int launch_dtype(int dtype, const SplitArgs& a, int B, void* stream) {
 // dtype: 0 = float32, 1 = bfloat16.
 extern "C" long long repro_decode_split_plan(int dtype, int B, int S, int Hq, int Hkv, int D,
                                              int* splits, int* stages) {
-  const SplitPlan p = plan_split(dtype == 0 ? 4 : 2, B, S, Hq, Hkv, D);
+  const SplitPlan p = dtype == 0 ? plan_dtype<float>(B, S, Hq, Hkv, D)
+                                 : plan_dtype<__nv_bfloat16>(B, S, Hq, Hkv, D);
   *splits = p.splits;
   *stages = p.stages;
   return (long long)p.smem;

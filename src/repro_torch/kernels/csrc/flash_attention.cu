@@ -50,12 +50,35 @@
 //     swizzled tile through the descriptor's transpose bit.  N is the padded
 //     head dim: 64, 128 (D = 96 computes its 32 zero columns and stores
 //     none) or 192, whose O accumulator is 96 f32 registers a thread.
+//   * Split-K over a thread-block cluster where the query tiles leave the
+//     card short.  A query tile's block walks its key tiles in series, so
+//     ceil(Sq / 64) * Hq * B blocks below twice the 132 SMs idle part of the
+//     card and leave the rest a long serial chain: seamless-m4t's
+//     cross-attention, 4 x 16 heads over 1,024 source frames, is 64 blocks of
+//     16 key tiles, at Sq = 64 and at Sq = 1 alike.  There the host (from the
+//     shapes alone) gives each query tile a cluster of `splits` <= 8 blocks
+//     along grid x: the fewest for which the blocks cover the SMs twice,
+//     while every cluster of the launch stays resident at once (the
+//     runtime's occupancy count) and each block keeps two key tiles or more,
+//     then the fewest that give the same longest range.  Each block runs
+//     the loop above over its contiguous share of the tiles below the query
+//     tile's causal limit (a block may get none), then the blocks combine on
+//     chip (combine_split): partials pushed to the row's owning block, one
+//     cluster barrier, no workspace, one launch, the sums in rank order, so
+//     a call is deterministic.  Seamless's cross-attention becomes 256 blocks
+//     of 4 tiles.  Measured in turns on an H100 (tools/kernel_ab.py): 8
+//     blocks of 2 tiles, or four K/V stages, were slower than 4 of 4 with
+//     two.  Shapes whose tiles fill the card (training, the encoders,
+//     prefill; phi-3-vision's heads at 512 tokens, whose 256 tiles of 83 KB
+//     blocks would not all be resident split in two) do not split: they run
+//     flash_wgmma_kernel<D, false>, the body without the cluster.
 // f32 (flash_kernel) keeps the CUDA-core body: TF32 or bf16 products
 // cannot hold the f32 parity band of 2e-5.  Each of its 128 threads holds a
 // 4 x 8 patch of the 64 x 64 score tile and a 4 x (D/8) patch of the output
 // in registers, over f32 shared rows padded to D + 1 floats; rows of 8
 // threads reduce the row max and sum with warp shuffles.
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -63,6 +86,8 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -75,6 +100,7 @@ constexpr int kLanes = 8;                  // threads sharing one row group
 constexpr int kRows = kBQ / (kThreads / kLanes);   // 4 query rows per thread
 constexpr int kCols = kBK / kLanes;                // 8 keys per thread per tile
 constexpr int kLdp = kBK + 1;
+constexpr int kMaxSplits = 8;              // the portable cluster size
 
 __device__ __forceinline__ float to_float(float x) { return x; }
 
@@ -263,9 +289,107 @@ constexpr size_t wgmma_smem_bytes(int D) {
   return 1024 + (size_t)(1 + 2 * kv_stages(D)) * tile_bytes(D) + 8 * (1 + kv_stages(D));
 }
 
+// The split combine's receive buffers, after the mbarriers: for each of the
+// `splits` source blocks, rows_per_rank O rows of D f32 (padded by 8 floats,
+// so that the fragment's float2 stores of 4 rows land on distinct banks)
+// and their (m, l).  A block owns rows_per_rank of the query tile's rows.
+// The buffers are sized for a full 64-row tile whatever Sq, so that the
+// shared memory of a launch, and the residency count the plan reads on
+// every call's host path, depend on (D, splits) alone: a few cached entries.
+__host__ __device__ constexpr int partial_ld(int D) { return D + 8; }
+__host__ __device__ constexpr int rows_per_rank(int Sq, int splits) {
+  return ((Sq < kBQ ? Sq : kBQ) + splits - 1) / splits;
+}
+__host__ __device__ constexpr size_t recv_bytes(int D, int splits) {
+  return 16 + (size_t)splits * rows_per_rank(kBQ, splits) * (sizeof(float) * partial_ld(D) + 8);
+}
+
+__device__ __forceinline__ void prefetch_tensormap(const CUtensorMap* map) {
+  asm volatile("prefetch.tensormap [%0];" ::"l"(map) : "memory");
+}
+__device__ __forceinline__ void cluster_arrive_relaxed() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;" ::: "memory");
+}
+
+// The split combine, on chip.  Block r of the cluster owns the query tile's
+// rows [r R, r R + R) (R = rows_per_rank).  Each block stores its O rows
+// (f32, not yet divided by l) and each row's (m, l) straight from its
+// registers into the owning block's receive buffer, in its own slot, through
+// distributed shared memory; after one cluster barrier each block combines
+// its rows from its own shared memory: the slots in rank order (so the sums
+// are the same on every call), each rescaled by 2^(m_s - M), divided by L,
+// written in bf16 with, where asked, the row's LSE (M + log2 L) ln 2.  A
+// block that read no key pushed m = NEG_INF, l = 0, O = 0: weight 0.  No
+// block reads another's memory after the barrier, so none waits on a second
+// one before it exits; the barrier the kernel arrived at on entry, waited
+// for here, makes sure every block of the cluster runs before any stores
+// into it.
+template <int D, int kDP>
+__device__ __forceinline__ void combine_split(const float (&o)[kDP / 2], const float (&m)[2],
+                                              const float (&l)[2], unsigned char* recv,
+                                              __nv_bfloat16* __restrict__ out,
+                                              float* __restrict__ lse, int b, int h, int q0,
+                                              int nq, int Sq, int Hq, int splits, int rank) {
+  cg::cluster_group cluster = cg::this_cluster();
+  constexpr int ld = partial_ld(D);
+  const int rpr = rows_per_rank(Sq, splits);
+  float* recv_o = reinterpret_cast<float*>(recv);                        // [splits][rpr][ld]
+  float2* recv_ml = reinterpret_cast<float2*>(recv_o + splits * rpr * ld);   // [splits][rpr]
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;
+  cluster_wait();
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    const int row = r0 + 8 * r;
+    if (row >= nq) continue;
+    const int owner = row / rpr, slot = rank * rpr + row - owner * rpr;
+    float* dst = cluster.map_shared_rank(recv_o + slot * ld, owner);
+#pragma unroll
+    for (int i = 2 * r; i < kDP / 2; i += 4) {     // the fragment's values of this row
+      const int col = 8 * (i >> 2) + 2 * (lane & 3);
+      if (col < D) *reinterpret_cast<float2*>(dst + col) = make_float2(o[i], o[i + 1]);
+    }
+    if ((lane & 3) == 0) *cluster.map_shared_rank(recv_ml + slot, owner) = make_float2(m[r], l[r]);
+  }
+  cluster.sync();
+  constexpr int kUnits = D / 4;            // 4-column units of a row
+  const int row0 = rank * rpr;
+  const int units = max(0, min(rpr, nq - row0)) * kUnits;
+  const long long qrow = (long long)Hq * D;
+  for (int u = tid; u < units; u += kThreads) {
+    const int lr = u / kUnits, col = 4 * (u - lr * kUnits);
+    float M = kNegInf;
+    for (int s = 0; s < splits; ++s) M = fmaxf(M, recv_ml[s * rpr + lr].x);
+    float L = 0.f;
+    float4 acc = make_float4(0.f, 0.f, 0.f, 0.f);
+    for (int s = 0; s < splits; ++s) {
+      const float2 ml = recv_ml[s * rpr + lr];
+      const float w = fast_exp2(ml.x - M);
+      const float4 v = *reinterpret_cast<const float4*>(recv_o + (s * rpr + lr) * ld + col);
+      L = fmaf(w, ml.y, L);
+      acc.x = fmaf(w, v.x, acc.x);
+      acc.y = fmaf(w, v.y, acc.y);
+      acc.z = fmaf(w, v.z, acc.z);
+      acc.w = fmaf(w, v.w, acc.w);
+    }
+    const float inv = 1.f / L;
+    const int row = row0 + lr;
+    *reinterpret_cast<uint2*>(out + ((long long)b * Sq + q0 + row) * qrow + (long long)h * D +
+                              col) =
+        make_uint2(pack_bf16(acc.x * inv, acc.y * inv), pack_bf16(acc.z * inv, acc.w * inv));
+    if (lse != nullptr && col == 0)
+      lse[((long long)b * Hq + h) * Sq + q0 + row] = (M + log2f(L)) * kLn2;
+  }
+}
+
 // Fragment of a wgmma m64nN f32 accumulator: thread (warp w, lane l) holds
 // d[i] at row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) + (i & 1).
-template <int D>
+// kSplit: the block is one of a cluster that shares the query tile's key
+// tiles (the cluster spans grid x, splits blocks to a query tile).
+template <int D, bool kSplit>
 __global__ void __launch_bounds__(kThreads)
 flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
                    const __grid_constant__ CUtensorMap kmap,
@@ -276,7 +400,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   constexpr int kDP = 64 * kBoxes;         // head dim padded to the boxes
   constexpr int kTile = tile_bytes(D);
   constexpr int kStages = kv_stages(D);
-  const int q0 = blockIdx.x * kBQ;
+  int splits = 1, rank = 0;
+  if constexpr (kSplit) {
+    // a split block streams a few tiles: fetch the maps' descriptors early
+    if (threadIdx.x == 0) {
+      prefetch_tensormap(&qmap);
+      prefetch_tensormap(&kmap);
+      prefetch_tensormap(&vmap);
+    }
+    cluster_arrive_relaxed();            // waited for before the combine's stores
+    splits = (int)cg::this_cluster().num_blocks();
+    rank = (int)cg::this_cluster().block_rank();
+  }
+  const int q0 = (kSplit ? blockIdx.x / splits : blockIdx.x) * kBQ;
   const int h = blockIdx.y;
   const int b = blockIdx.z;
   const int hk = h / (Hq / Hkv);
@@ -296,15 +432,19 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   // row of the tile: the loop never reads them
   const int kend = causal ? min(Skv, q0 + nq + off) : Skv;
   const int ntiles = (kend + kBK - 1) / kBK;
+  // this block's key tiles [jlo, jlo + ntiles_b): all of them, or its
+  // rank's contiguous share (none where the cluster has more blocks than tiles)
+  const int jlo = kSplit ? ntiles * rank / splits : 0;
+  const int ntiles_b = kSplit ? ntiles * (rank + 1) / splits - jlo : ntiles;
 
-  auto load_kv = [&](int j) {
+  auto load_kv = [&](int j) {             // the block's j-th tile, tile jlo + j
     const int st = j % kStages;
     uint64_t* bar = &bars[1 + st];
     mbar_expect_tx(bar, 2 * kTile);
 #pragma unroll
     for (int x = 0; x < kBoxes; ++x) {
-      tma_load(k_s + st * kTile + x * kAtom, &kmap, bar, 64 * x, hk, j * kBK, b);
-      tma_load(v_s + st * kTile + x * kAtom, &vmap, bar, 64 * x, hk, j * kBK, b);
+      tma_load(k_s + st * kTile + x * kAtom, &kmap, bar, 64 * x, hk, (jlo + j) * kBK, b);
+      tma_load(v_s + st * kTile + x * kAtom, &vmap, bar, 64 * x, hk, (jlo + j) * kBK, b);
     }
   };
   if (tid == 0) {
@@ -313,7 +453,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     mbar_expect_tx(&bars[0], kTile);
 #pragma unroll
     for (int x = 0; x < kBoxes; ++x) tma_load(q_s + x * kAtom, &qmap, &bars[0], 64 * x, h, q0, b);
-    load_kv(0);
+    if (ntiles_b > 0) load_kv(0);
   }
   __syncthreads();
 
@@ -326,10 +466,10 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   const uint32_t q_addr = smem_u32(q_s);
   mbar_wait(&bars[0], 0);
 
-  for (int j = 0; j < ntiles; ++j) {
+  for (int j = 0; j < ntiles_b; ++j) {
     const int st = j % kStages;
     if constexpr (kStages > 1) {         // its stage was freed by tile j - 1
-      if (tid == 0 && j + 1 < ntiles) load_kv(j + 1);
+      if (tid == 0 && j + 1 < ntiles_b) load_kv(j + 1);
     }
     mbar_wait(&bars[1 + st], (j / kStages) & 1);
 
@@ -351,7 +491,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
 
     // the mask and the row max act on raw scores; the scale (positive)
     // enters once, in the exponent's multiply-add
-    const int t0 = j * kBK;
+    const int t0 = (jlo + j) * kBK;
     const bool edge = t0 + kBK > Skv || (causal && t0 + kBK - 1 > q0 + off);
     if (edge) {
 #pragma unroll
@@ -404,7 +544,7 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     fence_regs(o);
     __syncthreads();                       // every warp is done with stage st
     if constexpr (kStages == 1) {
-      if (tid == 0 && j + 1 < ntiles) load_kv(j + 1);
+      if (tid == 0 && j + 1 < ntiles_b) load_kv(j + 1);
     }
   }
 
@@ -412,6 +552,16 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   for (int r = 0; r < 2; ++r) {
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
     l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+  if constexpr (kSplit) {
+    // the combine's buffers: after the mbarriers, 16-byte aligned
+    unsigned char* recv = smem_raw + ((smem_u32(bars + 1 + kStages) + 15) / 16 * 16 -
+                                      smem_u32(smem_raw));
+    combine_split<D, kDP>(o, m, l, recv, out, lse, b, h, q0, nq, Sq, Hq, splits, rank);
+    return;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
     // m is in log2 units of the scaled scores: LSE = (m + log2 l) ln 2
     const int row = r0 + 8 * r;
     if (lse != nullptr && (lane & 3) == 0 && row < nq)
@@ -432,6 +582,28 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
   }
 }
 
+// Blocks of the bf16 body's cluster for one query tile, from the shapes
+// alone: the fewest, at most 8, for which the blocks cover the SMs twice,
+// as long as every cluster of the launch is resident at once and each block
+// keeps at least two key tiles of the full key range; then the fewest that
+// give the same longest range (ceil(tiles / splits)).  1 where the query
+// tiles cover the SMs twice, or where two blocks a tile would not all be
+// resident (phi-3-vision's heads at 512 tokens: 256 tiles of 83 KB blocks).
+template <int D>
+int flash_splits(int B, int Sq, int Skv, int Hq) {
+  const long long tiles = (long long)((Sq + kBQ - 1) / kBQ) * Hq * B;
+  const int nt = (Skv + kBK - 1) / kBK;
+  const long long target = 2LL * sm_count();
+  const void* kernel = (const void*)flash_wgmma_kernel<D, true>;
+  int splits = 1;
+  while (splits < kMaxSplits && tiles * splits < target && nt / (splits + 1) >= 2 &&
+         resident_clusters(kernel, kThreads, splits + 1,
+                           wgmma_smem_bytes(D) + recv_bytes(D, splits + 1)) >= tiles)
+    ++splits;
+  while (splits > 1 && (nt + splits - 2) / (splits - 1) == (nt + splits - 1) / splits) --splits;
+  return splits;
+}
+
 template <int D>
 cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out, float* lse,
                          int B, int Sq, int Skv, int Hq, int Hkv, int causal, float scale,
@@ -443,13 +615,39 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
       !encode_map(enc, &vmap, v, B, Skv, Hkv, D))
     return cudaErrorInvalidValue;
   const size_t smem = wgmma_smem_bytes(D);
-  cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D>,
-                                       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+  const int splits = flash_splits<D>(B, Sq, Skv, Hq);
+  const unsigned qt = (unsigned)((Sq + kBQ - 1) / kBQ);
+  __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
+  if (splits == 1) {
+    cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D, false>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (e != cudaSuccess) return e;
+    dim3 grid(qt, (unsigned)Hq, (unsigned)B);
+    flash_wgmma_kernel<D, false><<<grid, kThreads, smem, stream>>>(
+        qmap, kmap, vmap, o, lse, Sq, Skv, Hq, Hkv, causal, scale * kLog2e);
+    return cudaGetLastError();
+  }
+  void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16*, float*, int, int, int,
+                 int, int, float) = flash_wgmma_kernel<D, true>;
+  const size_t split_smem = smem + recv_bytes(D, splits);
+  cudaError_t e =
+      cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)split_smem);
   if (e != cudaSuccess) return e;
-  dim3 grid((unsigned)((Sq + kBQ - 1) / kBQ), (unsigned)Hq, (unsigned)B);
-  flash_wgmma_kernel<D><<<grid, kThreads, smem, stream>>>(
-      qmap, kmap, vmap, static_cast<__nv_bfloat16*>(out), lse, Sq, Skv, Hq, Hkv, causal,
-      scale * kLog2e);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(qt * (unsigned)splits, (unsigned)Hq, (unsigned)B);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = split_smem;
+  cfg.stream = stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  e = cudaLaunchKernelEx(&cfg, kernel, qmap, kmap, vmap, o, lse, Sq, Skv, Hq, Hkv, causal,
+                         scale * kLog2e);
+  if (e != cudaSuccess) return e;
   return cudaGetLastError();
 }
 
@@ -486,6 +684,22 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
 // Shared memory (bytes) one block needs at dtype code `dtype` and head dim D.
 extern "C" long long repro_flash_attention_smem(int dtype, int D) {
   return (long long)(dtype == 1 ? wgmma_smem_bytes(D) : smem_bytes(D));
+}
+
+// Blocks of the cluster that shares a query tile's key tiles (1: no split)
+// for a call at these shapes: bf16 (dtype 1) splits where its query tiles
+// leave the SMs short, f32 (dtype 0) never.
+extern "C" int repro_flash_attention_splits(int dtype, int B, int Sq, int Skv, int Hq, int D) {
+  if (dtype != 1) return 1;
+  switch (D) {
+    case 16: return flash_splits<16>(B, Sq, Skv, Hq);
+    case 32: return flash_splits<32>(B, Sq, Skv, Hq);
+    case 64: return flash_splits<64>(B, Sq, Skv, Hq);
+    case 96: return flash_splits<96>(B, Sq, Skv, Hq);
+    case 128: return flash_splits<128>(B, Sq, Skv, Hq);
+    case 192: return flash_splits<192>(B, Sq, Skv, Hq);
+    default: return 1;
+  }
 }
 
 // dtype: 0 = float32 (flash_kernel), 1 = bfloat16 (flash_wgmma_kernel).

@@ -4,7 +4,8 @@
 // fence, mbarriers, TMA loads through 4-D tensor maps and their encoding on
 // the host, setmaxnreg, and wgmma m64n64k16, m64n128k16 and m64n192k16 (bf16
 // in, f32 accumulators) over tiles in shared memory under the 128-byte
-// swizzle.
+// swizzle; on the host, the SM count and the clusters of a kernel the device
+// holds at once.
 //
 // A tile is made of boxes of 64 rows by 64 bf16 columns (128 bytes a row,
 // 8 KB), 1024-byte aligned; 16-byte chunk c of row j sits at chunk
@@ -18,7 +19,9 @@
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
+#include <cstddef>
 #include <cstdint>
+#include <mutex>
 
 namespace {
 
@@ -322,6 +325,67 @@ inline bool encode_map(EncodeTiled enc, CUtensorMap* map, const void* ptr, int B
              box, unit, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
              CU_TENSOR_MAP_L2_PROMOTION_L2_128B,
              CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// SMs of the current device, read once per device
+inline int sm_count() {
+  static int counts[64] = {};
+  int dev = 0;
+  cudaGetDevice(&dev);
+  if (dev < 0 || dev >= 64) dev = 0;
+  if (counts[dev] <= 0 &&
+      cudaDeviceGetAttribute(&counts[dev], cudaDevAttrMultiProcessorCount, dev) != cudaSuccess)
+    counts[dev] = 132;
+  return counts[dev];
+}
+
+// Clusters of `cluster` blocks of `kernel` (`threads` a block, `smem` bytes
+// of dynamic shared memory) that the current device holds at once: the
+// runtime's own count, which weighs shared memory, registers and where a
+// cluster may be placed.  Cached per (device, kernel, cluster, smem, threads):
+// a launch asks it on its host path.  0 where the runtime cannot say.
+inline int resident_clusters(const void* kernel, int threads, int cluster, size_t smem) {
+  struct Entry {
+    int dev;
+    const void* kernel;
+    int threads, cluster;
+    size_t smem;
+    int n;
+  };
+  static Entry cache[256];
+  static int used = 0;
+  static std::mutex mu;
+  int dev = 0;
+  cudaGetDevice(&dev);
+  std::lock_guard<std::mutex> lock(mu);
+  for (int i = 0; i < used; ++i) {
+    const Entry& e = cache[i];
+    if (e.dev == dev && e.kernel == kernel && e.threads == threads && e.cluster == cluster &&
+        e.smem == smem)
+      return e.n;
+  }
+  // the query needs the kernel to allow `smem`; allow all a block may opt into
+  int optin = 0;
+  cudaDeviceGetAttribute(&optin, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, optin);
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3((unsigned)cluster);
+  cfg.blockDim = dim3((unsigned)threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = (unsigned)cluster;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  if (cudaOccupancyMaxActiveClusters(&n, kernel, &cfg) != cudaSuccess) {
+    cudaGetLastError();
+    n = 0;
+  }
+  if (used < 256) cache[used++] = {dev, kernel, threads, cluster, smem, n};
+  return n;
 }
 
 }  // namespace

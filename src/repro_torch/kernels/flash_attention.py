@@ -8,7 +8,9 @@ the offset of a query block at the end of the keys, or full.  The wrappers
 take CUDA tensors only (the CPU goes to the plain version through
 `repro_torch.kernels.ops`), check what the kernels need, allocate the
 outputs and count their launches.  The forward's C function picks the body
-by dtype: bf16 runs on wgmma with TMA loads, float32 on the CUDA cores; so
+by dtype: bf16 runs on wgmma with TMA loads (split over a cluster of blocks
+where its query tiles leave the SMs short, `split_plan`), float32 on the
+CUDA cores; so
 does the backward's, bf16 on warp-specialised wgmma over a TMA ring (on
 mma.sync at head dim 192), float32 on the CUDA cores.
 `FlashAttentionFn` ties the two together for autograd.
@@ -51,6 +53,15 @@ def _check(q, k, v, causal: bool):
 
 def _stream(t: torch.Tensor) -> ctypes.c_void_p:
     return ctypes.c_void_p(torch.cuda.current_stream(t.device).cuda_stream)
+
+
+def split_plan(dtype: torch.dtype, b: int, sq: int, skv: int, hq: int, d: int) -> int:
+    """Blocks of the cluster that shares each query tile's key tiles in a
+    `flash_attention` call at these shapes (1: no split), chosen from the
+    shapes alone: bf16 splits where its query tiles leave the SMs short,
+    float32 never."""
+    return _build.lib("flash_attention").repro_flash_attention_splits(
+        _DTYPE_CODE[dtype], b, sq, skv, hq, d)
 
 
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,

@@ -117,6 +117,54 @@ def test_flash_attention_kernel_matches_plain(cuda, b, sq, skv, hq, hkv, d, caus
     torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
 
 
+LSE_TOL = 1e-4     # the forward's row log-sum-exp, absolute (chip_smoke.LSE_TOL)
+
+
+def _plain_lse(q, k, causal):
+    """Each query row's log-sum-exp of its scaled f32 scores, [B,Hq,Sq]."""
+    b, sq, hq, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    scores = torch.einsum("bqhgd,bkhd->bhgqk", q.float().reshape(b, sq, hkv, -1, d),
+                          k.float()) * d ** -0.5
+    if causal:
+        vis = torch.ones(sq, skv, dtype=torch.bool, device=q.device).tril(skv - sq)
+        scores = torch.where(vis, scores, ref.NEG_INF)
+    return torch.logsumexp(scores, -1).reshape(b, hq, sq)
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("d", [64, 96, 192])
+@pytest.mark.parametrize("causal", [False, True])
+@pytest.mark.parametrize("sq,skv", [(1, 1024), (5, 1024), (64, 1024), (1, 1030), (5, 1030),
+                                    (64, 1030), (1, 130), (5, 130), (64, 130), (1, 64),
+                                    (5, 64), (64, 64), (512, 512)])
+def test_flash_attention_split_matches_plain(cuda, sq, skv, causal, d, dtype):
+    """GQA 4:2 over one sequence: a few blocks a query tile leave the card
+    short, so bf16 splits each query tile's key tiles over a cluster where
+    the keys span 4 tiles or more (1,024 keys; 1,030, whose last tile holds
+    6; 512, where causal, the first query tile's one key tile leaves blocks
+    of its cluster with none).  130 and 64 keys do not split.  The output
+    and the row LSE against the plain version, and a second call gives the
+    same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention, split_plan
+    b, hq, hkv = 1, 4, 2
+    splits = split_plan(dtype, b, sq, skv, hq, d)
+    assert (splits > 1) == (dtype == torch.bfloat16 and skv >= 256)
+    g = torch.Generator(device=cuda).manual_seed(11)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    n0 = LAUNCHES["flash_attention"]
+    out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+    assert LAUNCHES["flash_attention"] == n0 + 1
+    out2, lse2 = flash_attention(q, k, v, causal=causal, with_lse=True)
+    exp = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert (lse - _plain_lse(q, k, causal)).abs().max().item() <= LSE_TOL
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["prefix", "window_meta", "scattered", "one_slot"])
 @pytest.mark.parametrize("b,s,hq,hkv,d", [(2, 96, 4, 2, 16), (3, 200, 25, 25, 64),
@@ -149,15 +197,22 @@ def _split_edges(dtype, b, s, hq, hkv, d):
     return [min(nt * r // splits * 64, s) for r in range(splits + 1)]
 
 
+# head dims of the split decode body: powers of two, and rows of 5, 12, 20,
+# 24 and 25 bf16 chunks, whose lanes the lane plan maps with up to 3 chunks
+# a lane (10, 24, 40, 48 and 50 in f32, which keeps one or two)
+SPLIT_DIMS = [16, 32, 40, 64, 96, 128, 160, 192, 200, 256]
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 96, 128, 192, 256])
+@pytest.mark.parametrize("d", SPLIT_DIMS)
 @pytest.mark.parametrize("kind", ["split_edge", "mid_split", "one_tile", "uneven",
-                                  "scattered_empty_splits"])
+                                  "scattered_empty_splits", "none_valid"])
 def test_decode_attention_split_matches_plain(cuda, kind, d, dtype):
     """Hymba's 25:5 heads over a ring of 1152 slots (8 blocks of 2-3 tiles),
     one of 40 (below one tile: one block) and one of 600 (10 tiles, the last
-    partial, over 8 blocks).  At D 256 the ring has two stages (bf16) or one
-    (f32)."""
+    partial, over 8 blocks); none_valid: no slot valid, the sum of V over
+    the slots over the padded length.  At D 256 the ring has two stages
+    (bf16) or one (f32)."""
     b, hq, hkv = 2, 25, 5
     s = {"one_tile": 40, "uneven": 600}.get(kind, 1152)
     edges = _split_edges(dtype, b, s, hq, hkv, d)
@@ -175,6 +230,8 @@ def test_decode_attention_split_matches_plain(cuda, kind, d, dtype):
         valid[edges[1]:edges[3]] = False          # blocks 1 and 2 see no valid key
         valid[edges[6]:] = False
         valid[edges[4] + 5] = True
+    elif kind == "none_valid":
+        valid = pos < 0
     else:
         valid = pos < s - 3
     from repro_torch.kernels.decode_attention import decode_attention
@@ -244,11 +301,13 @@ BATCHED_SPLIT_KINDS = {   # lengths, window starts (or a window), meta sinks, AL
     "alibi_window_meta": ([1024, 700, 450, 64], 96, 4, True, (25, 5)),
     # G = 32: four blocks of 8 query rows
     "g32_alibi_window": ([1024, 700, 450, 64], 96, 4, True, (32, 1)),
+    # no valid key: a length of 0, and a window start past the length
+    "length_zero": ([0, 1024, 450, 64], [0, 1000, 500, 0], 0, False, (25, 5)),
 }
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128, 256])
+@pytest.mark.parametrize("d", SPLIT_DIMS)
 @pytest.mark.parametrize("kind", list(BATCHED_SPLIT_KINDS))
 def test_batched_decode_attention_split_matches_plain(cuda, kind, d, dtype):
     """batched_decode_attention on the split body over a dense cache of
@@ -448,20 +507,24 @@ def test_paged_prefill_attention_leaves_no_stale_shared_memory(cuda, dtype):
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
-@pytest.mark.parametrize("d", [16, 32, 64, 128])
-@pytest.mark.parametrize("kind", ["split_edge", "one_tile", "uneven"])
+@pytest.mark.parametrize("d", [x for x in SPLIT_DIMS if x != 256])
+@pytest.mark.parametrize("kind", ["split_edge", "one_tile", "uneven", "length_zero"])
 def test_paged_decode_attention_split_matches_plain(cuda, kind, d, dtype):
     """Hymba's 25:5 heads over layer 2 of a pool with shuffled pages.
     split_edge: a capacity of 1024 slots over 8 blocks, lengths ending on a
     block's first key, inside a block, at 1 (every block but the first past
     it) and at the capacity; one_tile: a capacity below one tile; uneven: a
-    capacity of 600 (10 tiles, the last partial, over 8 blocks)."""
+    capacity of 600 (10 tiles, the last partial, over 8 blocks);
+    length_zero: split_edge's capacity with a row at length 0, which
+    averages V over its whole table."""
     b, hq, hkv, bs = 4, 25, 5, 8
     s = {"one_tile": 40, "uneven": 600}.get(kind, 1024)
     edges = _split_edges(dtype, b, s, hq, hkv, d)
     assert len(edges) - 1 == (1 if kind == "one_tile" else 8)
     if kind == "split_edge":
         lengths = [edges[2], edges[2] + 37, 1, s]
+    elif kind == "length_zero":
+        lengths = [0, edges[2] + 37, s, 129]
     else:
         lengths = [5, 40, 17, 33] if kind == "one_tile" else [s, 333, 64, 129]
     g = torch.Generator(device=cuda).manual_seed(9)

@@ -63,9 +63,112 @@ def ssd_bwd_inputs(b, s, nh, hd, ng, n, dtype: str):
     return make
 
 
+def flash_inputs(b, sq, skv, hq, hkv, d, causal, with_lse=False, dtype="bfloat16"):
+    """q [b,sq,hq,d], k/v [b,skv,hkv,d] unit normals, as the `kernels` phase
+    makes them."""
+    def make(g):
+        import torch
+        dt_ = getattr(torch, dtype)
+        q = torch.randn(b, sq, hq, d, generator=g, device="cuda").to(dt_)
+        k = torch.randn(b, skv, hkv, d, generator=g, device="cuda").to(dt_)
+        v = torch.randn(b, skv, hkv, d, generator=g, device="cuda").to(dt_)
+        return (q, k, v), {"causal": causal, "with_lse": with_lse}
+    return make
+
+
+def decode_inputs(b, s, hq, hkv, d, n_valid):
+    """`decode_attention`'s inputs, bf16, slots [0, n_valid) valid."""
+    def make(g):
+        import torch
+        q = torch.randn(b, hq, d, generator=g, device="cuda").bfloat16()
+        k = torch.randn(b, s, hkv, d, generator=g, device="cuda").bfloat16()
+        v = torch.randn(b, s, hkv, d, generator=g, device="cuda").bfloat16()
+        return (q, k, v, torch.arange(s, device="cuda") < n_valid), {}
+    return make
+
+
+def batched_inputs(b, s, hq, hkv, d, lengths, win=None, meta=0, alibi=False):
+    """`batched_decode_attention`'s inputs, bf16, at the `kernels` phase's
+    lengths, window, meta sinks and ALiBi slopes."""
+    def make(g):
+        import torch
+        q = torch.randn(b, hq, d, generator=g, device="cuda").bfloat16()
+        k = torch.randn(b, s, hkv, d, generator=g, device="cuda").bfloat16()
+        v = torch.randn(b, s, hkv, d, generator=g, device="cuda").bfloat16()
+        lens = torch.tensor(lengths, dtype=torch.int32, device="cuda")
+        ws = None if win is None else (lens - win).clamp(min=0)
+        sl = (torch.tensor([2.0 ** -(8 * (i + 1) / hq) for i in range(hq)], device="cuda")
+              if alibi else None)
+        return (q, k, v, lens, ws, sl), {"num_meta": meta}
+    return make
+
+
+def paged_case_inputs(lengths, hq, hkv, d):
+    """`paged_decode_attention`'s inputs, bf16: one layer of a 24-layer pool
+    with shuffled pages (`chip_smoke.paged_inputs`)."""
+    def make(g):
+        import torch
+
+        from chip_smoke import paged_inputs
+        kp, vp, tables = paged_inputs(g, lengths, hkv, d, torch.bfloat16)
+        q = torch.randn(len(lengths), hq, d, generator=g, device="cuda").bfloat16()
+        return (q, kp, vp, tables,
+                torch.tensor(lengths, dtype=torch.int32, device="cuda")), {}
+    return make
+
+
+GPT2_LENGTHS = [1024, 977, 613, 512, 301, 129, 64, 1]
+FLASH = ("repro_torch.kernels.flash_attention", "flash_attention")
+DECODE = "repro_torch.kernels.decode_attention"
+BF16_TOL = 2e-2       # the reference's bf16 band (tests/test_kernels.py)
+
 # name: (module, wrapper, inputs, tolerance on the outputs' difference, in
 # units of max(1, max |base output|))
 CASES = {
+    # flash_attention (row 7): the `kernels` phase's timed shapes.  The
+    # cross-attention calls split over a cluster (the bf16 band); the rest,
+    # d96 and d128 included (two blocks a tile would not all be resident),
+    # run the unsplit body, bit for bit
+    "flash_attention seamless decode_cross": (*FLASH, flash_inputs(4, 1, 1024, 16, 16, 64,
+                                                                   False), BF16_TOL),
+    "flash_attention seamless prompt_cross": (*FLASH, flash_inputs(4, 64, 1024, 16, 16, 64,
+                                                                   False), BF16_TOL),
+    "flash_attention seamless encoder": (*FLASH, flash_inputs(4, 1024, 1024, 16, 16, 64,
+                                                              False), 0.0),
+    "flash_attention d96": (*FLASH, flash_inputs(1, 512, 512, 32, 32, 96, True), 0.0),
+    "flash_attention d128": (*FLASH, flash_inputs(1, 512, 512, 32, 4, 128, True), 0.0),
+    "flash_attention d192": (*FLASH, flash_inputs(1, 512, 512, 96, 8, 192, True), 0.0),
+    "flash_attention gpt2_prefill": (*FLASH, flash_inputs(4, 512, 512, 25, 25, 64, True), 0.0),
+    "flash_attention hymba": (*FLASH, flash_inputs(4, 1664, 1664, 25, 5, 64, True), 0.0),
+    "flash_attention phi3v prefill": (*FLASH, flash_inputs(4, 1088, 1088, 32, 32, 96, True),
+                                      0.0),
+    "flash_attention float32": (*FLASH, flash_inputs(4, 512, 512, 25, 25, 64, True,
+                                                     dtype="float32"), 0.0),
+    # the training forward with its LSE, which the backward reads
+    "flash_attention smollm_train lse": (*FLASH, flash_inputs(8, 2048, 2048, 15, 5, 64, True,
+                                                              with_lse=True), 0.0),
+    # the split decode body (rows 4, 1, 5): D = 96 takes the 3-chunk lane
+    # plan (the bf16 band); D = 64 and nemotron's 96:8 heads of 192 (8 rows
+    # a block, no 3-chunk instance) keep their lanes, bit for bit (the K
+    # swizzle moves where chunks are stored, not the sums)
+    "decode_attention phi3v": (DECODE, "decode_attention",
+                               decode_inputs(4, 1120, 32, 32, 96, 1119), BF16_TOL),
+    "decode_attention d192": (DECODE, "decode_attention",
+                              decode_inputs(2, 544, 96, 8, 192, 528), 0.0),
+    "decode_attention": (DECODE, "decode_attention", decode_inputs(4, 544, 25, 25, 64, 528),
+                         0.0),
+    "decode_attention hymba": (DECODE, "decode_attention",
+                               decode_inputs(4, 1152, 25, 5, 64, 1152), 0.0),
+    "decode_attention seamless": (DECODE, "decode_attention",
+                                  decode_inputs(4, 96, 16, 16, 64, 95), 0.0),
+    "batched_decode_attention": (DECODE, "batched_decode_attention",
+                                 batched_inputs(8, 1024, 25, 25, 64, GPT2_LENGTHS), 0.0),
+    "batched_decode_attention window": (DECODE, "batched_decode_attention",
+                                        batched_inputs(8, 1024, 25, 25, 64, GPT2_LENGTHS,
+                                                       win=32, meta=4, alibi=True), 0.0),
+    "paged_decode_attention": (DECODE, "paged_decode_attention",
+                               paged_case_inputs(GPT2_LENGTHS, 25, 25, 64), 0.0),
+
     "ssd_scan mamba2_prefill": ("repro_torch.kernels.ssd_scan", "ssd_scan",
                                 ssd_inputs(8, 512, 48, 64, 1, 128), 0.0),
     "ssd_scan hymba_prefill": ("repro_torch.kernels.ssd_scan", "ssd_scan",
@@ -102,8 +205,12 @@ class Checkout:
             fn = getattr(importlib.import_module(module), name)
         finally:
             sys.path.remove(self.src)
-        self.modules = {m: v for m, v in sys.modules.items() if m.split(".")[0] == "repro_torch"}
+        self.keep()
         return fn
+
+    def keep(self) -> None:
+        """Records the tree's modules now loaded (those a call imported too)."""
+        self.modules = {m: v for m, v in sys.modules.items() if m.split(".")[0] == "repro_torch"}
 
 
 def tensors(out):
