@@ -18,7 +18,8 @@ Phases, each printing one JSON line with its seconds:
                profile, and the bf16 bodies of ``flash_attention``,
                ``paged_prefill_attention`` and ``flash_attention_bwd``
                HGMMA in their libraries, and the bf16 body of
-               ``ssd_scan_bwd`` HMMA in its library.
+               ``ssd_scan_bwd`` and the decode body's tensor-core instance
+               HMMA in theirs.
                ``flash_attention_bwd`` against autograd through the plain
                version (both dtypes, six head dims, causal and full, GQA,
                keys ending mid-tile), the forward's row LSE against the
@@ -38,6 +39,12 @@ Phases, each printing one JSON line with its seconds:
                rows), causal flash over phi-3-vision-4.2b's 576 patch slots
                and 512 prompt tokens at head dim 96, and decode over both
                models' serving caches, each timed beside its bound and SDPA.
+               The decode body's tensor-core instance (bf16 groups of 6 or
+               more) at nemotron-4-340b's, yi-34b's and qwen3-moe-30b-a3b's
+               heads, each timed beside its bound (and SDPA, but for the
+               paged row); each decode row's profile must name the
+               instance its (dtype, group) takes, and flash at head dim 192
+               the two-consumer body where the call does not split.
 3. ``parity``  gpt2-1.5b at full width, cut to 2 layers, fp32: the engine on
                the card against the port on the CPU, same seeded weights, a
                trace that chunks its prompts and preempts; once plain (both
@@ -114,8 +121,11 @@ Phases, each printing one JSON line with its seconds:
 14. ``wide_heads`` nemotron-4-340b at full width (96:8 heads of 192), 2
                layers, bf16: `run_continuous` (the paged kernels at head
                dim 192) and `run()` (flash and decode at 192), launches
-               exact; then the card against the CPU in fp32 at nemotron's
-               attention widths with the MLP and vocabulary cut.
+               exact; a short profiled run of each path must name the
+               decode body's tensor-core instance (rows 4 and 5, G 12) and
+               the two-consumer flash body; then the card against the CPU
+               in fp32 at nemotron's attention widths with the MLP and
+               vocabulary cut.
 15. ``train``  training through the flash and SSD forward and backward
                kernels: (a) reduced smollm-360m, qwen3-moe-30b-a3b,
                mamba2-780m and hymba-1.5b, 4 layers, fp32, card = CPU
@@ -240,13 +250,35 @@ PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
 # the kernels of the fused passes of plain causal stages, which read the pages
 PAGED_KERNELS = ("paged_decode_attention", "paged_prefill_attention")
-# the kernels' names in a profile: the f32 body, then the bf16 one
-FLASH_NAMES = ("flash_kernel", "flash_wgmma_kernel")
+# the kernels' names in a profile: the f32 body, then the bf16 ones (the
+# two-consumer body runs the unsplit calls at head dim 192)
+FLASH_NAMES = ("flash_kernel", "flash_wgmma_kernel", "flash_wgmma_ws_kernel")
 SSD_NAMES = ("ssd_kernel", "ssd_mma_kernel")
 
 
 class SmokeFailure(RuntimeError):
     pass
+
+
+def decode_body(mode: str, dtype, g: int) -> str:
+    """The split decode body a call's profile must name, `mode` "valid",
+    "paged" or "batched": bf16 groups of 6 or more take the tensor-core
+    instance, the rest the CUDA-core one."""
+    import torch
+    kind = "mma" if dtype == torch.bfloat16 and g >= 6 else "split"
+    return f"{mode}_decode_{kind}_kernel"
+
+
+def flash_body(dtype, d: int, splits: int) -> str:
+    """The flash_attention kernel a call's profile must name: f32's body, or
+    bf16's template instance (whether it split; at head dim 192 the calls
+    that do not split take the two-consumer body)."""
+    import torch
+    if dtype != torch.bfloat16:
+        return FLASH_NAMES[0]
+    if splits == 1 and d == 192:
+        return "flash_wgmma_ws_kernel<192>"
+    return f"flash_wgmma_kernel<{d}, {'true' if splits > 1 else 'false'}>"
 
 
 def check(cond: bool, what: str) -> None:
@@ -342,8 +374,9 @@ def phase_env(state: dict) -> dict:
         for lib in ("flash_attention", "paged_prefill", "flash_attention_bwd"):
             check(sass[lib]["HGMMA"] > 0, f"no HGMMA in the {lib} library")
         # the backward keeps its mma.sync body at head dim 192; the SSD
-        # backward's bf16 body runs on mma.sync
-        for lib in ("flash_attention_bwd", "ssd_scan_bwd"):
+        # backward's bf16 body and the decode body's tensor-core instance
+        # run on mma.sync
+        for lib in ("flash_attention_bwd", "ssd_scan_bwd", "decode_attention"):
             check(sass[lib]["HMMA"] > 0, f"no HMMA in the {lib} library")
     return {"card": card, "device": torch.cuda.get_device_name(0),
             "torch": torch.__version__, "cuda": torch.version.cuda,
@@ -379,6 +412,7 @@ TOL = {"float32": 2e-5, "bfloat16": 2e-2}   # the reference's bands (tests/test_
 
 
 def phase_kernels(state: dict) -> dict:
+    import numpy as np
     import torch
     import torch.nn.functional as F
 
@@ -460,7 +494,7 @@ def phase_kernels(state: dict) -> dict:
                                                              num_meta=meta),
                     lambda: F.scaled_dot_product_attention(qs, ks, vs, attn_mask=mask,
                                                            enable_gqa=hq != hkv),
-                    body="batched_decode_split_kernel"),
+                    body=decode_body("batched", dtype, hq // hkv)),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "cluster": splits, "stages": stages,
             "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} "
@@ -566,12 +600,9 @@ def phase_kernels(state: dict) -> dict:
             return F.scaled_dot_product_attention(qt, kt, vt, is_causal=causal,
                                                   enable_gqa=hq != hkv)
 
-        # the bf16 body's template instance names whether the call split
-        body = (f"flash_wgmma_kernel<{d}, {'true' if splits > 1 else 'false'}>"
-                if dtype == torch.bfloat16 else FLASH_NAMES[0])
         rows[time_it] = {
             **times(mine, lambda: ref.flash_attention_ref(q, k, v, causal=causal), sdpa,
-                    body=body),
+                    body=flash_body(dtype, d, splits)),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err, "cluster": splits,
             "shape": f"q[{b},{sq},{hq},{d}] kv[{b},{skv},{hkv},{d}] {tname} "
                      f"{'causal' if causal else 'full'}"}
@@ -613,7 +644,7 @@ def phase_kernels(state: dict) -> dict:
                     lambda: ref.decode_attention_ref(q, k, v, valid),
                     lambda: F.scaled_dot_product_attention(
                         qs, ks, vs, attn_mask=mask, enable_gqa=hq != hkv),
-                    body="valid_decode_split_kernel"),
+                    body=decode_body("valid", dtype, hq // hkv)),
             "bound_ms": bms, "bound_by": by, "max_abs_err": err,
             "cluster": splits, "stages": stages,
             "shape": f"q[{b},{hq},{d}] kv[{b},{s},{hkv},{d}] {tname} valid {n_valid}/{s}"}
@@ -707,7 +738,7 @@ def phase_kernels(state: dict) -> dict:
     from repro_torch.kernels.decode_attention import paged_decode_attention
     from repro_torch.kernels.paged_prefill import paged_prefill_attention
 
-    def paged_decode_case(name, lengths, hq, hkv, dtype, time_it=False, d=64):
+    def paged_decode_case(name, lengths, hq, hkv, dtype, time_it=None, d=64):
         lens = torch.tensor(lengths, dtype=torch.int32, device=dev)
         kp, vp, tables = paged_inputs(g, lengths, hkv, d, dtype)
         q = torch.randn(len(lengths), hq, d, generator=g, device=dev).to(dtype)
@@ -723,11 +754,11 @@ def phase_kernels(state: dict) -> dict:
             bms, by = bound_ms(nbytes, 4.0 * live * hq * d, tname)
             splits, stages, _ = split_plan(dtype, len(lengths), tables.shape[1] * kp.shape[1],
                                            hq, hkv, d)
-            rows["paged_decode_attention"] = {
+            rows[time_it] = {
                 # no one PyTorch call reads pages through a table
                 **times(lambda: paged_decode_attention(q, kp, vp, tables, lens),
                         lambda: ref.paged_decode_attention_ref(q, kp, vp, tables, lens),
-                        body="paged_decode_split_kernel"),
+                        body=decode_body("paged", dtype, hq // hkv)),
                 "bound_ms": bms, "bound_by": by, "max_abs_err": err,
                 "cluster": splits, "stages": stages,
                 "shape": f"q[{len(lengths)},{hq},{d}] pages {list(kp.shape)} of a 24-layer "
@@ -768,7 +799,8 @@ def phase_kernels(state: dict) -> dict:
     # the serve decode pass at row 1's lengths, one layer of a [N,24,8,25,64]
     # pool with shuffled page ids; GQA 25:5 beside it
     for dt_ in (torch.float32, torch.bfloat16):
-        paged_decode_case("gpt2", lengths, 25, 25, dt_, time_it=dt_ == torch.bfloat16)
+        paged_decode_case("gpt2", lengths, 25, 25, dt_,
+                          time_it="paged_decode_attention" if dt_ == torch.bfloat16 else None)
         paged_decode_case("gqa_25_5", [700, 9, 1, 333], 25, 5, dt_)
         # a row at length 0 reads its whole table and averages V over its slots
         paged_decode_case("length_zero", [300, 0, 77], 25, 5, dt_)
@@ -792,9 +824,21 @@ def phase_kernels(state: dict) -> dict:
                        time_it=f"flash_attention d{d}" if bf16 else None)
             flash_case(f"d{d}_sq_lt_skv_full", 1, 70, 150, hq, hkv, d, dt_, causal=False)
             paged_decode_case(f"d{d}", lengths, hq, hkv, dt_, d=d)
-            # timed at 192: blocks of 8 query rows keep one chunk a lane
+            # timed at 192: G = 12 takes the tensor-core instance in bf16
             decode_case(f"d{d}", 2, 544, hq, hkv, d, slots <= 527, dt_,
                         time_it="decode_attention d192" if bf16 and d == 192 else None)
+    # the other groups of 6 or more, on the tensor cores in bf16: yi-34b's
+    # decode over its 2,048-slot cache (56:8 heads of 128, G 7, the dist
+    # phase's LSE shape), and qwen3-moe-30b-a3b's fused decode pass in the moe
+    # phase (32:4 heads of 128, G 8): 8 of serve's prompts, 16 tokens in
+    yi_slots = torch.ones(2048, dtype=torch.bool, device=dev)
+    moe_lengths = [int(n) + 16 for n in np.random.default_rng(2).integers(64, 513, 16)[:8]]
+    for dt_ in (torch.float32, torch.bfloat16):
+        bf16 = dt_ == torch.bfloat16
+        decode_case("yi34b", 8, 2048, 56, 8, 128, yi_slots, dt_,
+                    time_it="decode_attention yi34b" if bf16 else None)
+        paged_decode_case("qwen3_moe", moe_lengths, 32, 4, dt_, d=128,
+                          time_it="paged_decode_attention qwen3_moe" if bf16 else None)
     # flash at head dim 128 (qwen3-moe's 32:4 heads), beside 64 and 192 above:
     # the K/V stages of the bf16 body are chosen by head dim
     flash_case("d128_prefill", 1, 512, 512, 32, 4, 128, torch.bfloat16,
@@ -2905,6 +2949,37 @@ def wide_heads_runs(cfg, model, params, dev: str, lens, sync) -> dict:
     return {"run_continuous": a, "run": b}
 
 
+# the bodies nemotron's attention must run at head dim 192 in bf16, by the
+# names in a profile: rows 4 and 5 on the decode body's tensor-core instance
+# (G 12), row 7's unsplit prefill on the two-consumer flash body
+WIDE_HEADS_BODIES = ("valid_decode_mma_kernel<192>", "paged_decode_mma_kernel<192>",
+                     "flash_wgmma_ws_kernel<192>")
+
+
+def wide_heads_bodies(cfg, model, params) -> list:
+    """The attention kernels that a short run of each path launches, by the
+    profiler's names: `run_continuous` on two prompts (rows 5 and 6) and
+    `run()` on a microbatch of two (rows 7 and 4), 4 new tokens each.  Each
+    of WIDE_HEADS_BODIES must be among them, and no CUDA-core decode body."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.serving import ServingEngine
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        run_fused(cfg, model, params, lambda: _requests([40, 70], 4, cfg.vocab_size, seed=8),
+                  max_active=2, pool_blocks=64)
+        ServingEngine(cfg, model, params, 2, microbatch=2, device="cuda").run(
+            _requests([64, 64], 4, cfg.vocab_size, seed=8))
+        torch.cuda.synchronize()
+    names = sorted({e.key for e in prof.key_averages()
+                    if any(w in e.key for w in ("decode", "flash", "prefill"))})
+    for body in WIDE_HEADS_BODIES:
+        check(any(body in n for n in names), f"nemotron's heads did not run {body}: {names}")
+    check(not any("decode_split_kernel" in n for n in names),
+          f"nemotron's bf16 decode ran a CUDA-core body: {names}")
+    return names
+
+
 def wide_heads_exact(cfg, lens, devs=("cuda", "cpu")) -> dict:
     """The tokens of `run_continuous` on `lens`-long prompts and of `run()`
     (microbatches of 2) on each of `devs`, with one set of weights: equal
@@ -2929,7 +3004,8 @@ def phase_wide_heads(state: dict) -> dict:
     d_ff 73,728, layernorm, vocab 256,000), cut to 2 layers, bf16, 2
     workers: (a) `run_continuous` on 8 prompts of 64-256 tokens, 16 new,
     which runs rows 5 and 6 at head dim 192; (b) `run()` in microbatches
-    of 2, colocated, which runs rows 4 and 7 there.  Then the card against
+    of 2, colocated, which runs rows 4 and 7 there; a short profiled run of
+    each path names the bodies (`WIDE_HEADS_BODIES`).  Then the card against
     the CPU in fp32 at nemotron's attention widths (96:8 heads of 192, d
     18,432), cut to d_ff 1,024, vocab 4,096 and 2 layers: tokens equal on
     both paths."""
@@ -2954,6 +3030,7 @@ def phase_wide_heads(state: dict) -> dict:
                           ("run", ("flash_attention", "decode_attention"))):
         check(all(out[path]["launches"][k] > 0 for k in kernels),
               f"{path} did not launch {kernels} at head dim 192")
+    out["attention_kernels"] = wide_heads_bodies(cfg, model, params)
     del model, params
     torch.cuda.empty_cache()
     torch.backends.cuda.matmul.allow_tf32 = False

@@ -51,7 +51,6 @@ _SIGNATURES = {
     "flash_attention": {
         "repro_flash_attention": (
             _i, [_i, _vp, _vp, _vp, _vp, _vp, _i, _i, _i, _i, _i, _i, _i, _f, _vp]),
-        "repro_flash_attention_smem": (_ll, [_i, _i]),
         "repro_flash_attention_splits": (_i, [_i, _i, _i, _i, _i, _i]),
     },
     "flash_attention_bwd": {

@@ -13,12 +13,20 @@
 //
 // What bounds them on the H100: bytes.  Each K/V element is read once and
 // used for 2*G flops (one multiply-add per query head of its group), that
-// is G flops per byte in bf16, with G <= 5 on every live path (gpt2 1,
-// Hymba 5).  The bf16 tensor cores need 295 flops per byte before they, and
-// not the memory, set the pace, and even the CUDA cores' f32 rate (67
-// TFLOP/s, 20 flops per byte at 3.35 TB/s) is four times what G = 5 asks.
-// So no tensor core: the least time is the visible K/V bytes over
-// 3.35 TB/s, and the design is about keeping enough bytes in flight.
+// is G flops per byte in bf16, far below the 295 flops per byte past which
+// the bf16 tensor cores, and not the memory, set the pace: the least time is
+// the visible K/V bytes over 3.35 TB/s, and the design is about keeping
+// enough bytes in flight.  Small groups (gpt2, phi-3-vision and seamless G
+// 1, internlm2 2, Hymba and smollm 5) score on the CUDA cores, whose f32
+// rate (67 TFLOP/s, 20 flops per byte) is four times what G = 5 asks.
+// Larger ones do not leave the warps that room: at nemotron-4-340b's G = 12
+// and D = 192 one warp's 16 keys of a tile take 36,864 multiply-adds for
+// Q.K^T alone, 1,152 FMAs a lane, each with a shared-memory read of Q, where
+// 24 mma.sync m16n8k16 do them.  So bf16 groups of 6 or more (yi-34b 7,
+// qwen3-moe-30b-a3b 8, nemotron 12) run on the tensor cores, the whole group
+// one M = 16 tile, which reads each (KV head, sequence)'s K/V once and frees
+// the warps to keep bytes in flight.  f32, the parity body held at 2e-5,
+// stays on the CUDA cores.
 //
 // One split body, in three modes of finding its keys: a validity vector [S]
 // shared by the batch (decode_attention: the run() path's microbatch decode
@@ -73,10 +81,31 @@
 //     a warp took 2 keys a pass instead of 8); D = 192 is 24 chunks, 8 lanes
 //     of 3.  Rows of a power of two of chunks keep one chunk a lane (two for
 //     f32 rows past 128).  A block takes all G rows of its group (instances
-//     for 1, 5 and 8 rows; G above 8 in blocks of 8 rows), and for the wider
-//     lane plans a bf16 instance that holds 3 chunks a lane (none at 8 rows,
-//     whose accumulators would spill: there D = 192 keeps 32 lanes of one
-//     chunk, 8 of them idle; none for the f32 parity body).
+//     for 1 and 5 rows, and in f32 8 rows, G above 8 in blocks of 8), and
+//     for the wider lane plans a bf16 instance that holds 3 chunks a lane
+//     (none for the f32 parity body).
+//   * bf16 groups of 6 or more: the tensor-core instance
+//     (*_decode_mma_kernel<kDP>, kDP the head dim padded to 64, 128, 192 or
+//     256), 16 query rows a block (a group above 16 in blocks of 16), the
+//     rows the M tile of mma.sync m16n8k16.  Q sits in registers as bf16 A
+//     fragments; each warp takes 16 keys of a tile, S = Q.K^T with K's B
+//     fragments by ldmatrix from ring rows padded to round16(D) + 8 elements
+//     (zeros past D for the last k16 step, rows an odd multiple of 16 bytes
+//     apart for ldmatrix's banks); the masks, the ALiBi bias and the online
+//     softmax act on the f32 accumulator fragment (each row's max and sum over
+//     the fragment's 4 lanes); P in bf16 registers is the A fragment of
+//     O += P.V, V's B fragments by ldmatrix.trans, O an f32 fragment of D / 2
+//     registers a thread.  The warps merge as above, their partials in the
+//     ring, which is idle by then.  A partial last tile's V rows past the
+//     keys are zero-filled: the tensor cores multiply all 64.  Its launch
+//     shape (plan_mma): two ring stages, and of the cluster sizes whose
+//     clusters are all resident at once, the one that gives a block the
+//     fewest tiles, the smallest such: nemotron's [2,544,96:8,192] takes 16
+//     clusters of 5 blocks, yi-34b's [8,2048,56:8,128] 64 clusters of 3.
+//     A sweep of sizes and stages on an H100 found the CUDA-core rule
+//     (the fewest splits that cover the SMs twice, then the most stages
+//     that keep the launch resident) slower at both: 8 blocks of 2 stages
+//     and 5 of one stage.
 // At the live shapes each block walks 1-8 tiles, so the fixed costs (the
 // first loads, the two cluster barriers, the combine) weigh as much as the
 // streaming; chip_smoke.py's kernels phase times every mode.
@@ -89,6 +118,7 @@
 #include <cstdint>
 
 #include "hopper.cuh"
+#include "ssd_mma.cuh"
 
 namespace cg = cooperative_groups;
 
@@ -217,27 +247,46 @@ __device__ __forceinline__ Swizzle k_swizzle(int nchunk) {
 
 // Chunks a lane holds in P.V: one 16-byte chunk for bf16 and two for f32
 // (rows up to 256), or, in bf16, kWideCpl where a plan with more chunks a
-// lane leaves fewer lanes idle (lane_plan).  bf16 with 8 query rows a block
-// has no wide instance (8 rows x 3 chunks x 8 floats of accumulators would
-// spill), nor has f32, the parity body, whose instances would only lengthen
-// the build.
+// lane leaves fewer lanes idle (lane_plan).  f32, the parity body, has no
+// wide instance: its instances would only lengthen the build.
 template <typename T>
 constexpr int kBaseCpl = sizeof(T) == 4 ? 2 : 1;
 constexpr int kWideCpl = 3;
 template <typename T>
-constexpr bool has_wide(int kG) { return sizeof(T) == 2 && kG != 8; }
+constexpr bool has_wide() { return sizeof(T) == 2; }
+
+// The tensor-core instance: bf16 groups of kMmaMinG query rows or more, in
+// blocks of kMmaRows, the M tile of mma.sync m16n8k16.  Its head dim is
+// padded to kDP (64, 128, 192 or 256) for the register arrays, and its ring
+// rows to mma_pitch(D) elements: round16(D), so that Q.K^T's k16 steps read
+// zeros past D, plus 8, so that rows an odd multiple of 16 bytes apart put
+// ldmatrix's 8 row reads on 8 distinct bank groups.
+constexpr int kMmaRows = 16;
+constexpr int kMmaMinG = 6;
+__host__ __device__ inline int mma_pitch(int D) { return (D + 15) / 16 * 16 + 8; }
+__host__ __device__ inline int mma_dp(int D) {
+  return D <= 64 ? 64 : D <= 128 ? 128 : D <= 192 ? 192 : 256;
+}
 
 // The split body: one block of a cluster of `splits` walks its share of the
 // whole 64-key tiles of one (KV head, sequence) for query rows g0 .. g0+kG-1
 // of the head's group.  Each warp keeps its own online softmax over its 16
-// keys of every tile: two lanes score a key (half of its row each, one
-// shuffle), and for P.V 2^lpk_log2 lanes share a key's V row, up to kCpl
-// 16-byte chunks each (lane_plan).  The warps merge in shared memory, then
-// the blocks of the cluster through distributed shared memory.
-template <typename T, Mode kMode, int kG, int kCpl>
+// keys of every tile.  On the CUDA cores (kDP = 0): two lanes score a key
+// (half of its row each, one shuffle), and for P.V 2^lpk_log2 lanes share a
+// key's V row, up to kCpl 16-byte chunks each (lane_plan).  On the tensor
+// cores (kDP > 0: bf16, kMmaRows rows, the head dim padded to kDP): the rows
+// are the M tile of mma.sync m16n8k16 (rows past the group zero, never
+// stored), Q in registers as A fragments, S = Q.K^T over the warp's 16 keys
+// with K's B fragments by ldmatrix, the softmax on the f32 accumulator
+// fragment, and O += P.V with P in bf16 registers and V by ldmatrix.trans,
+// O an f32 fragment (kDP / 2 registers a thread).  The warps merge in shared
+// memory, then the blocks of the cluster through distributed shared memory.
+template <typename T, Mode kMode, int kG, int kCpl, int kDP = 0>
 __device__ __forceinline__ void split_body(const SplitArgs& a) {
   constexpr bool kPaged = kMode == Mode::kPaged;
   constexpr bool kRagged = kMode == Mode::kRagged;
+  constexpr bool kMma = kDP > 0;
+  static_assert(!kMma || (sizeof(T) == 2 && kG == kMmaRows), "the tensor-core instance");
   cg::cluster_group cluster = cg::this_cluster();
   const int splits = (int)cluster.num_blocks();   // the cluster spans grid x
   const int r = (int)cluster.block_rank();
@@ -255,20 +304,24 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   const int kpp = 32 >> lpk_log2;                  // keys of a warp per P.V pass
   const int passes = (kWarpKeys + kpp - 1) / kpp;
   const int lk = lane & (lpk - 1), kg = lane >> lpk_log2;
-  const Swizzle swz = k_swizzle(nchunk);
+  const Swizzle swz = kMma ? Swizzle{0, 0} : k_swizzle(nchunk);
   auto k_at = [=](int j, int c) {                  // where K chunk c of key j is stored
     return c ^ ((j >> swz.shift) & swz.mask);
   };
   const int half = (nchunk + 1) >> 1;              // chunks a scoring lane takes
+  const int pitch = kMma ? mma_pitch(D) : D;       // elements between a tile's key rows
 
   extern __shared__ __align__(16) unsigned char smem_raw[];
-  T* ring = reinterpret_cast<T*>(smem_raw);        // [stages][K, V][kTileK][D]
-  float* q_s = reinterpret_cast<float*>(smem_raw + (size_t)a.stages * 2 * kTileK * D *
-                                                       sizeof(T));   // [kG][D]
-  float* p_w = q_s + kG * D;                       // [kWarps][kG][16]
-  float* acc_w = p_w + kWarps * kG * kWarpKeys;    // [kWarps][kG][D]
+  T* ring = reinterpret_cast<T*>(smem_raw);        // [stages][K, V][kTileK][pitch]
+  unsigned char* past_ring = smem_raw + (size_t)a.stages * 2 * kTileK * pitch * sizeof(T);
+  float* q_s = reinterpret_cast<float*>(past_ring);   // [kG][D]; none on the tensor cores
+  float* p_w = q_s + (kMma ? 0 : kG * D);             // [kWarps][kG][16]; none there either
+  // [kWarps][kG][D]: the warps' partials; on the tensor cores in the ring,
+  // which no warp reads once the walk is done
+  float* acc_w = kMma ? reinterpret_cast<float*>(smem_raw) : p_w + kWarps * kG * kWarpKeys;
   float2* ml_w = reinterpret_cast<float2*>(acc_w + kWarps * kG * D);   // [kWarps][kG]: m, l
-  float* acc_s = reinterpret_cast<float*>(ml_w + kWarps * kG);  // [kG][D]: the block's partial
+  float* acc_s = kMma ? reinterpret_cast<float*>(past_ring)             // [kG][D]: the block's
+                      : reinterpret_cast<float*>(ml_w + kWarps * kG);   // partial
   float2* ml_s = reinterpret_cast<float2*>(acc_s + kG * D);     // [kG]: its m, l
   int* tile_s = reinterpret_cast<int*>(ml_s + kG);              // [kMaxStages]
 
@@ -345,12 +398,14 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   };
   // Loads the tile of index i into ring slot `slot` (16-byte cp.async, keys
   // below kend; lpk threads a row) and records i there; ihi records that
-  // none follows.
+  // none follows.  The tensor cores multiply all 64 rows of V, so there the
+  // rows past kend are filled with zeros: a stale or never-written row may
+  // hold a NaN, which even a probability of 0 would carry into O.
   auto issue = [&](int i, int slot) {
     if (tid == 0) tile_s[slot] = i;
     if (i >= ihi) return;
-    T* ks = ring + (size_t)slot * 2 * kTileK * D;
-    T* vs = ks + kTileK * D;
+    T* ks = ring + (size_t)slot * 2 * kTileK * pitch;
+    T* vs = ks + kTileK * pitch;
     const int t0 = tile_at(i) * kTileK, n = min(kTileK, kend - t0);
 #pragma unroll 4
     for (int j = tid >> lpk_log2; j < n; j += kThreads >> lpk_log2) {
@@ -359,43 +414,89 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
       for (int cc = 0; cc < kCpl; ++cc) {
         const int c = lk + cc * lpk;
         if (c < nchunk) {
-          cp_async16(ks + j * D + k_at(j, c) * kVec, kb + off + c * kVec);
-          cp_async16(vs + j * D + c * kVec, vb + off + c * kVec);
+          cp_async16(ks + j * pitch + k_at(j, c) * kVec, kb + off + c * kVec);
+          cp_async16(vs + j * pitch + c * kVec, vb + off + c * kVec);
+        }
+      }
+    }
+    if constexpr (kMma) {
+      for (int j = n + (tid >> lpk_log2); j < kTileK; j += kThreads >> lpk_log2) {
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          const int c = lk + cc * lpk;
+          if (c < nchunk) cp_async16_zfill(vs + j * pitch + c * kVec, vb, 0);
         }
       }
     }
   };
 
-  // the block's query rows go out first, then the ring's first tiles; the
-  // rows reach shared memory in f32 (rows past the group zero), published
-  // by the loop's first barrier
+  // the block's query rows go out first, then the ring's first tiles; on the
+  // CUDA cores the rows reach shared memory in f32 (rows past the group
+  // zero), published by the loop's first barrier
   constexpr int kQ = 8 * 256 / kVec / kThreads;   // 16-byte chunks of q a thread loads
-  const uint4* qb = reinterpret_cast<const uint4*>(
-      static_cast<const T*>(a.q) + ((long long)b * a.Hq + (long long)h * G + g0) * D);
+  const T* q_rows =
+      static_cast<const T*>(a.q) + ((long long)b * a.Hq + (long long)h * G + g0) * D;
+  const uint4* qb = reinterpret_cast<const uint4*>(q_rows);
   const int qn = GB * D / kVec;
-  uint4 qv[kQ];
+  uint4 qv[kMma ? 1 : kQ];
+  if constexpr (!kMma) {
 #pragma unroll
-  for (int i = 0; i < kQ; ++i)
-    if (tid + i * kThreads < qn) qv[i] = qb[tid + i * kThreads];
+    for (int i = 0; i < kQ; ++i)
+      if (tid + i * kThreads < qn) qv[i] = qb[tid + i * kThreads];
+  }
   int iss = next_tile(ilo);
   for (int s = 0; s < a.stages - 1; ++s) {
     issue(iss, s);
     if (iss < ihi) iss = next_tile(iss + 1);
     cp_async_commit();
   }
-#pragma unroll
-  for (int i = 0; i < kQ; ++i)
-    if (tid + i * kThreads < qn) unpack<T>(qv[i], q_s + (tid + i * kThreads) * kVec);
-  for (int i = GB * D + tid; i < kG * D; i += kThreads) q_s[i] = 0.f;
-  float acc[kG][kCpl * kVec], m[kG], l[kG], sl[kG];
+  // CUDA cores: acc[g][.] this lane's chunks of row g; tensor cores: the A
+  // fragments of Q (qa[kk], columns 16 kk ..) and the O fragment (o[i],
+  // columns 8 i ..), rows lane / 4 and lane / 4 + 8, whose m, l and slopes
+  // are m[0..1], l[0..1], sl[0..1]
+  constexpr int kRowsHeld = kMma ? 2 : kG;
+  float acc[kMma ? 1 : kG][kMma ? 1 : kCpl * kVec], m[kRowsHeld], l[kRowsHeld], sl[kRowsHeld];
+  uint32_t qa[kMma ? kDP / 16 : 1][4];
+  float o[kMma ? kDP / 8 : 1][4];
   const bool alibi = kRagged && a.slopes != nullptr;
+  const int fr = lane >> 2, fc = 2 * (lane & 3);   // a fragment's row and column
+  if constexpr (kMma) {
+    // K's columns [D, round16(D)) are never loaded: zeros, once
+    if (D % 16)
+      for (int j = tid; j < a.stages * 2 * kTileK; j += kThreads)
+        *reinterpret_cast<uint4*>(ring + (size_t)j * pitch + D) = make_uint4(0u, 0u, 0u, 0u);
 #pragma unroll
-  for (int g = 0; g < kG; ++g) {
-    sl[g] = alibi && g < GB ? a.slopes[h * G + g0 + g] : 0.f;
-    m[g] = kNegInf;
-    l[g] = 0.f;
+    for (int kk = 0; kk < kDP / 16; ++kk) {
 #pragma unroll
-    for (int x = 0; x < kCpl * kVec; ++x) acc[g][x] = 0.f;
+      for (int i = 0; i < 4; ++i) {
+        const int g = fr + 8 * (i & 1), col = 16 * kk + fc + 8 * (i >> 1);
+        qa[kk][i] = g < GB && col < D
+                        ? *reinterpret_cast<const uint32_t*>(q_rows + (long long)g * D + col)
+                        : 0u;
+      }
+    }
+#pragma unroll
+    for (int rr = 0; rr < 2; ++rr) {
+      const int g = fr + 8 * rr;
+      sl[rr] = alibi && g < GB ? a.slopes[h * G + g0 + g] : 0.f;
+      m[rr] = kNegInf;
+      l[rr] = 0.f;
+    }
+#pragma unroll
+    for (int i = 0; i < kDP / 8; ++i) o[i][0] = o[i][1] = o[i][2] = o[i][3] = 0.f;
+  } else {
+#pragma unroll
+    for (int i = 0; i < kQ; ++i)
+      if (tid + i * kThreads < qn) unpack<T>(qv[i], q_s + (tid + i * kThreads) * kVec);
+    for (int i = GB * D + tid; i < kG * D; i += kThreads) q_s[i] = 0.f;
+#pragma unroll
+    for (int g = 0; g < kG; ++g) {
+      sl[g] = alibi && g < GB ? a.slopes[h * G + g0 + g] : 0.f;
+      m[g] = kNegInf;
+      l[g] = 0.f;
+#pragma unroll
+      for (int x = 0; x < kCpl * kVec; ++x) acc[g][x] = 0.f;
+    }
   }
 
   float* pw = p_w + warp * kG * kWarpKeys;
@@ -413,91 +514,187 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
     }
     const int use = tile_s[slot];
     if (use >= ihi) break;
-    const T* ks = ring + (size_t)slot * 2 * kTileK * D;
-    const T* vs = ks + kTileK * D;
+    const T* ks = ring + (size_t)slot * 2 * kTileK * pitch;
+    const T* vs = ks + kTileK * pitch;
     const int t0 = tile_at(use) * kTileK, n = min(kTileK, kend - t0);
 
-    // the score of key kl on lanes 2kl and 2kl+1, NEG_INF where masked or
-    // past the tile; a ragged key below the window start is masked unless it
-    // is a meta sink, which only a tile below ws and past num_meta can hold
-    const int j = warp * kWarpKeys + kl;
-    const int pos = t0 + j;
-    const bool live = j < n;
-    bool ok = live;
-    if constexpr (kMode == Mode::kValid) ok = live && valid[pos];
-    if constexpr (kRagged) {
-      if (t0 < ws && t0 + kTileK > a.num_meta) ok = live && (pos >= ws || pos < a.num_meta);
-    }
-    // ALiBi: the query sits at kend - 1
-    const float dist = (float)max(kend - 1 - pos, 0);
-    float sc[kG];
+    if constexpr (kMma) {
+      // S = Q.K^T over the warp's 16 keys, two n8 tiles a k16 step: lane l
+      // gives ldmatrix the row of key l % 8 (+ 8 for l >= 16) at the step's
+      // chunk (l / 8) % 2, so that its four 8 x 8 matrices are the B
+      // fragments of keys 0-7 and 8-15
+      const int k_row = warp * kWarpKeys + (lane & 7) + ((lane >> 4) << 3);
+      const uint32_t k_lane = smem_u32(ks + k_row * pitch + ((lane >> 3) & 1) * 8);
+      float s[2][4] = {};
 #pragma unroll
-    for (int g = 0; g < kG; ++g) sc[g] = 0.f;
-    if (live) {
-      const int c1 = min(nchunk, (hf + 1) * half);
+      for (int kk = 0; kk < kDP / 16; ++kk) {
+        if (kk * 16 < D) {
+          uint32_t kf[4];
+          ssd::ldsm_x4(kf, k_lane + kk * 32);
+          ssd::mma_bf16(s[0], qa[kk], kf[0], kf[1]);
+          ssd::mma_bf16(s[1], qa[kk], kf[2], kf[3]);
+        }
+      }
+      // s[nt][e] is row fr + 8 (e / 2) against key 8 nt + fc + e % 2 of the
+      // warp's 16: the masks, the ALiBi bias and the online softmax of the
+      // CUDA-core body below, each row's max and sum over the fragment's 4 lanes
+      bool ok[2][2];
+      float dist[2][2];
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+#pragma unroll
+        for (int c = 0; c < 2; ++c) {
+          const int j = warp * kWarpKeys + 8 * nn + fc + c;
+          const int pos = t0 + j;
+          const bool live = j < n;
+          bool k_ok = live;
+          if constexpr (kMode == Mode::kValid) k_ok = live && valid[pos];
+          if constexpr (kRagged) {
+            if (t0 < ws && t0 + kTileK > a.num_meta)
+              k_ok = live && (pos >= ws || pos < a.num_meta);
+          }
+          ok[nn][c] = k_ok;
+          dist[nn][c] = (float)max(kend - 1 - pos, 0);
+        }
+      }
+      float mx[2] = {kNegInf, kNegInf};
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const int rr = e >> 1, c = e & 1;
+          const float dot = s[nn][e];
+          s[nn][e] = ok[nn][c] ? (alibi ? dot * a.scale - sl[rr] * dist[nn][c] : dot * a.scale)
+                               : kNegInf;
+          mx[rr] = fmaxf(mx[rr], s[nn][e]);
+        }
+      }
+      float alpha[2], sum[2] = {0.f, 0.f};
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) {
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 1));
+        mx[rr] = fmaxf(mx[rr], __shfl_xor_sync(0xffffffffu, mx[rr], 2));
+        const float m_new = fmaxf(m[rr], mx[rr]);
+        alpha[rr] = expf(m[rr] - m_new);
+        m[rr] = m_new;
+      }
+#pragma unroll
+      for (int nn = 0; nn < 2; ++nn) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          // a masked key weighs exactly nothing, as exp(NEG_INF - m) does
+          const float p = ok[nn][e & 1] ? expf(s[nn][e] - m[e >> 1]) : 0.f;
+          s[nn][e] = p;
+          sum[e >> 1] += p;
+        }
+      }
+#pragma unroll
+      for (int rr = 0; rr < 2; ++rr) l[rr] = l[rr] * alpha[rr] + sum[rr];   // this lane's keys
+#pragma unroll
+      for (int i = 0; i < kDP / 8; ++i) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) o[i][e] *= alpha[e >> 1];
+      }
+      // O += P.V: the two n8 tiles of P, in bf16, are the A fragment of one
+      // k16 step over the warp's keys; lane l gives ldmatrix.trans the row of
+      // key l % 8 (+ 8 for (l / 8) odd) at chunk l / 16 of each 16 columns,
+      // so that its matrices are the B fragments of columns 0-7 and 8-15
+      const uint32_t pa[4] = {pack_bf16(s[0][0], s[0][1]), pack_bf16(s[0][2], s[0][3]),
+                              pack_bf16(s[1][0], s[1][1]), pack_bf16(s[1][2], s[1][3])};
+      const int v_row = warp * kWarpKeys + (lane & 7) + (((lane >> 3) & 1) << 3);
+      const uint32_t v_lane = smem_u32(vs + v_row * pitch + (lane >> 4) * 8);
+#pragma unroll
+      for (int dd = 0; dd < kDP / 16; ++dd) {
+        if (dd * 16 < D) {
+          uint32_t vf[4];
+          ssd::ldsm_x4_trans(vf, v_lane + dd * 32);
+          ssd::mma_bf16(o[2 * dd], pa, vf[0], vf[1]);
+          if (dd * 16 + 8 < D) ssd::mma_bf16(o[2 * dd + 1], pa, vf[2], vf[3]);
+        }
+      }
+    } else {
+      // the score of key kl on lanes 2kl and 2kl+1, NEG_INF where masked or
+      // past the tile; a ragged key below the window start is masked unless it
+      // is a meta sink, which only a tile below ws and past num_meta can hold
+      const int j = warp * kWarpKeys + kl;
+      const int pos = t0 + j;
+      const bool live = j < n;
+      bool ok = live;
+      if constexpr (kMode == Mode::kValid) ok = live && valid[pos];
+      if constexpr (kRagged) {
+        if (t0 < ws && t0 + kTileK > a.num_meta) ok = live && (pos >= ws || pos < a.num_meta);
+      }
+      // ALiBi: the query sits at kend - 1
+      const float dist = (float)max(kend - 1 - pos, 0);
+      float sc[kG];
+#pragma unroll
+      for (int g = 0; g < kG; ++g) sc[g] = 0.f;
+      if (live) {
+        const int c1 = min(nchunk, (hf + 1) * half);
 #pragma unroll 4
-      for (int c = hf * half; c < c1; ++c) {
-        float kf[kVec];
-        load_chunk(ks + j * D + k_at(j, c) * kVec, kf);
+        for (int c = hf * half; c < c1; ++c) {
+          float kf[kVec];
+          load_chunk(ks + j * D + k_at(j, c) * kVec, kf);
 #pragma unroll
-        for (int g = 0; g < kG; ++g) {
+          for (int g = 0; g < kG; ++g) {
 #pragma unroll
-          for (int x = 0; x < kVec; x += 4) {
-            const float4 qv = q4[(g * D + c * kVec + x) >> 2];
-            sc[g] = fmaf(qv.x, kf[x], sc[g]);
-            sc[g] = fmaf(qv.y, kf[x + 1], sc[g]);
-            sc[g] = fmaf(qv.z, kf[x + 2], sc[g]);
-            sc[g] = fmaf(qv.w, kf[x + 3], sc[g]);
+            for (int x = 0; x < kVec; x += 4) {
+              const float4 qv = q4[(g * D + c * kVec + x) >> 2];
+              sc[g] = fmaf(qv.x, kf[x], sc[g]);
+              sc[g] = fmaf(qv.y, kf[x + 1], sc[g]);
+              sc[g] = fmaf(qv.z, kf[x + 2], sc[g]);
+              sc[g] = fmaf(qv.w, kf[x + 3], sc[g]);
+            }
           }
         }
       }
-    }
 
-    // online softmax over the warp's 16 keys: lanes of one parity hold each
-    // key once, so 4 shuffle levels reduce over the keys
+      // online softmax over the warp's 16 keys: lanes of one parity hold each
+      // key once, so 4 shuffle levels reduce over the keys
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
-      const float dot = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 1);
-      const float s = ok ? (alibi ? dot * a.scale - sl[g] * dist : dot * a.scale) : kNegInf;
-      float mx = s;
+      for (int g = 0; g < kG; ++g) {
+        const float dot = sc[g] + __shfl_xor_sync(0xffffffffu, sc[g], 1);
+        const float s = ok ? (alibi ? dot * a.scale - sl[g] * dist : dot * a.scale) : kNegInf;
+        float mx = s;
 #pragma unroll
-      for (int o = 2; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
-      const float m_new = fmaxf(m[g], mx);
-      // a masked key weighs exactly nothing, as exp(NEG_INF - m) does
-      const float p = ok ? expf(s - m_new) : 0.f;
-      float sum = p;
+        for (int o = 2; o < 32; o <<= 1) mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+        const float m_new = fmaxf(m[g], mx);
+        // a masked key weighs exactly nothing, as exp(NEG_INF - m) does
+        const float p = ok ? expf(s - m_new) : 0.f;
+        float sum = p;
 #pragma unroll
-      for (int o = 2; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
-      const float alpha = expf(m[g] - m_new);
-      l[g] = l[g] * alpha + sum;
-      m[g] = m_new;
+        for (int o = 2; o < 32; o <<= 1) sum += __shfl_xor_sync(0xffffffffu, sum, o);
+        const float alpha = expf(m[g] - m_new);
+        l[g] = l[g] * alpha + sum;
+        m[g] = m_new;
 #pragma unroll
-      for (int x = 0; x < kCpl * kVec; ++x) acc[g][x] *= alpha;
-      if (hf == 0) pw[g * kWarpKeys + kl] = p;
-    }
-    __syncwarp();
+        for (int x = 0; x < kCpl * kVec; ++x) acc[g][x] *= alpha;
+        if (hf == 0) pw[g * kWarpKeys + kl] = p;
+      }
+      __syncwarp();
 
-    // P.V: this lane's chunks of its keys' V rows
+      // P.V: this lane's chunks of its keys' V rows
 #pragma unroll 4
-    for (int ps = 0; ps < passes; ++ps) {
-      const int kv = ps * kpp + kg, jv = warp * kWarpKeys + kv;
-      if (kv < kWarpKeys && jv < n) {
-        float vf[kCpl * kVec];
+      for (int ps = 0; ps < passes; ++ps) {
+        const int kv = ps * kpp + kg, jv = warp * kWarpKeys + kv;
+        if (kv < kWarpKeys && jv < n) {
+          float vf[kCpl * kVec];
 #pragma unroll
-        for (int cc = 0; cc < kCpl; ++cc) {
-          const int c = lk + cc * lpk;
-          if (c < nchunk) {
-            load_chunk(vs + jv * D + c * kVec, &vf[cc * kVec]);
-          } else {
+          for (int cc = 0; cc < kCpl; ++cc) {
+            const int c = lk + cc * lpk;
+            if (c < nchunk) {
+              load_chunk(vs + jv * D + c * kVec, &vf[cc * kVec]);
+            } else {
 #pragma unroll
-            for (int x = 0; x < kVec; ++x) vf[cc * kVec + x] = 0.f;
+              for (int x = 0; x < kVec; ++x) vf[cc * kVec + x] = 0.f;
+            }
           }
-        }
 #pragma unroll
-        for (int g = 0; g < kG; ++g) {
-          const float p = pw[g * kWarpKeys + kv];
+          for (int g = 0; g < kG; ++g) {
+            const float p = pw[g * kWarpKeys + kv];
 #pragma unroll
-          for (int x = 0; x < kCpl * kVec; ++x) acc[g][x] = fmaf(p, vf[x], acc[g][x]);
+            for (int x = 0; x < kCpl * kVec; ++x) acc[g][x] = fmaf(p, vf[x], acc[g][x]);
+          }
         }
       }
     }
@@ -506,31 +703,58 @@ __device__ __forceinline__ void split_body(const SplitArgs& a) {
   }
   cp_async_wait(0);
 
-  // the warps' partials: fold the key groups of each chunk, then store
-  for (int o = lpk; o < 32; o <<= 1) {
+  if constexpr (kMma) {
+    // the warps' partials: each row's l summed over the fragment's 4 lanes,
+    // then O and (m, l) stored into the ring (every warp left the loop after
+    // the barrier that follows its last read of a tile, and no copy into the
+    // ring is in flight: the last issue() found no tile to load)
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
-#pragma unroll
-      for (int x = 0; x < kCpl * kVec; ++x) acc[g][x] += __shfl_xor_sync(0xffffffffu, acc[g][x], o);
+    for (int rr = 0; rr < 2; ++rr) {
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 1);
+      l[rr] += __shfl_xor_sync(0xffffffffu, l[rr], 2);
     }
-  }
-  if (kg == 0) {
 #pragma unroll
-    for (int g = 0; g < kG; ++g) {
+    for (int i = 0; i < kDP / 8; ++i) {
+      const int col = 8 * i + fc;
+      if (col < D) {
 #pragma unroll
-      for (int cc = 0; cc < kCpl; ++cc) {
-        const int c = lk + cc * lpk;
-        if (c < nchunk) {
+        for (int rr = 0; rr < 2; ++rr)
+          *reinterpret_cast<float2*>(acc_w + (warp * kG + fr + 8 * rr) * D + col) =
+              make_float2(o[i][2 * rr], o[i][2 * rr + 1]);
+      }
+    }
+    if ((lane & 3) == 0) {
 #pragma unroll
-          for (int x = 0; x < kVec; ++x)
-            acc_w[(warp * kG + g) * D + c * kVec + x] = acc[g][cc * kVec + x];
+      for (int rr = 0; rr < 2; ++rr) ml_w[warp * kG + fr + 8 * rr] = make_float2(m[rr], l[rr]);
+    }
+  } else {
+    // the warps' partials: fold the key groups of each chunk, then store
+    for (int o = lpk; o < 32; o <<= 1) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+#pragma unroll
+        for (int x = 0; x < kCpl * kVec; ++x)
+          acc[g][x] += __shfl_xor_sync(0xffffffffu, acc[g][x], o);
+      }
+    }
+    if (kg == 0) {
+#pragma unroll
+      for (int g = 0; g < kG; ++g) {
+#pragma unroll
+        for (int cc = 0; cc < kCpl; ++cc) {
+          const int c = lk + cc * lpk;
+          if (c < nchunk) {
+#pragma unroll
+            for (int x = 0; x < kVec; ++x)
+              acc_w[(warp * kG + g) * D + c * kVec + x] = acc[g][cc * kVec + x];
+          }
         }
       }
     }
-  }
-  if (lane == 0) {
+    if (lane == 0) {
 #pragma unroll
-    for (int g = 0; g < kG; ++g) ml_w[warp * kG + g] = make_float2(m[g], l[g]);
+      for (int g = 0; g < kG; ++g) ml_w[warp * kG + g] = make_float2(m[g], l[g]);
+    }
   }
   __syncthreads();
   // the block's partial: each element merged over the warps by the usual
@@ -639,9 +863,33 @@ __global__ void __launch_bounds__(kThreads) batched_decode_split_kernel(SplitArg
   split_body<T, Mode::kRagged, kG, kCpl>(a);
 }
 
-// query rows one block takes: the whole group for gpt2 (G 1) and Hymba (G 5),
-// which also serves G 2-4; 8 rows otherwise, a group above 8 in blocks of 8
-int rows_per_block(int G) { return G == 1 ? 1 : G <= 5 ? 5 : 8; }
+// the tensor-core instance, by mode and padded head dim, under names of its own
+template <int kDP>
+__global__ void __launch_bounds__(kThreads) valid_decode_mma_kernel(SplitArgs a) {
+  split_body<__nv_bfloat16, Mode::kValid, kMmaRows, kWideCpl, kDP>(a);
+}
+
+template <int kDP>
+__global__ void __launch_bounds__(kThreads) paged_decode_mma_kernel(SplitArgs a) {
+  split_body<__nv_bfloat16, Mode::kPaged, kMmaRows, kWideCpl, kDP>(a);
+}
+
+template <int kDP>
+__global__ void __launch_bounds__(kThreads) batched_decode_mma_kernel(SplitArgs a) {
+  split_body<__nv_bfloat16, Mode::kRagged, kMmaRows, kWideCpl, kDP>(a);
+}
+
+// Query rows one block takes, by (dtype, G) alone.  bf16 groups of kMmaMinG
+// or more take the tensor-core instance, 16 rows a block: yi-34b (56:8
+// heads, G 7), qwen3-moe-30b-a3b (32:4, G 8) and nemotron-4-340b (96:8, G
+// 12) in one block a group.  Below that the whole group takes one block on
+// the CUDA cores: gpt2, phi-3-vision and seamless (G 1), internlm2 (G 2),
+// Hymba and smollm (G 5), which also serves G 3-4; f32 keeps 8 rows a block
+// above 5, a group above 8 in blocks of 8.
+bool use_mma(size_t es, int G) { return es == 2 && G >= kMmaMinG; }
+int rows_per_block(size_t es, int G) {
+  return use_mma(es, G) ? kMmaRows : G == 1 ? 1 : G <= 5 ? 5 : 8;
+}
 
 size_t split_smem(size_t es, int D, int stages, int kG) {
   return (size_t)stages * 2 * kTileK * D * es +
@@ -649,6 +897,14 @@ size_t split_smem(size_t es, int D, int stages, int kG) {
                           (size_t)kWarps * kG * D + (size_t)2 * kWarps * kG + (size_t)kG * D +
                           (size_t)2 * kG) +
          sizeof(int) * kMaxStages;
+}
+
+// The tensor-core instance's: the ring of padded bf16 rows (which the warps'
+// partials reuse: 4 x 16 x D f32 and their (m, l) fit in one stage), the
+// block's partial and its (m, l), the ring's tile indices.
+size_t mma_smem(int D, int stages) {
+  return (size_t)stages * 2 * kTileK * mma_pitch(D) * 2 +
+         sizeof(float) * ((size_t)kMmaRows * D + 2 * (size_t)kMmaRows) + sizeof(int) * kMaxStages;
 }
 
 struct SplitPlan {
@@ -684,12 +940,19 @@ SplitPlan plan_split(size_t es, int B, int S, int Hq, int Hkv, int D, int kG,
   return {splits, stages, split_smem(es, D, stages, kG)};
 }
 
-template <typename T, Mode kMode, int kG, int kCpl>
+template <typename T, Mode kMode, int kG, int kCpl, int kDP = 0>
 cudaError_t launch_split_kernel(const SplitArgs& a, const SplitPlan& p, int B,
                                 cudaStream_t stream) {
-  void (*kernel)(SplitArgs) = valid_decode_split_kernel<T, kG, kCpl>;
-  if constexpr (kMode == Mode::kPaged) kernel = paged_decode_split_kernel<T, kG, kCpl>;
-  if constexpr (kMode == Mode::kRagged) kernel = batched_decode_split_kernel<T, kG, kCpl>;
+  void (*kernel)(SplitArgs) = nullptr;
+  if constexpr (kDP > 0) {
+    if constexpr (kMode == Mode::kValid) kernel = valid_decode_mma_kernel<kDP>;
+    if constexpr (kMode == Mode::kPaged) kernel = paged_decode_mma_kernel<kDP>;
+    if constexpr (kMode == Mode::kRagged) kernel = batched_decode_mma_kernel<kDP>;
+  } else {
+    if constexpr (kMode == Mode::kValid) kernel = valid_decode_split_kernel<T, kG, kCpl>;
+    if constexpr (kMode == Mode::kPaged) kernel = paged_decode_split_kernel<T, kG, kCpl>;
+    if constexpr (kMode == Mode::kRagged) kernel = batched_decode_split_kernel<T, kG, kCpl>;
+  }
   // once per kernel and device: allow the most shared memory a block may use
   static bool allowed[64] = {};
   int dev = 0;
@@ -722,7 +985,7 @@ cudaError_t launch_split_kernel(const SplitArgs& a, const SplitPlan& p, int B,
 // its lane plan takes more chunks a lane than the base one can hold.
 template <typename T, int kG>
 int cpl_for(int D) {
-  if constexpr (has_wide<T>(kG)) {
+  if constexpr (has_wide<T>()) {
     if (lane_plan(D / (16 / (int)sizeof(T)), kWideCpl).cpl > kBaseCpl<T>) return kWideCpl;
   }
   return kBaseCpl<T>;
@@ -731,39 +994,84 @@ int cpl_for(int D) {
 template <typename T, int kG>
 SplitPlan plan_rows(int B, int S, int Hq, int Hkv, int D) {
   const void* kernel = (const void*)valid_decode_split_kernel<T, kG, kBaseCpl<T>>;
-  if constexpr (has_wide<T>(kG)) {
+  if constexpr (has_wide<T>()) {
     if (cpl_for<T, kG>(D) == kWideCpl)
       kernel = (const void*)valid_decode_split_kernel<T, kG, kWideCpl>;
   }
   return plan_split(sizeof(T), B, S, Hq, Hkv, D, kG, kernel);
 }
 
+// The tensor-core instance's launch shape: two ring stages, and of the
+// cluster sizes whose clusters the device holds all at once (the runtime's
+// occupancy count), the one that gives a block the fewest tiles of the
+// capacity, the smallest such; one cluster of one where none is resident.
+template <int kDP>
+SplitPlan plan_mma(int B, int S, int Hq, int Hkv, int D) {
+  const long long clusters = (long long)B * Hkv * ((Hq / Hkv + kMmaRows - 1) / kMmaRows);
+  const int nt = (S + kTileK - 1) / kTileK;
+  const int stages = 2;
+  const size_t smem = mma_smem(D, stages);
+  int splits = 1, longest = nt;
+  for (int s = 1; s <= kMaxSplits && s <= nt; ++s) {
+    const int l = (nt + s - 1) / s;
+    const void* kernel = (const void*)valid_decode_mma_kernel<kDP>;
+    if (l < longest && resident_clusters(kernel, kThreads, s, smem) >= clusters) {
+      splits = s;
+      longest = l;
+    }
+  }
+  return {splits, stages, smem};
+}
+
 template <typename T, Mode kMode, int kG>
 cudaError_t launch_split_rows(SplitArgs a, int B, cudaStream_t stream) {
   const SplitPlan p = plan_rows<T, kG>(B, a.S, a.Hq, a.Hkv, a.D);
   a.stages = p.stages;
-  if constexpr (has_wide<T>(kG)) {
+  if constexpr (has_wide<T>()) {
     if (cpl_for<T, kG>(a.D) == kWideCpl)
       return launch_split_kernel<T, kMode, kG, kWideCpl>(a, p, B, stream);
   }
   return launch_split_kernel<T, kMode, kG, kBaseCpl<T>>(a, p, B, stream);
 }
 
+template <Mode kMode, int kDP>
+cudaError_t launch_mma(SplitArgs a, int B, cudaStream_t stream) {
+  const SplitPlan p = plan_mma<kDP>(B, a.S, a.Hq, a.Hkv, a.D);
+  a.stages = p.stages;
+  return launch_split_kernel<__nv_bfloat16, kMode, kMmaRows, kWideCpl, kDP>(a, p, B, stream);
+}
+
 template <typename T, Mode kMode>
 cudaError_t launch_split(const SplitArgs& a, int B, cudaStream_t stream) {
-  switch (rows_per_block(a.Hq / a.Hkv)) {
-    case 1: return launch_split_rows<T, kMode, 1>(a, B, stream);
-    case 5: return launch_split_rows<T, kMode, 5>(a, B, stream);
-    default: return launch_split_rows<T, kMode, 8>(a, B, stream);
+  const int rows = rows_per_block(sizeof(T), a.Hq / a.Hkv);
+  if (rows == 1) return launch_split_rows<T, kMode, 1>(a, B, stream);
+  if (rows == 5) return launch_split_rows<T, kMode, 5>(a, B, stream);
+  if constexpr (sizeof(T) == 2) {          // rows == kMmaRows
+    switch (mma_dp(a.D)) {
+      case 64: return launch_mma<kMode, 64>(a, B, stream);
+      case 128: return launch_mma<kMode, 128>(a, B, stream);
+      case 192: return launch_mma<kMode, 192>(a, B, stream);
+      default: return launch_mma<kMode, 256>(a, B, stream);
+    }
+  } else {
+    return launch_split_rows<T, kMode, 8>(a, B, stream);
   }
 }
 
 template <typename T>
 SplitPlan plan_dtype(int B, int S, int Hq, int Hkv, int D) {
-  switch (rows_per_block(Hq / Hkv)) {
-    case 1: return plan_rows<T, 1>(B, S, Hq, Hkv, D);
-    case 5: return plan_rows<T, 5>(B, S, Hq, Hkv, D);
-    default: return plan_rows<T, 8>(B, S, Hq, Hkv, D);
+  const int rows = rows_per_block(sizeof(T), Hq / Hkv);
+  if (rows == 1) return plan_rows<T, 1>(B, S, Hq, Hkv, D);
+  if (rows == 5) return plan_rows<T, 5>(B, S, Hq, Hkv, D);
+  if constexpr (sizeof(T) == 2) {
+    switch (mma_dp(D)) {
+      case 64: return plan_mma<64>(B, S, Hq, Hkv, D);
+      case 128: return plan_mma<128>(B, S, Hq, Hkv, D);
+      case 192: return plan_mma<192>(B, S, Hq, Hkv, D);
+      default: return plan_mma<256>(B, S, Hq, Hkv, D);
+    }
+  } else {
+    return plan_rows<T, 8>(B, S, Hq, Hkv, D);
   }
 }
 

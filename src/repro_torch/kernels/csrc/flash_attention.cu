@@ -29,10 +29,8 @@
 //   * Loads: one thread issues TMA copies through 4-D tensor maps over
 //     [B, S, H, D] (encoded on the host for each call), Q once and K/V tiles
 //     of 64 keys into a ring of two stages, each with its mbarrier, so the
-//     next tile's copy overlaps this tile's products (at D = 192 one stage,
-//     and three blocks to an SM overlap one another's copies instead: 23%
-//     less device time than two stages at nemotron's [1,512,96:8,192] on
-//     an H100 80GB HBM3 at 700 W, chip_smoke.py's kernels phase).  A box
+//     next tile's copy overlaps this tile's products (at D = 192, where only
+//     the split instance runs this body, one stage: kv_stages).  A box
 //     past Skv (or past Sq) reads TMA's zero fill, never the next batch
 //     row.  A box is 64 rows by 64 bf16 columns (128 bytes) under the
 //     128-byte swizzle; D = 16 and 32 read zeros past D, D = 128 takes two
@@ -72,6 +70,18 @@
 //     prefill; phi-3-vision's heads at 512 tokens, whose 256 tiles of 83 KB
 //     blocks would not all be resident split in two) do not split: they run
 //     flash_wgmma_kernel<D, false>, the body without the cluster.
+//   * At D = 192 (nemotron-4-340b's 96:8 heads) the calls that do not split
+//     take FlashAttention-3's shape (flash_wgmma_ws_kernel): a block of three
+//     warpgroups owns 128 query rows.  The last, its registers handed down
+//     by setmaxnreg (24 a thread), is the producer: one thread issues Q once
+//     and the K/V tiles into a two-stage ring with full and empty mbarriers.
+//     The two consumer warpgroups (240 registers a thread; O alone is 96)
+//     each run the tile step above on 64 of the rows, bit for bit the
+//     one-warpgroup body's, so a K/V tile is loaded once for 128 rows and the
+//     next one's copy runs under this one's products.  Q 48 KB and the ring
+//     96 KB: one block an SM.  The one-warpgroup body there had one K/V
+//     stage (two held a block to one an SM, 121 KB; one let three blocks
+//     overlap one another's copies) and read every key tile once per 64 rows.
 // f32 (flash_kernel) keeps the CUDA-core body: TF32 or bf16 products
 // cannot hold the f32 parity band of 2e-5.  Each of its 128 threads holds a
 // 4 x 8 patch of the 64 x 64 score tile and a 4 x (D/8) patch of the output
@@ -275,12 +285,14 @@ constexpr size_t smem_bytes(int D) {
 // bf16: one warpgroup on wgmma, K/V by TMA
 // ---------------------------------------------------------------------------
 
-// K/V tiles in flight: two, the next tile's copy under this tile's
-// products; one at D = 192, whose two stages would hold a block to one per
-// SM (121 KB), where one stage (73 KB) lets three blocks overlap one
-// another's loads instead.  Both measured in turns (H100 80GB HBM3, 700 W,
-// chip_smoke.py's kernels phase): one stage at D = 192 takes 23% off the
-// device time; one stage below 192 adds 12-15% at D = 96 and 128, 1-2% at 64.
+// K/V tiles in flight in the one-warpgroup body: two, the next tile's copy
+// under this tile's products; one at D = 192, where only the split instance
+// runs it (the unsplit calls take flash_wgmma_ws_kernel's ring), whose two
+// stages would hold a block to one per SM (121 KB), where one stage (73 KB)
+// lets three blocks overlap one another's loads instead.  Both measured in
+// turns on the unsplit body (H100 80GB HBM3, 700 W, chip_smoke.py's kernels
+// phase): one stage at D = 192 took 23% off the device time; one stage below
+// 192 adds 12-15% at D = 96 and 128, 1-2% at 64.
 __host__ __device__ constexpr int kv_stages(int D) { return D > 128 ? 1 : 2; }
 
 // Q, the K and V tiles, their mbarriers, and 1 KB to align the boxes to the
@@ -385,6 +397,134 @@ __device__ __forceinline__ void combine_split(const float (&o)[kDP / 2], const f
   }
 }
 
+// One 64-key tile for one warpgroup's 64 query rows (q0 ..), Q, K and V
+// 64-row tiles in shared memory, in three steps: qk_issue starts S = Q.K^T
+// on wgmma; softmax_tile masks the scores where the tile needs it and runs
+// the online softmax on the accumulator fragment (m in log2 units of the
+// scaled scores, l this thread's columns), leaving P in s and O rescaled;
+// pv_issue starts O += P.V.  Thread (warp w, lane l) holds rows r0 = 16 w +
+// l / 4 and r0 + 8; lim0 is the last key row r0 sees.
+
+// S = Q.K^T: K-major boxes; a k16 step is 32 bytes along a 128-byte row
+template <int D>
+__device__ __forceinline__ void qk_issue(float (&s)[32], uint32_t q_addr, uint32_t k_addr) {
+#pragma unroll
+  for (int i = 0; i < 32; ++i) s[i] = 0.f;
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < D / 16; ++kk) {    // the zero columns past D add nothing
+    const uint32_t step = (kk / 4) * kAtom + (kk % 4) * 32;
+    wgmma_ss_n64(s, gmma_desc(q_addr + step, 16, 1024), gmma_desc(k_addr + step, 16, 1024),
+                 kk > 0);
+  }
+  wgmma_commit();
+}
+
+template <int kDP>
+__device__ __forceinline__ void softmax_tile(float (&s)[32], float (&o)[kDP / 2], float (&m)[2],
+                                             float (&l)[2], int t0, int q0, int lim0, int off,
+                                             int Skv, int causal, float scale_log2, int lane) {
+  // the mask and the row max act on raw scores; the scale (positive)
+  // enters once, in the exponent's multiply-add
+  const bool edge = t0 + kBK > Skv || (causal && t0 + kBK - 1 > q0 + off);
+  if (edge) {
+#pragma unroll
+    for (int i = 0; i < 32; ++i) {
+      const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
+      const int lim = lim0 + 8 * ((i >> 1) & 1);
+      if (key >= Skv || (causal && key > lim)) s[i] = kNegInf;
+    }
+  }
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int i = 0; i < 32; ++i)
+      if (((i >> 1) & 1) == r) mx = fmaxf(mx, s[i]);
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_new = fmaxf(m[r], mx * scale_log2);
+    alpha[r] = fast_exp2(m[r] - m_new);
+    m[r] = m_new;
+  }
+  float sum[2] = {0.f, 0.f};
+#pragma unroll
+  for (int i = 0; i < 32; ++i) {
+    const int r = (i >> 1) & 1;
+    s[i] = fast_exp2(fmaf(s[i], scale_log2, -m[r]));
+    sum[r] += s[i];
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
+#pragma unroll
+  for (int i = 0; i < kDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
+}
+
+// O += P.V: P's k16 step kk is score columns 16 kk .. 16 kk + 15, which the
+// accumulator fragment holds as the A fragment wants them; V's k16 step is
+// 16 key rows, two 1024-byte swizzle atoms
+template <int kDP>
+__device__ __forceinline__ void pv_issue(float (&o)[kDP / 2], const float (&s)[32],
+                                         uint32_t v_addr) {
+  wgmma_fence();
+#pragma unroll
+  for (int kk = 0; kk < kBK / 16; ++kk) {
+    const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
+                           pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
+                           pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
+                           pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
+    wgmma_rs<kDP>(o, a, gmma_desc(v_addr + kk * 2048, kAtom, 1024));
+  }
+  wgmma_commit();
+}
+
+// The three in series, each product waited for.
+template <int D, int kDP>
+__device__ __forceinline__ void wgmma_tile(float (&o)[kDP / 2], float (&m)[2], float (&l)[2],
+                                           uint32_t q_addr, uint32_t k_addr, uint32_t v_addr,
+                                           int t0, int q0, int lim0, int off, int Skv,
+                                           int causal, float scale_log2, int lane) {
+  float s[32];
+  qk_issue<D>(s, q_addr, k_addr);
+  wgmma_wait_all();
+  fence_regs(s);
+  softmax_tile<kDP>(s, o, m, l, t0, q0, lim0, off, Skv, causal, scale_log2, lane);
+  pv_issue<kDP>(o, s, v_addr);
+  wgmma_wait_all();
+  fence_regs(o);
+}
+
+// A warpgroup's 64 rows from q0 (those below nq), once its l sums its row
+// over the fragment's four lanes: each row's LSE where asked, then O / l in
+// bf16 at the columns below D.
+template <int D, int kDP>
+__device__ __forceinline__ void store_rows(const float (&o)[kDP / 2], const float (&m)[2],
+                                           float (&l)[2], __nv_bfloat16* __restrict__ out,
+                                           float* __restrict__ lse, int b, int h, int q0, int nq,
+                                           int Sq, int Hq, int r0, int lane) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    // m is in log2 units of the scaled scores: LSE = (m + log2 l) ln 2
+    const int row = r0 + 8 * r;
+    if (lse != nullptr && (lane & 3) == 0 && row < nq)
+      lse[((long long)b * Hq + h) * Sq + q0 + row] = (m[r] + log2f(l[r])) * kLn2;
+    l[r] = 1.f / l[r];
+  }
+  const long long qrow = (long long)Hq * D;
+#pragma unroll
+  for (int i = 0; i < kDP / 2; i += 2) {
+    const int r = (i >> 1) & 1;
+    const int row = r0 + 8 * r;
+    const int col = 8 * (i >> 2) + 2 * (lane & 3);
+    if (col < D && row < nq) {
+      __nv_bfloat16* dst = out + ((long long)b * Sq + q0 + row) * qrow + (long long)h * D + col;
+      *reinterpret_cast<__nv_bfloat162*>(dst) =
+          __floats2bfloat162_rn(o[i] * l[r], o[i + 1] * l[r]);
+    }
+  }
+}
+
 // Fragment of a wgmma m64nN f32 accumulator: thread (warp w, lane l) holds
 // d[i] at row 16 w + l / 4 + 8 ((i >> 1) & 1), column 8 (i >> 2) + 2 (l & 3) + (i & 1).
 // kSplit: the block is one of a cluster that shares the query tile's key
@@ -472,76 +612,8 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
       if (tid == 0 && j + 1 < ntiles_b) load_kv(j + 1);
     }
     mbar_wait(&bars[1 + st], (j / kStages) & 1);
-
-    // S = Q.K^T: K-major boxes; a k16 step is 32 bytes along a 128-byte row
-    float s[32];
-#pragma unroll
-    for (int i = 0; i < 32; ++i) s[i] = 0.f;
-    const uint32_t k_addr = smem_u32(k_s + st * kTile);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {    // the zero columns past D add nothing
-      const uint32_t step = (kk / 4) * kAtom + (kk % 4) * 32;
-      wgmma_ss_n64(s, gmma_desc(q_addr + step, 16, 1024), gmma_desc(k_addr + step, 16, 1024),
-                   kk > 0);
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(s);
-
-    // the mask and the row max act on raw scores; the scale (positive)
-    // enters once, in the exponent's multiply-add
-    const int t0 = (jlo + j) * kBK;
-    const bool edge = t0 + kBK > Skv || (causal && t0 + kBK - 1 > q0 + off);
-    if (edge) {
-#pragma unroll
-      for (int i = 0; i < 32; ++i) {
-        const int key = t0 + 8 * (i >> 2) + 2 * (lane & 3) + (i & 1);
-        const int lim = lim0 + 8 * ((i >> 1) & 1);
-        if (key >= Skv || (causal && key > lim)) s[i] = kNegInf;
-      }
-    }
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int i = 0; i < 32; ++i)
-        if (((i >> 1) & 1) == r) mx = fmaxf(mx, s[i]);
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_new = fmaxf(m[r], mx * scale_log2);
-      alpha[r] = fast_exp2(m[r] - m_new);
-      m[r] = m_new;
-    }
-    float sum[2] = {0.f, 0.f};
-#pragma unroll
-    for (int i = 0; i < 32; ++i) {
-      const int r = (i >> 1) & 1;
-      s[i] = fast_exp2(fmaf(s[i], scale_log2, -m[r]));
-      sum[r] += s[i];
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) l[r] = l[r] * alpha[r] + sum[r];   // this thread's columns
-#pragma unroll
-    for (int i = 0; i < kDP / 2; ++i) o[i] *= alpha[(i >> 1) & 1];
-
-    // O += P.V: P's k16 step kk is score columns 16 kk .. 16 kk + 15, which
-    // the accumulator fragment holds as the A fragment wants them; V's k16
-    // step is 16 key rows, two 1024-byte swizzle atoms
-    const uint32_t v_addr = smem_u32(v_s + st * kTile);
-    wgmma_fence();
-#pragma unroll
-    for (int kk = 0; kk < kBK / 16; ++kk) {
-      const uint32_t a[4] = {pack_bf16(s[8 * kk], s[8 * kk + 1]),
-                             pack_bf16(s[8 * kk + 2], s[8 * kk + 3]),
-                             pack_bf16(s[8 * kk + 4], s[8 * kk + 5]),
-                             pack_bf16(s[8 * kk + 6], s[8 * kk + 7])};
-      wgmma_rs<kDP>(o, a, gmma_desc(v_addr + kk * 2048, kAtom, 1024));
-    }
-    wgmma_commit();
-    wgmma_wait_all();
-    fence_regs(o);
+    wgmma_tile<D, kDP>(o, m, l, q_addr, smem_u32(k_s + st * kTile), smem_u32(v_s + st * kTile),
+                       (jlo + j) * kBK, q0, lim0, off, Skv, causal, scale_log2, lane);
     __syncthreads();                       // every warp is done with stage st
     if constexpr (kStages == 1) {
       if (tid == 0 && j + 1 < ntiles_b) load_kv(j + 1);
@@ -560,25 +632,228 @@ flash_wgmma_kernel(const __grid_constant__ CUtensorMap qmap,
     combine_split<D, kDP>(o, m, l, recv, out, lse, b, h, q0, nq, Sq, Hq, splits, rank);
     return;
   }
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    // m is in log2 units of the scaled scores: LSE = (m + log2 l) ln 2
-    const int row = r0 + 8 * r;
-    if (lse != nullptr && (lane & 3) == 0 && row < nq)
-      lse[((long long)b * Hq + h) * Sq + q0 + row] = (m[r] + log2f(l[r])) * kLn2;
-    l[r] = 1.f / l[r];
-  }
-  const long long qrow = (long long)Hq * D;
-#pragma unroll
-  for (int i = 0; i < kDP / 2; i += 2) {
-    const int r = (i >> 1) & 1;
-    const int row = r0 + 8 * r;
-    const int col = 8 * (i >> 2) + 2 * (lane & 3);
-    if (col < D && row < nq) {
-      __nv_bfloat16* dst = out + ((long long)b * Sq + q0 + row) * qrow + (long long)h * D + col;
-      *reinterpret_cast<__nv_bfloat162*>(dst) =
-          __floats2bfloat162_rn(o[i] * l[r], o[i + 1] * l[r]);
+  store_rows<D, kDP>(o, m, l, out, lse, b, h, q0, nq, Sq, Hq, r0, lane);
+}
+
+// ---------------------------------------------------------------------------
+// bf16 at D = 192: two consumer warpgroups on a 128-row query tile
+// ---------------------------------------------------------------------------
+
+constexpr int kWG = 128;                   // threads of a warpgroup
+constexpr int kConsumers = 2;              // 64 query rows each
+constexpr int kWsThreads = (kConsumers + 1) * kWG;   // and the producer warpgroup
+constexpr int kWsStages = 2;               // K/V tiles in the ring
+constexpr int kProducerRegs = 24;          // 128 * 24 + 256 * 240 <= 65,536
+constexpr int kConsumerRegs = 240;
+
+// Q's two buffers of two 64-row tiles, the K and V rings, the mbarriers
+// (q_full[2], q_empty[2], k_full, v_full [stage], k_empty and v_empty
+// [stage][consumer]), and 1 KB to align the boxes: 193 KB at D = 192.
+constexpr int kQBufs = 2;
+constexpr size_t ws_smem_bytes(int D) {
+  return 1024 + (size_t)(kQBufs * kConsumers + 2 * kWsStages) * tile_bytes(D) +
+         8 * (2 * kQBufs + 2 * kWsStages + 2 * kWsStages * kConsumers);
+}
+
+// The work items of the persistent body: 128 query rows of one (batch,
+// query head), numbered with the row tiles nearest the end first (under
+// causal masking they read the most keys).  Block k of P takes item
+// r P + k in even rounds r and r P + P - 1 - k in odd ones, so that a block
+// given one of the heaviest items of a round gets one of the lightest of
+// the next.
+struct WsItem {
+  int qt, h, b;
+};
+__device__ __forceinline__ int ws_item_index(int r, int P, int k) {
+  return r * P + (r & 1 ? P - 1 - k : k);
+}
+__device__ __forceinline__ WsItem ws_item(int i, int qtiles, int Hq, int B) {
+  const int per = Hq * B;
+  const int r = i % per;
+  return {(qtiles - 1 - i / per) * kConsumers * kBQ, r % Hq, r / Hq};
+}
+
+// The key tiles consumer c reads in an item: those below the causal limit
+// of its last row (q0 = qt + 64 c), as the one-warpgroup body's block for
+// those rows reads them; none without a row below Sq.
+__device__ __forceinline__ int ws_tiles(int qt, int c, int Sq, int Skv, int causal) {
+  const int q0 = qt + c * kBQ;
+  const int nq = min(kBQ, Sq - q0);
+  const int kend = causal ? min(Skv, q0 + nq + Skv - Sq) : Skv;
+  return nq > 0 ? (kend + kBK - 1) / kBK : 0;
+}
+
+// FlashAttention-3's shape, persistent: one block of three warpgroups an
+// SM walks work items of 128 query rows (ws_item).  The last warpgroup, its
+// registers handed down by setmaxnreg, is the producer: one thread issues
+// each item's Q into one of two buffers and its K and V tiles of 64 keys
+// into two-stage rings, K and V apart, each with full and empty mbarriers,
+// so the next item's Q and first tiles load under this item's last steps
+// and its stores.  Each consumer warpgroup, its registers raised, owns 64
+// of an item's rows and runs the one-warpgroup body's tile step on them,
+// freeing a K tile once its S is done and a V tile once its P.V is: the
+// same operations on the same values, so its rows are that body's bits.
+// Both read the same tiles, so a K/V tile is loaded once for 128 rows.  A
+// consumer stops at the causal limit of its own last row, as that body's
+// block does, and frees a stage through its own empty barriers (the
+// producer waits on a consumer's only for the tiles it read); it still
+// waits for every tile of the item to land, so that no full barrier runs
+// two phases ahead of it.  Two variants were tried on an H100 and dropped,
+// each slower at nemotron's shapes: S of the next tile issued before this
+// tile's softmax, and the two consumers taking turns to issue products
+// (FA3's intra- and inter-warpgroup overlap).
+template <int D>
+__global__ void __launch_bounds__(kWsThreads, 1)
+flash_wgmma_ws_kernel(const __grid_constant__ CUtensorMap qmap,
+                      const __grid_constant__ CUtensorMap kmap,
+                      const __grid_constant__ CUtensorMap vmap, __nv_bfloat16* __restrict__ out,
+                      float* __restrict__ lse, int B, int Sq, int Skv, int Hq, int Hkv,
+                      int causal, float scale_log2) {
+  constexpr int kBoxes = boxes(D);
+  constexpr int kDP = 64 * kBoxes;
+  constexpr int kTile = tile_bytes(D);
+  const int qtiles = (Sq + kConsumers * kBQ - 1) / (kConsumers * kBQ);
+  const int n_items = qtiles * Hq * B;
+  const int P = gridDim.x;
+  const int G = Hq / Hkv;
+
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* base = smem_raw + ((1024 - (smem_u32(smem_raw) & 1023)) & 1023);
+  unsigned char* q_s = base;                         // [kQBufs][kConsumers][kBoxes][64][64]
+  unsigned char* k_s = q_s + kQBufs * kConsumers * kTile;   // [kWsStages][kBoxes][64][64]
+  unsigned char* v_s = k_s + kWsStages * kTile;
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(v_s + kWsStages * kTile);
+  uint64_t* q_empty = q_full + kQBufs;
+  uint64_t* k_full = q_empty + kQBufs;
+  uint64_t* v_full = k_full + kWsStages;
+  uint64_t* k_empty = v_full + kWsStages;            // [kWsStages][kConsumers]
+  uint64_t* v_empty = k_empty + kWsStages * kConsumers;
+  if (threadIdx.x == 0) {
+    for (int i = 0; i < kQBufs; ++i) {
+      mbar_init(&q_full[i], 1);
+      mbar_init(&q_empty[i], kConsumers * kWG);
     }
+    for (int s = 0; s < kWsStages; ++s) {
+      mbar_init(&k_full[s], 1);
+      mbar_init(&v_full[s], 1);
+      for (int c = 0; c < kConsumers; ++c) {
+        mbar_init(&k_empty[s * kConsumers + c], kWG);
+        mbar_init(&v_empty[s * kConsumers + c], kWG);
+      }
+    }
+    mbar_init_fence();
+  }
+  __syncthreads();
+
+  // warp-uniform to the compiler (a shuffle from lane 0), so that each
+  // warpgroup's branch, and its setmaxnreg, is seen to be taken whole
+  const int wg = __shfl_sync(0xffffffffu, threadIdx.x / kWG, 0);
+  if (wg == kConsumers) {
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x % kWG != 0) return;
+    // per stage: the consumers that read its tiles (a bit each), and the
+    // tiles each has read from it, whose last release to wait for
+    unsigned users[kWsStages] = {};
+    int reads[kWsStages][kConsumers] = {};
+    auto wait_free = [&](uint64_t* empty, int st) {
+#pragma unroll
+      for (int c = 0; c < kConsumers; ++c)
+        if (users[st] >> c & 1) mbar_wait(&empty[st * kConsumers + c], (reads[st][c] - 1) & 1);
+    };
+    int g = 0;                               // the rings' tiles so far
+    for (int r = 0, n = 0; r * P < n_items; ++r) {
+      const int i = ws_item_index(r, P, blockIdx.x);
+      if (i >= n_items) continue;
+      const WsItem it = ws_item(i, qtiles, Hq, B);
+      const int hk = it.h / G;
+      const int nt0 = ws_tiles(it.qt, 0, Sq, Skv, causal);
+      const int nt1 = ws_tiles(it.qt, 1, Sq, Skv, causal);
+      const int qb = n % kQBufs;
+      if (n >= kQBufs) mbar_wait(&q_empty[qb], (n / kQBufs - 1) & 1);
+      ++n;
+      // rows past Sq, a whole tile of them too, read TMA's zero fill
+      mbar_expect_tx(&q_full[qb], kConsumers * kTile);
+      for (int c = 0; c < kConsumers; ++c) {
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(q_s + (qb * kConsumers + c) * kTile + x * kAtom, &qmap, &q_full[qb],
+                   64 * x, it.h, it.qt + c * kBQ, it.b);
+      }
+      for (int j = 0; j < max(nt0, nt1); ++j, ++g) {
+        const int st = g % kWsStages;
+        wait_free(k_empty, st);
+        mbar_expect_tx(&k_full[st], kTile);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(k_s + st * kTile + x * kAtom, &kmap, &k_full[st], 64 * x, hk, j * kBK, it.b);
+        wait_free(v_empty, st);
+        mbar_expect_tx(&v_full[st], kTile);
+#pragma unroll
+        for (int x = 0; x < kBoxes; ++x)
+          tma_load(v_s + st * kTile + x * kAtom, &vmap, &v_full[st], 64 * x, hk, j * kBK, it.b);
+        users[st] = (j < nt0 ? 1u : 0u) | (j < nt1 ? 2u : 0u);
+#pragma unroll
+        for (int c = 0; c < kConsumers; ++c) reads[st][c] += users[st] >> c & 1;
+      }
+    }
+    return;
+  }
+  setmaxnreg_inc<kConsumerRegs>();
+  const int c = wg;
+  const int tid = threadIdx.x % kWG;
+  const int warp = tid / 32, lane = tid % 32;
+  const int r0 = warp * 16 + lane / 4;
+  const int off = Skv - Sq;
+  auto wait_full = [&](uint64_t* full, int gt) {
+    mbar_wait(&full[gt % kWsStages], (gt / kWsStages) & 1);
+  };
+  int g = 0;                                 // the rings' tiles before this item
+  for (int r = 0, n = 0; r * P < n_items; ++r) {
+    const int i = ws_item_index(r, P, blockIdx.x);
+    if (i >= n_items) continue;
+    const WsItem it = ws_item(i, qtiles, Hq, B);
+    const int q0 = it.qt + c * kBQ;
+    const int ntiles = max(ws_tiles(it.qt, 0, Sq, Skv, causal),
+                           ws_tiles(it.qt, 1, Sq, Skv, causal));
+    const int nt = ws_tiles(it.qt, c, Sq, Skv, causal);
+    const int qb = n % kQBufs;
+    float o[kDP / 2];
+#pragma unroll
+    for (int k = 0; k < kDP / 2; ++k) o[k] = 0.f;
+    float m[2] = {kNegInf, kNegInf}, l[2] = {0.f, 0.f};   // rows r0 and r0 + 8, log2 units
+    const int lim0 = q0 + r0 + off;        // last key row r0 sees; row r0 + 8 sees 8 more
+    const uint32_t q_addr = smem_u32(q_s + (qb * kConsumers + c) * kTile);
+    mbar_wait(&q_full[qb], (n / kQBufs) & 1);
+    ++n;
+    for (int j = 0; j < nt; ++j) {
+      const int gj = g + j, st = gj % kWsStages;
+      float s[32];
+      wait_full(k_full, gj);
+      qk_issue<D>(s, q_addr, smem_u32(k_s + st * kTile));
+      wgmma_wait_all();
+      fence_regs(s);
+      mbar_arrive(&k_empty[st * kConsumers + c]);
+      softmax_tile<kDP>(s, o, m, l, j * kBK, q0, lim0, off, Skv, causal, scale_log2, lane);
+      wait_full(v_full, gj);
+      pv_issue<kDP>(o, s, smem_u32(v_s + st * kTile));
+      wgmma_wait_all();
+      fence_regs(o);
+      mbar_arrive(&v_empty[st * kConsumers + c]);
+    }
+    // the tiles past this consumer's causal limit land all the same
+    for (int j = nt; j < ntiles; ++j) {
+      wait_full(k_full, g + j);
+      wait_full(v_full, g + j);
+    }
+    g += ntiles;
+    mbar_arrive(&q_empty[qb]);             // done with this item's Q
+    if (nt == 0) continue;
+#pragma unroll
+    for (int x = 0; x < 2; ++x) {
+      l[x] += __shfl_xor_sync(0xffffffffu, l[x], 1);
+      l[x] += __shfl_xor_sync(0xffffffffu, l[x], 2);
+    }
+    store_rows<D, kDP>(o, m, l, out, lse, it.b, it.h, q0, min(kBQ, Sq - q0), Sq, Hq, r0, lane);
   }
 }
 
@@ -618,14 +893,31 @@ cudaError_t launch_wgmma(const void* q, const void* k, const void* v, void* out,
   const int splits = flash_splits<D>(B, Sq, Skv, Hq);
   const unsigned qt = (unsigned)((Sq + kBQ - 1) / kBQ);
   __nv_bfloat16* o = static_cast<__nv_bfloat16*>(out);
-  if (splits == 1) {
-    cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D, false>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-    if (e != cudaSuccess) return e;
-    dim3 grid(qt, (unsigned)Hq, (unsigned)B);
-    flash_wgmma_kernel<D, false><<<grid, kThreads, smem, stream>>>(
-        qmap, kmap, vmap, o, lse, Sq, Skv, Hq, Hkv, causal, scale * kLog2e);
-    return cudaGetLastError();
+  if constexpr (D == 192) {
+    if (splits == 1) {
+      const size_t ws_smem = ws_smem_bytes(D);
+      cudaError_t e = cudaFuncSetAttribute(flash_wgmma_ws_kernel<D>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)ws_smem);
+      if (e != cudaSuccess) return e;
+      // one block an SM (its registers), at most one an item
+      const int items = ((Sq + kConsumers * kBQ - 1) / (kConsumers * kBQ)) * Hq * B;
+      const int blocks = items < sm_count() ? items : sm_count();
+      flash_wgmma_ws_kernel<D><<<blocks, kWsThreads, ws_smem, stream>>>(
+          qmap, kmap, vmap, o, lse, B, Sq, Skv, Hq, Hkv, causal, scale * kLog2e);
+      return cudaGetLastError();
+    }
+  } else {
+    if (splits == 1) {
+      cudaError_t e = cudaFuncSetAttribute(flash_wgmma_kernel<D, false>,
+                                           cudaFuncAttributeMaxDynamicSharedMemorySize,
+                                           (int)smem);
+      if (e != cudaSuccess) return e;
+      dim3 grid(qt, (unsigned)Hq, (unsigned)B);
+      flash_wgmma_kernel<D, false><<<grid, kThreads, smem, stream>>>(
+          qmap, kmap, vmap, o, lse, Sq, Skv, Hq, Hkv, causal, scale * kLog2e);
+      return cudaGetLastError();
+    }
   }
   void (*kernel)(CUtensorMap, CUtensorMap, CUtensorMap, __nv_bfloat16*, float*, int, int, int,
                  int, int, float) = flash_wgmma_kernel<D, true>;
@@ -680,11 +972,6 @@ cudaError_t launch_dtype(int dtype, const void* q, const void* k, const void* v,
 }
 
 }  // namespace
-
-// Shared memory (bytes) one block needs at dtype code `dtype` and head dim D.
-extern "C" long long repro_flash_attention_smem(int dtype, int D) {
-  return (long long)(dtype == 1 ? wgmma_smem_bytes(D) : smem_bytes(D));
-}
 
 // Blocks of the cluster that shares a query tile's key tiles (1: no split)
 // for a call at these shapes: bf16 (dtype 1) splits where its query tiles

@@ -1,7 +1,8 @@
 // ssd_mma.cuh — the tensor-core pieces shared by the SSD scan's bf16 bodies,
 // forward (ssd_scan.cu) and backward (ssd_scan_bwd.cu): mma.sync m16n8k16
 // bf16 -> f32, ldmatrix, the split of f32 values into bf16 terms, and the
-// cp.async tile loads.
+// cp.async tile loads.  The decode body's tensor-core instance
+// (decode_attention.cu) takes the mma and ldmatrix pieces.
 //
 // Fragments of mma m16n8k16 (g = lane / 4, t = lane % 4): A holds rows g and
 // g + 8, columns 2t, 2t + 1 (a0, a1) and 2t + 8, 2t + 9 (a2, a3); B holds

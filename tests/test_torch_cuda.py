@@ -165,6 +165,37 @@ def test_flash_attention_split_matches_plain(cuda, sq, skv, causal, d, dtype):
     assert torch.equal(out, out2) and torch.equal(lse, lse2)
 
 
+@pytest.mark.parametrize("b,sq,skv,hq,hkv,causal", [
+    (1, 70, 150, 4, 2, True),          # Sq < Skv, keys end mid-tile
+    (2, 200, 130, 6, 2, False),        # full, Sq > Skv: the second consumer's rows past Sq
+    (1, 130, 130, 8, 2, True),         # the last 128-row tile's second consumer has no row
+    (1, 1, 100, 4, 2, False),          # one query
+    (2, 384, 384, 48, 8, True),        # three query tiles a head, the lower halves stop early
+])
+def test_flash_attention_d192_two_consumer_body(cuda, b, sq, skv, hq, hkv, causal):
+    """bf16 at head dim 192: the calls that do not split run the
+    two-consumer body (128 query rows a block, a producer warpgroup over a
+    two-stage TMA ring), each consumer stopping at its own causal limit.
+    The output and the row LSE against the plain version, and a second call
+    gives the same bits."""
+    from repro_torch.kernels.flash_attention import flash_attention, split_plan
+    dtype, d = torch.bfloat16, 192
+    assert split_plan(dtype, b, sq, skv, hq, d) == 1
+    g = torch.Generator(device=cuda).manual_seed(12)
+    q, k, v = (torch.randn(shape, generator=g, device=cuda).to(dtype)
+               for shape in ((b, sq, hq, d), (b, skv, hkv, d), (b, skv, hkv, d)))
+    n0 = LAUNCHES["flash_attention"]
+    out, lse = flash_attention(q, k, v, causal=causal, with_lse=True)
+    out2, lse2 = flash_attention(q, k, v, causal=causal, with_lse=True)
+    assert LAUNCHES["flash_attention"] == n0 + 2
+    exp = ref.flash_attention_ref(q, k, v, causal=causal)
+    torch.cuda.synchronize()
+    assert out.dtype == dtype and out.shape == q.shape
+    torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+    assert (lse - _plain_lse(q, k, causal)).abs().max().item() <= LSE_TOL
+    assert torch.equal(out, out2) and torch.equal(lse, lse2)
+
+
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("kind", ["prefix", "window_meta", "scattered", "one_slot"])
 @pytest.mark.parametrize("b,s,hq,hkv,d", [(2, 96, 4, 2, 16), (3, 200, 25, 25, 64),
@@ -299,7 +330,7 @@ BATCHED_SPLIT_KINDS = {   # lengths, window starts (or a window), meta sinks, AL
     "few_live_tiles": ([1024, 700, 450, 100], 32, 0, False, (25, 5)),
     "ragged_1_and_s": ([1, 1024, 2, 1023], None, 0, False, (25, 5)),
     "alibi_window_meta": ([1024, 700, 450, 64], 96, 4, True, (25, 5)),
-    # G = 32: four blocks of 8 query rows
+    # G = 32: four blocks of 8 query rows (f32), two of 16 (bf16)
     "g32_alibi_window": ([1024, 700, 450, 64], 96, 4, True, (32, 1)),
     # no valid key: a length of 0, and a window start past the length
     "length_zero": ([0, 1024, 450, 64], [0, 1000, 500, 0], 0, False, (25, 5)),
@@ -335,6 +366,69 @@ def test_batched_decode_attention_split_matches_plain(cuda, kind, d, dtype):
     torch.cuda.synchronize()
     assert out.dtype == dtype and out.shape == q.shape
     torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+
+DECODE_LSE_TOL = 5e-3   # decode_attention's row LSE, absolute (chip_smoke.DECODE_LSE_TOL)
+
+
+@pytest.mark.parametrize("d", [64, 128, 192])
+@pytest.mark.parametrize("group", [6, 7, 8, 12, 16, 24])
+@pytest.mark.parametrize("mode", ["valid", "paged", "ragged"])
+def test_decode_tensor_core_instance_matches_plain(cuda, mode, group, d):
+    """bf16 groups of 6 or more take the split body's tensor-core instance
+    (16 query rows a block, 24 in blocks of 16 and 8): yi-34b's G 7,
+    qwen3-moe's 8, nemotron-4-340b's 12.  Two KV heads over 600 slots, a
+    cluster of several blocks.  decode_attention: a validity ending mid-tile and
+    mid-split with holes, its LSE, then no valid slot; paged: lengths 0,
+    mid-page, mid-tile and on a tile edge; ragged: window starts, meta sinks
+    and ALiBi, then a window start past a length with no sinks."""
+    from repro_torch.kernels.decode_attention import (batched_decode_attention,
+                                                      decode_attention,
+                                                      paged_decode_attention)
+    dtype, hkv, s = torch.bfloat16, 2, 600
+    hq = group * hkv
+    g = torch.Generator(device=cuda).manual_seed(100 * group + d)
+
+    def rand(*shape):
+        return torch.randn(shape, generator=g, device=cuda).to(dtype)
+
+    def close(out, exp):
+        torch.cuda.synchronize()
+        assert out.dtype == dtype and out.shape == exp.shape
+        torch.testing.assert_close(out.float(), exp.float(), rtol=TOL[dtype], atol=TOL[dtype])
+
+    n0 = dict(LAUNCHES)
+    if mode == "valid":
+        q, k, v = rand(2, hq, d), rand(2, s, hkv, d), rand(2, s, hkv, d)
+        edges = _split_edges(dtype, 2, s, hq, hkv, d)
+        assert len(edges) - 1 > 1
+        valid = ((torch.arange(s, device=cuda) < edges[len(edges) // 2] + 37)
+                 & (torch.rand(s, generator=g, device=cuda) < 0.7))
+        valid[5] = True
+        out, lse = decode_attention(q, k, v, valid, with_lse=True)
+        exp, exp_lse = ref.decode_attention_ref(q, k, v, valid, with_lse=True)
+        close(out, exp)
+        assert (lse - exp_lse).abs().max().item() <= DECODE_LSE_TOL
+        none = torch.zeros(s, dtype=torch.bool, device=cuda)
+        close(decode_attention(q, k, v, none), ref.decode_attention_ref(q, k, v, none))
+        assert LAUNCHES["decode_attention"] == n0["decode_attention"] + 2
+    elif mode == "paged":
+        lengths = [0, 301, 517, 64]
+        kp, vp, tables = _paged(g, lengths, hkv, d, dtype)
+        q = rand(len(lengths), hq, d)
+        lens = torch.tensor(lengths, dtype=torch.int32, device=cuda)
+        close(paged_decode_attention(q, kp, vp, tables, lens),
+              ref.paged_decode_attention_ref(q, kp, vp, tables, lens))
+        assert LAUNCHES["paged_decode_attention"] == n0["paged_decode_attention"] + 1
+    else:
+        q, k, v = rand(4, hq, d), rand(4, s, hkv, d), rand(4, s, hkv, d)
+        lens = torch.tensor([600, 451, 77, 300], dtype=torch.int32, device=cuda)
+        ws = torch.tensor([530, 200, 0, 400], dtype=torch.int32, device=cuda)
+        slopes = torch.tensor([2.0 ** -(i % 8 + 1) for i in range(hq)], device=cuda)
+        for sl, meta in ((slopes, 4), (None, 0)):
+            close(batched_decode_attention(q, k, v, lens, ws, sl, num_meta=meta),
+                  ref.batched_decode_attention_ref(q, k, v, lens, ws, sl, num_meta=meta))
+        assert LAUNCHES["batched_decode_attention"] == n0["batched_decode_attention"] + 2
 
 
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])

@@ -118,6 +118,8 @@ def paged_case_inputs(lengths, hq, hkv, d):
 
 
 GPT2_LENGTHS = [1024, 977, 613, 512, 301, 129, 64, 1]
+# the `kernels` phase's qwen3-moe decode pass: 8 of serve's prompts, 16 tokens in
+MOE_LENGTHS = [456, 197, 129, 214, 265, 445, 282, 121]
 FLASH = ("repro_torch.kernels.flash_attention", "flash_attention")
 DECODE = "repro_torch.kernels.decode_attention"
 BF16_TOL = 2e-2       # the reference's bf16 band (tests/test_kernels.py)
@@ -137,7 +139,10 @@ CASES = {
                                                               False), 0.0),
     "flash_attention d96": (*FLASH, flash_inputs(1, 512, 512, 32, 32, 96, True), 0.0),
     "flash_attention d128": (*FLASH, flash_inputs(1, 512, 512, 32, 4, 128, True), 0.0),
+    # D = 192: the unsplit calls take the two-consumer body (the parent's
+    # bits); few query tiles keep the split one-warpgroup body
     "flash_attention d192": (*FLASH, flash_inputs(1, 512, 512, 96, 8, 192, True), 0.0),
+    "flash_attention d192 split": (*FLASH, flash_inputs(1, 64, 1024, 16, 2, 192, False), 0.0),
     "flash_attention gpt2_prefill": (*FLASH, flash_inputs(4, 512, 512, 25, 25, 64, True), 0.0),
     "flash_attention hymba": (*FLASH, flash_inputs(4, 1664, 1664, 25, 5, 64, True), 0.0),
     "flash_attention phi3v prefill": (*FLASH, flash_inputs(4, 1088, 1088, 32, 32, 96, True),
@@ -147,14 +152,19 @@ CASES = {
     # the training forward with its LSE, which the backward reads
     "flash_attention smollm_train lse": (*FLASH, flash_inputs(8, 2048, 2048, 15, 5, 64, True,
                                                               with_lse=True), 0.0),
-    # the split decode body (rows 4, 1, 5): D = 96 takes the 3-chunk lane
-    # plan (the bf16 band); D = 64 and nemotron's 96:8 heads of 192 (8 rows
-    # a block, no 3-chunk instance) keep their lanes, bit for bit (the K
-    # swizzle moves where chunks are stored, not the sums)
+    # the split decode body (rows 4, 1, 5): bf16 groups of 6 or more take the
+    # tensor-core instance (the bf16 band: its sums run in another order),
+    # nemotron's 96:8 heads of 192, yi-34b's 56:8 and qwen3-moe's 32:4 heads
+    # of 128; phi-3-vision's D = 96 keeps the band its 3-chunk lane plan took;
+    # the CUDA-core instances at G <= 5 keep their bits
+    "decode_attention d192": (DECODE, "decode_attention",
+                              decode_inputs(2, 544, 96, 8, 192, 528), BF16_TOL),
+    "decode_attention yi34b": (DECODE, "decode_attention",
+                               decode_inputs(8, 2048, 56, 8, 128, 2048), BF16_TOL),
+    "paged_decode_attention qwen3_moe": (DECODE, "paged_decode_attention",
+                                         paged_case_inputs(MOE_LENGTHS, 32, 4, 128), BF16_TOL),
     "decode_attention phi3v": (DECODE, "decode_attention",
                                decode_inputs(4, 1120, 32, 32, 96, 1119), BF16_TOL),
-    "decode_attention d192": (DECODE, "decode_attention",
-                              decode_inputs(2, 544, 96, 8, 192, 528), 0.0),
     "decode_attention": (DECODE, "decode_attention", decode_inputs(4, 544, 25, 25, 64, 528),
                          0.0),
     "decode_attention hymba": (DECODE, "decode_attention",
