@@ -136,15 +136,32 @@ Phases, each printing one JSON line with its seconds:
                step 10 restored bit for bit and run on to the
                uninterrupted run's losses and weights, bit for bit; (c)
                qwen3-moe-30b-a3b at full width, 4 layers, bf16, batch 4 x
-               1024, 5 steps; (d) mamba2-780m at full width and depth
+               1024, 5 steps, then the loss and every gradient leaf on the
+               next batch taken twice from the same weights, bit for bit
+               (a resumed run at (c)'s size does not fit the card); (d)
+               mamba2-780m at full width and depth
                (780,148,992 parameters), bf16, remat, batch 8 x 2048, 10
                steps, the loss falling by more than 0.1, a checkpoint at
                step 5 restored and run on, as (b); (e) hymba-1.5b at full
                width and depth (1,641,179,520 parameters), bf16, remat,
-               batch 4 x 2048, 5 steps.  ``--profile`` writes one
+               batch 4 x 2048, 5 steps, its gradient repeated as (c)'s.
+               ``--profile`` writes one
                profiled step of each into <model>_profile.txt
                (``train_profile.txt`` for smollm).
-16. ``mm_models`` the vlm and encdec families through the Model API: (a)
+16. ``examples`` the port's five examples (`examples/*_torch.py`: quickstart,
+               fault_tolerance, microbatch_swapping, serve_disaggregated,
+               train_smollm), each example's `run` on the card at its own
+               reduced configuration and seeded weights: every identity it
+               prints holds (tokens with a failure, a migration, swapping
+               and disaggregation equal the plain run's; the loss after a
+               resume equals the loss before the crash), each serving
+               example's bytes by transport, and fault_tolerance's
+               failures, recoveries and steps redone, equal the same run's
+               on the CPU, and the kernels of its path launched (flash and
+               decode; `kv_pack` with replication, swapping and
+               disaggregation; `kv_unpack` disaggregated;
+               `flash_attention_bwd` in training).
+17. ``mm_models`` the vlm and encdec families through the Model API: (a)
                reduced phi-3-vision-4.2b and seamless-m4t-large-v2 at fp32,
                the card against the CPU (prefill logits and state, 8 greedy
                decode steps with tokens identical, the loss and every
@@ -162,7 +179,7 @@ Phases, each printing one JSON line with its seconds:
                depth, batch 2 x 1024 tokens after 576 patches, 5 steps.
                ``--profile`` writes <model>_profile.txt for each served
                model.
-17. ``dist``   the distributed layer on a world of one (NCCL, a file
+18. ``dist``   the distributed layer on a world of one (NCCL, a file
                store, `make_local_mesh("cuda")`): smollm-360m at full width
                and depth, bf16, remat, batch 8 x 2048, 3 steps of the
                sharded train step (parameters and moments as DTensors under
@@ -244,7 +261,7 @@ HBM_BYTES_PER_S = 3.35e12          # H100 SXM HBM3 (NVIDIA data sheet)
 PEAK_FLOPS = {"float32": 67e12, "bfloat16": 989e12}   # dense, same source
 PHASES = ("env", "kernels", "parity", "serve", "mb_parity", "mb_serve", "ssm_parity",
           "ssm_serve", "recover", "mb_recover", "telemetry", "paged_modes", "moe",
-          "wide_heads", "train", "mm_models", "dist")
+          "wide_heads", "train", "examples", "mm_models", "dist")
 PARITY_POOL_BLOCKS = 38     # small enough that the parity trace preempts once
 # the kernels of the continuous-batching path (phases parity and serve)
 CONTINUOUS_KERNELS = ("batched_decode_attention", "kv_pack_ragged", "kv_pack")
@@ -995,6 +1012,9 @@ def flash_backward_cases(g, rows: dict, checks: list) -> None:
 
         rows[time_it]["forward"] = {
             "bound_ms": fbms, "bound_by": fby,
+            # the plain version of the same function: its output and its LSE
+            "plain_ms": cuda_ms(lambda: (ref.flash_attention_ref(q, k, v, causal=causal),
+                                         plain_lse(q, k, causal)), iters=3, warmup=1),
             "library_ms": cuda_ms(sdpa_fwd, iters=20, warmup=2),
             "library_device_ms": device_ms(sdpa_fwd, iters=20, warmup=2)[0]}
         del o_plain, o_sdpa
@@ -1167,7 +1187,11 @@ def ssd_backward_cases(g, rows: dict, checks: list) -> None:
             fbytes = (es * (2 * x.numel() + bm.numel() + cm.numel()) + 4 * (dt.numel() + nh)
                       + 4 * (hf.numel() + states.numel()))
             fbms, fby = bound_ms(fbytes, ssd_flops(b, s, nh, hd, ng, n, q), tname)
-            rows[time_it]["forward"] = {"bound_ms": fbms, "bound_by": fby, "bytes": fbytes}
+            rows[time_it]["forward"] = {
+                "bound_ms": fbms, "bound_by": fby, "bytes": fbytes,
+                # the plain scan (no chunk states: autograd keeps its own)
+                "plain_ms": cuda_ms(lambda: ref.ssd_scan_ref(x, dt, a_neg, bm, cm, h0, chunk=q),
+                                    iters=2, warmup=1)}
 
     for dtype in (torch.float32, torch.bfloat16):
         case("ragged_s200_g2", 2, 200, 6, 16, 2, 16, 64, dtype, with_h0=True, with_dhf=True)
@@ -3203,8 +3227,33 @@ def profile_train(model, params, opt, data, at: int, table: Path) -> dict:
                      "matmul": ("gemm", "nvjet", "xmma", "cutlass", "sm90_")})
 
 
+def leaf_paths(tree, prefix: str = "") -> list:
+    """The paths of a parameter tree's leaves in `tree_leaves` order."""
+    if isinstance(tree, dict):
+        return [p for k in sorted(tree) for p in leaf_paths(tree[k], f"{prefix}{k}/")]
+    return [prefix[:-1]]
+
+
+def grad_repeat(model, params, batch) -> dict:
+    """The loss and its gradient taken twice from the same weights and
+    batch: whether they repeat bit for bit, and the paths of the leaves
+    that do not.  The first gradient goes to the host before the second is
+    taken, so the card holds one gradient at a time."""
+    import torch
+    loss1, grads = value_and_grad(model, params, batch)
+    first = [g.cpu() for g in grads]
+    del grads
+    loss2, grads = value_and_grad(model, params, batch)
+    paths = leaf_paths(params)
+    differ = [p for p, a, b in zip(paths, first, grads) if not torch.equal(a, b.cpu())]
+    del grads, first
+    return {"bit_identical": not differ and torch.equal(loss1, loss2),
+            "loss": loss1.item(), "loss_repeats": torch.equal(loss1, loss2),
+            "leaves": len(paths), "differing_leaves": differ}
+
+
 def train_full(state: dict, cfg, key: str, batch: int, seq: int, steps: int,
-               save_at=None, n_params=None, fall=None) -> dict:
+               save_at=None, n_params=None, fall=None, repeat_grad=False) -> dict:
     """`cfg` (bf16) trained `steps` steps from seeded weights with remat on
     the card, batch x seq of the synthetic pipeline: the losses and
     gradient norms finite, launches exact (remat runs each forward kernel
@@ -3212,7 +3261,9 @@ def train_full(state: dict, cfg, key: str, batch: int, seq: int, steps: int,
     falling by more than `fall` where given.  With `save_at`, a checkpoint
     after that step is restored bit for bit into fresh tensors and run on
     to `steps`: its losses and final parameters must equal the
-    uninterrupted run's bit for bit.
+    uninterrupted run's bit for bit.  With `repeat_grad`, the loss and
+    gradient on the next batch are taken twice from the final weights
+    (`grad_repeat`), reported under "grad_repeat" for the phase to check.
     Step 1 builds and warms up, so the step times are steps 2 on.
     `--profile` adds one profiled step after the run, into
     <out>/<key>_profile.txt."""
@@ -3224,6 +3275,7 @@ def train_full(state: dict, cfg, key: str, batch: int, seq: int, steps: int,
     from repro_torch.models import build_model
     from repro_torch.training import adamw_init, restore_checkpoint
     from repro_torch.training.optimizer import tree_leaves, tree_map
+    from repro_torch.training.train import batch_to
     model = build_model(cfg, device="cuda", remat=True)
     # held by the list alone, so the first step frees the initial weights
     init = [model.init(torch.Generator(device="cuda").manual_seed(0))]
@@ -3282,6 +3334,15 @@ def train_full(state: dict, cfg, key: str, batch: int, seq: int, steps: int,
             "bit_identical_to_uninterrupted": True,
             "deterministic_algorithms": torch.are_deterministic_algorithms_enabled()}
     shutil.rmtree(ckpt, ignore_errors=True)
+    if repeat_grad:
+        # AdamW is elementwise and (b), (d) restore bit for bit: a resumed
+        # run equals the uninterrupted one exactly when the step's gradient
+        # repeats
+        out["grad_repeat"] = {
+            **grad_repeat(model, p_end, batch_to(data.batch_at(steps), "cuda")),
+            # the run's peak and the probe's together: the probe's own is lower
+            # where this equals peak_mem_gib
+            "peak_mem_gib_with_run": torch.cuda.max_memory_allocated() / 2**30}
     if state.get("profile"):
         out["profile"] = profile_train(model, p_end, o_end, data, steps,
                                        state["out"] / f"{key}_profile.txt")
@@ -3296,12 +3357,14 @@ def phase_train(state: dict) -> dict:
     more than 0.1, launches exact, a checkpoint at step 10 restored bit for
     bit into fresh tensors and run on to step 20, equal to the
     uninterrupted run bit for bit; (c) qwen3-moe at full width with 4 of its 48 layers, bf16, remat,
-    batch 4 x 1024, 5 steps (capacity-bounded dispatch and the aux loss);
+    batch 4 x 1024, 5 steps (capacity-bounded dispatch and the aux loss), then
+    the loss and gradient on the next batch taken twice, bit for bit;
     (d) mamba2-780m at its published width and depth (48 layers, d 1536, 48
     SSD heads of 64, N 128, vocab 50,280), bf16, remat, batch 8 x 2048, 10
     steps, checkpoint at step 5; (e) hymba-1.5b at full width and depth (32
     layers, d 1600, 25:5 attention heads and 50 SSD heads of 64, N 16, 128
-    meta tokens), bf16, remat, batch 4 x 2048, 5 steps."""
+    meta tokens), bf16, remat, batch 4 x 2048, 5 steps, its gradient
+    repeated as (c)'s."""
     import torch
 
     from repro_torch.configs import get_arch
@@ -3328,7 +3391,7 @@ def phase_train(state: dict) -> dict:
         "config": "qwen3-moe-30b-a3b, 4 of 48 layers, d 2048, 32:4 heads of 128, 128 "
                   "experts top-8 of d_ff 768, bf16, remat, batch 4 x 1024, lr 1e-3",
         **train_full(state, bf16("qwen3-moe-30b-a3b", num_layers=4), "moe_train", 4, 1024,
-                     5)}
+                     5, repeat_grad=True)}
     free()
     out["mamba2_full"] = {
         "config": "mamba2-780m, 48 layers, d 1536, 48 SSD heads of 64, N 128, vocab 50,280, "
@@ -3341,12 +3404,115 @@ def phase_train(state: dict) -> dict:
         "config": "hymba-1.5b, 32 layers, d 1600, 25:5 attention heads and 50 SSD heads of "
                   "64, N 16, 128 meta tokens, bf16, remat, batch 4 x 2048, lr 1e-3",
         **train_full(state, bf16("hymba-1.5b"), "hymba_train", 4, 2048, 5,
-                     n_params=HYMBA_PARAMS)}
+                     n_params=HYMBA_PARAMS, repeat_grad=True)}
+    # checked once both ran, so that a failure shows both results
+    repeats = {k: out[k]["grad_repeat"] for k in ("moe_full", "hymba_full")}
+    check(all(r["bit_identical"] for r in repeats.values()),
+          f"a gradient does not repeat bit for bit: {json.dumps(repeats)}")
     return out
 
 
 # ---------------------------------------------------------------------------
-# phase 16: the vlm and encdec families through the Model API
+# phase 16: the port's examples
+# ---------------------------------------------------------------------------
+
+# example -> the kernels its run must launch on the card (PERF.md §6 rows 7,
+# 4, 3, 8 and 7b)
+EXAMPLE_KERNELS = {
+    "quickstart": ("flash_attention", "decode_attention"),
+    "fault_tolerance": ("flash_attention", "decode_attention", "kv_pack"),
+    "microbatch_swapping": ("flash_attention", "decode_attention", "kv_pack"),
+    "serve_disaggregated": ("flash_attention", "decode_attention", "kv_pack", "kv_unpack"),
+    "train_smollm": ("flash_attention", "flash_attention_bwd"),
+}
+
+
+def load_example(name: str):
+    """The module examples/<name>_torch.py of this checkout."""
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(f"{name}_torch",
+                                                  ROOT / "examples" / f"{name}_torch.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def example_claims(name: str, res: dict) -> list:
+    """The identities example `name` prints, as (what, holds) pairs."""
+    if name == "quickstart":
+        return [("every request got its max_new tokens",
+                 all(len(t) == res["max_new"][r] for r, t in res["tokens"].items())),
+                ("24 pipeline steps", res["steps_executed"] == 24)]
+    if name == "fault_tolerance":
+        return [("one failure, one recovery", (res["failures"], res["recoveries"]) == (1, 1)),
+                ("tokens identical to the failure-free run", res["tokens_identical"]),
+                ("migration keeps tokens identical", res["migration_tokens_identical"])]
+    if name == "microbatch_swapping":
+        return [("tokens identical with swapping", res["tokens_identical"]),
+                ("hostlink bytes moved", res["transfer_summary"]["hostlink"] > 0)]
+    if name == "serve_disaggregated":
+        return [("tokens identical to colocated", res["tokens_identical"]),
+                ("prompt KV over net", res["transfer_summary"]["net"] > 0)]
+    return [("loss after the resume identical", res["identical"]),
+            ("resumed from step 50", res["resumed_from"] == 50)]
+
+
+def phase_examples(state: dict) -> dict:
+    """Each example's `run(cfg, model, params, "cuda")` in this process (the
+    kernels' build shared), its printed lines sent to stderr: the claims it
+    prints hold, its kernels launched, and a serving example's bytes by
+    transport (and fault_tolerance's failures, recoveries and steps redone)
+    equal the same `run` on the CPU with the same weights."""
+    import contextlib
+
+    import torch
+
+    from repro_torch.kernels import LAUNCHES, reset_launches
+    from repro_torch.models import build_model
+    out = {}
+    for name, kernels in EXAMPLE_KERNELS.items():
+        mod = load_example(name)
+        cfg = mod.config()
+        train = name == "train_smollm"
+        model = build_model(cfg, device="cuda", remat=train)
+        params = model.init(torch.Generator(device="cuda").manual_seed(0))
+        kw = {"ckpt_dir": str(state["out"] / "example_ckpt")} if train else {}
+        reset_launches()
+        t = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = mod.run(cfg, model, params, "cuda", **kw)
+        torch.cuda.synchronize()
+        seconds = time.perf_counter() - t
+        launches = {k: v for k, v in LAUNCHES.items() if v}
+        claims = example_claims(name, res)
+        for what, holds in claims:
+            check(holds, f"{name}: {what} does not hold")
+        missing = [k for k in kernels if not launches.get(k)]
+        check(not missing, f"{name}: {missing} never launched ({launches})")
+        line = {"config": f"{cfg.name} reduced, {cfg.num_layers} layers, {cfg.dtype}",
+                "seconds": seconds, "claims": [w for w, _ in claims], "launches": launches}
+        if train:
+            line.update(loss_at_60=res["loss_at_60"], loss_after_resume=res["loss_after_resume"],
+                        loss_at_120=res["loss_at_120"])
+        else:
+            with contextlib.redirect_stdout(sys.stderr):
+                cpu = mod.run(cfg, build_model(cfg, device="cpu"), _to(params, "cpu"), "cpu")
+            check(not any(LAUNCHES[k] != launches.get(k, 0) for k in LAUNCHES),
+                  f"{name}: a kernel launched on the CPU run")
+            keys = [k for k in res if k.endswith("transfer_summary")]
+            if name == "fault_tolerance":
+                keys += ["failures", "recoveries", "steps_redone"]
+            for k in keys:
+                check(res[k] == cpu[k], f"{name}: {k} {res[k]} on the card, {cpu[k]} on the CPU")
+            line["same_as_cpu"] = {k: res[k] for k in keys}
+        out[name] = line
+        del model, params
+        gc.collect()
+    return out
+
+
+# ---------------------------------------------------------------------------
+# phase 17: the vlm and encdec families through the Model API
 # ---------------------------------------------------------------------------
 
 # parameters of the reference's init at full width and depth (its analytic
@@ -3582,7 +3748,7 @@ def phase_mm_models(state: dict) -> dict:
 
 
 # ---------------------------------------------------------------------------
-# phase 17: the distributed layer on a world of one
+# phase 18: the distributed layer on a world of one
 # ---------------------------------------------------------------------------
 
 DIST_STEPS = 3
@@ -4184,7 +4350,7 @@ def main() -> int:
            "recover": phase_recover, "mb_recover": phase_mb_recover,
            "telemetry": phase_telemetry, "paged_modes": phase_paged_modes,
            "moe": phase_moe, "wide_heads": phase_wide_heads, "train": phase_train,
-           "mm_models": phase_mm_models, "dist": phase_dist}
+           "examples": phase_examples, "mm_models": phase_mm_models, "dist": phase_dist}
     state: dict = {"profile": args.profile, "out": Path(args.out), "launches": {}}
     (state["out"] / "phases.jsonl").unlink(missing_ok=True)
     if "env" not in phases:

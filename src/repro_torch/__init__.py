@@ -33,11 +33,3 @@ def torch_dtype(name: str) -> torch.dtype:
         raise ValueError(f"dtype {name!r} not served (float32 or bfloat16)")
     return _DTYPES[name]
 
-
-def not_ported(**knobs) -> None:
-    """Raise NotImplementedError naming every knob set to a value this
-    slice of the port does not serve (left for a later slice)."""
-    bad = sorted(k for k, v in knobs.items() if v)
-    if bad:
-        raise NotImplementedError(
-            f"repro_torch does not port {', '.join(bad)} yet (see ROADMAP.md)")

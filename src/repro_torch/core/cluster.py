@@ -32,7 +32,11 @@ clock by the cost model's time for it (`costmodel`, with `hw`, one stage
 on an 8-GPU node), at the reference's call sites with its arguments; a
 kill marks the clock for the engine's ``cluster.recovery_s``.
 
-The other model families raise NotImplementedError (a later slice).
+The stage API (`slice_params`, `stage_prefill`, ...) that the workers call
+exists for the `DecoderLM` families only (dense, moe, vlm).  The ssm and
+hybrid families raise NotImplementedError and the encdec family ValueError:
+they have no stage API, in the port or in the reference, so they serve
+through the Model API's `prefill` and `decode_step`.
 """
 from __future__ import annotations
 
@@ -44,7 +48,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch import not_ported, resolve_device
+from repro_torch import resolve_device
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core import costmodel as cm
 from repro_torch.core import telemetry, tracing
@@ -107,8 +111,11 @@ class DejaVuCluster:
             raise ValueError("family=encdec has no stage API (slice_params, stage_prefill, "
                              "...), neither here nor in the reference: serve it through "
                              "EncDecLM.prefill and decode_step")
-        not_ported(**{f"family={cfg.family} in the cluster":
-                      cfg.family not in ("dense", "moe", "vlm")})
+        if cfg.family not in ("dense", "moe", "vlm"):
+            raise NotImplementedError(
+                f"family={cfg.family} has no stage API (slice_params, stage_prefill, ...), "
+                "neither here nor in the reference: serve it through the model's prefill "
+                "and decode_step")
         self.cfg = cfg
         self.model = model
         self.params = params             # full weights (the checkpoint store)

@@ -94,7 +94,12 @@ def moe_apply(x: torch.Tensor, p, cfg, return_aux: bool = False, drop: bool = Tr
     slot = torch.where(keep, (se - e0) * cb + pos_in_e, el * cb)   # spill row at El*Cb
 
     buf = x.new_zeros((el * cb + 1, d))
-    buf.index_put_((slot,), x.index_select(0, order // k))
+    # each entry's token row, gathered from x repeated over its k slots by
+    # the permutation `order`: no index repeats, so the backward sums a
+    # token's k rows in the expand's fixed order, not by atomics as the
+    # backward of a gather by `order // k` would on CUDA
+    xk = x[:, None].expand(t, k, d).reshape(t * k, d)
+    buf.index_put_((slot,), xk.index_select(0, order))
     h = buf[:el * cb].view(el, cb, d)
 
     # the expert FFN, batched over the experts

@@ -1381,3 +1381,38 @@ def test_loss_and_gradients_on_the_card_give_the_cpus(cuda, name):
     assert res["cuda"][0] == pytest.approx(res["cpu"][0], rel=1e-5)
     for a, b in zip(res["cuda"][1], res["cpu"][1]):
         assert (a - b).abs().max().item() <= 1e-4 * max(1.0, b.abs().max().item())
+
+
+def test_moe_backward_repeats_bit_for_bit_at_qwen3_moes_width(cuda):
+    """`moe_apply` at qwen3-moe-30b-a3b's width (d 2048, 128 experts, top 8,
+    d_ff 768, bf16), two layers' experts chained over a training batch of
+    4 x 1024 tokens with capacity dropping and the load-balancing loss:
+    the forward and backward run twice on the same inputs, and the loss and
+    every gradient (the tokens', each router's and each expert weight's)
+    must repeat bit for bit.  The dispatch repeats each token's row for its
+    k routed entries, so a backward that summed those rows by atomics
+    would not repeat."""
+    from repro_torch.models.moe import moe_apply, moe_init
+    cfg = get_arch("qwen3-moe-30b-a3b")
+    g = torch.Generator(device=cuda).manual_seed(0)
+    layers = [moe_init(g, cfg, torch.bfloat16, cuda) for _ in range(2)]
+    x0 = torch.randn(4 * 1024, cfg.d_model, generator=g, device=cuda).to(torch.bfloat16)
+    w = torch.randn(4 * 1024, cfg.d_model, generator=g, device=cuda)
+
+    def loss_and_grads():
+        live = [{k: v.detach().requires_grad_() for k, v in p.items()} for p in layers]
+        x = x0.detach().requires_grad_()
+        h, aux = x, 0.0
+        for p in live:
+            y, a = moe_apply(h, p, cfg, return_aux=True)
+            h, aux = h + y, aux + a
+        loss = (h.float() * w).mean() + 0.01 * aux
+        leaves = [x] + [p[k] for p in live for k in sorted(p)]
+        return loss.detach(), torch.autograd.grad(loss, leaves)
+
+    loss1, grads1 = loss_and_grads()
+    grads1 = [t.cpu() for t in grads1]
+    loss2, grads2 = loss_and_grads()
+    assert torch.equal(loss1, loss2)
+    for i, (a, b) in enumerate(zip(grads1, grads2)):
+        assert torch.equal(a, b.cpu()), f"gradient leaf {i} differs between two backwards"
